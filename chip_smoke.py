@@ -1,0 +1,539 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (src/repro_torch/).
+
+    python3 chip_smoke.py [--out report.json]
+
+Needs one CUDA card and ``nvcc``; exits non-zero, printing no result, when
+either is missing or any phase fails. Phases, in order:
+
+1. build  : compiles every kernel of src/repro_torch/csrc/ (one nvcc per
+            source, in parallel) and prints the build time.
+2. kernels: holds each kernel against its plain PyTorch version on the card,
+            at the shapes the serving path gives it and at small ragged
+            shapes. INT8 q and scales must match bit for bit; bf16 outputs
+            within one bf16 ulp of the largest plain output (2**-7 * max|ref|:
+            both sides round an f32 sum, summed in another order); f32
+            outputs within 1e-5 * max|ref|.
+3. serve  : zeroes the launch counters, builds the qwen2-0.5b INT8 residency
+            at published width from the seeded init and serves 8 requests
+            (4 slots, prompt 128, 32 new tokens, max_len 256) through the
+            continuous batcher, then reads the counters: every kernel must
+            have launched. The first request's prefill logits are held
+            against the same prefill through the plain versions on the card
+            (bf16 compute across 24 layers: max|d| <= 5e-2 * max|ref|).
+4. timing : device time of each kernel, its plain version and, where one
+            PyTorch call computes the same function, that call, at the
+            serving shapes (CUDA graphs of repeated launches, CUDA events).
+5. report : a JSON line of the kernels, a serve line, the card's name and
+            power limit (nvidia-smi), and last the line
+            {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM, ops/s by type
+HBM_BPS = 3.35e12
+PEAK = {"bf16": 989e12, "f32": 67e12}
+BF16_TOL = 2.0 ** -7
+F32_TOL = 1e-5
+PREFILL_TOL = 5e-2
+
+SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "8", "--slots", "4",
+              "--prompt-len", "128", "--gen", "32", "--max-len", "256",
+              "--seed", "0"]
+
+KERNEL_INFO = {
+    "quantize_int8": ("src/repro_torch/csrc/quant_int8.cu",
+                      "src/repro/kernels/quant_blockwise.py:40"),
+    "dequantize_int8": ("src/repro_torch/csrc/quant_int8.cu",
+                        "src/repro/kernels/quant_blockwise.py:63"),
+    "dequant_matmul": ("src/repro_torch/csrc/dequant_matmul.cu",
+                       "src/repro/kernels/dequant_matmul.py:113"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:92"),
+}
+
+
+class Failed(RuntimeError):
+    pass
+
+
+def bound_ms(n_bytes: float, n_ops: float, op_type: str):
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = n_ops / PEAK[op_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, reps: int = 10, replays: int = 3) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA graph,
+    replayed ``replays`` times between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / (reps * replays)
+    del graph
+    torch.cuda.synchronize()
+    return ms
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, max |want|), in f32."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise Failed("non-finite kernel output")
+    return float((g - w).abs().max()), float(w.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_kernels(dev, gen, checks):
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    def record(name, what, err, tol):
+        checks.setdefault(name, []).append(dict(case=what, max_abs_err=err,
+                                                tolerance=tol))
+        print(f"  {name:16s} {what:44s} max_abs_err={err:.3e} tol={tol}")
+
+    def quant_case(what, n_blocks, block, dtype, scale_spread=True):
+        x = torch.randn((n_blocks, block), generator=gen, device=dev)
+        if scale_spread:
+            x *= torch.rand((n_blocks, 1), generator=gen, device=dev) * 50
+        x[n_blocks // 2] = 0.0
+        x = x.to(dtype).reshape(-1)
+        qk, sk = ops.quantize_int8(x, block)
+        qp, sp = ops.quantize_int8(x, block, impl="plain")
+        if not (torch.equal(qk, qp) and torch.equal(sk.view(torch.int32),
+                                                    sp.view(torch.int32))):
+            raise Failed(f"quantize_int8 {what}: not bitwise equal")
+        record("quantize_int8", what, 0.0, "bitwise")
+        for odt in (torch.bfloat16, torch.float32):
+            dk = ops.dequantize_int8(qk, sk, block, odt)
+            dp = ops.dequantize_int8(qk, sk, block, odt, impl="plain")
+            if not torch.equal(dk, dp):
+                raise Failed(f"dequantize_int8 {what} -> {odt}: not bitwise")
+            record("dequantize_int8", f"{what} -> {str(odt)[6:]}", 0.0,
+                   "bitwise")
+
+    # w_gate stack of qwen2-0.5b (24 x 896*4864) in bf16, the residency's
+    # largest quantize; the prefill embedding rows (128 x 896); ragged
+    quant_case("(24*896*4864/128, 128) bf16", 24 * 896 * 4864 // 128, 128,
+               torch.bfloat16, scale_spread=False)
+    quant_case("(128*896/128, 128) bf16", 128 * 896 // 128, 128, torch.bfloat16)
+    quant_case("(37, 128) f32 ragged", 37, 128, torch.float32)
+    quant_case("(37, 64) bf16 ragged", 37, 64, torch.bfloat16)
+
+    def mm_case(what, m, k, n, block, transpose, dtype):
+        w = torch.randn(k * n + 3 * block, generator=gen, device=dev) * 0.05
+        q, s = ops.quantize_int8(w, block)
+        x = torch.randn((m, n if transpose else k), generator=gen,
+                        device=dev).to(dtype)
+        yk = ops.dequant_matmul(x, q, s, (k, n), block, transpose=transpose,
+                                dtype=dtype)
+        yp = ops.dequant_matmul(x, q, s, (k, n), block, transpose=transpose,
+                                dtype=dtype, impl="plain")
+        err, scale = rel_err(yk, yp)
+        tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) * scale
+        if yk.shape != yp.shape or err > tol:
+            raise Failed(f"dequant_matmul {what}: err {err} > {tol}")
+        record("dequant_matmul", what, err, f"{tol:.3e}")
+
+    d, ff, hd, V = 896, 4864, 64, 151_936
+    for m in (4, 128):
+        for k, n in ((d, 14 * hd), (d, 2 * hd), (14 * hd, d), (d, ff), (ff, d)):
+            mm_case(f"M={m} ({k}, {n}) bf16", m, k, n, 128, False, torch.bfloat16)
+    for m in (1, 4):
+        mm_case(f"M={m} ({V}, {d}).T bf16 (LM head)", m, V, d, 128, True,
+                torch.bfloat16)
+    mm_case("M=3 (200, 192) f32 ragged", 3, 200, 192, 64, False, torch.float32)
+    mm_case("M=7 (333, 192).T f32 ragged", 7, 333, 192, 64, True, torch.float32)
+    mm_case("M=130 (72, 256) bf16 ragged", 130, 72, 256, 64, False,
+            torch.bfloat16)
+
+    def attn_case(what, b, h, hkv, sq, sk, q_offset, window, dtype):
+        q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, sk, hkv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, sk, hkv, hd), generator=gen, device=dev).to(dtype)
+        ok = layers.flash_attention(q, k, v, causal=True, window=window,
+                                    q_offset=q_offset)
+        op = layers.flash_attention(q, k, v, causal=True, window=window,
+                                    q_offset=q_offset, impl="plain")
+        err, scale = rel_err(ok, op)
+        tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) * scale
+        if ok.shape != op.shape or err > tol:
+            raise Failed(f"flash_attention {what}: err {err} > {tol}")
+        record("flash_attention", what, err, f"{tol:.3e}")
+
+    attn_case("B=1 H=14/2 S=128 causal bf16 (prefill)", 1, 14, 2, 128, 128, 0,
+              0, torch.bfloat16)
+    attn_case("B=2 H=6/2 S=100 causal f32 ragged", 2, 6, 2, 100, 100, 0, 0,
+              torch.float32)
+    attn_case("B=1 H=4/1 Sq=64 Sk=128 q_offset=64 f32", 1, 4, 1, 64, 128, 64, 0,
+              torch.float32)
+    attn_case("B=1 H=14/2 S=256 window=32 bf16", 1, 14, 2, 256, 256, 0, 32,
+              torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the serving path
+# ---------------------------------------------------------------------------
+
+class Collect:
+    """Per-step batcher records, kept in memory."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, record):
+        self.records.append(record)
+
+
+def serve_phase():
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(SERVE_ARGS)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device, arch, model, layout, residency = serve.setup(args)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    metrics = Collect()
+    cb = serve.make_batcher(args, model, layout, device, metrics)
+    reqs = serve.make_requests(args, arch)
+    t0 = time.perf_counter()
+    cb.run(residency, reqs)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = ops.launches()
+
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise Failed(f"kernels not launched on the serving path: {missing}")
+    c = cb.counters
+    if c["retired"] != len(reqs) or c["rejected"] or \
+            c["admitted"] != c["retired"] + c["preempted"]:
+        raise Failed(f"batcher counters {c}")
+    for r in reqs:
+        if len(r.out) != args.gen or not all(0 <= t < arch.vocab for t in r.out):
+            raise Failed(f"request {r.rid}: tokens {r.out}")
+    n_tok = sum(len(r.out) for r in reqs)
+    full = [r["phase_ms"]["serve_decode"] for r in metrics.records
+            if r["active_slots"] == args.slots]
+    return dict(args=args, device=device, arch=arch, model=model,
+                layout=layout, residency=residency, reqs=reqs, batcher=cb,
+                launches=launches, counters=c, setup_s=t_setup, run_s=t_run,
+                tokens=n_tok, steps=cb.step_count,
+                decode_step_ms=statistics.median(full),
+                decode_steps_full=len(full),
+                memory=layout.memory_report())
+
+
+def check_prefill(s):
+    """The first request's prefill through the kernels vs the plain versions."""
+    from repro_torch.serve.resident import ResidentLayout, ResidentServeEngine
+    from repro_torch.models.config import ShapeConfig
+
+    layout = s["layout"]
+    plain = ResidentLayout(layout.specs,
+                           dataclasses.replace(layout.cfg, impl="plain"),
+                           layout.res_axes)
+    shape = ShapeConfig("p", s["args"].prompt_len, 1, "decode")
+    tokens = torch.as_tensor(s["reqs"][0].prompt[None]).long().to(s["device"])
+    pre_k = ResidentServeEngine(s["model"], layout, shape).make_prefill()
+    pre_p = ResidentServeEngine(s["model"], plain, shape).make_prefill()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lk, _ = pre_k(s["residency"], {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    lp, _ = pre_p(s["residency"], {"tokens": tokens})
+    if lk.shape != (1, s["arch"].vocab) or lk.dtype != torch.float32:
+        raise Failed(f"prefill logits {lk.shape} {lk.dtype}")
+    err, scale = rel_err(lk, lp)
+    if err > PREFILL_TOL * scale:
+        raise Failed(f"prefill logits: err {err} > {PREFILL_TOL} * {scale}")
+    return dict(prefill_ms=statistics.median(times), logits_err=err,
+                logits_scale=scale,
+                argmax_equal=bool(lk.argmax() == lp.argmax()))
+
+
+# ---------------------------------------------------------------------------
+# phase 4: timing at the serving shapes
+# ---------------------------------------------------------------------------
+
+def matmul_calls(s, m_layers: int, m_head: int, gen):
+    """The dequant_matmul calls of one serving step on the residency's own
+    weights: 24 layers x 7 projections at M=m_layers, the tied LM head at
+    M=m_head. Returns [(x, q, s, (k, n), block, transpose)]."""
+    from repro_torch.core.linear import _w_kn
+
+    layout, res, dev = s["layout"], s["residency"], s["device"]
+    calls = []
+    for i in range(s["arch"].n_layers):
+        for leaf in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            name = f"attn.{leaf}"
+            k, n = _w_kn(layout.specs[name])
+            x = torch.randn((m_layers, k), generator=gen, device=dev)
+            calls.append((x.to(torch.bfloat16), res[name]["q"][i],
+                          res[name]["s"][i], (k, n),
+                          layout.leaf_cfg[name].quant_block, False))
+    k, n = _w_kn(layout.specs["embed"])
+    x = torch.randn((m_head, n), generator=gen, device=dev).to(torch.bfloat16)
+    calls.append((x, res["embed"]["q"], res["embed"]["s"], (k, n),
+                  layout.leaf_cfg["embed"].quant_block, True))
+    return calls
+
+
+def matmul_work(calls):
+    n_bytes = n_ops = 0
+    for x, _, _, (k, n), block, transpose in calls:
+        m = x.shape[0]
+        out = k if transpose else n
+        n_bytes += k * n + 4 * k * n // block + 2 * x.numel() + 2 * m * out
+        n_ops += 2 * m * k * n
+    return n_bytes, n_ops
+
+
+def run_matmuls(calls, impl=None):
+    from repro_torch.kernels import ops
+
+    def fn():
+        for x, q, sc, kn, block, transpose in calls:
+            ops.dequant_matmul(x, q, sc, kn, block, transpose=transpose,
+                               dtype=torch.bfloat16, impl=impl)
+    return fn
+
+
+def timing_phase(s, gen):
+    from repro_torch.kernels import ops
+    from repro_torch.serve.resident import init_primaries
+
+    layout, res, dev = s["layout"], s["residency"], s["device"]
+    out = {}
+
+    # quantize: the residency's largest call (the stacked w_gate leaf, bf16)
+    prim = init_primaries(layout, s["args"].seed, dev)["attn.w_gate"].reshape(-1)
+    block = layout.leaf_cfg["attn.w_gate"].quant_block
+    n = prim.numel()
+    out["quantize_int8"] = dict(
+        work=f"attn.w_gate stack: {n} bf16 elements, block {block}",
+        ms=device_ms(lambda: ops.quantize_int8(prim, block), reps=5),
+        plain_ms=device_ms(lambda: ops.quantize_int8(prim, block, impl="plain"),
+                           reps=5),
+        library_ms=None,
+        bound=bound_ms(2 * n + n + 4 * n / block, 4 * n, "f32"))
+    del prim
+
+    # dequantize: the prefill's embedding lookup (128 rows of 896)
+    ids = torch.as_tensor(s["reqs"][0].prompt).long().to(dev)
+    vocab, d = layout.specs["embed"].shape
+    block = layout.leaf_cfg["embed"].quant_block
+    rows = res["embed"]["q"][: vocab * d].view(vocab, d)[ids].reshape(-1)
+    srows = res["embed"]["s"][: vocab * d // block].view(vocab, d // block)[ids] \
+        .reshape(-1)
+    n = rows.numel()
+    out["dequantize_int8"] = dict(
+        work=f"prefill embedding rows: {n} int8 -> bf16, block {block}",
+        ms=device_ms(lambda: ops.dequantize_int8(rows, srows, block,
+                                                 torch.bfloat16), reps=50),
+        plain_ms=device_ms(lambda: ops.dequantize_int8(
+            rows, srows, block, torch.bfloat16, impl="plain"), reps=50),
+        library_ms=None,
+        bound=bound_ms(n + 4 * n / block + 2 * n, n, "f32"))
+
+    # dequant_matmul: one decode step's 169 calls (M = slots) and one
+    # prefill's (M = prompt_len, LM head M = 1), on the residency's weights
+    slots, plen = s["args"].slots, s["args"].prompt_len
+    dec = matmul_calls(s, slots, slots, gen)
+    b, o = matmul_work(dec)
+    out["dequant_matmul"] = dict(
+        work=f"one decode step: {len(dec)} calls at M={slots}",
+        ms=device_ms(run_matmuls(dec), reps=5),
+        plain_ms=device_ms(run_matmuls(dec, "plain"), reps=2, replays=2),
+        library_ms=None, bound=bound_ms(b, o, "bf16"))
+    pre = matmul_calls(s, plen, 1, gen)
+    b, o = matmul_work(pre)
+    out["dequant_matmul_prefill"] = dict(
+        work=f"one prefill: {len(pre)} calls at M={plen} (head M=1)",
+        ms=device_ms(run_matmuls(pre), reps=3), bound=bound_ms(b, o, "bf16"))
+    shapes = []
+    for label, calls in (("decode", dec), ("prefill", pre)):
+        for j in range(7):
+            per = calls[j:-1:7]                      # one shape, all 24 layers
+            b, o = matmul_work(per)
+            x, _, _, kn, _, _ = per[0]
+            shapes.append(dict(step=label, M=x.shape[0], K=kn[0], N=kn[1],
+                               transpose=False,
+                               ms_per_call=device_ms(run_matmuls(per), reps=3)
+                               / len(per),
+                               bound_ms_per_call=bound_ms(b, o, "bf16")[0]
+                               / len(per)))
+        head = calls[-1:]
+        b, o = matmul_work(head)
+        shapes.append(dict(step=label, M=head[0][0].shape[0], K=head[0][3][0],
+                           N=head[0][3][1], transpose=True,
+                           ms_per_call=device_ms(run_matmuls(head), reps=10),
+                           bound_ms_per_call=bound_ms(b, o, "bf16")[0]))
+    out["dequant_matmul_shapes"] = shapes
+
+    # the batcher's whole paged decode step (assemble, 24 layers, LM head,
+    # writeback) replayed as a CUDA graph: its device time with no host
+    # launch overhead, beside the host-clock decode_step_ms
+    cb = s["batcher"]
+    table = cb.paged.device_table(dev)
+    tok = torch.zeros((slots,), dtype=torch.long, device=dev)
+    pos = torch.arange(plen, plen + slots, dtype=torch.long, device=dev)
+    active = torch.ones((slots,), dtype=torch.bool, device=dev)
+    out["decode_step_graph_ms"] = device_ms(
+        lambda: cb._paged_step(res, table, tok, pos, active), reps=3)
+
+    # flash_attention: one layer's prefill attention (B=1, 14 heads over 2,
+    # S=128, D=64, causal, bf16); the library yardstick is PyTorch's SDPA
+    h, hkv, hd, S = 14, 2, 64, plen
+    q = torch.randn((h, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((hkv, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((hkv, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    q4 = q[None]
+    k4 = k.repeat_interleave(h // hkv, dim=0)[None].contiguous()
+    v4 = v.repeat_interleave(h // hkv, dim=0)[None].contiguous()
+    pairs = h * S * (S + 1) // 2
+    out["flash_attention"] = dict(
+        work=f"prefill attention: {h} heads over {hkv}, S={S}, D={hd}, "
+             "causal, bf16",
+        ms=device_ms(lambda: ops.flash_attention(q, k, v), reps=50),
+        plain_ms=device_ms(lambda: ops.flash_attention(q, k, v, impl="plain"),
+                           reps=50),
+        library_ms=device_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(q4, k4, v4,
+                                                           is_causal=True),
+                             reps=50),
+        bound=bound_ms(2 * (2 * h + 2 * hkv) * S * hd, 4 * hd * pairs, "bf16"))
+    return out
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="",
+                    help="also write the full report (per-shape timings, "
+                         "ptxas output) to this JSON file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import cuda as kcuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    card = nvidia_smi()
+
+    print("phase build", flush=True)
+    t0 = time.perf_counter()
+    kcuda.build_all()
+    print(f"  built {kcuda.BUILD_LOG['built']} in {time.perf_counter() - t0:.1f} s"
+          f" -> {kcuda.BUILD_LOG['dir']}")
+    for stem, log in kcuda.BUILD_LOG["ptxas"].items():
+        for line in log.splitlines():
+            if "registers" in line or re.search(r"[1-9]\d* bytes spill", line):
+                print(f"  ptxas {stem}: {line.strip()}")
+
+    print("phase kernels", flush=True)
+    checks: dict[str, list] = {}
+    check_kernels(dev, gen, checks)
+
+    print("phase serve", flush=True)
+    s = serve_phase()
+    pf = check_prefill(s)
+    print(f"  launches {s['launches']}; counters {s['counters']}; prefill "
+          f"logits max_abs_err {pf['logits_err']:.3e} (max|ref| "
+          f"{pf['logits_scale']:.3e}, argmax equal {pf['argmax_equal']})")
+
+    print("phase timing", flush=True)
+    t = timing_phase(s, gen)
+
+    kernels = []
+    for name, (source, replaces) in KERNEL_INFO.items():
+        tm = t[name]
+        bms, by = tm["bound"]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=s["launches"][name],
+            max_abs_err=max(c["max_abs_err"] for c in checks[name]),
+            tolerance=[c["tolerance"] for c in checks[name]],
+            ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bms, bound_by=by,
+            library_ms=tm["library_ms"], work=tm["work"]))
+    serve_line = dict(
+        arch=s["arch"].name, requests=len(s["reqs"]), slots=s["args"].slots,
+        prompt_len=s["args"].prompt_len, gen=s["args"].gen,
+        max_len=s["args"].max_len, tokens=s["tokens"], steps=s["steps"],
+        prefill_ms=pf["prefill_ms"], decode_step_ms=s["decode_step_ms"],
+        decode_step_graph_ms=t["decode_step_graph_ms"],
+        tok_s=s["tokens"] / s["run_s"], run_s=s["run_s"],
+        setup_s=s["setup_s"], residency_bytes=s["memory"]["wire_bytes"],
+        prefill_logits_max_abs_err=pf["logits_err"],
+        prefill_logits_max_abs_ref=pf["logits_scale"])
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(dict(
+            card=card, kernels=kernels, serve=serve_line, checks=checks,
+            timing={k: v for k, v in t.items()}, launches=s["launches"],
+            build=kcuda.BUILD_LOG, torch=torch.__version__,
+            cuda=torch.version.cuda), indent=1, default=str))
+
+    print("serve " + json.dumps(serve_line))
+    print(json.dumps({"kernels": kernels}))
+    print(f"device: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

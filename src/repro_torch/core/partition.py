@@ -1,0 +1,156 @@
+"""Hierarchical partitioning: sharding degrees, block padding, leaf specs.
+
+The port's own copy of the pure-Python half of ``repro.core.partition`` that
+serving needs: the scheme presets, the per-leaf quantization block
+(``ZeroConfig.block_for`` / ``for_leaf``), the flat padding rule
+(``padded_flat_size``), the leaf kinds and ``LeafSpec``. This slice runs
+everything at degree 1 (one device), where every shard is the whole padded
+flat tensor and every collective is the identity.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+
+AxisTuple = tuple[str, ...]
+
+
+@dataclass(frozen=True)
+class ZeroAxes:
+    """Per-category mesh axes, ordered major -> minor within each tuple."""
+    weight: AxisTuple          # L0: primary shard + fwd all-gather
+    extra_grad: AxisTuple      # E: additional gradient sharding (L1 minus L0)
+    replica: AxisTuple         # R: pure data-parallel replication (slowest)
+    secondary: AxisTuple | None = None  # secondary partition axes (ZeRO++)
+
+    def __post_init__(self):
+        cats = (self.weight, self.extra_grad, self.replica)
+        flat = [a for c in cats for a in c]
+        assert len(set(flat)) == len(flat), f"axes must be disjoint: {cats}"
+        if self.secondary is not None:
+            for a in self.secondary:
+                assert a in flat, (a, self)
+
+    @property
+    def all(self) -> AxisTuple:  # optimizer axes == all participating axes
+        return self.weight + self.extra_grad + self.replica
+
+
+@dataclass(frozen=True)
+class ZeroConfig:
+    axes: ZeroAxes
+    axis_sizes: tuple[tuple[str, int], ...]   # full mesh axis -> size
+    quantize_weights: bool = False      # INT8 block quant on weight all-gather
+    quantize_grads: bool = False        # INT4 a2a-based gradient reduce-scatter
+    quant_block: int = 512
+    impl: str | None = None             # None: the kernel for a CUDA tensor and
+    # the plain version for a CPU tensor; "plain": the plain version on any
+    # device (the reference chip_smoke.py holds the kernels against)
+    compute_dtype: str = "bfloat16"
+    name: str = "custom"
+
+    def size(self, axes: AxisTuple) -> int:
+        d = dict(self.axis_sizes)
+        return math.prod(d[a] for a in axes) if axes else 1
+
+    @property
+    def os_degree(self) -> int:
+        return self.size(self.axes.all)
+
+    def block_for(self, logical_size: int) -> int:
+        """Effective quantization block for a leaf: large leaves use the full
+        configured block; small leaves (norm scales, biases) shrink it so the
+        alignment padding (os_degree * block) never dwarfs the leaf."""
+        per_dev = -(-logical_size // self.os_degree)
+        b = 4
+        while b < per_dev and b < self.quant_block:
+            b *= 2
+        return b
+
+    def for_leaf(self, logical_size: int) -> "ZeroConfig":
+        b = self.block_for(logical_size)
+        return self if b == self.quant_block else \
+            dataclasses.replace(self, quant_block=b)
+
+
+def round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def padded_flat_size(logical_size: int, cfg: ZeroConfig) -> int:
+    """Pad so every stage's shard is block-aligned:
+    padded % (D_total * block) == 0."""
+    return round_up(max(logical_size, 1),
+                    cfg.os_degree * cfg.block_for(logical_size))
+
+
+MATMUL = "matmul"    # quantized gather + secondary + quantized grad RS
+GATHER_Q = "gather_q"  # quantized gather of a full tensor (MoE experts)
+PLAIN = "plain"      # small params: fp gather, kept dense
+
+
+@dataclass(frozen=True)
+class LeafSpec:
+    name: str
+    shape: tuple[int, ...]          # logical (per-layer) shape
+    kind: str = PLAIN
+    stack: int | None = None        # leading stacked-layers dimension
+    init: str = "normal"            # "normal" | "zeros" | "ones"
+    init_scale: float | None = None  # stddev override (default fan-in)
+
+    @property
+    def logical_size(self) -> int:
+        return math.prod(self.shape)
+
+
+SCHEMES = ("zero_topo", "zeropp", "zero3", "zero1", "zero2")
+
+
+def preset(scheme: str, *, intra_axes: AxisTuple, inter_axes: AxisTuple,
+           axis_sizes: dict[str, int], l0_axes: AxisTuple | None = None,
+           **over) -> ZeroConfig:
+    """Scheme config for a mesh split into bandwidth tiers (paper Table IV)."""
+    sizes = tuple(sorted(axis_sizes.items()))
+    l0 = l0_axes or ()
+    every = l0 + tuple(a for a in intra_axes if a not in l0) + inter_axes
+    if scheme == "zero3":
+        axes = ZeroAxes(weight=every, extra_grad=(), replica=())
+        return ZeroConfig(axes, sizes, name="zero3", **over)
+    if scheme == "zeropp":
+        intra_full = l0 + tuple(a for a in intra_axes if a not in l0)
+        axes = ZeroAxes(weight=every, extra_grad=(), replica=(),
+                        secondary=intra_full)
+        return ZeroConfig(axes, sizes, quantize_weights=True,
+                          quantize_grads=True, name="zeropp", **over)
+    if scheme == "zero_topo":
+        w = l0_axes if l0_axes else intra_axes
+        e = tuple(a for a in intra_axes if a not in w)
+        axes = ZeroAxes(weight=w, extra_grad=e, replica=inter_axes,
+                        secondary=w + e)
+        return ZeroConfig(axes, sizes, quantize_weights=True,
+                          quantize_grads=True, name="zero_topo", **over)
+    if scheme == "zero1":
+        axes = ZeroAxes(weight=(), extra_grad=(), replica=every)
+        return ZeroConfig(axes, sizes, name="zero1", **over)
+    if scheme == "zero2":
+        axes = ZeroAxes(weight=(), extra_grad=every, replica=())
+        return ZeroConfig(axes, sizes, name="zero2", **over)
+    raise ValueError(scheme)
+
+
+def single_device_config(scheme: str = "zero_topo", **over) -> ZeroConfig:
+    """``scheme`` on a one-device mesh ("data", "node", "gcd") = (1, 1, 1):
+    the reference's ``scheme_config(scheme, make_test_mesh((1, 1, 1)))``."""
+    return preset(scheme, intra_axes=("node", "gcd"), inter_axes=("data",),
+                  l0_axes=("gcd",), axis_sizes={"data": 1, "node": 1, "gcd": 1},
+                  **over)
+
+
+def resident_memory_bytes(cfg: ZeroConfig, psi: int, *,
+                          res_degree: int) -> int:
+    """Per-device bytes of the serving wire residency: INT8 payload + fp32
+    per-block scales of the quantized leaves, over the residency degree."""
+    deg = max(res_degree, 1)
+    scales = 4 * psi // max(cfg.quant_block, 1)
+    return (psi + scales) // deg

@@ -1,0 +1,54 @@
+"""Fused INT8-dequant x matmul on the card (csrc/dequant_matmul.cu).
+
+Port of ``repro.kernels.dequant_matmul.dequant_matmul_flat_pallas`` (:113),
+both orientations: ``x @ dequant(q)`` and ``x @ dequant(q).T`` with the
+flat-shard scale layout (the scale of q[k, j] is scales[k, j // block]).
+The source note in csrc/dequant_matmul.cu gives the bound and the design;
+``ref.dequant_matmul_flat_ref`` is the plain version. Callers go through
+``kernels/ops.py``, which counts the launches.
+"""
+from __future__ import annotations
+
+from ctypes import c_int, c_longlong, c_void_p
+
+import torch
+
+from . import cuda
+
+SIGNATURES = {
+    "dequant_matmul_workspace": (c_longlong, [c_int, c_int, c_int, c_int]),
+    "dequant_matmul": (c_int, [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
+                               c_int, c_int, c_int, c_int, c_int, c_int,
+                               c_void_p]),
+}
+
+
+def dequant_matmul_flat_cuda(x: torch.Tensor, q: torch.Tensor,
+                             scales: torch.Tensor, block: int, *,
+                             transpose: bool = False) -> torch.Tensor:
+    """x (M, K) -> (M, N), or x (M, N) -> (M, K) with ``transpose``; q (K, N)
+    int8, scales (K, N // block) f32; the output has x's dtype (f32 | bf16)."""
+    cuda.require(x, "x", tuple(cuda.DTYPE_CODE))
+    cuda.require(q, "q", (torch.int8,))
+    cuda.require(scales, "scales", (torch.float32,))
+    k, n = q.shape
+    m = x.shape[0]
+    c_len, out_dim = (n, k) if transpose else (k, n)
+    if x.shape != (m, c_len) or n % block or block % 4 \
+            or scales.shape != (k, n // block) or q.data_ptr() % 4:
+        raise ValueError(
+            f"dequant_matmul: x {tuple(x.shape)}, q {tuple(q.shape)}, scales "
+            f"{tuple(scales.shape)}, block {block}, transpose {transpose}: "
+            "needs N % block == 0, block % 4 == 0 and 4-byte aligned q")
+    lib = cuda.library("dequant_matmul", SIGNATURES)
+    out = torch.empty((m, out_dim), dtype=x.dtype, device=x.device)
+    n_work = lib.dequant_matmul_workspace(m, k, n, int(transpose))
+    work = torch.empty((n_work,), dtype=torch.float32, device=x.device) \
+        if n_work else None
+    rc = lib.dequant_matmul(x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                            out.data_ptr(),
+                            work.data_ptr() if work is not None else None,
+                            cuda.DTYPE_CODE[x.dtype], m, k, n, block,
+                            int(transpose), cuda.stream(x))
+    cuda.check(rc, "dequant_matmul")
+    return out

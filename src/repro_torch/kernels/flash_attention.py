@@ -1,0 +1,47 @@
+"""Online-softmax attention on the card (csrc/flash_attention.cu).
+
+Port of ``repro.kernels.flash_attention.flash_attention_pallas`` (:92),
+forward only. The source note in csrc/flash_attention.cu gives the bound and
+the design; ``ref.flash_attention_ref`` is the plain version. Callers go
+through ``kernels/ops.py``, which counts the launches.
+"""
+from __future__ import annotations
+
+import math
+from ctypes import c_float, c_int, c_void_p
+
+import torch
+
+from . import cuda
+
+SIGNATURES = {
+    "flash_attention": (c_int, [c_void_p, c_void_p, c_void_p, c_void_p, c_int,
+                                c_int, c_int, c_int, c_int, c_int, c_int, c_int,
+                                c_int, c_float, c_void_p]),
+}
+HEAD_DIMS = (64,)   # the head widths the kernel is compiled for
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: int = 0,
+                         q_offset: int = 0) -> torch.Tensor:
+    """q (BH, Sq, D); k, v (BH / n_rep, Sk, D) -> (BH, Sq, D), q's dtype.
+    Query head ``i`` reads KV head ``i // n_rep`` (the GQA fold)."""
+    cuda.require(q, "q", tuple(cuda.DTYPE_CODE))
+    cuda.require(k, "k", (q.dtype,))
+    cuda.require(v, "v", (q.dtype,))
+    bh, sq, d = q.shape
+    bkv, sk, _ = k.shape
+    if d not in HEAD_DIMS or k.shape != (bkv, sk, d) or v.shape != k.shape \
+            or bh % bkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} (head dim "
+                         f"must be one of {HEAD_DIMS})")
+    lib = cuda.library("flash_attention", SIGNATURES)
+    o = torch.empty_like(q)
+    rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), cuda.DTYPE_CODE[q.dtype], bh, sq, sk,
+                             d, bh // bkv, int(causal), int(window),
+                             int(q_offset), 1.0 / math.sqrt(d), cuda.stream(q))
+    cuda.check(rc, "flash_attention")
+    return o

@@ -1,0 +1,114 @@
+"""Shared model layers: RMSNorm, RoPE, prefill attention, decode attention.
+
+Port of the serving half of ``repro.models.layers``. Prefill attention goes
+through the kernel dispatch (``ops.flash_attention``) behind the
+reference's ``ops.attention_fusable`` gate; a shape the gate rejects raises,
+since the reference's chunked fallback is not ported. Decode attention
+(``flash_decode``) is plain PyTorch, as it is plain jnp in the reference.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels import ops
+
+NEG_INF = -1e30
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+def rope_freqs(positions, dim: int, theta: float):
+    """positions (...,) -> (cos, sin) of shape (..., dim//2), fp32."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (..., S, H, D); cos/sin (..., S, D//2) broadcast over heads."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2].float(), x[..., d // 2:].float()
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, softmax_scale: float | None = None,
+                    impl: str | None = None):
+    """q (B,Sq,H,D); k,v (B,Sk,Hkv,D). Returns (B,Sq,H,D).
+
+    ``window`` > 0: sliding-window causal attention; ``q_offset``: global
+    position of q[0] relative to k[0]. Heads fold into the leading dim and
+    query head h reads KV head h // (H / Hkv) (the GQA fold)."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    fusable, reason = ops.attention_fusable(
+        sq, sk, d, v.shape[-1], softmax_scale=softmax_scale, q_offset=q_offset)
+    if not fusable:
+        raise NotImplementedError(
+            f"attention shape q {tuple(q.shape)} k {tuple(k.shape)} is not "
+            f"fusable ({reason}); the chunked fallback is not ported")
+    qt = q.transpose(1, 2).reshape(b * h, sq, d)
+    kt = k.transpose(1, 2).reshape(b * hkv, sk, d)
+    vt = v.transpose(1, 2).reshape(b * hkv, sk, d)
+    o = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
+                            q_offset=q_offset, impl=impl)
+    return o.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def _row_positions(pos, b: int, device) -> torch.Tensor:
+    """Broadcast a scalar or (B,) position to (B,) int64."""
+    p = torch.as_tensor(pos, device=device).long()
+    return p.reshape(-1).expand(b) if p.ndim == 0 or p.numel() == 1 \
+        else p.reshape(b)
+
+
+def flash_decode(q, k_loc, v_loc, pos, softmax_scale: float | None = None):
+    """Single-token decode over a KV cache.
+
+    q: (B, H, D); k_loc/v_loc: (B, S, Hkv, D); valid entries are positions
+    <= pos (scalar or per-row (B,), for continuous batching)."""
+    b, h, d = q.shape
+    _, s_loc, hkv, _ = k_loc.shape
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    n_rep = h // hkv
+    kpos = torch.arange(s_loc, device=q.device)
+    valid = kpos[None, :] <= _row_positions(pos, b, q.device)[:, None]
+    qg = q.reshape(b, hkv, n_rep, d).float()
+    s = torch.einsum("bgrd,bsgd->bgrs", qg, k_loc.float()) * scale
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    num = torch.einsum("bgrs,bsgd->bgrd", p, v_loc.float())
+    den = p.sum(dim=-1)
+    out = num / torch.clamp(den[..., None], min=1e-30)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def sharded_cache_write(cache_loc, new, pos):
+    """Write ``new`` (B, 1, Hkv, D) at sequence position ``pos`` of
+    ``cache_loc`` (B, S, Hkv, D), IN PLACE, and return the cache.
+
+    A scalar ``pos`` outside [0, S) writes nothing (the reference's masked
+    update). A per-row (B,) ``pos`` writes row r at pos[r]; callers keep
+    every per-row position inside the cache (the batcher retires a slot
+    before it reaches max_len)."""
+    b, s_loc = cache_loc.shape[:2]
+    p = torch.as_tensor(pos, device=cache_loc.device)
+    val = new[:, 0].to(cache_loc.dtype)
+    if p.ndim == 0:
+        i = int(p)
+        if 0 <= i < s_loc:
+            cache_loc[:, i] = val
+        return cache_loc
+    cache_loc[torch.arange(b, device=cache_loc.device), p.long()] = val
+    return cache_loc

@@ -1,0 +1,69 @@
+"""Architecture registry: ArchConfig -> ModelDef (leaf specs + cache shapes).
+
+The torch-side half of ``repro.models.registry``: ``register``/``get_arch``
+and the per-kind cache shapes serving allocates. KV caches are bf16 whatever
+the compute dtype, as in the reference.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from ..core.partition import LeafSpec
+from .config import ArchConfig, ShapeConfig
+from .transformer import LM, kind_meta
+
+ARCHS: dict[str, Callable[[], ArchConfig]] = {}
+
+
+def register(fn: Callable[[], ArchConfig]):
+    cfg = fn()
+    ARCHS[cfg.name] = fn
+    return fn
+
+
+def get_arch(name: str) -> ArchConfig:
+    if not ARCHS:
+        load_all_configs()
+    return ARCHS[name]()
+
+
+def load_all_configs():
+    """Import every repro_torch.configs.<arch> module (they self-register)."""
+    import importlib
+    import pkgutil
+
+    from .. import configs as pkg
+    for m in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(f"repro_torch.configs.{m.name}")
+
+
+@dataclass
+class ModelDef:
+    arch: ArchConfig
+    lm: LM
+
+    def leaf_specs(self) -> dict[str, LeafSpec]:
+        return self.lm.leaf_specs()
+
+    def cache_shapes(self, shape: ShapeConfig) -> dict[str, Any]:
+        """Global cache (shape, dtype, seq-indexed) per kind and entry."""
+        cfg = self.arch
+        b, s = shape.global_batch, shape.seq_len
+        kv, hd = cfg.kv_heads, cfg.hdim
+        out: dict[str, Any] = {}
+        for kind, count in cfg.kind_counts().items():
+            m = kind_meta(kind, cfg)
+            if m.mixer != "attn" or m.window:
+                raise NotImplementedError(
+                    f"{kind}: only full-attention caches are ported")
+            out[kind] = {
+                "k": ((count, b, s, kv, hd), torch.bfloat16, True),
+                "v": ((count, b, s, kv, hd), torch.bfloat16, True)}
+        return out
+
+
+def build_model(arch: ArchConfig) -> ModelDef:
+    return ModelDef(arch, LM(arch))

@@ -1,0 +1,248 @@
+"""Decoder LM: leaf specs, prefill and single-token decode.
+
+Port of the serving path of ``repro.models.transformer`` for the ``attn``
+block kind (attention + GLU MLP, pre-norm RMSNorm, RoPE, optional QKV bias,
+tied or separate LM head). Every weight access goes through a parameter
+view (serve/resident.py's ``ResidentView``): ``v.mm`` runs the fused
+dequant-matmul on the INT8 residency, ``v.get`` returns a dense leaf. The
+reference's ``lax.scan`` over stacked layers becomes a Python loop over
+``view.sub(i)``.
+
+Caches: prefill returns K/V at compute dtype (prefill attends over the
+un-rounded values); the serving pool stores them as bf16, and decode writes
+the new K/V into the bf16 cache *before* attending over it, as the
+reference does.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..core.partition import MATMUL, PLAIN, LeafSpec
+from . import layers as L
+from .config import ArchConfig
+
+
+@dataclass(frozen=True)
+class KindMeta:
+    mixer: str                    # attn | mla | mamba
+    ffn: str                      # mlp | moe | none
+    window: int = 0               # sliding-window size (0 = full)
+    theta: float = 10_000.0
+    rope: bool = True
+    causal: bool = True
+    cross: bool = False           # + cross-attention (whisper decoder)
+    parallel: bool = False        # parallel residual (GPT-NeoX)
+
+
+def kind_meta(kind: str, cfg: ArchConfig) -> KindMeta:
+    t, tg = cfg.rope_theta, cfg.rope_theta_global
+    table = {
+        "attn": KindMeta("attn", "mlp", window=cfg.sliding_window, theta=t),
+        "attn_local": KindMeta("attn", "mlp", window=cfg.sliding_window, theta=t),
+        "attn_global": KindMeta("attn", "mlp", window=0, theta=tg),
+        "moe": KindMeta("attn", "moe", window=cfg.sliding_window, theta=t),
+        "mla": KindMeta("mla", "mlp", theta=t),
+        "neox": KindMeta("attn", "mlp", theta=t, parallel=True),
+        "mamba": KindMeta("mamba", "none"),
+        "mamba_mlp": KindMeta("mamba", "mlp"),
+        "mamba_moe": KindMeta("mamba", "moe"),
+        "attn_mlp": KindMeta("attn", "mlp", rope=False),
+        "attn_moe": KindMeta("attn", "moe", rope=False),
+        "enc": KindMeta("attn", "mlp", rope=False, causal=False),
+        "dec": KindMeta("attn", "mlp", rope=False, cross=True),
+    }
+    return table[kind]
+
+
+def _ported(kind: str, cfg: ArchConfig) -> KindMeta:
+    """The block kinds this slice runs: attention + GLU MLP, sequential
+    residual, RMSNorm. Anything else raises instead of running wrong."""
+    m = kind_meta(kind, cfg)
+    if (m.mixer != "attn" or m.ffn != "mlp" or m.cross or m.parallel
+            or m.window or cfg.norm != "rms" or cfg.act != "silu_glu"
+            or cfg.embed_scale or cfg.n_patches or cfg.enc_layers):
+        raise NotImplementedError(
+            f"{cfg.name}: block kind {kind!r} ({m}, norm={cfg.norm}, "
+            f"act={cfg.act}) is not ported yet")
+    return m
+
+
+def _norm_specs(name: str, d: int) -> dict[str, LeafSpec]:
+    return {name: LeafSpec(name, (d,), PLAIN, init="ones")}
+
+
+def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
+    """Per-layer leaf specs for one block kind (stack applied by the model)."""
+    _ported(kind, cfg)
+    d, h, kv, hd, ff = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hdim, cfg.d_ff
+    s: dict[str, LeafSpec] = {}
+    s.update(_norm_specs("ln1", d))
+    for name, shape in (("wq", (d, h * hd)), ("wk", (d, kv * hd)),
+                        ("wv", (d, kv * hd)), ("wo", (h * hd, d))):
+        s[name] = LeafSpec(name, shape, MATMUL)
+    if cfg.qkv_bias:
+        for b, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
+            s[b] = LeafSpec(b, (width,), PLAIN, init="zeros")
+    s.update(_norm_specs("ln2", d))
+    for name, shape in (("w_gate", (d, ff)), ("w_up", (d, ff)),
+                        ("w_down", (ff, d))):
+        s[name] = LeafSpec(name, shape, MATMUL)
+    return s
+
+
+@dataclass(frozen=True)
+class Ctx:
+    positions: Any                      # (S,) global positions
+    want_cache: bool = False
+
+
+@dataclass(frozen=True)
+class DecCtx:
+    pos: Any                            # scalar or per-row (B,) write position
+
+
+def _norm(v, p, name, x):
+    return L.rms_norm(x, v.get(p + name))
+
+
+def _qkv(v, p, cfg, x, positions, m: KindMeta):
+    """Projections + bias + RoPE; positions broadcast against (B, S)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hdim
+    q = v.mm(p + "wq", x).reshape(b, s, h, hd)
+    k = v.mm(p + "wk", x).reshape(b, s, kv, hd)
+    val = v.mm(p + "wv", x).reshape(b, s, kv, hd)
+    if cfg.qkv_bias:
+        q = q + v.get(p + "bq").reshape(h, hd)
+        k = k + v.get(p + "bk").reshape(kv, hd)
+        val = val + v.get(p + "bv").reshape(kv, hd)
+    if m.rope:
+        cos, sin = L.rope_freqs(positions, hd, m.theta)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+    return q, k, val
+
+
+def _attn_fwd(v, p, cfg, m: KindMeta, x, ctx: Ctx):
+    b, s, _ = x.shape
+    q, k, val = _qkv(v, p, cfg, x, ctx.positions, m)
+    o = L.flash_attention(q, k, val, causal=m.causal, window=m.window,
+                          impl=v.impl)
+    out = v.mm(p + "wo", o.reshape(b, s, cfg.n_heads * cfg.hdim))
+    cache = {"k": k, "v": val} if ctx.want_cache else None
+    return out, cache
+
+
+def _attn_decode(v, p, cfg, m: KindMeta, x, cache, dc: DecCtx):
+    b = x.shape[0]
+    posv = L._row_positions(dc.pos, b, x.device)[:, None]      # (B, 1)
+    q, k, val = _qkv(v, p, cfg, x, posv, m)
+    ck = L.sharded_cache_write(cache["k"], k, dc.pos)
+    cv = L.sharded_cache_write(cache["v"], val, dc.pos)
+    o = L.flash_decode(q[:, 0], ck, cv, dc.pos)
+    out = v.mm(p + "wo", o.reshape(b, 1, cfg.n_heads * cfg.hdim))
+    return out, {"k": ck, "v": cv}
+
+
+def _ffn(v, p, x):
+    h = _norm(v, p, "ln2", x)
+    return v.mm(p + "w_down", F.silu(v.mm(p + "w_gate", h)) * v.mm(p + "w_up", h))
+
+
+def block_fwd(kind: str, v, cfg: ArchConfig, x, ctx: Ctx):
+    """Returns (x, cache_entry | None)."""
+    m = _ported(kind, cfg)
+    p = kind + "."
+    o, cache = _attn_fwd(v, p, cfg, m, _norm(v, p, "ln1", x), ctx)
+    x = x + o
+    return x + _ffn(v, p, x), cache
+
+
+def block_decode(kind: str, v, cfg: ArchConfig, x, cache, dc: DecCtx):
+    """x (B,1,d); cache = this layer's entry. Returns (x, new_cache)."""
+    m = _ported(kind, cfg)
+    p = kind + "."
+    o, new_cache = _attn_decode(v, p, cfg, m, _norm(v, p, "ln1", x), cache, dc)
+    x = x + o
+    return x + _ffn(v, p, x), new_cache
+
+
+class LM:
+    """Decoder-only LM over a parameter view."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+        self.kinds = list(dict.fromkeys(cfg.pattern))
+
+    def leaf_specs(self) -> dict[str, LeafSpec]:
+        cfg = self.cfg
+        out: dict[str, LeafSpec] = {
+            "embed": LeafSpec("embed", (cfg.vocab, cfg.d_model), MATMUL,
+                              init_scale=0.02),
+        }
+        out.update(_norm_specs("final_norm", cfg.d_model))
+        if not cfg.tie_embeddings:
+            out["lm_head"] = LeafSpec("lm_head", (cfg.vocab, cfg.d_model),
+                                      MATMUL, init_scale=0.02)
+        counts = cfg.kind_counts()
+        for kind in self.kinds:
+            for n, spec in block_specs(kind, cfg).items():
+                name = f"{kind}.{n}"
+                out[name] = replace(spec, name=name, stack=counts[kind])
+        return out
+
+    def _layers(self):
+        """(kind, index within the kind's stack) per layer, in order."""
+        idx = dict.fromkeys(self.kinds, 0)
+        for kind in self.cfg.pattern:
+            yield kind, idx[kind]
+            idx[kind] += 1
+
+    def _embed(self, view, tokens):
+        return view.embed_lookup("embed", tokens)
+
+    def _head_logits(self, view, x_last):
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        return view.mm(name, x_last, transpose=True)[:, 0].float()
+
+    def prefill(self, view, batch):
+        """batch: {"tokens": (B, S)}. Returns (last-position logits (B, V)
+        f32, caches {kind: {"k", "v": (L, B, S, Hkv, D)}, "pos": S})."""
+        x = self._embed(view, batch["tokens"])
+        s_total = x.shape[1]
+        ctx = Ctx(positions=torch.arange(s_total, device=x.device),
+                  want_cache=True)
+        per_kind: dict[str, list] = {k: [] for k in self.kinds}
+        for kind, i in self._layers():
+            x, cache = block_fwd(kind, view.sub(i), self.cfg, x, ctx)
+            per_kind[kind].append(cache)
+        x = _norm(view, "", "final_norm", x)
+        logits = self._head_logits(view, x[:, -1:])
+        caches: dict[str, Any] = {
+            k: {n: torch.stack([c[n] for c in lst]) for n in lst[0]}
+            for k, lst in per_kind.items()}
+        caches["pos"] = torch.tensor(s_total, dtype=torch.int32,
+                                     device=x.device)
+        return logits, caches
+
+    def decode(self, view, caches, batch):
+        """One token. batch: {"token": (B,), ["row_pos": (B,)]}.
+
+        ``row_pos`` (continuous batching) overrides the shared cache position
+        with per-row write/attend positions. The caches are updated in place
+        and returned with the next position. Returns (logits, caches)."""
+        pos = batch.get("row_pos", caches["pos"])
+        x = self._embed(view, batch["token"][:, None])
+        dc = DecCtx(pos=pos)
+        for kind, i in self._layers():
+            cl = {n: t[i] for n, t in caches[kind].items()}
+            x, _ = block_decode(kind, view.sub(i), self.cfg, x, cl, dc)
+        x = _norm(view, "", "final_norm", x)
+        logits = self._head_logits(view, x)
+        p = torch.as_tensor(pos, device=x.device)
+        caches["pos"] = (p.max() if p.ndim else p).to(torch.int32) + 1
+        return logits, caches

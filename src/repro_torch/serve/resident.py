@@ -1,0 +1,255 @@
+"""Quantized-resident serving: the INT8 wire format as the weight residency.
+
+Port of ``repro.serve.resident`` at degree 1. Each MATMUL leaf is quantized
+once at server start into its wire format (INT8 payload + f32 per-block
+scales, ``col.gather_issue_int8``) and every matmul of prefill and decode
+feeds that buffer straight to the fused dequant-matmul kernel
+(``linear._mm_apply_q``). PLAIN leaves (norms, biases) stay dense in the
+compute dtype. The embedding lookup dequantizes only the looked-up rows:
+each row of ``embed`` is whole quant blocks, so the numbers equal the
+reference's dequantize-the-whole-table-then-take.
+
+The weights come from ``init_primaries`` (a seeded init with the
+reference's distributions, drawn from a ``torch.Generator``) or from the
+reference's own primaries (``repro_torch.convert.from_jax_primaries``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from ..core import collectives as col
+from ..core import linear
+from ..core.partition import (GATHER_Q, MATMUL, LeafSpec, ZeroConfig,
+                              padded_flat_size, resident_memory_bytes)
+from ..models.config import ShapeConfig
+
+WIRE = "wire"     # INT8 payload + per-block scales
+DENSE = "dense"   # compute-dtype dense tensor
+
+
+class ResidentLayout:
+    """Per-leaf quant config, padded sizes and residency mode of one model
+    under one scheme config (the slice of the reference's ZeroEngine that
+    serving reads)."""
+
+    def __init__(self, specs: dict[str, LeafSpec], cfg: ZeroConfig,
+                 res_axes: tuple[str, ...] | None = None):
+        self.specs = dict(specs)
+        self.cfg = cfg
+        if res_axes is None:
+            res_axes = tuple(cfg.axes.secondary or ())
+        self.res_axes = tuple(res_axes)
+        self.res_degree = cfg.size(self.res_axes)
+        if cfg.os_degree != 1 or self.res_degree != 1:
+            raise NotImplementedError("only the one-device residency is ported")
+        self.leaf_cfg = {n: cfg.for_leaf(s.logical_size)
+                         for n, s in self.specs.items()}
+        self.pad = {n: padded_flat_size(s.logical_size, cfg)
+                    for n, s in self.specs.items()}
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return linear._dtype(self.cfg)
+
+    def mode(self, name: str) -> str:
+        spec = self.specs[name]
+        if spec.kind in (MATMUL, GATHER_Q) and self.leaf_cfg[name].quantize_weights:
+            return WIRE
+        return DENSE
+
+    def wire_lens(self, name: str) -> tuple[int, int]:
+        """Per-device (q, scales) residency lengths for a WIRE leaf."""
+        pad = self.pad[name]
+        return (pad // self.res_degree,
+                pad // self.leaf_cfg[name].quant_block // self.res_degree)
+
+    def memory_report(self) -> dict[str, Any]:
+        """Per-device resident bytes, wire vs dense, plus the formula view."""
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        wire = dense = psi = 0
+        for name, spec in self.specs.items():
+            reps = spec.stack or 1
+            if self.mode(name) == WIRE:
+                qlen, slen = self.wire_lens(name)
+                wire += reps * (qlen + 4 * slen)
+                psi += reps * spec.logical_size
+            else:
+                dense += reps * spec.logical_size * itemsize
+        return dict(
+            res_axes=list(self.res_axes), res_degree=self.res_degree,
+            wire_bytes=int(wire), dense_bytes=int(dense),
+            total_bytes=int(wire + dense),
+            formula_bytes=int(resident_memory_bytes(
+                self.cfg, psi, res_degree=self.res_degree)))
+
+
+def init_primaries(layout: ResidentLayout, seed: int, device) -> dict:
+    """Seeded padded primaries at compute dtype, layout ``[stack,] pad``.
+
+    The distributions of the reference's ``ZeroEngine._init_full``: zeros,
+    ones, or normal * (init_scale or 1/sqrt(fan_in)), zero-padded. Drawn
+    from one ``torch.Generator`` in sorted leaf order; the numbers differ
+    from ``jax.random`` and need not match them."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = {}
+    for name in sorted(layout.specs):
+        spec = layout.specs[name]
+        rows, n, pad = spec.stack or 1, spec.logical_size, layout.pad[name]
+        full = torch.zeros((rows, pad), dtype=torch.float32, device=device)
+        if spec.init == "ones":
+            full[:, :n] = 1.0
+        elif spec.init != "zeros":
+            scale = spec.init_scale
+            if scale is None:
+                fan_in = spec.shape[0] if len(spec.shape) >= 2 else n
+                scale = 1.0 / math.sqrt(max(fan_in, 1))
+            full[:, :n] = torch.randn((rows, n), generator=gen,
+                                      device=device) * scale
+        full = full.to(layout.dtype)
+        out[name] = full if spec.stack else full[0]
+    return out
+
+
+def build_resident(layout: ResidentLayout, primaries: dict) -> dict:
+    """Primaries -> residency: ``{"q", "s"}`` wire buffers for WIRE leaves
+    (``[stack,] pad`` int8 and ``[stack,] pad // block`` f32), dense
+    ``[stack,] *shape`` compute-dtype tensors for DENSE leaves."""
+    out = {}
+    for name, spec in layout.specs.items():
+        lcfg = layout.leaf_cfg[name]
+        prim = primaries[name]
+        want = ((spec.stack,) if spec.stack else ()) + (layout.pad[name],)
+        if tuple(prim.shape) != want:
+            raise ValueError(f"{name}: primary shape {tuple(prim.shape)}, "
+                             f"expected {want}")
+        if layout.mode(name) == WIRE:
+            if spec.stack:
+                qf, sf = col.gather_issue_int8_rows(prim, layout.cfg.axes.weight,
+                                                    lcfg)
+            else:
+                qf, sf = col.gather_issue_int8(prim, layout.cfg.axes.weight, lcfg)
+            q, s = col.residency_slice(qf, sf, layout.res_axes, lcfg)
+            out[name] = {"q": q, "s": s}
+        else:
+            n = spec.logical_size
+            dense = prim[..., :n].reshape(want[:-1] + spec.shape)
+            out[name] = dense.to(linear._dtype(lcfg))
+    return out
+
+
+class ResidentView:
+    """Parameter view over the residency, as the model code sees it.
+
+    ``mm`` on a fusable WIRE leaf runs the fused dequant-matmul kernel on the
+    (q, scales) buffer; a non-fusable WIRE leaf is dequantized and multiplied
+    dense, and DENSE leaves multiply dense, as in the reference. ``sub(i)``
+    binds layer ``i`` of the stacked leaves."""
+
+    def __init__(self, layout: ResidentLayout, params: dict[str, Any],
+                 layer: int | None = None):
+        self._layout = layout
+        self._p = params
+        self._layer = layer
+
+    @property
+    def impl(self):
+        return self._layout.cfg.impl
+
+    def sub(self, layer: int) -> "ResidentView":
+        return ResidentView(self._layout, self._p, layer)
+
+    def _leaf(self, name: str):
+        entry = self._p[name]
+        if self._layout.specs[name].stack:
+            if self._layer is None:
+                raise ValueError(f"{name} is stacked: bind a layer with sub()")
+            if isinstance(entry, dict):
+                return {k: t[self._layer] for k, t in entry.items()}
+            return entry[self._layer]
+        return entry
+
+    def _wire(self, name: str):
+        entry = self._leaf(name)
+        return col.gather_residency_q(entry["q"], entry["s"],
+                                      self._layout.res_axes,
+                                      self._layout.leaf_cfg[name])
+
+    def mm(self, name: str, x, transpose: bool = False):
+        spec = self._layout.specs[name]
+        lcfg = self._layout.leaf_cfg[name]
+        if self._layout.mode(name) == WIRE:
+            qf, sf = self._wire(name)
+            if linear._fusable(spec, lcfg):
+                return linear._mm_apply_q(x, qf, sf, transpose, spec, lcfg)
+            full = col.gather_wait_int8(qf, sf, lcfg, linear._dtype(lcfg))
+            w = full[: spec.logical_size].reshape(spec.shape)
+            return linear._mm_apply(x, w, transpose, lcfg)
+        return linear._mm_apply(x, self._leaf(name), transpose, lcfg)
+
+    def get(self, name: str):
+        spec = self._layout.specs[name]
+        lcfg = self._layout.leaf_cfg[name]
+        if self._layout.mode(name) == WIRE:
+            qf, sf = self._wire(name)
+            full = col.gather_wait_int8(qf, sf, lcfg, linear._dtype(lcfg))
+            return full[: spec.logical_size].reshape(spec.shape)
+        return self._leaf(name)
+
+    def embed_lookup(self, name: str, ids):
+        """Token-embedding rows for ``ids``: dequantizes only those rows when
+        each row is whole quant blocks (the reference dequantizes the whole
+        table, then takes rows; the numbers are the same)."""
+        spec = self._layout.specs[name]
+        lcfg = self._layout.leaf_cfg[name]
+        vocab, d = spec.shape
+        block = lcfg.quant_block
+        if self._layout.mode(name) != WIRE or d % block:
+            return self.get(name)[ids]
+        qf, sf = self._wire(name)
+        flat_ids = ids.reshape(-1)
+        rows = qf[: vocab * d].view(vocab, d)[flat_ids]
+        srows = sf[: vocab * d // block].view(vocab, d // block)[flat_ids]
+        out = col.gather_wait_int8(rows.reshape(-1), srows.reshape(-1), lcfg,
+                                   linear._dtype(lcfg))
+        return out.reshape(tuple(ids.shape) + (d,))
+
+
+class ResidentServeEngine:
+    """Prefill / decode / greedy generation over the INT8 residency."""
+
+    def __init__(self, model, layout: ResidentLayout, shape: ShapeConfig):
+        self.model = model
+        self.layout = layout
+        self.shape = shape
+
+    def cache_shapes(self):
+        return self.model.cache_shapes(self.shape)
+
+    def make_prefill(self):
+        def prefill(residency, batch):
+            return self.model.lm.prefill(ResidentView(self.layout, residency),
+                                         batch)
+        return prefill
+
+    def make_decode(self):
+        def decode(residency, caches, batch):
+            return self.model.lm.decode(ResidentView(self.layout, residency),
+                                        caches, batch)
+        return decode
+
+    def generate(self, residency, prompt_batch, n_tokens: int):
+        """Greedy generation: prefill then decode, as the reference's
+        (a decode position past the prefill cache writes nothing)."""
+        prefill = self.make_prefill()
+        decode = self.make_decode()
+        logits, caches = prefill(residency, prompt_batch)
+        toks = [logits.argmax(dim=-1).to(torch.int32)]
+        for _ in range(n_tokens - 1):
+            logits, caches = decode(residency, caches, {"token": toks[-1]})
+            toks.append(logits.argmax(dim=-1).to(torch.int32))
+        return torch.stack(toks, dim=1)

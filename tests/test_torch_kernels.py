@@ -1,0 +1,133 @@
+"""The port's kernel entry points (repro_torch.kernels.ops) against the JAX
+package's, on the same numpy-seeded inputs.
+
+On the CPU the port runs each kernel's plain PyTorch version; the JAX side
+runs as its own tests run it: the jitted jnp oracle, and the Pallas kernel
+in interpret mode. Wire payloads (INT8 q and f32 scales) must match bit for
+bit; float outputs match within a tolerance stated per test.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.models import layers as jlayers
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+
+IMPLS = ("jnp", "pallas_interpret")
+
+
+def _torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _blocks_input(rng, nb, block, dtype):
+    """Unit normals scaled per block by up to 50x, one all-zero block."""
+    x = rng.standard_normal((nb, block)).astype(np.float32)
+    x *= rng.uniform(0.01, 50.0, (nb, 1)).astype(np.float32)
+    x[nb // 2] = 0.0
+    return np.asarray(jnp.asarray(x.reshape(-1), dtype))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_quantize_int8_bitwise(impl, dtype):
+    rng = np.random.default_rng(0)
+    block = 128
+    x = _blocks_input(rng, 24, block, dtype)
+    qj, sj = jax.jit(lambda v: jops.quantize_int8(v, block, impl=impl))(x)
+    qt, st = ops.quantize_int8(_torch(x), block)
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy().view(np.uint32),
+                                  np.asarray(sj).view(np.uint32))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_dequantize_int8_bitwise(impl, dtype):
+    rng = np.random.default_rng(1)
+    block = 64
+    x = _blocks_input(rng, 16, block, jnp.float32)
+    q, s = jax.jit(lambda v: jops.quantize_int8(v, block, impl="jnp"))(x)
+    q, s = np.asarray(q), np.asarray(s)
+    dj = jax.jit(lambda a, b: jops.dequantize_int8(a, b, block, dtype,
+                                                   impl=impl))(q, s)
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    dt = ops.dequantize_int8(_torch(q), _torch(s), block, tdtype)
+    assert dt.dtype == tdtype
+    np.testing.assert_array_equal(dt.view(torch.int16 if tdtype == torch.bfloat16
+                                          else torch.int32).numpy(),
+                                  np.asarray(dj).view(np.int16 if tdtype ==
+                                                      torch.bfloat16 else np.int32))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("transpose", [False, True])
+def test_dequant_matmul_flat(impl, transpose):
+    """f32 at rtol=atol=1e-5: the reference accumulates in contraction
+    blocks (ops._loop_split), the port's plain version in one f32 matmul,
+    so the sums are taken in another order."""
+    rng = np.random.default_rng(2)
+    k, n, block, m = 96, 192, 64, 5
+    pad = k * n + 3 * block          # flat buffers are padded past K*N
+    w = rng.standard_normal(pad).astype(np.float32) * 0.1
+    q, s = jax.jit(lambda v: jops.quantize_int8(v, block, impl="jnp"))(w)
+    q, s = np.asarray(q), np.asarray(s)
+    x = rng.standard_normal((m, k if not transpose else n)).astype(np.float32)
+    yj = jax.jit(lambda a, b, c: jops.dequant_matmul(
+        a, b, c, (k, n), block, transpose=transpose, dtype=jnp.float32,
+        impl=impl))(x, q, s)
+    yt = ops.dequant_matmul(_torch(x), _torch(q), _torch(s), (k, n), block,
+                            transpose=transpose, dtype=torch.float32)
+    assert yt.shape == (m, k if transpose else n)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (32, 32, 0, 0),      # causal prefill
+    (16, 32, 16, 0),     # causal with a query offset (second half of a prompt)
+    (32, 32, 0, 8),      # sliding window
+])
+def test_flash_attention_gqa(impl, sq, sk, q_offset, window):
+    """Causal attention with the GQA fold (4 query heads over 2 KV heads)
+    at atol=1e-5 in f32: the same math, but the reference's oracle and the
+    port's plain version round their dots and exps in different orders."""
+    rng = np.random.default_rng(3)
+    b, h, hkv, d = 2, 4, 2, 64
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+
+    def ref(q, k, v):
+        kf = jlayers._repeat_kv(k, h // hkv)
+        vf = jlayers._repeat_kv(v, h // hkv)
+        qt = q.transpose(0, 2, 1, 3).reshape(b * h, sq, d)
+        kt = kf.transpose(0, 2, 1, 3).reshape(b * h, sk, d)
+        vt = vf.transpose(0, 2, 1, 3).reshape(b * h, sk, d)
+        o = jops.flash_attention(qt, kt, vt, causal=True, window=window,
+                                 q_offset=q_offset, impl=impl)
+        return o.reshape(b, h, sq, d).transpose(0, 2, 1, 3)
+
+    oj = jax.jit(ref)(q, k, v)
+    ot = layers.flash_attention(_torch(q), _torch(k), _torch(v), causal=True,
+                                window=window, q_offset=q_offset)
+    assert ot.shape == (b, sq, h, d)
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-5)
+
+
+def test_flash_attention_gate_raises():
+    """A shape the reference's gate sends to its chunked fallback raises in
+    the port (the fallback is not ported), never runs something else."""
+    q = torch.zeros((1, 100, 2, 64))
+    k = torch.zeros((1, 300, 2, 64))
+    with pytest.raises(NotImplementedError, match="seq_unaligned"):
+        layers.flash_attention(q, k, k)

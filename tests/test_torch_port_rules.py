@@ -1,0 +1,54 @@
+"""Rules of the PyTorch port: it imports neither jax nor the JAX package,
+and its serving entry point runs on the card unless asked for the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.launch import serve
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), \
+            f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_port_files_found():
+    assert (ROOT / "chip_smoke.py").exists()
+    assert len(PORT_FILES) > 20
+
+
+def test_serve_cli_without_device_raises_here():
+    """Without --device cpu the CLI asks for the card; on a host with no
+    card it raises instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the CLI would serve on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--requests", "1"])
+
+
+def test_serve_cli_on_cpu_prints_tokens(capsys):
+    serve.main(["--device", "cpu", "--reduced", "--requests", "3", "--slots",
+                "2", "--prompt-len", "8", "--max-len", "24", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "3 reqs -> 12 tokens" in out
+    assert "admitted 3 rejected 0 preempted 0 retired 3" in out
+    assert "sample: [" in out
