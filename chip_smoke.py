@@ -14,18 +14,35 @@ either is missing or any phase fails. Phases, in order:
             within one bf16 ulp of the largest plain output (2**-7 * max|ref|:
             both sides round an f32 sum, summed in another order); f32
             outputs within 1e-5 * max|ref|.
+            The training kernels are held at the training step's shapes:
+            quantize_int4 and dequantize_int4_sum (d = 2) bit for bit;
+            matmul_quant (bits 4 and 8, with and without pad_to) with scales
+            within 1e-5 relative, q within +-1 in at most 1e-3 of the entries
+            and the dequantized C within one quant step of the plain product
+            (the two sum M in another order).
 3. serve  : zeroes the launch counters, builds the qwen2-0.5b INT8 residency
             at published width from the seeded init and serves 8 requests
             (4 slots, prompt 128, 32 new tokens, max_len 256) through the
-            continuous batcher, then reads the counters: every kernel must
-            have launched. The first request's prefill logits are held
+            continuous batcher, then reads the counters: every serving kernel
+            must have launched. The first request's prefill logits are held
             against the same prefill through the plain versions on the card
             (bf16 compute across 24 layers: max|d| <= 5e-2 * max|ref|).
-4. timing : device time of each kernel, its plain version and, where one
+4. train  : repro_torch.launch.train with --devices 4: qwen2-0.5b at full
+            width and depth under zero_topo on the mesh (data, node, gcd) =
+            (1, 2, 2), four ranks (processes) on this one card over gloo,
+            quant block 128, bf16, global batch 8 x seq 1024, 5 steps from
+            seed 0, the last one traced by torch.profiler. Each rank zeroes
+            its counters before its steps and reads them after: every kernel
+            must have launched on every rank. Then the same steps from the
+            same state with --kernel-impl plain (no kernel may launch);
+            per-step loss and grad norm must agree (TRAIN_LOSS_RTOL,
+            TRAIN_GNORM_RTOL).
+5. timing : device time of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the
-            serving shapes (CUDA graphs of repeated launches, CUDA events).
-5. report : a JSON line of the kernels, a serve line, the card's name and
-            power limit (nvidia-smi), and last the line
+            serving and training shapes (CUDA graphs of repeated launches,
+            CUDA events).
+6. report : a JSON line of the kernels, serve and train lines, the card's
+            name and power limit (nvidia-smi), and last the line
             {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -33,6 +50,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -55,6 +73,20 @@ PREFILL_TOL = 5e-2
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "8", "--slots", "4",
               "--prompt-len", "128", "--gen", "32", "--max-len", "256",
               "--seed", "0"]
+TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--scheme", "zero_topo", "--devices", "4",
+              "--batch", "8", "--seq", "1024", "--steps", "5",
+              "--quant-block", "128", "--compute-dtype", "bfloat16",
+              "--seed", "0", "--timeout", "600"]
+PROFILE_STEP = 4        # the kernel run traces its last step
+# kernels vs plain versions through 5 bf16 training steps of 24 layers:
+# about 20x (loss) and 9x (grad norm) the largest relative differences of
+# the first runs on the H100 (4.8e-5 and 1.1e-3). The loss is a mean over
+# 8,192 tokens, so bf16 rounding differences average out; the grad norm
+# also carries INT4 rounding flips of the gradients.
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GNORM_RTOL = 1e-2
+SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
+                 "flash_attention")
 
 KERNEL_INFO = {
     "quantize_int8": ("src/repro_torch/csrc/quant_int8.cu",
@@ -65,7 +97,18 @@ KERNEL_INFO = {
                        "src/repro/kernels/dequant_matmul.py:113"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:92"),
+    "quantize_int4": ("src/repro_torch/csrc/quant_int4.cu",
+                      "src/repro/kernels/quant_int4.py:46"),
+    "dequantize_int4_sum": ("src/repro_torch/csrc/quant_int4.cu",
+                            "src/repro/kernels/quant_int4.py:105"),
+    "matmul_quant": ("src/repro_torch/csrc/matmul_quant.cu",
+                     "src/repro/kernels/dequant_matmul.py:209"),
 }
+# (K, N) of one layer's seven dW products (wq wk wv wo w_gate w_up w_down)
+LAYER_KN = ((896, 896), (896, 128), (896, 128), (896, 896), (896, 4864),
+            (896, 4864), (4864, 896))
+TRAIN_M = 2048                      # tokens per rank: 8 x 1024 over 4 ranks
+EMBED_N = 151_936 * 896             # the tied embedding's padded length
 
 
 class Failed(RuntimeError):
@@ -206,6 +249,72 @@ def check_kernels(dev, gen, checks):
     attn_case("B=1 H=14/2 S=256 window=32 bf16", 1, 14, 2, 256, 256, 0, 32,
               torch.bfloat16)
 
+    def int4_case(what, n_blocks, block, dtype, d=2):
+        x = torch.randn((n_blocks, block), generator=gen, device=dev)
+        x *= torch.rand((n_blocks, 1), generator=gen, device=dev) * 50
+        x[n_blocks // 2] = 0.0
+        x = x.to(dtype).reshape(-1)
+        qk, sk = ops.quantize_int4(x, block)
+        qp, sp = ops.quantize_int4(x, block, impl="plain")
+        if not (torch.equal(qk, qp) and torch.equal(sk.view(torch.int32),
+                                                    sp.view(torch.int32))):
+            raise Failed(f"quantize_int4 {what}: not bitwise equal")
+        record("quantize_int4", what, 0.0, "bitwise")
+        rk = ops.dequantize_int4_sum(qk, sk, d, block)
+        rp = ops.dequantize_int4_sum(qk, sk, d, block, impl="plain")
+        if not torch.equal(rk.view(torch.int32), rp.view(torch.int32)):
+            raise Failed(f"dequantize_int4_sum {what} d={d}: not bitwise")
+        record("dequantize_int4_sum", f"{what} d={d}", 0.0, "bitwise")
+
+    # the tied embedding's stage-1 grad (bf16, 151,936 x 896), ragged
+    int4_case("(151936*896/128, 128) bf16 (embed grad)", EMBED_N // 128, 128,
+              torch.bfloat16)
+    int4_case("(36, 8) f32 ragged", 36, 8, torch.float32, d=4)
+    int4_case("(34, 4) bf16 ragged", 34, 4, torch.bfloat16)
+    int4_case("(38, 64) f32 ragged", 38, 64, torch.float32)
+
+    def mq_case(what, m, k, n, block, bits, pad=0):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        g = torch.randn((m, n), generator=gen, device=dev) * 1e-2
+        pad_to = k * n + pad if pad else None
+        qk, sk = ops.matmul_quant(x, g, block, bits=bits, pad_to=pad_to)
+        qp, sp = ops.matmul_quant(x, g, block, bits=bits, pad_to=pad_to,
+                                  impl="plain")
+        if qk.shape != qp.shape or sk.shape != sp.shape:
+            raise Failed(f"matmul_quant {what}: shapes")
+        srel = float(((sk - sp).abs() / sp.abs()).max())
+
+        def levels(q):
+            if bits == 8:
+                return q.int()
+            return torch.stack([(q & 0xF).int() - 8, (q >> 4).int() - 8],
+                               dim=-1).reshape(-1)
+
+        lk, lp = levels(qk), levels(qp)
+        diff = (lk - lp).abs()
+        frac = float((diff != 0).float().mean())
+        step = sk.repeat_interleave(block)
+        c = (x.T @ g).reshape(-1)
+        deq_err = float(((lk[:c.numel()] * step[:c.numel()] - c).abs()
+                         / step[:c.numel()]).max())
+        if srel > 1e-5 or int(diff.max()) > 1 or frac > 1e-3 or deq_err > 1.0:
+            raise Failed(f"matmul_quant {what}: scale rel {srel}, q diff "
+                         f"{int(diff.max())} in {frac}, dequant {deq_err} steps")
+        record("matmul_quant", what, float(((lk * step - lp * sp.repeat_interleave(
+            block)).abs()).max()), f"scales 1e-5 rel, q +-1 in <= 1e-3 "
+               f"(here {frac:.1e}), C within 1 step (here {deq_err:.2f})")
+
+    for k, n in sorted(set(LAYER_KN)):
+        for bits in (4, 8):
+            mq_case(f"M={TRAIN_M} ({k}, {n}) bits={bits}", TRAIN_M, k, n, 128,
+                    bits)
+    mq_case(f"M={TRAIN_M} (896, 128) bits=4 pad_to +512", TRAIN_M, 896, 128, 128,
+            4, pad=512)
+    mq_case("M=100 (72, 192) bits=8 pad_to +64 ragged", 100, 72, 192, 64, 8,
+            pad=64)
+    mq_case("M=33 (10, 512) bits=4 block 256 ragged", 33, 10, 512, 256, 4)
+    mq_case("M=20 (70, 1024) bits=8 block 512 ragged", 20, 70, 1024, 512, 8)
+
 
 # ---------------------------------------------------------------------------
 # phase 3: the serving path
@@ -241,7 +350,7 @@ def serve_phase():
     t_run = time.perf_counter() - t0
     launches = ops.launches()
 
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise Failed(f"kernels not launched on the serving path: {missing}")
     c = cb.counters
@@ -295,7 +404,57 @@ def check_prefill(s):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: timing at the serving shapes
+# phase 4: the training step
+# ---------------------------------------------------------------------------
+
+def train_phase():
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ap = train.build_parser()
+    t0 = time.perf_counter()
+    kern = train.run(ap.parse_args(TRAIN_ARGS + ["--profile-step",
+                                                 str(PROFILE_STEP)]))
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = train.run(ap.parse_args(TRAIN_ARGS + ["--kernel-impl", "plain"]))
+    t_plain = time.perf_counter() - t0
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    for r in kern:
+        missing = [k for k in ops.KERNELS if r["launches"][k] == 0]
+        if missing:
+            raise Failed(f"rank {r['rank']}: kernels not launched on the "
+                         f"training path: {missing}")
+    for r in plain:
+        if any(r["launches"].values()):
+            raise Failed(f"rank {r['rank']}: kernels launched in the plain run")
+    for run in (kern, plain):
+        for r in run:
+            vals = r["losses"] + r["grad_norms"]
+            if len(r["losses"]) != steps or \
+                    not all(math.isfinite(v) for v in vals):
+                raise Failed(f"rank {r['rank']}: losses {r['losses']}, grad "
+                             f"norms {r['grad_norms']}")
+            if (r["losses"], r["grad_norms"]) != (run[0]["losses"],
+                                                  run[0]["grad_norms"]):
+                raise Failed("ranks disagree on the global loss or grad norm")
+    k0, p0 = kern[0], plain[0]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(k0["losses"], p0["losses"])]
+    gn_rel = [abs(a - b) / abs(b)
+              for a, b in zip(k0["grad_norms"], p0["grad_norms"])]
+    if max(loss_rel) > TRAIN_LOSS_RTOL or max(gn_rel) > TRAIN_GNORM_RTOL:
+        raise Failed(f"kernel vs plain training: loss rel {loss_rel}, grad "
+                     f"norm rel {gn_rel}")
+    launches = {k: sum(r["launches"][k] for r in kern) for k in ops.KERNELS}
+    return dict(kernel=kern, plain=plain, steps=steps, launches=launches,
+                per_rank_step_launches={k: kern[0]["launches"][k] / steps
+                                        for k in ops.KERNELS},
+                loss_rel=loss_rel, grad_norm_rel=gn_rel, run_s=t_kern,
+                plain_run_s=t_plain)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: timing at the serving and training shapes
 # ---------------------------------------------------------------------------
 
 def matmul_calls(s, m_layers: int, m_head: int, gen):
@@ -448,6 +607,69 @@ def timing_phase(s, gen):
     return out
 
 
+def train_timing(gen, dev):
+    """The training kernels at the step's shapes: the tied embedding's
+    stage-1 quantize and receive-side sum, one layer's seven dW products."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    n, block = EMBED_N, 128
+    g = (torch.randn((n,), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    out["quantize_int4"] = dict(
+        work=f"embed grad stage 1: {n} bf16 elements, block {block}",
+        ms=device_ms(lambda: ops.quantize_int4(g, block), reps=5),
+        plain_ms=device_ms(lambda: ops.quantize_int4(g, block, impl="plain"),
+                           reps=2),
+        library_ms=None,
+        bound=bound_ms(2 * n + n / 2 + 4 * n / block, 4 * n, "f32"))
+    # W = 2: each rank receives d = 2 chunks of n / 2 elements and sums them
+    q, s = ops.quantize_int4(g, block)
+    del g
+    half = n // 2
+    out["dequantize_int4_sum"] = dict(
+        work=f"embed grad stage 1 receive: d=2 chunks of {half} elements",
+        ms=device_ms(lambda: ops.dequantize_int4_sum(q, s, 2, block), reps=5),
+        plain_ms=device_ms(lambda: ops.dequantize_int4_sum(
+            q, s, 2, block, impl="plain"), reps=2),
+        library_ms=None,
+        bound=bound_ms(n / 2 + 4 * n / block + 4 * half, 2 * n, "f32"))
+    del q, s
+
+    calls = [(torch.randn((TRAIN_M, k), generator=gen, device=dev),
+              torch.randn((TRAIN_M, nn), generator=gen, device=dev) * 1e-2)
+             for k, nn in LAYER_KN]
+
+    def run(impl=None):
+        def fn():
+            for x, gg in calls:
+                ops.matmul_quant(x, gg, block, bits=4, impl=impl)
+        return fn
+
+    def cublas():
+        for x, gg in calls:
+            x.T @ gg
+
+    n_bytes = sum(4 * TRAIN_M * (k + nn) + k * nn / 2 + 4 * k * nn / block
+                  for k, nn in LAYER_KN)
+    n_ops = sum(2 * TRAIN_M * k * nn for k, nn in LAYER_KN)
+    per = []
+    for j in (0, 1, 4, 6):           # the four distinct shapes
+        (k, nn), (x, gg) = LAYER_KN[j], calls[j]
+        per.append(dict(M=TRAIN_M, K=k, N=nn, ms=device_ms(
+            lambda: ops.matmul_quant(x, gg, block, bits=4), reps=5),
+            cublas_ms=device_ms(lambda: x.T @ gg, reps=5),
+            bound_ms=bound_ms(4 * TRAIN_M * (k + nn) + k * nn / 2
+                              + 4 * k * nn / block, 2 * TRAIN_M * k * nn,
+                              "f32")[0]))
+    out["matmul_quant"] = dict(
+        work=f"one layer's 7 dW products at M={TRAIN_M}, bits 4, block {block}",
+        ms=device_ms(run(), reps=3), plain_ms=device_ms(run("plain"), reps=3),
+        library_ms=device_ms(cublas, reps=3),
+        library="x.T @ g (cuBLAS f32, no quantize epilogue)",
+        bound=bound_ms(n_bytes, n_ops, "f32"), per_shape=per)
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -494,16 +716,30 @@ def main(argv=None) -> int:
           f"logits max_abs_err {pf['logits_err']:.3e} (max|ref| "
           f"{pf['logits_scale']:.3e}, argmax equal {pf['argmax_equal']})")
 
+    print("phase train", flush=True)
+    tr = train_phase()
+    for label, run in (("kernels", tr["kernel"]), ("plain", tr["plain"])):
+        for r in run:
+            print(f"  {label} rank {r['rank']}: loss {r['losses']} grad_norm "
+                  f"{r['grad_norms']} step_s {r['step_times']} tok/s "
+                  f"{r['tokens_per_s']} peak_bytes {r['peak_bytes']} "
+                  f"launches {r['launches']} payload_bytes {r['payload_bytes']}")
+    print(f"  kernel vs plain: loss rel {tr['loss_rel']}, grad norm rel "
+          f"{tr['grad_norm_rel']}")
+
     print("phase timing", flush=True)
     t = timing_phase(s, gen)
+    t.update(train_timing(gen, dev))
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         tm = t[name]
         bms, by = tm["bound"]
+        by_path = dict(serve=s["launches"][name], train=tr["launches"][name])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=s["launches"][name],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            launches_per_train_step_per_rank=tr["per_rank_step_launches"][name],
             max_abs_err=max(c["max_abs_err"] for c in checks[name]),
             tolerance=[c["tolerance"] for c in checks[name]],
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bms, bound_by=by,
@@ -518,15 +754,43 @@ def main(argv=None) -> int:
         setup_s=s["setup_s"], residency_bytes=s["memory"]["wire_bytes"],
         prefill_logits_max_abs_err=pf["logits_err"],
         prefill_logits_max_abs_ref=pf["logits_scale"])
+    k0 = tr["kernel"][0]
+    # the first step pays for the kernels' first use, the last is traced
+    timed = slice(1, PROFILE_STEP)
+    train_line = dict(
+        arch="qwen2-0.5b", scheme="zero_topo", mesh=[1, 2, 2], ranks=4,
+        global_batch=8, seq=1024, steps=tr["steps"], losses=k0["losses"],
+        grad_norms=k0["grad_norms"], plain_losses=tr["plain"][0]["losses"],
+        plain_grad_norms=tr["plain"][0]["grad_norms"],
+        step_s=k0["step_times"],
+        step_s_median=statistics.median(k0["step_times"][timed]),
+        tok_s_median=statistics.median(k0["tokens_per_s"][timed]),
+        plain_step_s=tr["plain"][0]["step_times"],
+        peak_bytes_per_rank=[r["peak_bytes"] for r in tr["kernel"]],
+        payload_bytes_per_step_per_rank={
+            op: b / tr["steps"] for op, b in k0["payload_bytes"].items()},
+        phase_s_per_step=[{k: v / tr["steps"] for k, v in r["phase_s"].items()}
+                          for r in tr["kernel"]],
+        collective_s_per_step=[{k: v / tr["steps"]
+                                for k, v in r["collective_s"].items()}
+                               for r in tr["kernel"]],
+        traced_step_wall_ms=[r["profile"]["wall_ms"] for r in tr["kernel"]],
+        traced_step_device_ms=[r["profile"]["device_ms"] for r in tr["kernel"]],
+        traced_step_top_kernels_rank0=k0["profile"]["top"],
+        state_bytes_per_rank=k0["memory"], run_s=tr["run_s"],
+        plain_run_s=tr["plain_run_s"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
-            card=card, kernels=kernels, serve=serve_line, checks=checks,
-            timing={k: v for k, v in t.items()}, launches=s["launches"],
-            build=kcuda.BUILD_LOG, torch=torch.__version__,
-            cuda=torch.version.cuda), indent=1, default=str))
+            card=card, kernels=kernels, serve=serve_line, train=train_line,
+            train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
+            checks=checks, timing={k: v for k, v in t.items()},
+            launches=s["launches"], build=kcuda.BUILD_LOG,
+            torch=torch.__version__, cuda=torch.version.cuda),
+            indent=1, default=str))
 
     print("serve " + json.dumps(serve_line))
+    print("train " + json.dumps(train_line))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {

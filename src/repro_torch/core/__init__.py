@@ -1,1 +1,1 @@
-"""Degree-1 partitioning, collectives and the fused-matmul weight path."""
+"""Partitioning, collectives, the ZeRO weight path and the training engine."""

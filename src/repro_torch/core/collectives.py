@@ -1,38 +1,165 @@
-"""Wire-format collectives at degree 1.
+"""Quantization-assisted collectives on ``torch.distributed``.
 
-Port of the serving half of ``repro.core.collectives``. On one device every
-axis tuple has size 1, so each collective is the identity and what remains
-is the local quantize / dequantize: ``gather_issue_int8`` is a quantize,
-``gather_wait_int8`` a dequantize, and the residency slice / re-gather pass
-their buffers through. The functions keep the reference's names and
-signatures so the multi-device slice can fill the collectives in.
+Port of ``repro.core.collectives``. Every function takes mesh axis tuples
+ordered major -> minor, as in the reference; a tuple of size 1 (or empty)
+makes the collective the identity, so one engine expresses every scheme and
+the one-device serving path needs no process group at all. Larger tuples run
+over the process groups of the mesh bound with ``bind`` (launch/mesh.py).
+
+The key primitive is the all-to-all based quantized reduce-scatter (ZeRO++):
+the input is split into d chunks, each chunk is quantized once to INT4,
+exchanged with one all-to-all, and the receiver dequantizes and sums the d
+chunks in one pass (``ops.dequantize_int4_sum``).
+
+Transport. The process group is gloo (four ranks share one card, which
+NCCL refuses). Payloads move bit for bit in their own dtype: INT8 q, packed
+INT4 bytes, f32 scales, bf16 activations and primaries (gloo takes bf16 but
+refuses int16). Gloo carries CUDA tensors for every collective used here
+(all_gather, all_to_all_single), copying them through host memory itself, so
+the wrappers hand it the tensors on the card as they are; ``PAYLOAD`` counts
+the bytes this rank hands it, per collective, and ``SECONDS`` the host time
+spent inside the calls (which includes waiting for this rank's queued
+kernels, the copies through host memory and the slowest peer). Every
+kernel runs on the card.
+
+Reductions (``det_psum``, ``psum_scatter``) sum in axis order, which makes
+the loss and the grad norm independent of the process layout; the
+reference's ``psum_scatter`` sums in XLA's order, so those float results are
+held to it with a tolerance.
 """
 from __future__ import annotations
 
+import collections
+import time
+
 import torch
+import torch.distributed as dist
 
 from ..kernels import ops
 from .partition import AxisTuple, ZeroConfig
 
+_MESH = None
+PAYLOAD: collections.Counter = collections.Counter()
+SECONDS: collections.Counter = collections.Counter()
 
-def _degree_one(axes: AxisTuple, cfg: ZeroConfig) -> None:
-    if cfg.size(tuple(axes)) != 1:
-        raise NotImplementedError(
-            f"collectives over axes {tuple(axes)} of size "
-            f"{cfg.size(tuple(axes))}: only degree 1 is ported")
+
+def bind(mesh) -> None:
+    """Run the collectives of this process over ``mesh``'s groups."""
+    global _MESH
+    _MESH = mesh
+
+
+def reset_counters() -> None:
+    PAYLOAD.clear()
+    SECONDS.clear()
+
+
+def _group(axes: AxisTuple):
+    if _MESH is None:
+        raise RuntimeError(f"collective over {tuple(axes)}: no mesh bound "
+                           "(core.collectives.bind)")
+    return _MESH.group(tuple(axes))
+
+
+def axis_index(axes: AxisTuple, cfg: ZeroConfig) -> int:
+    """This rank's linear index over ``axes`` (0 when their size is 1)."""
+    if cfg.size(tuple(axes)) == 1:
+        return 0
+    return _MESH.index(tuple(axes))
+
+
+# -- transport ----------------------------------------------------------------
+
+def _gather(t: torch.Tensor, axes: AxisTuple, op: str) -> torch.Tensor:
+    """(d,) + t.shape: member j's ``t`` in row j (axis order)."""
+    g = _group(axes)
+    t = t.contiguous()
+    outs = [torch.empty_like(t) for _ in range(g.size)]
+    PAYLOAD[op] += t.numel() * t.element_size()
+    t0 = time.perf_counter()
+    dist.all_gather(outs, t, group=g.pg)
+    SECONDS[op] += time.perf_counter() - t0
+    return torch.stack([outs[g.to_group[j]] for j in range(g.size)])
+
+
+def _all_to_all(t: torch.Tensor, axes: AxisTuple, op: str) -> torch.Tensor:
+    """t (d, L): row j goes to member j; returns (d, L) whose row j came
+    from member j (the reference's untiled ``all_to_all`` over axis 0)."""
+    g = _group(axes)
+    order = torch.tensor(g.to_group, device=t.device)
+    send = torch.empty_like(t)
+    send[order] = t
+    recv = torch.empty_like(t)
+    PAYLOAD[op] += t.numel() * t.element_size()
+    t0 = time.perf_counter()
+    dist.all_to_all_single(recv, send, group=g.pg)
+    SECONDS[op] += time.perf_counter() - t0
+    return recv[order]
+
+
+def _tiled(stacked: torch.Tensor) -> torch.Tensor:
+    """(d, ..., L) -> (..., d * L): concatenate the members' last axes."""
+    return torch.cat(list(stacked), dim=-1)
+
+
+# -- the collectives ------------------------------------------------------------
+
+def det_psum(x: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig) -> torch.Tensor:
+    """Order-deterministic sum of a (near-)scalar over ``axes``: gather the
+    partials, add them in axis order."""
+    if cfg.size(tuple(axes)) == 1:
+        return x
+    parts = _gather(x, axes, "det_psum")
+    acc = parts[0]
+    for j in range(1, parts.shape[0]):
+        acc = acc + parts[j]
+    return acc
+
+
+def psum_scatter(x: torch.Tensor, axes: AxisTuple,
+                 cfg: ZeroConfig) -> torch.Tensor:
+    """Tiled reduce-scatter of a flat tensor: this rank's 1/d slice of the
+    sum over ``axes``, summed in f32 in axis order, in x's dtype."""
+    d = cfg.size(tuple(axes))
+    if d == 1:
+        return x
+    recv = _all_to_all(x.reshape(d, -1), axes, "psum_scatter")
+    acc = recv[0].float()
+    for j in range(1, d):
+        acc = acc + recv[j].float()
+    return acc.to(x.dtype)
+
+
+def all_gather_flat(shard: torch.Tensor, axes: AxisTuple,
+                    cfg: ZeroConfig) -> torch.Tensor:
+    """Plain (unquantized) tiled all-gather along the last axis."""
+    if cfg.size(tuple(axes)) == 1:
+        return shard
+    return _tiled(_gather(shard, axes, "all_gather"))
 
 
 def gather_issue_int8(shard: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig):
-    """Quantize (+ all-gather, identity at degree 1) a flat shard; returns
-    the wire-format (q, scales) pair."""
-    _degree_one(axes, cfg)
-    return ops.quantize_int8(shard, cfg.quant_block, impl=cfg.impl)
+    """Quantize + all-gather a flat shard, without dequantizing: the
+    gathered wire-format (q, scales)."""
+    q, s = ops.quantize_int8(shard, cfg.quant_block, impl=cfg.impl)
+    if cfg.size(tuple(axes)) > 1:
+        q = _tiled(_gather(q, axes, "all_gather"))
+        s = _tiled(_gather(s, axes, "all_gather"))
+    return q, s
 
 
 def gather_wait_int8(qf, sf, cfg: ZeroConfig, out_dtype=torch.bfloat16):
     """Local dequant of a gathered (q, scales) buffer (no communication)."""
     return ops.dequantize_int8(qf, sf, cfg.quant_block, out_dtype,
                                impl=cfg.impl)
+
+
+def quant_all_gather_int8(shard: torch.Tensor, axes: AxisTuple,
+                          cfg: ZeroConfig, out_dtype=torch.bfloat16):
+    """INT8 block-quantized all-gather: quantize -> gather(q, s) -> dequant.
+    Returns the full dequantized tensor and the gathered (q, scales)."""
+    qf, sf = gather_issue_int8(shard, axes, cfg)
+    return gather_wait_int8(qf, sf, cfg, out_dtype), qf, sf
 
 
 def gather_issue_int8_rows(rows: torch.Tensor, axes: AxisTuple,
@@ -42,21 +169,121 @@ def gather_issue_int8_rows(rows: torch.Tensor, axes: AxisTuple,
     Every row's shard is a whole number of quant blocks, so quantizing the
     flattened stack in one call gives exactly the per-row blocks: row r of
     the result is ``gather_issue_int8(rows[r], ...)``."""
-    _degree_one(axes, cfg)
     stack, shard = rows.shape
     q, s = ops.quantize_int8(rows.reshape(-1), cfg.quant_block, impl=cfg.impl)
-    return q.reshape(stack, shard), s.reshape(stack, shard // cfg.quant_block)
+    q = q.reshape(stack, shard)
+    s = s.reshape(stack, shard // cfg.quant_block)
+    if cfg.size(tuple(axes)) > 1:
+        q = _tiled(_gather(q, axes, "all_gather"))
+        s = _tiled(_gather(s, axes, "all_gather"))
+    return q, s
+
+
+def a2a_rs_issue(x: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig):
+    """Quantize the d chunks of a flat tensor to INT4 and exchange them with
+    one all-to-all (chunk j -> member j), without the receive-side sum.
+    Returns the received (q2, s2) wire buffers, row j from member j. (The
+    reference's ``bits=8`` variant needs ``dequantize_int8_sum``, which is
+    not ported.)"""
+    q, s = ops.quantize_int4(x.reshape(-1), cfg.quant_block, impl=cfg.impl)
+    return a2a_rs_issue_q(q, s, axes, cfg)
+
+
+def a2a_rs_issue_q(q: torch.Tensor, s: torch.Tensor, axes: AxisTuple,
+                   cfg: ZeroConfig):
+    """Exchange pre-quantized wire buffers (from ``ops.matmul_quant``'s
+    epilogue): the collective half of ``a2a_rs_issue``."""
+    d = cfg.size(tuple(axes))
+    q2 = _all_to_all(q.reshape(d, -1), axes, "all_to_all")
+    s2 = _all_to_all(s.reshape(d, -1), axes, "all_to_all")
+    return q2, s2
+
+
+def a2a_rs_wait(q2, s2, d: int, cfg: ZeroConfig,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """Receive side: fused unpack + dequant + sum over the d chunks."""
+    red = ops.dequantize_int4_sum(q2.reshape(-1), s2.reshape(-1), d,
+                                  cfg.quant_block, torch.float32, impl=cfg.impl)
+    return red.to(out_dtype)
+
+
+def a2a_quant_reduce_scatter(x, axes: AxisTuple, cfg: ZeroConfig,
+                             out_dtype=torch.float32):
+    """All-to-all based INT4 reduce-scatter: x flat (n,), n % (d * block)
+    == 0 -> this rank's (n // d,) slice of the sum over the group."""
+    d = cfg.size(tuple(axes))
+    if d == 1:
+        return x.to(out_dtype)
+    q2, s2 = a2a_rs_issue(x, axes, cfg)
+    return a2a_rs_wait(q2, s2, d, cfg, out_dtype)
+
+
+def reduce_scatter_flat(x, axes: AxisTuple, cfg: ZeroConfig, *,
+                        out_dtype=torch.float32):
+    """Gradient reduce-scatter over ``axes``, INT4-quantized when the config
+    quantizes gradients."""
+    if cfg.size(tuple(axes)) == 1:
+        return x.to(out_dtype)
+    if cfg.quantize_grads:
+        return a2a_quant_reduce_scatter(x, axes, cfg, out_dtype=out_dtype)
+    return psum_scatter(x, axes, cfg).to(out_dtype)
+
+
+def cross_replica_grad(x, cfg: ZeroConfig, out_dtype=torch.float32):
+    """Final gradient sync over the replica tier (the paper's flow): sum the
+    stage-2 shards over R, in f32 in axis order, and keep this rank's 1/R
+    slice of the last axis."""
+    axes = cfg.axes.replica
+    r = cfg.size(axes)
+    if r == 1:
+        return x.to(out_dtype)
+    parts = _gather(x, axes, "all_reduce")
+    full = parts[0].float()
+    for j in range(1, r):
+        full = full + parts[j].float()
+    piece = x.shape[-1] // r
+    i = axis_index(axes, cfg)
+    return full[..., i * piece:(i + 1) * piece].to(out_dtype)
+
+
+def update_all_gather(master_shard: torch.Tensor, cfg: ZeroConfig,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Rebuild primary shards from updated optimizer shards: all-gather over
+    E + R along the last axis (flat or stacked (layers, shard) leaves)."""
+    axes = cfg.axes.extra_grad + cfg.axes.replica
+    x = master_shard.to(out_dtype)
+    if cfg.size(axes) == 1:
+        return x
+    return _tiled(_gather(x, axes, "all_gather"))
+
+
+def secondary_slice(qf, sf, axes: AxisTuple, cfg: ZeroConfig):
+    """This rank's secondary partition of gathered (q, scales): whole quant
+    blocks and their scales, copied out so the gathered buffer can go."""
+    s_deg = cfg.size(tuple(axes))
+    if s_deg == 1:
+        return qf, sf
+    idx = axis_index(axes, cfg)
+    qlen = qf.shape[-1] // s_deg
+    slen = sf.shape[-1] // s_deg
+    return (qf[..., idx * qlen:(idx + 1) * qlen].clone(),
+            sf[..., idx * slen:(idx + 1) * slen].clone())
+
+
+def gather_secondary_q(sec_q, sec_s, axes: AxisTuple, cfg: ZeroConfig):
+    """Backward weight all-gather from the INT8 secondary partition, kept in
+    wire format for the fused dequant-matmul."""
+    if cfg.size(tuple(axes)) == 1:
+        return sec_q, sec_s
+    return (_tiled(_gather(sec_q, axes, "all_gather")),
+            _tiled(_gather(sec_s, axes, "all_gather")))
 
 
 def residency_slice(qf, sf, axes: AxisTuple, cfg: ZeroConfig):
-    """This device's residency partition of gathered (q, scales): the whole
-    buffer at degree 1."""
-    _degree_one(axes, cfg)
-    return qf, sf
+    """This device's serving residency partition of gathered (q, scales)."""
+    return secondary_slice(qf, sf, axes, cfg)
 
 
 def gather_residency_q(res_q, res_s, axes: AxisTuple, cfg: ZeroConfig):
-    """Decode-path wire re-gather: residency shards -> full (q, scales);
-    the identity at degree 1."""
-    _degree_one(axes, cfg)
-    return res_q, res_s
+    """Decode-path wire re-gather: residency shards -> full (q, scales)."""
+    return gather_secondary_q(res_q, res_s, axes, cfg)

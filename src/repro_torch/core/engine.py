@@ -1,0 +1,357 @@
+"""ZeroEngine: the training step on one rank of a ``torch.distributed`` mesh.
+
+Port of the seed-regime train step of ``repro.core.engine`` (``init_state``
+:501, ``make_train_step`` :602, ``_make_local_grads`` :645, ``_stage2_rs``
+:541, ``_replica_sync`` :553, ``_clip_grads`` :719, ``_apply_updates`` :574,
+``memory_report`` :440). The reference runs one program over the mesh
+inside ``shard_map``; here every rank runs this code on its own shards and
+the collectives meet over the mesh's process groups.
+
+Storage: every leaf is flattened, padded to a multiple of
+``os_degree * block`` and kept as this rank's 1-D primary shard (compute
+dtype, sharded over the weight axes W); stacked leaves carry a leading layer
+dimension. The fp32 master and Adam m / v live in optimizer-shard layout:
+the same flat tensor sharded over all axes (W, then E, then R, major to
+minor).
+
+One step:
+
+1. The loss and its backward (``ParamView``; core/linear.py): MATMUL leaves
+   gather INT8 over W and reduce-scatter their weight grads INT4 over W
+   inside the backward (stage 1), so each leaf's cotangent has primary-shard
+   layout. Microbatch grads accumulate in f32.
+2. Stage 2: the INT4 all-to-all reduce-scatter over E.
+3. The cross-replica sync over R.
+4. Grad-norm clipping (``det_psum``: the same sum on every process layout),
+   AdamW on the master shard.
+5. The update all-gather over E + R rebuilds the primary shards.
+"""
+from __future__ import annotations
+
+import collections
+import math
+import time
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..optim.adamw import adamw_update, cosine_lr
+from . import collectives as col
+from .linear import PlainGather, ZeroGatherQ, ZeroMatmul, _dtype
+from .partition import (GATHER_Q, MATMUL, PLAIN, LeafSpec, ZeroConfig,
+                        grad_buffer_bytes, padded_flat_size)
+
+
+@dataclass
+class TrainHparams:
+    lr: float = 3e-4
+    betas: tuple[float, float] = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 10
+    total_steps: int = 1000
+    min_lr_frac: float = 0.1
+    n_microbatch: int = 1
+
+
+@dataclass(frozen=True)
+class _LeafFns:
+    spec: LeafSpec
+    mm: Callable | None
+    full: Callable
+
+
+class ParamView:
+    """What model code sees: named weights, materialized on demand.
+
+    ``mm(name, x)`` runs the ZeRO matmul (gather forward, secondary
+    re-gather backward, quantized grad reduce-scatter) without keeping the
+    dense weight; ``get(name)`` materializes the dense tensor (norms, biases,
+    the tied embedding). ``sub(i)`` binds layer ``i`` of the stacked leaves,
+    whose primaries are held one row per layer."""
+
+    def __init__(self, fns: dict[str, _LeafFns], leaves: dict, impl,
+                 layer: int | None = None):
+        self._fns = fns
+        self._p = leaves
+        self._impl = impl
+        self._layer = layer
+
+    @property
+    def impl(self):
+        return self._impl
+
+    def sub(self, layer: int) -> "ParamView":
+        return ParamView(self._fns, self._p, self._impl, layer)
+
+    def _leaf(self, name: str):
+        if self._fns[name].spec.stack:
+            if self._layer is None:
+                raise ValueError(f"{name} is stacked: bind a layer with sub()")
+            return self._p[name][self._layer]
+        return self._p[name]
+
+    def mm(self, name: str, x, transpose: bool = False):
+        fn = self._fns[name]
+        if fn.mm is None:
+            raise ValueError(f"{name} is not a matmul leaf")
+        return fn.mm(x, self._leaf(name), transpose)
+
+    def get(self, name: str):
+        return self._fns[name].full(self._leaf(name))
+
+    def embed_lookup(self, name: str, ids):
+        return self.get(name)[ids]
+
+
+class ZeroEngine:
+    """Sharded state and the train step of one model under one scheme, on
+    this rank of ``mesh``."""
+
+    def __init__(self, specs: dict[str, LeafSpec], cfg: ZeroConfig, mesh,
+                 hp: TrainHparams | None = None, device="cpu"):
+        cfg.validate_dependency_rule()
+        for a, size in cfg.axis_sizes:
+            if mesh.shape.get(a) != size:
+                raise ValueError(f"axis {a}: config {size}, mesh {mesh.shape}")
+        self.specs = dict(specs)
+        self.cfg = cfg
+        self.mesh = mesh
+        self.hp = hp or TrainHparams()
+        self.device = torch.device(device)
+        self.leaf_cfg = {n: cfg.for_leaf(s.logical_size)
+                         for n, s in self.specs.items()}
+        self._pad = {n: padded_flat_size(s.logical_size, cfg)
+                     for n, s in self.specs.items()}
+        self.fns = {n: self._build_fns(s) for n, s in self.specs.items()}
+        # host seconds per phase of the step, each ending in a device sync
+        self.phase_s: collections.Counter = collections.Counter()
+        if mesh.size > 1:
+            from ..launch.mesh import config_axis_tuples
+            mesh.bind(config_axis_tuples(cfg))
+        col.bind(mesh)
+
+    def _build_fns(self, spec: LeafSpec) -> _LeafFns:
+        import dataclasses
+        ls = dataclasses.replace(spec, stack=None)
+        lcfg = self.leaf_cfg[spec.name]
+        if spec.kind in (MATMUL, GATHER_Q):
+            mm = None
+            if spec.kind == MATMUL:
+                def mm(x, p, transpose=False):
+                    return ZeroMatmul.apply(x, p, ls, lcfg, transpose)
+            return _LeafFns(spec, mm, lambda p: ZeroGatherQ.apply(p, ls, lcfg))
+        if spec.kind == PLAIN:
+            return _LeafFns(spec, None, lambda p: PlainGather.apply(p, ls, lcfg))
+        raise ValueError(spec.kind)
+
+    # -- shapes ---------------------------------------------------------------
+
+    def primary_shard_len(self, name: str) -> int:
+        return self._pad[name] // self.cfg.w_degree
+
+    def os_shard_len(self, name: str) -> int:
+        return self._pad[name] // self.cfg.os_degree
+
+    def param_count(self) -> int:
+        return sum(s.logical_size * (s.stack or 1) for s in self.specs.values())
+
+    def padded_param_count(self) -> int:
+        return sum(self._pad[n] * (s.stack or 1) for n, s in self.specs.items())
+
+    def memory_report(self) -> dict[str, int]:
+        """Per-rank training-state bytes by the reference's formulas."""
+        cfg = self.cfg
+        psi = self.padded_param_count()
+        bytes_per = torch.empty((), dtype=_dtype(cfg)).element_size()
+        primary = bytes_per * psi // cfg.w_degree
+        sec = 0 if cfg.sec_degree is None else \
+            psi // cfg.sec_degree + 4 * psi // (cfg.quant_block * cfg.sec_degree)
+        grads = sum(grad_buffer_bytes(cfg, self._pad[n] * (s.stack or 1))
+                    for n, s in self.specs.items())
+        optimizer = 12 * psi // cfg.os_degree
+        return dict(primary=primary, secondary=sec, grad_buffer=grads,
+                    optimizer=optimizer, prefetch_buffer=0,
+                    total=primary + sec + grads + optimizer)
+
+    # -- state ------------------------------------------------------------------
+
+    def shard_primary(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's W shard of a global ``[stack,] pad`` tensor."""
+        i, n = self.mesh.index(self.cfg.axes.weight), self.primary_shard_len(name)
+        return full[..., i * n:(i + 1) * n].to(self.device).clone()
+
+    def shard_os(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's optimizer shard (over all axes) of a global tensor."""
+        i, n = self.mesh.index(self.cfg.axes.all), self.os_shard_len(name)
+        return full[..., i * n:(i + 1) * n].to(self.device).clone()
+
+    def shard_state(self, full: dict[str, torch.Tensor]):
+        """This rank's fresh state from global padded fp32 masters
+        ``[stack,] pad``: the primaries are the master at compute dtype, m
+        and v are zero (the reference's ``init_state``)."""
+        cdt = _dtype(self.cfg)
+        state = dict(primaries={}, master={}, opt_m={}, opt_v={}, step=0)
+        for n in sorted(full):
+            f = full[n].float()
+            state["primaries"][n] = self.shard_primary(n, f.to(cdt))
+            m = self.shard_os(n, f)
+            state["master"][n] = m
+            state["opt_m"][n] = torch.zeros_like(m)
+            state["opt_v"][n] = torch.zeros_like(m)
+        return state
+
+    def init_state(self, seed: int = 0):
+        """Seeded init with the reference's distributions (zeros, ones, or
+        normal * (init_scale or 1/sqrt(fan_in)), zero-padded), drawn from one
+        ``torch.Generator`` on the engine's device in sorted leaf order, so
+        every rank draws the same global tensors and keeps its shards. The
+        numbers differ from ``jax.random``'s."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        state = dict(primaries={}, master={}, opt_m={}, opt_v={}, step=0)
+        for n in sorted(self.specs):
+            spec = self.specs[n]
+            rows, size = spec.stack or 1, spec.logical_size
+            f = torch.zeros((rows, self._pad[n]), dtype=torch.float32,
+                            device=self.device)
+            if spec.init == "ones":
+                f[:, :size] = 1.0
+            elif spec.init != "zeros":
+                scale = spec.init_scale
+                if scale is None:
+                    fan_in = spec.shape[0] if len(spec.shape) >= 2 else size
+                    scale = 1.0 / math.sqrt(max(fan_in, 1))
+                f[:, :size] = torch.randn((rows, size), generator=gen,
+                                          device=self.device) * scale
+            one = self.shard_state({n: f if spec.stack else f[0]})
+            for k in ("primaries", "master", "opt_m", "opt_v"):
+                state[k].update(one[k])
+        return state
+
+    # -- the train step -------------------------------------------------------
+
+    def _leaves(self, primaries):
+        """Autograd leaves over the primaries: one per layer row of a stacked
+        leaf, so each row's cotangent lands in its own ``.grad``."""
+        out = {}
+        for n, p in primaries.items():
+            if self.specs[n].stack:
+                out[n] = [p[i].detach().requires_grad_(True)
+                          for i in range(p.shape[0])]
+            else:
+                out[n] = p.detach().requires_grad_(True)
+        return out
+
+    @staticmethod
+    def _grad(leaf) -> torch.Tensor:
+        def one(t):
+            return torch.zeros_like(t, dtype=torch.float32) if t.grad is None \
+                else t.grad.float()
+        if isinstance(leaf, list):
+            return torch.stack([one(t) for t in leaf])
+        return one(leaf)
+
+    def local_grads(self, loss_fn: Callable, primaries, batch):
+        """The microbatch loop: ``loss_fn(view, batch) -> (loss_sum, tokens)``.
+        Returns (primary-layout f32 grads, global mean loss, global tokens).
+        Each microbatch loss is normalized by its global token count."""
+        n_mb = self.hp.n_microbatch
+        axes = self.cfg.axes.all
+        gacc = None
+        loss = gtok = 0.0
+        for j in range(n_mb):
+            mb = {k: v.chunk(n_mb)[j] for k, v in batch.items()}
+            leaves = self._leaves(primaries)
+            view = ParamView(self.fns, leaves, self.cfg.impl)
+            loss_sum, tok = loss_fn(view, mb)
+            # token counts are integers in f32: exact in any order
+            t = col.det_psum(tok.float(), axes, self.cfg)
+            l_mb = loss_sum.float() / torch.clamp(t, min=1.0)
+            l_mb.backward()
+            g = {n: self._grad(leaves[n]) for n in sorted(self.specs)}
+            gacc = g if gacc is None else {n: gacc[n] + g[n] for n in g}
+            loss = loss + l_mb.detach()
+            gtok = gtok + t
+        if n_mb > 1:
+            gacc = {n: g / n_mb for n, g in gacc.items()}
+            loss = loss / n_mb
+        return gacc, col.det_psum(loss, axes, self.cfg), gtok
+
+    def _stage2_rs(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """Reduce-scatter a primary-layout grad over E (INT4 a2a). Each row
+        of a stacked leaf is scattered on its own; chunk j of every row goes
+        to member j in one exchange."""
+        lcfg = self.leaf_cfg[name]
+        axes = lcfg.axes.extra_grad
+        d = lcfg.size(axes)
+        g = g.float()
+        if d == 1:
+            return g
+        rows = g.reshape(-1, g.shape[-1])
+        x = rows.reshape(rows.shape[0], d, -1).transpose(0, 1).reshape(-1)
+        out = col.reduce_scatter_flat(x, axes, lcfg)
+        return out.reshape(g.shape[:-1] + (-1,))
+
+    def _replica_sync(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """Stage 3: the cross-replica sync of a stage-2 shard (each row of a
+        stacked leaf keeps its own 1/R slice)."""
+        return col.cross_replica_grad(g, self.leaf_cfg[name])
+
+    def _clip_grads(self, os_grads: dict):
+        sq = sum(g.square().sum() for g in os_grads.values())
+        gnorm = torch.sqrt(col.det_psum(sq, self.cfg.axes.all, self.cfg))
+        scale = torch.clamp(self.hp.grad_clip / (gnorm + 1e-6), max=1.0)
+        return {n: g * scale for n, g in os_grads.items()}, gnorm
+
+    def _lr(self, step: int):
+        hp = self.hp
+        return cosine_lr(step, base_lr=hp.lr, warmup_steps=hp.warmup_steps,
+                         total_steps=hp.total_steps, min_frac=hp.min_lr_frac,
+                         device=self.device)
+
+    def _apply_updates(self, state, os_grads: dict):
+        hp = self.hp
+        step = state["step"] + 1
+        lr = self._lr(state["step"])
+        b1, b2 = hp.betas
+        cdt = _dtype(self.cfg)
+        new = dict(primaries={}, master={}, opt_m={}, opt_v={}, step=step)
+        for n in sorted(self.specs):
+            wd = hp.weight_decay \
+                if self.specs[n].kind in (MATMUL, GATHER_Q) else 0.0
+            master, m, v = adamw_update(
+                state["master"][n], state["opt_m"][n], state["opt_v"][n],
+                os_grads[n], step=step, lr=lr, beta1=b1, beta2=b2,
+                eps=hp.eps, weight_decay=wd)
+            new["master"][n], new["opt_m"][n], new["opt_v"][n] = master, m, v
+            new["primaries"][n] = col.update_all_gather(master, self.leaf_cfg[n],
+                                                        cdt)
+        return new, lr
+
+    def _phase(self, name: str, t0: float) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        self.phase_s[name] += t1 - t0
+        return t1
+
+    def train_step(self, loss_fn: Callable, state, batch):
+        """One step; returns (new state, metrics) with the metrics global
+        over the mesh: loss, grad_norm, lr, tokens (f32 scalars). Adds the
+        host time of its phases to ``phase_s``: "grads" (forward, backward
+        and stage 1), "stage2" (+ the replica sync), "update" (clip, AdamW,
+        update all-gather)."""
+        t = time.perf_counter()
+        grads, loss, gtok = self.local_grads(loss_fn, state["primaries"], batch)
+        t = self._phase("grads", t)
+        os_grads = {n: self._replica_sync(n, self._stage2_rs(n, grads[n]))
+                    for n in sorted(self.specs)}
+        del grads
+        t = self._phase("stage2", t)
+        os_grads, gnorm = self._clip_grads(os_grads)
+        new_state, lr = self._apply_updates(state, os_grads)
+        self._phase("update", t)
+        return new_state, dict(loss=loss, grad_norm=gnorm, lr=lr, tokens=gtok)

@@ -1,11 +1,13 @@
 """Hierarchical partitioning: sharding degrees, block padding, leaf specs.
 
-The port's own copy of the pure-Python half of ``repro.core.partition`` that
-serving needs: the scheme presets, the per-leaf quantization block
-(``ZeroConfig.block_for`` / ``for_leaf``), the flat padding rule
-(``padded_flat_size``), the leaf kinds and ``LeafSpec``. This slice runs
-everything at degree 1 (one device), where every shard is the whole padded
-flat tensor and every collective is the identity.
+The port's own copy of the pure-Python half of ``repro.core.partition``:
+the per-category axes and degrees, the scheme presets, the per-leaf
+quantization block (``ZeroConfig.block_for`` / ``for_leaf``), the flat
+padding rule (``padded_flat_size``), the leaf kinds and ``LeafSpec``, and the
+memory formulas the engine reports. Each category of training state is
+sharded over a prefix of the bandwidth hierarchy: weights over W, gradients
+over W + E, optimizer state over W + E + R, with the flat slices nested in
+that major -> minor order.
 """
 from __future__ import annotations
 
@@ -33,6 +35,10 @@ class ZeroAxes:
                 assert a in flat, (a, self)
 
     @property
+    def grad(self) -> AxisTuple:
+        return self.weight + self.extra_grad
+
+    @property
     def all(self) -> AxisTuple:  # optimizer axes == all participating axes
         return self.weight + self.extra_grad + self.replica
 
@@ -55,8 +61,25 @@ class ZeroConfig:
         return math.prod(d[a] for a in axes) if axes else 1
 
     @property
+    def w_degree(self) -> int:
+        return self.size(self.axes.weight)
+
+    @property
+    def g_degree(self) -> int:
+        return self.size(self.axes.grad)
+
+    @property
     def os_degree(self) -> int:
         return self.size(self.axes.all)
+
+    @property
+    def sec_degree(self) -> int | None:
+        return None if self.axes.secondary is None else \
+            self.size(self.axes.secondary)
+
+    def validate_dependency_rule(self) -> None:
+        """AMSP / paper §V: deg(os) >= deg(grad) >= deg(weight)."""
+        assert self.os_degree >= self.g_degree >= self.w_degree, self
 
     def block_for(self, logical_size: int) -> int:
         """Effective quantization block for a leaf: large leaves use the full
@@ -145,6 +168,12 @@ def single_device_config(scheme: str = "zero_topo", **over) -> ZeroConfig:
     return preset(scheme, intra_axes=("node", "gcd"), inter_axes=("data",),
                   l0_axes=("gcd",), axis_sizes={"data": 1, "node": 1, "gcd": 1},
                   **over)
+
+
+def grad_buffer_bytes(cfg: ZeroConfig, psi: int) -> int:
+    """Bytes of the gradient buffer the engine allocates: microbatch grads
+    accumulate in fp32 primary layout (``4 * psi / w_degree``)."""
+    return 4 * psi // cfg.w_degree
 
 
 def resident_memory_bytes(cfg: ZeroConfig, psi: int, *,

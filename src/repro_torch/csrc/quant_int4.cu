@@ -1,0 +1,161 @@
+// INT4 block quantize (nibble-packed) and the fused unpack-dequant-sum of the
+// a2a gradient reduce-scatter.
+//
+// Replaces src/repro/kernels/quant_int4.py::quantize_int4_pallas (:46) and
+// ::dequantize_int4_sum_pallas (:105).
+//
+// quantize_int4: a flat tensor is cut into contiguous blocks of `bs` elements
+// (bs even); each block gets scale = absmax * (1/7) (1 for an all-zero block)
+// and q = clamp(rint(x / scale), -7, 7) + 8, two nibbles per byte with the
+// even element in the low nibble. It is the send side of the reduce-scatter.
+//
+// dequantize_int4_sum: d received chunks of nb packed blocks and their scales
+// -> (nb, bs) f32 = sum_j q_j * s_j, summed in order j = 0..d-1. It is the
+// receive side.
+//
+// Bound on the H100: bytes. Quantize reads each input once (2 or 4 bytes) and
+// writes half a byte plus 4/bs bytes of scale; the sum reads d * (1/2 + 4/bs)
+// bytes and writes 4 per element. A few f32 operations per element are far
+// below what the card issues for those bytes.
+//
+// Design: quantize gives one warp to each block (the TPU kernel's (8, bs)
+// VMEM tile becomes 8 warps of 32 lanes); each lane takes element pairs so it
+// writes whole bytes, the absmax is a warp-shuffle reduction and the second
+// pass over the block hits L1. The sum gives each thread 4 packed bytes (one
+// 4-byte load per chunk, two float4 stores) when the chunk length allows it,
+// else one byte. Numerics: the scale multiplies by the f32 reciprocal
+// constant, as XLA does to `absmax / 7` under jit; the quotient is an IEEE
+// division (no --use_fast_math) and rintf rounds half to even like
+// jnp.round. The sum writes every product and every add as its own rounded
+// operation (__fmul_rn, __fadd_rn), so nvcc cannot contract them into an FMA
+// and the result is bit for bit the plain version's q * s, then +.
+#include "common.cuh"
+
+namespace {
+
+constexpr int QUANT_WARPS = 8;
+constexpr int SUM_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(QUANT_WARPS * 32)
+quantize_int4_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
+                     float* __restrict__ s, long long nb, int bs) {
+  const long long b = (long long)blockIdx.x * QUANT_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (b >= nb) return;
+  const T* xb = x + b * bs;
+  float amax = 0.f;
+  for (int i = lane; i < bs; i += 32) amax = fmaxf(amax, fabsf(to_f32(xb[i])));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float scale = amax == 0.f ? 1.f : amax * (1.0f / 7.0f);
+  uint8_t* qb = q + b * (bs / 2);
+  for (int p = lane; p < bs / 2; p += 32) {
+    const float lo = fminf(fmaxf(rintf(to_f32(xb[2 * p]) / scale), -7.f), 7.f);
+    const float hi = fminf(fmaxf(rintf(to_f32(xb[2 * p + 1]) / scale), -7.f), 7.f);
+    qb[p] = (uint8_t)(((int)lo + 8) | (((int)hi + 8) << 4));
+  }
+  if (lane == 0) s[b] = scale;
+}
+
+__device__ __forceinline__ void unpack_add(uint32_t byte, float sc, bool first,
+                                           float& lo, float& hi) {
+  const float ql = (float)((int)(byte & 0xFu) - 8);
+  const float qh = (float)((int)((byte >> 4) & 0xFu) - 8);
+  if (first) {
+    lo = __fmul_rn(ql, sc);
+    hi = __fmul_rn(qh, sc);
+  } else {
+    lo = __fadd_rn(lo, __fmul_rn(ql, sc));
+    hi = __fadd_rn(hi, __fmul_rn(qh, sc));
+  }
+}
+
+// one thread per 4 packed bytes; `half` (bytes per block) and the chunk
+// length are multiples of 4, so the 4 bytes share one block's scale
+__global__ void __launch_bounds__(SUM_THREADS)
+dequantize_int4_sum_vec4(const uint8_t* __restrict__ q, const float* __restrict__ s,
+                         float* __restrict__ out, int d, long long nbytes, int half) {
+  const long long nb = nbytes / half;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x; w < nbytes / 4;
+       w += stride) {
+    const long long i = w * 4;
+    const long long blk = i / half;
+    float v[8];
+    for (int j = 0; j < d; ++j) {
+      const uint32_t word = *reinterpret_cast<const uint32_t*>(q + j * nbytes + i);
+      const float sc = s[j * nb + blk];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        unpack_add((word >> (8 * t)) & 0xFFu, sc, j == 0, v[2 * t], v[2 * t + 1]);
+    }
+    float4* o = reinterpret_cast<float4*>(out + 2 * i);
+    o[0] = make_float4(v[0], v[1], v[2], v[3]);
+    o[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// one thread per packed byte: any even block size and any alignment
+__global__ void __launch_bounds__(SUM_THREADS)
+dequantize_int4_sum_byte(const uint8_t* __restrict__ q, const float* __restrict__ s,
+                         float* __restrict__ out, int d, long long nbytes, int half) {
+  const long long nb = nbytes / half;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nbytes;
+       i += stride) {
+    const long long blk = i / half;
+    float lo = 0.f, hi = 0.f;
+    for (int j = 0; j < d; ++j)
+      unpack_add(q[j * nbytes + i], s[j * nb + blk], j == 0, lo, hi);
+    out[2 * i] = lo;
+    out[2 * i + 1] = hi;
+  }
+}
+
+unsigned grid_for(long long items) {
+  const long long blocks = (items + SUM_THREADS - 1) / SUM_THREADS;
+  return (unsigned)(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
+}
+
+}  // namespace
+
+// x: (nb * bs,) f32 or bf16 -> q: (nb * bs / 2,) uint8, s: (nb,) f32
+extern "C" int quantize_int4(const void* x, int dtype, void* q, void* s,
+                             long long nb, int bs, void* stream) {
+  if (nb <= 0) return 0;
+  if (bs <= 0 || bs % 2 != 0) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((nb + QUANT_WARPS - 1) / QUANT_WARPS);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DT_F32)
+    quantize_int4_kernel<float><<<grid, QUANT_WARPS * 32, 0, st>>>(
+        (const float*)x, (uint8_t*)q, (float*)s, nb, bs);
+  else if (dtype == DT_BF16)
+    quantize_int4_kernel<__nv_bfloat16><<<grid, QUANT_WARPS * 32, 0, st>>>(
+        (const __nv_bfloat16*)x, (uint8_t*)q, (float*)s, nb, bs);
+  else
+    return (int)cudaErrorInvalidValue;
+  return launch_status();
+}
+
+// q: (d, nb * bs / 2) uint8, s: (d, nb) f32 -> out: (nb * bs,) f32.
+// vec4 != 0 asks for the 4-bytes-per-thread path: the caller guarantees that
+// bs / 2 is a multiple of 4 and that q and out are 16-byte aligned.
+extern "C" int dequantize_int4_sum(const void* q, const void* s, void* out, int d,
+                                   long long nb, int bs, int vec4, void* stream) {
+  if (nb <= 0) return 0;
+  if (d <= 0 || bs <= 0 || bs % 2 != 0) return (int)cudaErrorInvalidValue;
+  const int half = bs / 2;
+  const long long nbytes = nb * half;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec4) {
+    if (half % 4 != 0) return (int)cudaErrorInvalidValue;
+    dequantize_int4_sum_vec4<<<grid_for(nbytes / 4), SUM_THREADS, 0, st>>>(
+        (const uint8_t*)q, (const float*)s, (float*)out, d, nbytes, half);
+  } else {
+    dequantize_int4_sum_byte<<<grid_for(nbytes), SUM_THREADS, 0, st>>>(
+        (const uint8_t*)q, (const float*)s, (float*)out, d, nbytes, half);
+  }
+  return launch_status();
+}

@@ -1,0 +1,70 @@
+"""Deterministic synthetic token batches.
+
+Port of ``repro.data.pipeline``'s ``BatchSpec`` (:29) and ``SyntheticTokens``
+(:70): the same numpy-seeded stream, so both packages train on bit-identical
+batches. Every rank draws the global batch and keeps its own rows
+(``local_rows``), as the reference's ``batch_specs`` shard dim 0 over the
+batch axes.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class BatchSpec:
+    global_batch: int
+    seq_len: int              # text tokens per row (excl. next-token shift)
+    vocab: int
+
+
+class SyntheticTokens:
+    """Deterministic learnable token stream.
+
+    Each row: Zipf(1.2)-sampled tokens where every position with
+    ``i % 4 != 0`` deterministically repeats a function of the previous token
+    — a next-token structure a model learns within a few hundred steps.
+    """
+
+    def __init__(self, spec: BatchSpec, seed: int = 0):
+        self.spec = spec
+        self.seed = seed
+
+    def batch(self, step: int) -> dict[str, np.ndarray]:
+        sp = self.spec
+        rng = np.random.default_rng((self.seed, step))
+        b, s = sp.global_batch, sp.seq_len
+        base = rng.zipf(1.2, size=(b, s + 1)).astype(np.int64)
+        toks = (base - 1) % sp.vocab
+        for k in range(1, 4):
+            idx = np.arange(k, s + 1, 4)
+            toks[:, idx] = (toks[:, idx - 1] * 31 + 7) % sp.vocab
+        return {"tokens": toks.astype(np.int32)}
+
+
+def batch_axes(mesh, global_batch: int) -> tuple[str, ...]:
+    """Largest major -> minor prefix of the mesh axes whose product divides
+    the global batch (the reference's ``registry.batch_axes``)."""
+    out, prod = [], 1
+    for a in mesh.axis_names:
+        n = mesh.shape[a]
+        if global_batch % (prod * n):
+            break
+        out.append(a)
+        prod *= n
+    return tuple(out)
+
+
+def local_rows(batch: dict[str, np.ndarray], mesh) -> dict[str, np.ndarray]:
+    """This rank's rows of a global batch: dim 0 split over the batch axes,
+    block i to the rank whose linear index over them is i."""
+    out = {}
+    for k, v in batch.items():
+        axes = batch_axes(mesh, v.shape[0])
+        n = mesh.axis_size(axes)
+        rows = v.shape[0] // n
+        i = mesh.index(axes)
+        out[k] = v[i * rows:(i + 1) * rows]
+    return out

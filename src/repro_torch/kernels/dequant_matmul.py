@@ -1,11 +1,17 @@
-"""Fused INT8-dequant x matmul on the card (csrc/dequant_matmul.cu).
+"""Fused INT8-dequant x matmul and weight-grad matmul x quantize on the card
+(csrc/dequant_matmul.cu, csrc/matmul_quant.cu).
 
-Port of ``repro.kernels.dequant_matmul.dequant_matmul_flat_pallas`` (:113),
-both orientations: ``x @ dequant(q)`` and ``x @ dequant(q).T`` with the
-flat-shard scale layout (the scale of q[k, j] is scales[k, j // block]).
-The source note in csrc/dequant_matmul.cu gives the bound and the design;
-``ref.dequant_matmul_flat_ref`` is the plain version. Callers go through
-``kernels/ops.py``, which counts the launches.
+Port of ``repro.kernels.dequant_matmul``:
+
+* ``dequant_matmul_flat_pallas`` (:113), both orientations: ``x @ dequant(q)``
+  and ``x @ dequant(q).T`` with the flat-shard scale layout (the scale of
+  q[k, j] is scales[k, j // block]);
+* ``matmul_quant_pallas`` (:209): ``C = x.T @ g`` block-quantized to the INT8
+  or packed INT4 wire format in the matmul's epilogue.
+
+The source notes in csrc/ give the bounds and the designs;
+``ref.dequant_matmul_flat_ref`` and ``ref.matmul_quant_ref`` are the plain
+versions. Callers go through ``kernels/ops.py``, which counts the launches.
 """
 from __future__ import annotations
 
@@ -52,3 +58,35 @@ def dequant_matmul_flat_cuda(x: torch.Tensor, q: torch.Tensor,
                             int(transpose), cuda.stream(x))
     cuda.check(rc, "dequant_matmul")
     return out
+
+
+MQ_SIGNATURES = {
+    "matmul_quant": (c_int, [c_void_p, c_void_p, c_void_p, c_void_p, c_int,
+                             c_int, c_int, c_int, c_int, c_void_p]),
+}
+
+
+def matmul_quant_cuda(x: torch.Tensor, g: torch.Tensor, block: int,
+                      bits: int):
+    """x (M, K) f32, g (M, N) f32 -> (q, scales): q (K, N) int8 (bits 8) or
+    (K, N // 2) uint8 (bits 4), scales (K, N // block) f32. ``block`` is a
+    power of two up to 512 that divides N."""
+    cuda.require(x, "x", (torch.float32,))
+    cuda.require(g, "g", (torch.float32,))
+    m, k = x.shape
+    n = g.shape[1]
+    if g.shape[0] != m or bits not in (4, 8) or n % block or block > 512 \
+            or block & (block - 1):
+        raise ValueError(f"matmul_quant: x {tuple(x.shape)}, g {tuple(g.shape)}, "
+                         f"block {block}, bits {bits}: needs N % block == 0 "
+                         "and a power-of-two block <= 512")
+    lib = cuda.library("matmul_quant", MQ_SIGNATURES)
+    if bits == 4:
+        q = torch.empty((k, n // 2), dtype=torch.uint8, device=x.device)
+    else:
+        q = torch.empty((k, n), dtype=torch.int8, device=x.device)
+    s = torch.empty((k, n // block), dtype=torch.float32, device=x.device)
+    rc = lib.matmul_quant(x.data_ptr(), g.data_ptr(), q.data_ptr(), s.data_ptr(),
+                          m, k, n, block, bits, cuda.stream(x))
+    cuda.check(rc, "matmul_quant")
+    return q, s

@@ -12,18 +12,24 @@ how chip_smoke.py computes the reference the kernels are held against.
 ``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` / ``launches``).
+
+Attention is differentiable as in the reference (``ops.py:390-423``): its
+forward is the kernel (the plain version on the CPU) and its backward is
+autograd through the plain version at the saved inputs.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from .dequant_matmul import dequant_matmul_flat_cuda
+from .dequant_matmul import dequant_matmul_flat_cuda, matmul_quant_cuda
 from .flash_attention import flash_attention_cuda
 from .quant_blockwise import dequantize_int8_cuda, quantize_int8_cuda
+from .quant_int4 import dequantize_int4_sum_cuda, quantize_int4_cuda
 
 KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
-           "flash_attention")
+           "flash_attention", "quantize_int4", "dequantize_int4_sum",
+           "matmul_quant")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -78,6 +84,74 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, block: int,
     return out.reshape(-1)
 
 
+def quantize_int4(x: torch.Tensor, block: int, impl: str | None = None):
+    """1-D x (size % block == 0, block even) -> (uint8 packed (size // 2,),
+    f32 scales (size // block,))."""
+    b = _blocks(x, block)
+    if _kernel(x, impl):
+        LAUNCHES["quantize_int4"] += 1
+        q, s = quantize_int4_cuda(b.contiguous())
+    else:
+        q, s = ref.quantize_int4_ref(b)
+    return q.reshape(-1), s.reshape(-1)
+
+
+def dequantize_int4_sum(packed: torch.Tensor, scales: torch.Tensor, d: int,
+                        block: int, dtype=torch.float32,
+                        impl: str | None = None) -> torch.Tensor:
+    """Fused unpack + dequant + sum of d received INT4 chunks.
+
+    packed: flat (d * n // 2,) uint8 (d chunks, row-major); scales: flat
+    (d * n // block,). Returns (n,) ``dtype``: the sum over the chunks in f32,
+    in chunk order."""
+    qb = packed.reshape(d, -1, block // 2)
+    sb = scales.reshape(d, -1, 1)
+    if _kernel(packed, impl):
+        LAUNCHES["dequantize_int4_sum"] += 1
+        out = dequantize_int4_sum_cuda(qb.contiguous(), sb.contiguous())
+    else:
+        out = ref.dequantize_int4_sum_ref(qb, sb)
+    return out.reshape(-1).to(dtype)
+
+
+def matmul_quant(x2: torch.Tensor, g2: torch.Tensor, block: int, *,
+                 bits: int = 8, pad_to: int | None = None,
+                 impl: str | None = None):
+    """Wire-format weight grad: C = x2.T @ g2, block-quantized in the matmul
+    epilogue (the dense f32 C is never written out).
+
+    x2 (M, K), g2 (M, N) f32; N % block == 0. Returns flat (q, scales) in the
+    layout ``quantize_int{8,4}(C.reshape(-1))`` gives: INT8 q is (K*N,) int8,
+    INT4 q is (K*N // 2,) packed uint8, optionally padded to ``pad_to``
+    logical elements with exact zero blocks (q 0 / 0x88, scale 1), which is
+    what quantizing the zero padding gives on the unfused path."""
+    kk, n = x2.shape[1], g2.shape[1]
+    if n % block:
+        raise ValueError(f"matmul_quant: N={n} is not a whole number of "
+                         f"{block}-element blocks")
+    if _kernel(x2, impl):
+        LAUNCHES["matmul_quant"] += 1
+        q, s = matmul_quant_cuda(x2.contiguous(), g2.contiguous(), block, bits)
+    else:
+        q, s = ref.matmul_quant_ref(x2, g2, block, bits=bits)
+    qf, sf = q.reshape(-1), s.reshape(-1)
+    logical = kk * n
+    if pad_to is not None and pad_to != logical:
+        pad = pad_to - logical
+        if pad < 0 or pad % block:
+            raise ValueError(f"matmul_quant: pad_to {pad_to} for {logical} "
+                             f"elements, block {block}")
+        if bits == 4:
+            tail = torch.full((pad // 2,), 0x88, dtype=torch.uint8,
+                              device=qf.device)
+        else:
+            tail = torch.zeros((pad,), dtype=torch.int8, device=qf.device)
+        qf = torch.cat([qf, tail])
+        sf = torch.cat([sf, torch.ones((pad // block,), dtype=torch.float32,
+                                       device=sf.device)])
+    return qf, sf
+
+
 def matmul_fusable(shape: tuple[int, ...], block: int) -> bool:
     """Can a weight of logical ``shape`` feed the fused dequant matmul?
     Needs >= 2 dims and whole quantization blocks along the last dim."""
@@ -127,20 +201,44 @@ def attention_fusable(sq: int, sk: int, d: int, dv: int, *,
     return True, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0, impl: str | None = None):
-    """q (BH, Sq, D); k, v (BH / n_rep, Sk, D) -> (BH, Sq, D).
-
-    The caller (models/layers.py) folds heads and checks
-    ``attention_fusable`` first. Query head i attends KV head i // n_rep."""
-    if _kernel(q, impl):
-        LAUNCHES["flash_attention"] += 1
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal,
-                                    window=window, q_offset=q_offset)
+def _attention_plain(q, k, v, causal: bool, window: int, q_offset: int):
     n_rep = q.shape[0] // k.shape[0]
     if n_rep > 1:
         k = k.repeat_interleave(n_rep, dim=0)
         v = v.repeat_interleave(n_rep, dim=0)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
+
+
+class _Attention(torch.autograd.Function):
+    """Forward: the kernel (or the plain version); backward: autograd
+    through the plain version at the saved inputs, as the reference's
+    custom_vjp takes ``jax.vjp`` of its oracle."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, impl):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        if _kernel(q, impl):
+            LAUNCHES["flash_attention"] += 1
+            return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=causal,
+                                        window=window, q_offset=q_offset)
+        return _attention_plain(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = _attention_plain(q, k, v, *ctx.mask)
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, impl: str | None = None):
+    """q (BH, Sq, D); k, v (BH / n_rep, Sk, D) -> (BH, Sq, D).
+
+    The caller (models/layers.py) folds heads and checks
+    ``attention_fusable`` first. Query head i attends KV head i // n_rep."""
+    return _Attention.apply(q, k, v, causal, window, q_offset, impl)

@@ -1,0 +1,62 @@
+"""INT4 block quantize and the fused unpack-dequant-sum on the card
+(csrc/quant_int4.cu).
+
+Port of ``repro.kernels.quant_int4``'s ``quantize_int4_pallas`` (:46) and
+``dequantize_int4_sum_pallas`` (:105), the two halves of the INT4 all-to-all
+gradient reduce-scatter. The source note in csrc/quant_int4.cu gives the
+bound and the design; ``ref.quantize_int4_ref`` / ``ref.dequantize_int4_sum_ref``
+are the plain versions. Callers go through ``kernels/ops.py``, which counts
+the launches.
+"""
+from __future__ import annotations
+
+from ctypes import c_int, c_longlong, c_void_p
+
+import torch
+
+from . import cuda
+
+SIGNATURES = {
+    "quantize_int4": (c_int, [c_void_p, c_int, c_void_p, c_void_p, c_longlong,
+                              c_int, c_void_p]),
+    "dequantize_int4_sum": (c_int, [c_void_p, c_void_p, c_void_p, c_int,
+                                    c_longlong, c_int, c_int, c_void_p]),
+}
+
+
+def _lib():
+    return cuda.library("quant_int4", SIGNATURES)
+
+
+def quantize_int4_cuda(blocks: torch.Tensor):
+    """(nb, bs) f32 | bf16, bs even -> ((nb, bs // 2) uint8, (nb, 1) f32)."""
+    cuda.require(blocks, "blocks", (torch.float32, torch.bfloat16))
+    nb, bs = blocks.shape
+    if bs % 2:
+        raise ValueError(f"quantize_int4: block {bs} is odd")
+    q = torch.empty((nb, bs // 2), dtype=torch.uint8, device=blocks.device)
+    s = torch.empty((nb, 1), dtype=torch.float32, device=blocks.device)
+    rc = _lib().quantize_int4(blocks.data_ptr(), cuda.DTYPE_CODE[blocks.dtype],
+                              q.data_ptr(), s.data_ptr(), nb, bs,
+                              cuda.stream(blocks))
+    cuda.check(rc, "quantize_int4")
+    return q, s
+
+
+def dequantize_int4_sum_cuda(packed: torch.Tensor,
+                             scales: torch.Tensor) -> torch.Tensor:
+    """(d, nb, bs // 2) uint8, (d, nb, 1) f32 -> (nb, bs) f32, the sum over
+    the d chunks in order j = 0..d-1."""
+    cuda.require(packed, "packed", (torch.uint8,))
+    cuda.require(scales, "scales", (torch.float32,))
+    d, nb, half = packed.shape
+    if scales.numel() != d * nb:
+        raise ValueError(f"dequantize_int4_sum: packed {tuple(packed.shape)}, "
+                         f"scales {tuple(scales.shape)}")
+    out = torch.empty((nb, 2 * half), dtype=torch.float32, device=packed.device)
+    vec4 = half % 4 == 0 and packed.data_ptr() % 16 == 0
+    rc = _lib().dequantize_int4_sum(packed.data_ptr(), scales.data_ptr(),
+                                    out.data_ptr(), d, nb, 2 * half, int(vec4),
+                                    cuda.stream(packed))
+    cuda.check(rc, "dequantize_int4_sum")
+    return out

@@ -16,6 +16,7 @@ import math
 import torch
 
 INT8_QMAX = 127.0
+INT4_QMAX = 7.0     # symmetric signed 4-bit: [-7, 7]
 NEG_INF = -1e30
 
 
@@ -37,6 +38,54 @@ def dequantize_int8_ref(q: torch.Tensor, scales: torch.Tensor,
                         dtype=torch.float32) -> torch.Tensor:
     """(nb, bs) int8, (nb, 1) f32 -> (nb, bs) ``dtype``: q * scale in f32."""
     return (q.float() * scales).to(dtype)
+
+
+def _pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """(..., 2n) integer levels in [-7, 7] -> (..., n) uint8: +8, element 2i
+    in the low nibble, 2i + 1 in the high nibble."""
+    q = q.to(torch.int32) + 8
+    return (q[..., 0::2] | (q[..., 1::2] << 4)).to(torch.uint8)
+
+
+def quantize_int4_ref(blocks: torch.Tensor):
+    """(nb, bs) float -> ((nb, bs // 2) uint8 packed, (nb, 1) f32 scales)."""
+    scales = _scales(blocks, INT4_QMAX)
+    q = torch.clamp(torch.round(blocks.float() / scales), -INT4_QMAX, INT4_QMAX)
+    return _pack_int4(q), scales
+
+
+def _dequantize_int4(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(nb, bs // 2) uint8, (nb, 1) f32 -> (nb, bs) f32."""
+    p = packed.to(torch.int32)
+    lo = (p & 0xF) - 8
+    hi = ((p >> 4) & 0xF) - 8
+    out = torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
+    return out.float() * scales
+
+
+def dequantize_int4_sum_ref(packed: torch.Tensor,
+                            scales: torch.Tensor) -> torch.Tensor:
+    """(d, nb, bs // 2) uint8, (d, nb, 1) f32 -> (nb, bs) f32: the sum over
+    the d chunks of their dequantized values, in order j = 0..d-1."""
+    acc = _dequantize_int4(packed[0], scales[0])
+    for j in range(1, packed.shape[0]):
+        acc = acc + _dequantize_int4(packed[j], scales[j])
+    return acc
+
+
+def matmul_quant_ref(x: torch.Tensor, g: torch.Tensor, block: int, *,
+                     bits: int = 8):
+    """C = x.T @ g in f32 (x (M, K), g (M, N)), then block-quantized along
+    each row: (q (K, N) int8 | (K, N // 2) uint8 packed, scales
+    (K, N // block) f32). One f32 matmul, so the sum runs in another order
+    than the reference's blocked loop (tests state the tolerance)."""
+    kk, n = x.shape[1], g.shape[1]
+    qmax = INT4_QMAX if bits == 4 else INT8_QMAX
+    c = (x.float().T @ g.float()).reshape(kk, n // block, block)
+    scales = _scales(c, qmax)
+    qv = torch.clamp(torch.round(c / scales), -qmax, qmax).reshape(kk, n)
+    q = _pack_int4(qv) if bits == 4 else qv.to(torch.int8)
+    return q, scales.reshape(kk, n // block)
 
 
 def dequant_w_flat_ref(q: torch.Tensor, scales: torch.Tensor,

@@ -1,9 +1,11 @@
-"""Shared model layers: RMSNorm, RoPE, prefill attention, decode attention.
+"""Shared model layers: RMSNorm, RoPE, attention, decode attention, chunked
+cross-entropy.
 
-Port of the serving half of ``repro.models.layers``. Prefill attention goes
-through the kernel dispatch (``ops.flash_attention``) behind the
-reference's ``ops.attention_fusable`` gate; a shape the gate rejects raises,
-since the reference's chunked fallback is not ported. Decode attention
+Port of ``repro.models.layers`` for the dense ``attn`` block. Full-sequence
+attention (training and prefill) goes through the kernel dispatch
+(``ops.flash_attention``, differentiable) behind the reference's
+``ops.attention_fusable`` gate; a shape the gate rejects raises, since the
+reference's chunked fallback is not ported. Decode attention
 (``flash_decode``) is plain PyTorch, as it is plain jnp in the reference.
 """
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 
@@ -112,3 +115,35 @@ def sharded_cache_write(cache_loc, new, pos):
         return cache_loc
     cache_loc[torch.arange(b, device=cache_loc.device), p.long()] = val
     return cache_loc
+
+
+def _best_chunk(s: int, target: int) -> int:
+    """Largest divisor of s that is <= target."""
+    for c in range(min(target, s), 0, -1):
+        if s % c == 0:
+            return c
+    return 1
+
+
+def _ce_chunk(xi, w_vocab, li, mi):
+    logits = xi.float() @ w_vocab.float().T
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, li[..., None].long())[..., 0]
+    return ((lse - gold) * mi).sum()
+
+
+def chunked_cross_entropy(x, w_vocab, labels, mask, *, chunk: int = 512):
+    """Next-token CE without materializing (B, S, V).
+
+    x (B, S, d) final hidden states; w_vocab (V, d) dense LM head; labels
+    (B, S) int; mask (B, S) {0, 1}. Each chunk of ``chunk`` positions is
+    recomputed in the backward (the reference's checkpointed scan body).
+    Returns (loss_sum f32, token_count)."""
+    s = x.shape[1]
+    chunk = _best_chunk(s, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        total = total + checkpoint(_ce_chunk, x[:, sl], w_vocab, labels[:, sl],
+                                   mask[:, sl], use_reentrant=False)
+    return total, mask.sum()

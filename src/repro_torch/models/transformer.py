@@ -1,12 +1,15 @@
-"""Decoder LM: leaf specs, prefill and single-token decode.
+"""Decoder LM: leaf specs, the training loss, prefill and single-token
+decode.
 
-Port of the serving path of ``repro.models.transformer`` for the ``attn``
-block kind (attention + GLU MLP, pre-norm RMSNorm, RoPE, optional QKV bias,
-tied or separate LM head). Every weight access goes through a parameter
-view (serve/resident.py's ``ResidentView``): ``v.mm`` runs the fused
-dequant-matmul on the INT8 residency, ``v.get`` returns a dense leaf. The
+Port of ``repro.models.transformer`` for the ``attn`` block kind (attention +
+GLU MLP, pre-norm RMSNorm, RoPE, optional QKV bias, tied or separate LM
+head). Every weight access goes through a parameter view: the training
+engine's ``core.engine.ParamView`` (ZeRO gathers with custom backwards) or
+serving's ``serve.resident.ResidentView`` (the INT8 residency). ``v.mm``
+runs the fused dequant-matmul, ``v.get`` returns a dense leaf. The
 reference's ``lax.scan`` over stacked layers becomes a Python loop over
-``view.sub(i)``.
+``view.sub(i)``; in the loss each layer is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference remats its scan body.
 
 Caches: prefill returns K/V at compute dtype (prefill attends over the
 un-rounded values); the serving pool stores them as bf16, and decode writes
@@ -20,6 +23,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.partition import MATMUL, PLAIN, LeafSpec
 from . import layers as L
@@ -208,6 +212,26 @@ class LM:
     def _head_logits(self, view, x_last):
         name = "embed" if self.cfg.tie_embeddings else "lm_head"
         return view.mm(name, x_last, transpose=True)[:, 0].float()
+
+    def _head_weight(self, view):
+        return view.get("embed" if self.cfg.tie_embeddings else "lm_head")
+
+    def loss(self, view, batch):
+        """batch: {"tokens": (B, S + 1)}. Next-token CE over the S inputs:
+        returns (loss_sum f32, token_count). Each layer's forward is
+        recomputed in the backward, re-issuing its gathers."""
+        tokens = batch["tokens"]
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        x = self._embed(view, inputs)
+        ctx = Ctx(positions=torch.arange(x.shape[1], device=x.device))
+        for kind, i in self._layers():
+            def layer(h, kind=kind, v=view.sub(i)):
+                return block_fwd(kind, v, self.cfg, h, ctx)[0]
+            x = checkpoint(layer, x, use_reentrant=False)
+        x = _norm(view, "", "final_norm", x)
+        return L.chunked_cross_entropy(
+            x, self._head_weight(view), labels,
+            torch.ones(labels.shape, dtype=torch.float32, device=x.device))
 
     def prefill(self, view, batch):
         """batch: {"tokens": (B, S)}. Returns (last-position logits (B, V)

@@ -1,0 +1,126 @@
+"""Training loop: deterministic batches -> this rank's rows -> the engine's
+train step -> per-step log.
+
+Port of ``repro.train.trainer`` (``TrainLog``, ``Trainer.run`` :95) without
+checkpoints. Step time is the host clock around one step that ends in
+``torch.cuda.synchronize()`` on a card (the metrics' host copies
+synchronize on any device); the first step's time includes the kernels'
+first use. ``run(profile_step=i)`` traces step i with ``torch.profiler``
+and keeps the device time of its kernels in ``TrainLog.meta["profile"]``.
+"""
+from __future__ import annotations
+
+import json
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import torch
+
+from ..core.engine import ZeroEngine
+from ..data.pipeline import BatchSpec, SyntheticTokens, local_rows
+
+
+@dataclass
+class TrainLog:
+    steps: list[int] = field(default_factory=list)
+    losses: list[float] = field(default_factory=list)
+    grad_norms: list[float] = field(default_factory=list)
+    step_times: list[float] = field(default_factory=list)
+    lrs: list[float] = field(default_factory=list)
+    tokens: list[float] = field(default_factory=list)
+    tokens_per_s: list[float] = field(default_factory=list)
+    meta: dict = field(default_factory=dict)
+
+    def record(self, step: int, metrics: dict, dt: float):
+        self.steps.append(step)
+        self.losses.append(metrics["loss"])
+        self.grad_norms.append(metrics["grad_norm"])
+        self.step_times.append(dt)
+        self.lrs.append(metrics["lr"])
+        self.tokens.append(metrics["tokens"])
+        self.tokens_per_s.append(metrics["tokens"] / dt if dt > 0 else 0.0)
+
+    def aggregates(self) -> dict:
+        """Run summary; time aggregates leave out the first step (it pays
+        for the kernels' first use) unless it is the only one."""
+        if not self.steps:
+            return {}
+        timed = slice(1, None) if len(self.steps) > 1 else slice(None)
+
+        def mean(xs):
+            return sum(xs) / len(xs) if xs else 0.0
+
+        return dict(n_steps=len(self.steps),
+                    n_timed_steps=len(self.step_times[timed]),
+                    loss_mean=mean(self.losses),
+                    grad_norm_mean=mean(self.grad_norms),
+                    dt_s_mean=mean(self.step_times[timed]),
+                    tokens_per_s_mean=mean(self.tokens_per_s[timed]))
+
+    def save(self, path):
+        payload = dict(self.__dict__)
+        payload["aggregates"] = self.aggregates()
+        Path(path).write_text(json.dumps(payload))
+
+
+class Trainer:
+    def __init__(self, model, engine: ZeroEngine, spec: BatchSpec, *,
+                 seed: int = 0):
+        self.model = model
+        self.engine = engine
+        self.data = SyntheticTokens(spec, seed=seed)
+        self.log = TrainLog(meta=dict(arch=model.arch.name,
+                                      scheme=engine.cfg.name,
+                                      mesh=dict(engine.mesh.shape)))
+
+    def _batch(self, step: int) -> dict[str, torch.Tensor]:
+        rows = local_rows(self.data.batch(step), self.engine.mesh)
+        return {k: torch.from_numpy(v).long().to(self.engine.device)
+                for k, v in rows.items()}
+
+    def run(self, state, n_steps: int, *, log_every: int = 1, print_fn=print,
+            profile_step: int | None = None):
+        loss_fn = self.model.lm.loss
+        for i in range(n_steps):
+            batch = self._batch(i)
+            prof = _profiler(self.engine.device) if i == profile_step else None
+            t0 = time.perf_counter()
+            if prof is not None:
+                prof.__enter__()
+            state, metrics = self.engine.train_step(loss_fn, state, batch)
+            if self.engine.device.type == "cuda":
+                torch.cuda.synchronize(self.engine.device)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            dt = time.perf_counter() - t0
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                self.log.meta["profile"] = _device_summary(prof, i, dt)
+            self.log.record(state["step"], metrics, dt)
+            if log_every and i % log_every == 0:
+                print_fn(f"step {state['step']:5d} loss {metrics['loss']:.6f} "
+                         f"gnorm {metrics['grad_norm']:.6f} "
+                         f"lr {metrics['lr']:.3e} {dt:.3f}s/step "
+                         f"{metrics['tokens'] / dt:.0f} tok/s")
+        return state
+
+
+def _profiler(device: torch.device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
+
+
+def _device_summary(prof, step: int, wall_s: float, top: int = 12) -> dict:
+    """Device time of the traced step: the sum over the events that ran on
+    the card (kernels, copies, memsets; not the host ops that launched
+    them, which would count each kernel twice) and the largest by name."""
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and e.device_time_total]
+    rows.sort(key=lambda r: -r[1])
+    return dict(step=step, wall_ms=wall_s * 1e3,
+                device_ms=sum(r[1] for r in rows),
+                top=[dict(name=k[:80], ms=ms, calls=c) for k, ms, c in rows[:top]])

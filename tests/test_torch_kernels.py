@@ -131,3 +131,102 @@ def test_flash_attention_gate_raises():
     k = torch.zeros((1, 300, 2, 64))
     with pytest.raises(NotImplementedError, match="seq_unaligned"):
         layers.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("block", [128, 8])
+def test_quantize_int4_bitwise(impl, dtype, block):
+    """Packed nibbles and scales bit for bit against the jitted reference."""
+    rng = np.random.default_rng(4)
+    x = _blocks_input(rng, 24, block, dtype)
+    qj, sj = jax.jit(lambda v: jops.quantize_int4(v, block, impl=impl))(x)
+    qt, st = ops.quantize_int4(_torch(x), block)
+    assert qt.dtype == torch.uint8 and qt.shape == (x.size // 2,)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy().view(np.uint32),
+                                  np.asarray(sj).view(np.uint32))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("d", [2, 4])
+def test_dequantize_int4_sum(impl, d):
+    """Sum of d received chunks within one f32 ulp of the largest |value|:
+    under jit XLA may contract q * s + acc into an FMA, which the port's
+    plain version (and its kernel) never does (ROADMAP caveat b)."""
+    rng = np.random.default_rng(5)
+    block, nb = 64, 12
+    chunks = [_blocks_input(rng, nb, block, jnp.float32) for _ in range(d)]
+    q, s = jax.jit(lambda v: jops.quantize_int4(v, block, impl="jnp"))(
+        np.concatenate(chunks))
+    q, s = np.asarray(q), np.asarray(s)
+    rj = np.asarray(jax.jit(lambda a, b: jops.dequantize_int4_sum(
+        a, b, d, block, jnp.float32, impl=impl))(q, s))
+    rt = ops.dequantize_int4_sum(_torch(q), _torch(s), d, block).numpy()
+    assert rt.shape == (nb * block,) and rt.dtype == np.float32
+    ulp = np.spacing(np.float32(np.abs(rj).max()))
+    np.testing.assert_allclose(rt, rj, rtol=0, atol=ulp)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("pad", [0, 128])
+def test_matmul_quant(impl, bits, pad):
+    """C = x.T @ g quantized in the epilogue. The reference sums M in
+    blocked steps, the port in one f32 matmul, so C differs in its last
+    bits: scales agree to 1e-5 relative; q to within +-1 in at most 1e-3 of
+    the entries (a C value on a rounding boundary); the dequantized C to
+    within one quant step of the f32 product. The pad_to tail is exact."""
+    rng = np.random.default_rng(6)
+    m, k, n, block = 48, 40, 192, 64
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    g = rng.standard_normal((m, n)).astype(np.float32)
+    pad_to = k * n + pad if pad else None
+    qj, sj = jax.jit(lambda a, b: jops.matmul_quant(
+        a, b, block, bits=bits, pad_to=pad_to, impl=impl))(x, g)
+    qj, sj = np.asarray(qj), np.asarray(sj)
+    qt, st = ops.matmul_quant(_torch(x), _torch(g), block, bits=bits,
+                              pad_to=pad_to)
+    qt, st = qt.numpy(), st.numpy()
+    assert qt.dtype == qj.dtype and qt.shape == qj.shape and st.shape == sj.shape
+    np.testing.assert_allclose(st, sj, rtol=1e-5)
+
+    def levels(q):
+        if bits == 8:
+            return q.astype(np.int32)
+        lo = (q & 0xF).astype(np.int32) - 8
+        hi = (q >> 4).astype(np.int32) - 8
+        return np.stack([lo, hi], axis=-1).reshape(-1)
+
+    lt, lj = levels(qt), levels(qj)
+    assert np.abs(lt - lj).max() <= 1
+    assert np.count_nonzero(lt != lj) <= 1e-3 * lt.size
+    step = np.repeat(st, block)
+    c = (x.T @ g).reshape(-1)
+    deq = lt * step
+    assert np.all(np.abs(deq[:c.size] - c) <= step[:c.size])
+    if pad:
+        np.testing.assert_array_equal(lt[c.size:], 0)
+        np.testing.assert_array_equal(st[c.size // block:], 1.0)
+
+
+def test_attention_grads():
+    """The attention Function's gradients against ``jax.vjp`` of the
+    reference's oracle (f32, GQA 4 over 2, causal), atol 1e-5: the same
+    math summed in another order."""
+    rng = np.random.default_rng(7)
+    b, h, hkv, s, d = 2, 4, 2, 32, 64
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    ct = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jlayers.flash_attention(q, k, v,
+                                                             causal=True),
+                     q, k, v)
+    gj = vjp(ct)
+    tq, tk, tv = (_torch(a).requires_grad_() for a in (q, k, v))
+    out = layers.flash_attention(tq, tk, tv, causal=True)
+    out.backward(_torch(ct))
+    for gt, gjx in zip((tq.grad, tk.grad, tv.grad), gj):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gjx), rtol=0,
+                                   atol=1e-5)

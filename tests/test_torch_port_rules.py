@@ -1,12 +1,13 @@
 """Rules of the PyTorch port: it imports neither jax nor the JAX package,
-and its serving entry point runs on the card unless asked for the CPU."""
+and its serving and training entry points run on the card unless asked for
+the CPU."""
 import ast
 from pathlib import Path
 
 import pytest
 import torch
 
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -52,3 +53,22 @@ def test_serve_cli_on_cpu_prints_tokens(capsys):
     assert "3 reqs -> 12 tokens" in out
     assert "admitted 3 rejected 0 preempted 0 retired 3" in out
     assert "sample: [" in out
+
+
+def test_train_cli_without_device_raises_here():
+    """Without --device cpu the training CLI asks for the card and raises
+    on a host with no card, before it starts any rank."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the CLI would train on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--devices", "4", "--steps", "1"])
+
+
+def test_train_cli_on_cpu_prints_losses(capsys):
+    train.main(["--device", "cpu", "--reduced", "--devices", "1", "--steps",
+                "2", "--seq", "16", "--batch", "2"])
+    out = capsys.readouterr().out
+    steps = [line for line in out.splitlines() if line.startswith("step ")]
+    assert len(steps) == 2 and all(" loss " in s and " gnorm " in s
+                                   for s in steps)
+    assert "final loss: " in out
