@@ -20,28 +20,49 @@ either is missing or any phase fails. Phases, in order:
             within 1e-5 relative, q within +-1 in at most 1e-3 of the entries
             and the dequantized C within one quant step of the plain product
             (the two sum M in another order).
+            selective_scan is held in f32 within 1e-5 * max|ref| for y and
+            h_last (a last-bit difference of exp per step in a decaying
+            recurrence, and another order of the N-sum) at the prefill shape
+            (B=1, S=128, D=8192, N=16, h0 = 0), at S=2048 and ragged.
+            falcon-mamba-7b's shapes too: dequant_matmul at w_in, w_dt and
+            w_out for M = 4 and 128 and its LM head at M = 1 and 4;
+            dequantize_int8 of w_xproj; quantize_int8 and dequantize_int8
+            of the whole 2^32-element w_in stack (plain versions per chunk).
 3. serve  : zeroes the launch counters, builds the qwen2-0.5b INT8 residency
             at published width from the seeded init and serves 8 requests
             (4 slots, prompt 128, 32 new tokens, max_len 256) through the
             continuous batcher, then reads the counters: every serving kernel
             must have launched. The first request's prefill logits are held
             against the same prefill through the plain versions on the card
-            (bf16 compute across 24 layers: max|d| <= 5e-2 * max|ref|).
+            (bf16 compute across 24 layers: max|d| <= 5e-2 * max|ref|), and
+            one prefill is traced by torch.profiler (device ms, top kernels).
+3b. ssm   : the same for falcon-mamba-7b at published width and depth (64
+            mamba layers, d_inner 8192, INT8 residency of 7.0 GB built leaf
+            by leaf): the same traffic, its own kernel list (quantize_int8,
+            dequantize_int8, dequant_matmul, selective_scan), prefill logits
+            against the plain versions (64 layers of bf16: max|d| <=
+            5e-2 * max|ref|) and again with f32 activations on the same
+            weights (max|d| <= PREFILL_F32_TOL * max|ref|, which rounding
+            alone meets and a fault would not), peak device memory, the
+            decode step replayed as
+            a CUDA graph and the scan's device time at S=128 and S=2048; then
+            its residency is freed before the training ranks start.
 4. train  : repro_torch.launch.train with --devices 4: qwen2-0.5b at full
             width and depth under zero_topo on the mesh (data, node, gcd) =
             (1, 2, 2), four ranks (processes) on this one card over gloo,
             quant block 128, bf16, global batch 8 x seq 1024, 5 steps from
             seed 0, the last one traced by torch.profiler. Each rank zeroes
             its counters before its steps and reads them after: every kernel
-            must have launched on every rank. Then the same steps from the
-            same state with --kernel-impl plain (no kernel may launch);
+            of TRAIN_KERNELS must have launched on every rank (the report
+            gives every kernel's count). Then the same steps from the same
+            state with --kernel-impl plain (no kernel may launch);
             per-step loss and grad norm must agree (TRAIN_LOSS_RTOL,
             TRAIN_GNORM_RTOL).
 5. timing : device time of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the
             serving and training shapes (CUDA graphs of repeated launches,
             CUDA events).
-6. report : a JSON line of the kernels, serve and train lines, the card's
+6. report : a JSON line of the kernels, serve, serve_ssm and train lines, the card's
             name and power limit (nvidia-smi), and last the line
             {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -49,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -69,6 +91,12 @@ PEAK = {"bf16": 989e12, "f32": 67e12}
 BF16_TOL = 2.0 ** -7
 F32_TOL = 1e-5
 PREFILL_TOL = 5e-2
+# the same prefill with f32 activations on the same INT8 weights: kernels and
+# plain versions then differ only by f32 rounding (another order of the
+# matmul sums, exp's last bit), about 1e-7 relative per operation; even grown
+# 100x through 64 layers that stays 10x under this limit, while a wrong tile,
+# split or offset at the served shapes moves whole products
+PREFILL_F32_TOL = 1e-4
 
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "8", "--slots", "4",
               "--prompt-len", "128", "--gen", "32", "--max-len", "256",
@@ -87,6 +115,16 @@ TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GNORM_RTOL = 1e-2
 SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
                  "flash_attention")
+SSM_SERVE_ARGS = ["--arch", "falcon-mamba-7b"] + SERVE_ARGS[2:]
+SSM_SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
+                     "selective_scan")
+# each path is held to the kernels it runs, so a kernel that only another
+# path launches never fails it
+TRAIN_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
+                 "flash_attention", "quantize_int4", "dequantize_int4_sum",
+                 "matmul_quant")
+SCAN_D, SCAN_N = 8192, 16           # falcon-mamba-7b's d_inner and d_state
+MAMBA_D, MAMBA_DTR, MAMBA_V, MAMBA_L = 4096, 256, 65_024, 64
 
 KERNEL_INFO = {
     "quantize_int8": ("src/repro_torch/csrc/quant_int8.cu",
@@ -103,6 +141,8 @@ KERNEL_INFO = {
                             "src/repro/kernels/quant_int4.py:105"),
     "matmul_quant": ("src/repro_torch/csrc/matmul_quant.cu",
                      "src/repro/kernels/dequant_matmul.py:209"),
+    "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:56"),
 }
 # (K, N) of one layer's seven dW products (wq wk wv wo w_gate w_up w_down)
 LAYER_KN = ((896, 896), (896, 128), (896, 128), (896, 896), (896, 4864),
@@ -198,6 +238,40 @@ def check_kernels(dev, gen, checks):
     quant_case("(128*896/128, 128) bf16", 128 * 896 // 128, 128, torch.bfloat16)
     quant_case("(37, 128) f32 ragged", 37, 128, torch.float32)
     quant_case("(37, 64) bf16 ragged", 37, 64, torch.bfloat16)
+    # falcon-mamba-7b's w_xproj (8192 x 288: not a whole number of blocks per
+    # row, so every layer dequantizes it whole to bf16)
+    quant_case(f"({SCAN_D}*288/128, 128) bf16 (w_xproj)", SCAN_D * 288 // 128,
+               128, torch.bfloat16)
+
+    def stack_case(what, n, block, chunk=1 << 28):
+        """One n-element bf16 quantize_int8 and dequantize_int8 (to bf16)
+        call, as the residency's largest stack runs them, held bit for bit
+        against the plain versions run per chunk of whole blocks (blocks are
+        independent; chunks keep the plain f32 temporaries small)."""
+        x = torch.empty(n, dtype=torch.bfloat16, device=dev)
+        for part in x.split(chunk):
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev))
+        qk, sk = ops.quantize_int8(x, block)
+        dk = ops.dequantize_int8(qk, sk, block, torch.bfloat16)
+        for i in range(0, n, chunk):
+            j, bi, bj = min(n, i + chunk), i // block, min(n, i + chunk) // block
+            qp, sp = ops.quantize_int8(x[i:j], block, impl="plain")
+            if not (torch.equal(qk[i:j], qp) and torch.equal(
+                    sk[bi:bj].view(torch.int32), sp.view(torch.int32))):
+                raise Failed(f"quantize_int8 {what}: not bitwise equal at "
+                             f"elements {i}..{j}")
+            dp = ops.dequantize_int8(qk[i:j], sk[bi:bj], block, torch.bfloat16,
+                                     impl="plain")
+            if not torch.equal(dk[i:j], dp):
+                raise Failed(f"dequantize_int8 {what} -> bfloat16: not bitwise "
+                             f"at elements {i}..{j}")
+        record("quantize_int8", what, 0.0, "bitwise")
+        record("dequantize_int8", f"{what} -> bfloat16", 0.0, "bitwise")
+
+    # falcon-mamba-7b's w_in stack (64 x 4096*16384 = 2^32 elements), the
+    # residency's largest quantize: offsets past 2^31 and 2^32
+    stack_case(f"({MAMBA_L}*{MAMBA_D}*{2 * SCAN_D}/128, 128) bf16 (w_in stack)",
+               MAMBA_L * MAMBA_D * 2 * SCAN_D, 128)
 
     def mm_case(what, m, k, n, block, transpose, dtype):
         w = torch.randn(k * n + 3 * block, generator=gen, device=dev) * 0.05
@@ -221,6 +295,16 @@ def check_kernels(dev, gen, checks):
     for m in (1, 4):
         mm_case(f"M={m} ({V}, {d}).T bf16 (LM head)", m, V, d, 128, True,
                 torch.bfloat16)
+    # falcon-mamba-7b: w_in, w_dt, w_out at decode (M = 4 slots) and prefill
+    # (M = 128) sizes, the tied LM head at M = 1 and 4
+    for m in (4, 128):
+        for k, n in ((MAMBA_D, 2 * SCAN_D), (MAMBA_DTR, SCAN_D),
+                     (SCAN_D, MAMBA_D)):
+            mm_case(f"M={m} ({k}, {n}) bf16 (falcon-mamba)", m, k, n, 128,
+                    False, torch.bfloat16)
+    for m in (1, 4):
+        mm_case(f"M={m} ({MAMBA_V}, {MAMBA_D}).T bf16 (falcon-mamba LM head)",
+                m, MAMBA_V, MAMBA_D, 128, True, torch.bfloat16)
     mm_case("M=3 (200, 192) f32 ragged", 3, 200, 192, 64, False, torch.float32)
     mm_case("M=7 (333, 192).T f32 ragged", 7, 333, 192, 64, True, torch.float32)
     mm_case("M=130 (72, 256) bf16 ragged", 130, 72, 256, 64, False,
@@ -315,6 +399,48 @@ def check_kernels(dev, gen, checks):
     mq_case("M=33 (10, 512) bits=4 block 256 ragged", 33, 10, 512, 256, 4)
     mq_case("M=20 (70, 1024) bits=8 block 512 ragged", 20, 70, 1024, 512, 8)
 
+    def scan_case(what, b, seq, d, h0_zero, dt_shift):
+        dt, x, bm, cm, a, h0 = scan_inputs(gen, dev, b, seq, d, h0_zero,
+                                           dt_shift)
+        yk, hk = ops.selective_scan(dt, x, bm, cm, a, h0)
+        yp, hp = ops.selective_scan(dt, x, bm, cm, a, h0, impl="plain")
+        for out, got, want in (("y", yk, yp), ("h_last", hk, hp)):
+            err, scale = rel_err(got, want)
+            tol = F32_TOL * scale
+            if got.shape != want.shape or err > tol:
+                raise Failed(f"selective_scan {what} {out}: err {err} > {tol}")
+            record("selective_scan", f"{what} {out}", err, f"{tol:.3e}")
+
+    scan_case(f"B=1 S=128 D={SCAN_D} h0=0 (prefill)", 1, 128, SCAN_D, True, 3.0)
+    scan_case(f"B=1 S=2048 D={SCAN_D} h0=0", 1, 2048, SCAN_D, True, 3.0)
+    scan_case("B=3 S=37 D=96 h0!=0 ragged", 3, 37, 96, False, 0.0)
+
+
+def scan_inputs(gen, dev, b, seq, d, h0_zero=True, dt_shift=3.0):
+    """Scan inputs with d_state 16: dt = softplus(normal - dt_shift) (a
+    shift of 3 puts dt near the [1e-3, 1e-1] of falcon-mamba's dt_bias),
+    A = -exp(log(1..N) + noise), x, B, C normal."""
+    n = SCAN_N
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, seq, d), generator=gen, device=dev) - dt_shift)
+    x = torch.randn((b, seq, d), generator=gen, device=dev)
+    bm = torch.randn((b, seq, n), generator=gen, device=dev)
+    cm = torch.randn((b, seq, n), generator=gen, device=dev)
+    a = -torch.exp(torch.log(torch.arange(1, n + 1, device=dev).float())
+                   + 0.1 * torch.randn((d, n), generator=gen, device=dev))
+    h0 = torch.randn((b, d, n), generator=gen, device=dev)
+    if h0_zero:
+        h0.zero_()
+    return dt, x, bm, cm, a, h0
+
+
+def scan_work(b, seq, d, n=SCAN_N):
+    """(bytes, f32 operations) of one scan: dt, x and y, B and C, A, h0 and
+    h_last once each; per (t, d, n) dt*a, exp, da*h, dx*b, the add, h*c and
+    the N-sum's add (exp counted as one operation), per (t, d) dt*x."""
+    n_bytes = 4 * (3 * b * seq * d + 2 * b * seq * n + d * n + 2 * b * d * n)
+    return n_bytes, b * seq * d * (7 * n + 1)
+
 
 # ---------------------------------------------------------------------------
 # phase 3: the serving path
@@ -330,13 +456,17 @@ class Collect:
         self.records.append(record)
 
 
-def serve_phase():
+def serve_phase(argv, kernels):
+    """Serve ``argv``'s traffic from its seeded residency; every kernel of
+    ``kernels`` must launch in the run (the counters are zeroed just before
+    the residency is built and read just after the last request)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    args = serve.build_parser().parse_args(SERVE_ARGS)
-    ops.reset_launches()
+    args = serve.build_parser().parse_args(argv)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
     t0 = time.perf_counter()
     device, arch, model, layout, residency = serve.setup(args)
     torch.cuda.synchronize()
@@ -349,10 +479,12 @@ def serve_phase():
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
 
-    missing = [k for k in SERVE_KERNELS if launches[k] == 0]
+    missing = [k for k in kernels if launches[k] == 0]
     if missing:
-        raise Failed(f"kernels not launched on the serving path: {missing}")
+        raise Failed(f"{arch.name}: kernels not launched on the serving "
+                     f"path: {missing}")
     c = cb.counters
     if c["retired"] != len(reqs) or c["rejected"] or \
             c["admitted"] != c["retired"] + c["preempted"]:
@@ -369,13 +501,16 @@ def serve_phase():
                 tokens=n_tok, steps=cb.step_count,
                 decode_step_ms=statistics.median(full),
                 decode_steps_full=len(full),
-                memory=layout.memory_report())
+                memory=layout.memory_report(), peak_bytes=peak)
 
 
 def check_prefill(s):
-    """The first request's prefill through the kernels vs the plain versions."""
+    """The first request's prefill through the kernels vs the plain versions,
+    and one kernel prefill traced by torch.profiler (its device time and
+    largest kernels)."""
     from repro_torch.serve.resident import ResidentLayout, ResidentServeEngine
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.trainer import _device_summary, _profiler
 
     layout = s["layout"]
     plain = ResidentLayout(layout.specs,
@@ -392,6 +527,12 @@ def check_prefill(s):
         lk, _ = pre_k(s["residency"], {"tokens": tokens})
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    prof = _profiler(s["device"])
+    with prof:
+        t0 = time.perf_counter()
+        pre_k(s["residency"], {"tokens": tokens})
+        torch.cuda.synchronize()
+    traced = _device_summary(prof, 0, time.perf_counter() - t0, top=8)
     lp, _ = pre_p(s["residency"], {"tokens": tokens})
     if lk.shape != (1, s["arch"].vocab) or lk.dtype != torch.float32:
         raise Failed(f"prefill logits {lk.shape} {lk.dtype}")
@@ -399,8 +540,91 @@ def check_prefill(s):
     if err > PREFILL_TOL * scale:
         raise Failed(f"prefill logits: err {err} > {PREFILL_TOL} * {scale}")
     return dict(prefill_ms=statistics.median(times), logits_err=err,
-                logits_scale=scale,
+                logits_scale=scale, traced=traced,
                 argmax_equal=bool(lk.argmax() == lp.argmax()))
+
+
+def check_prefill_f32(s):
+    """The first request's prefill with f32 activations, through the kernels
+    and through the plain versions, on the same INT8 weights (the residency's
+    dense leaves widened to f32): they must agree within PREFILL_F32_TOL *
+    max|ref|. Also reports how far each bf16 prefill (kernels, plain) lies
+    from the f32 plain one, which shows how much of the bf16 kernel-vs-plain
+    gap is bf16 rounding shared by both."""
+    from repro_torch.serve.resident import ResidentLayout, ResidentServeEngine
+    from repro_torch.models.config import ShapeConfig
+
+    layout = s["layout"]
+    res32 = {k: v if isinstance(v, dict) else v.float()
+             for k, v in s["residency"].items()}
+    shape = ShapeConfig("p", s["args"].prompt_len, 1, "decode")
+    tokens = torch.as_tensor(s["reqs"][0].prompt[None]).long().to(s["device"])
+    out = {}
+    for impl in (None, "plain"):
+        for dt in ("float32", layout.cfg.compute_dtype):
+            cfg = dataclasses.replace(layout.cfg, impl=impl, compute_dtype=dt)
+            lay = ResidentLayout(layout.specs, cfg, layout.res_axes)
+            pre = ResidentServeEngine(s["model"], lay, shape).make_prefill()
+            logits, _ = pre(res32 if dt == "float32" else s["residency"],
+                            {"tokens": tokens})
+            out[impl or "kernel", dt] = logits
+    ref32 = out["plain", "float32"]
+    err, scale = rel_err(out["kernel", "float32"], ref32)
+    if err > PREFILL_F32_TOL * scale:
+        raise Failed(f"f32 prefill logits: err {err} > {PREFILL_F32_TOL} * "
+                     f"{scale}")
+    bf = layout.cfg.compute_dtype
+    return dict(f32_logits_err=err, f32_logits_scale=scale,
+                bf16_kernel_vs_f32_plain=rel_err(out["kernel", bf], ref32)[0],
+                bf16_plain_vs_f32_plain=rel_err(out["plain", bf], ref32)[0])
+
+
+def decode_graph_ms(s):
+    """Device time of the batcher's whole paged decode step (assemble, the
+    layers, LM head, writeback) with every slot active, replayed as a CUDA
+    graph: the step without host launch overhead."""
+    cb, dev = s["batcher"], s["device"]
+    slots, plen = s["args"].slots, s["args"].prompt_len
+    table = cb.paged.device_table(dev)
+    tok = torch.zeros((slots,), dtype=torch.long, device=dev)
+    pos = torch.arange(plen, plen + slots, dtype=torch.long, device=dev)
+    active = torch.ones((slots,), dtype=torch.bool, device=dev)
+    return device_ms(lambda: cb._paged_step(s["residency"], table, tok, pos,
+                                            active), reps=3)
+
+
+def ssm_phase(gen, dev):
+    """falcon-mamba-7b served at published width and depth, its prefill
+    held against the plain versions, its decode step and scan timed. Returns
+    the serve record and the scan's timing; the residency is freed."""
+    from repro_torch.kernels import ops
+
+    s = serve_phase(SSM_SERVE_ARGS, SSM_SERVE_KERNELS)
+    pf = check_prefill(s)
+    pf.update(check_prefill_f32(s))
+    s["decode_step_graph_ms"] = decode_graph_ms(s)
+    plen = s["args"].prompt_len
+    timing = {}
+    for seq in (plen, 2048):
+        args = scan_inputs(gen, dev, 1, seq, SCAN_D)
+        n_bytes, n_ops = scan_work(1, seq, SCAN_D)
+        timing[seq] = dict(
+            work=f"one layer's prefill scan: B=1, S={seq}, D={SCAN_D}, "
+                 f"N={SCAN_N}, f32",
+            ms=device_ms(lambda: ops.selective_scan(*args), reps=20),
+            plain_ms=device_ms(lambda: ops.selective_scan(*args, impl="plain"),
+                               reps=1, replays=2),
+            library_ms=None, bound=bound_ms(n_bytes, n_ops, "f32"))
+        del args
+    record = {k: s[k] for k in ("args", "arch", "reqs", "launches", "counters",
+                                "setup_s", "run_s", "tokens", "steps",
+                                "decode_step_ms", "decode_steps_full",
+                                "decode_step_graph_ms", "memory",
+                                "peak_bytes")}
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, pf, timing
 
 
 # ---------------------------------------------------------------------------
@@ -421,7 +645,7 @@ def train_phase():
     t_plain = time.perf_counter() - t0
     steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
     for r in kern:
-        missing = [k for k in ops.KERNELS if r["launches"][k] == 0]
+        missing = [k for k in TRAIN_KERNELS if r["launches"][k] == 0]
         if missing:
             raise Failed(f"rank {r['rank']}: kernels not launched on the "
                          f"training path: {missing}")
@@ -572,16 +796,9 @@ def timing_phase(s, gen):
                            bound_ms_per_call=bound_ms(b, o, "bf16")[0]))
     out["dequant_matmul_shapes"] = shapes
 
-    # the batcher's whole paged decode step (assemble, 24 layers, LM head,
-    # writeback) replayed as a CUDA graph: its device time with no host
-    # launch overhead, beside the host-clock decode_step_ms
-    cb = s["batcher"]
-    table = cb.paged.device_table(dev)
-    tok = torch.zeros((slots,), dtype=torch.long, device=dev)
-    pos = torch.arange(plen, plen + slots, dtype=torch.long, device=dev)
-    active = torch.ones((slots,), dtype=torch.bool, device=dev)
-    out["decode_step_graph_ms"] = device_ms(
-        lambda: cb._paged_step(res, table, tok, pos, active), reps=3)
+    # the whole decode step as a CUDA graph, beside the host-clock
+    # decode_step_ms
+    out["decode_step_graph_ms"] = decode_graph_ms(s)
 
     # flash_attention: one layer's prefill attention (B=1, 14 heads over 2,
     # S=128, D=64, causal, bf16); the library yardstick is PyTorch's SDPA
@@ -710,11 +927,30 @@ def main(argv=None) -> int:
     check_kernels(dev, gen, checks)
 
     print("phase serve", flush=True)
-    s = serve_phase()
+    s = serve_phase(SERVE_ARGS, SERVE_KERNELS)
     pf = check_prefill(s)
     print(f"  launches {s['launches']}; counters {s['counters']}; prefill "
           f"logits max_abs_err {pf['logits_err']:.3e} (max|ref| "
           f"{pf['logits_scale']:.3e}, argmax equal {pf['argmax_equal']})")
+
+    print("phase ssm", flush=True)
+    m, mpf, scan_t = ssm_phase(gen, dev)
+    print(f"  launches {m['launches']}; counters {m['counters']}; prefill "
+          f"logits max_abs_err {mpf['logits_err']:.3e} (max|ref| "
+          f"{mpf['logits_scale']:.3e}, argmax equal {mpf['argmax_equal']})")
+    print(f"  f32 prefill logits max_abs_err {mpf['f32_logits_err']:.3e} (max|ref| "
+          f"{mpf['f32_logits_scale']:.3e}, tol {PREFILL_F32_TOL}); bf16 vs f32 "
+          f"plain: kernels {mpf['bf16_kernel_vs_f32_plain']:.3e}, plain "
+          f"{mpf['bf16_plain_vs_f32_plain']:.3e}")
+    print(f"  prefill_ms {mpf['prefill_ms']:.3f} decode_step_ms "
+          f"{m['decode_step_ms']:.3f} decode_step_graph_ms "
+          f"{m['decode_step_graph_ms']:.3f} tok_s {m['tokens'] / m['run_s']:.3f} "
+          f"setup_s {m['setup_s']:.1f} max_memory_allocated {m['peak_bytes']} "
+          f"residency_bytes {m['memory']['wire_bytes']}")
+    for seq, tm in scan_t.items():
+        print(f"  selective_scan S={seq}: {tm['ms']:.4f} ms, plain "
+              f"{tm['plain_ms']:.4f} ms, bound {tm['bound'][0]:.4f} ms "
+              f"({tm['bound'][1]})")
 
     print("phase train", flush=True)
     tr = train_phase()
@@ -730,12 +966,16 @@ def main(argv=None) -> int:
     print("phase timing", flush=True)
     t = timing_phase(s, gen)
     t.update(train_timing(gen, dev))
+    plen = m["args"].prompt_len
+    t["selective_scan"] = scan_t[plen]
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         tm = t[name]
         bms, by = tm["bound"]
-        by_path = dict(serve=s["launches"][name], train=tr["launches"][name])
+        by_path = dict(serve=s["launches"][name],
+                       serve_ssm=m["launches"][name],
+                       train=tr["launches"][name])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -753,7 +993,33 @@ def main(argv=None) -> int:
         tok_s=s["tokens"] / s["run_s"], run_s=s["run_s"],
         setup_s=s["setup_s"], residency_bytes=s["memory"]["wire_bytes"],
         prefill_logits_max_abs_err=pf["logits_err"],
-        prefill_logits_max_abs_ref=pf["logits_scale"])
+        prefill_logits_max_abs_ref=pf["logits_scale"],
+        traced_prefill_wall_ms=pf["traced"]["wall_ms"],
+        traced_prefill_device_ms=pf["traced"]["device_ms"],
+        traced_prefill_top_kernels=pf["traced"]["top"])
+    ssm_line = dict(
+        arch=m["arch"].name, requests=len(m["reqs"]), slots=m["args"].slots,
+        prompt_len=plen, gen=m["args"].gen, max_len=m["args"].max_len,
+        tokens=m["tokens"], steps=m["steps"], prefill_ms=mpf["prefill_ms"],
+        decode_step_ms=m["decode_step_ms"],
+        decode_step_graph_ms=m["decode_step_graph_ms"],
+        tok_s=m["tokens"] / m["run_s"], run_s=m["run_s"], setup_s=m["setup_s"],
+        residency_bytes=m["memory"]["wire_bytes"],
+        dense_bytes=m["memory"]["dense_bytes"],
+        max_memory_allocated=m["peak_bytes"],
+        prefill_logits_max_abs_err=mpf["logits_err"],
+        prefill_logits_max_abs_ref=mpf["logits_scale"],
+        prefill_argmax_equal=mpf["argmax_equal"],
+        prefill_f32_logits_max_abs_err=mpf["f32_logits_err"],
+        prefill_f32_logits_max_abs_ref=mpf["f32_logits_scale"],
+        prefill_bf16_kernel_vs_f32_plain=mpf["bf16_kernel_vs_f32_plain"],
+        prefill_bf16_plain_vs_f32_plain=mpf["bf16_plain_vs_f32_plain"],
+        traced_prefill_wall_ms=mpf["traced"]["wall_ms"],
+        traced_prefill_device_ms=mpf["traced"]["device_ms"],
+        traced_prefill_top_kernels=mpf["traced"]["top"],
+        scan={str(seq): dict(ms=tm["ms"], plain_ms=tm["plain_ms"],
+                             bound_ms=tm["bound"][0], bound_by=tm["bound"][1])
+              for seq, tm in scan_t.items()})
     k0 = tr["kernel"][0]
     # the first step pays for the kernels' first use, the last is traced
     timed = slice(1, PROFILE_STEP)
@@ -782,14 +1048,17 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
-            card=card, kernels=kernels, serve=serve_line, train=train_line,
+            card=card, kernels=kernels, serve=serve_line, serve_ssm=ssm_line,
+            train=train_line,
             train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
             checks=checks, timing={k: v for k, v in t.items()},
-            launches=s["launches"], build=kcuda.BUILD_LOG,
+            launches=s["launches"], launches_ssm=m["launches"],
+            build=kcuda.BUILD_LOG,
             torch=torch.__version__, cuda=torch.version.cuda),
             indent=1, default=str))
 
     print("serve " + json.dumps(serve_line))
+    print("serve_ssm " + json.dumps(ssm_line))
     print("train " + json.dumps(train_line))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {card}")

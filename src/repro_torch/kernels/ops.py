@@ -13,6 +13,8 @@ how chip_smoke.py computes the reference the kernels are held against.
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` / ``launches``).
 
+``selective_scan`` is forward only: serving is the one path that runs it.
+
 Attention is differentiable as in the reference (``ops.py:390-423``): its
 forward is the kernel (the plain version on the CPU) and its backward is
 autograd through the plain version at the saved inputs.
@@ -26,10 +28,11 @@ from .dequant_matmul import dequant_matmul_flat_cuda, matmul_quant_cuda
 from .flash_attention import flash_attention_cuda
 from .quant_blockwise import dequantize_int8_cuda, quantize_int8_cuda
 from .quant_int4 import dequantize_int4_sum_cuda, quantize_int4_cuda
+from .selective_scan import selective_scan_cuda
 
 KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
            "flash_attention", "quantize_int4", "dequantize_int4_sum",
-           "matmul_quant")
+           "matmul_quant", "selective_scan")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -242,3 +245,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     The caller (models/layers.py) folds heads and checks
     ``attention_fusable`` first. Query head i attends KV head i // n_rep."""
     return _Attention.apply(q, k, v, causal, window, q_offset, impl)
+
+
+def selective_scan(dt, x, b, c, a, h0, *, impl: str | None = None):
+    """The Mamba-1 recurrence: dt, x (B, S, D); b, c (B, S, N); a (D, N);
+    h0 (B, D, N) -> (y (B, S, D) f32, h_last (B, D, N) f32). Inputs are taken
+    in f32, as the reference's kernel casts them."""
+    bsz, s, d = dt.shape
+    n = a.shape[-1]
+    if x.shape != dt.shape or b.shape != (bsz, s, n) or c.shape != b.shape \
+            or a.shape != (d, n) or h0.shape != (bsz, d, n):
+        raise ValueError(
+            f"selective_scan: dt {tuple(dt.shape)}, x {tuple(x.shape)}, b "
+            f"{tuple(b.shape)}, c {tuple(c.shape)}, a {tuple(a.shape)}, h0 "
+            f"{tuple(h0.shape)}")
+    if _kernel(dt, impl):
+        LAUNCHES["selective_scan"] += 1
+        return selective_scan_cuda(*(t.float().contiguous()
+                                     for t in (dt, x, b, c, a, h0)))
+    return ref.selective_scan_ref(dt, x, b, c, a, h0)

@@ -144,3 +144,25 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     l = p.sum(dim=-1, keepdim=True)
     acc = p @ v.float()
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def selective_scan_ref(dt, x, b, c, a, h0):
+    """dt, x (B, S, D); b, c (B, S, N); a (D, N); h0 (B, D, N) ->
+    (y (B, S, D) f32, h_last (B, D, N) f32).
+
+    The Mamba-1 recurrence in time order, in f32, with the reference's
+    per-step ops (``repro.kernels.ref._scan_block``): da = exp(dt * a),
+    dbx = (dt * x) * b, h = da * h + dbx, y_t = sum_N h * c. The reference
+    blocks time into chunks, which never changes the arithmetic, so this is
+    one loop over S."""
+    dt, x, b, c = (t.float() for t in (dt, x, b, c))
+    af = a.float()
+    h = h0.float()
+    y = torch.empty(dt.shape, dtype=torch.float32, device=dt.device)
+    for t in range(dt.shape[1]):
+        dtf = dt[:, t]                                    # (B, D)
+        da = torch.exp(dtf[..., None] * af[None])         # (B, D, N)
+        dbx = (dtf * x[:, t])[..., None] * b[:, t, None, :]
+        h = da * h + dbx
+        y[:, t] = (h * c[:, t, None, :]).sum(-1)
+    return y, h

@@ -8,6 +8,8 @@ unless ``--reduced`` is given (meant for the CPU).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --slots 4 --prompt-len 128 --max-len 256 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        --requests 8 --slots 4 --prompt-len 128 --max-len 256 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 """
 from __future__ import annotations
@@ -85,7 +87,7 @@ def setup(args):
     from ..core.partition import single_device_config
     from ..device import resolve
     from ..models.registry import build_model, get_arch
-    from ..serve.resident import ResidentLayout, build_resident, init_primaries
+    from ..serve.resident import ResidentLayout, build_resident, iter_primaries
 
     if args.devices != 1:
         raise SystemExit("--devices: the port serves on one device "
@@ -99,7 +101,7 @@ def setup(args):
     want = tuple(a for a in args.res_axes.split(",") if a) or None
     layout = ResidentLayout(model.leaf_specs(), cfg, want)
     residency = build_resident(layout,
-                               init_primaries(layout, args.seed, device))
+                               iter_primaries(layout, args.seed, device))
     return device, arch, model, layout, residency
 
 

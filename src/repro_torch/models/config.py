@@ -76,6 +76,14 @@ class ArchConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     @property
+    def dt_rank(self) -> int:
+        return self.ssm.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm.expand * self.d_model
+
+    @property
     def pattern(self) -> tuple[str, ...]:
         if self.block_pattern:
             assert len(self.block_pattern) == self.n_layers

@@ -2,7 +2,8 @@
 
 The torch-side half of ``repro.models.registry``: ``register``/``get_arch``
 and the per-kind cache shapes serving allocates. KV caches are bf16 whatever
-the compute dtype, as in the reference.
+the compute dtype, as in the reference; a mamba layer's scan state and conv
+tail are f32 and O(1) per row (not sequence-indexed, so never paged).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from ..core.partition import LeafSpec
 from .config import ArchConfig, ShapeConfig
+from .ssm import mamba_state_spec
 from .transformer import LM, kind_meta
 
 ARCHS: dict[str, Callable[[], ArchConfig]] = {}
@@ -56,9 +58,14 @@ class ModelDef:
         out: dict[str, Any] = {}
         for kind, count in cfg.kind_counts().items():
             m = kind_meta(kind, cfg)
+            if m.mixer == "mamba":
+                (h_shape, h_dt), (c_shape, c_dt) = mamba_state_spec(cfg, b)
+                out[kind] = {"h": ((count,) + h_shape, h_dt, False),
+                             "conv": ((count,) + c_shape, c_dt, False)}
+                continue
             if m.mixer != "attn" or m.window:
                 raise NotImplementedError(
-                    f"{kind}: only full-attention caches are ported")
+                    f"{kind}: only full-attention and mamba caches are ported")
             out[kind] = {
                 "k": ((count, b, s, kv, hd), torch.bfloat16, True),
                 "v": ((count, b, s, kv, hd), torch.bfloat16, True)}

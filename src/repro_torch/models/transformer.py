@@ -1,20 +1,23 @@
 """Decoder LM: leaf specs, the training loss, prefill and single-token
 decode.
 
-Port of ``repro.models.transformer`` for the ``attn`` block kind (attention +
-GLU MLP, pre-norm RMSNorm, RoPE, optional QKV bias, tied or separate LM
-head). Every weight access goes through a parameter view: the training
-engine's ``core.engine.ParamView`` (ZeRO gathers with custom backwards) or
-serving's ``serve.resident.ResidentView`` (the INT8 residency). ``v.mm``
-runs the fused dequant-matmul, ``v.get`` returns a dense leaf. The
-reference's ``lax.scan`` over stacked layers becomes a Python loop over
-``view.sub(i)``; in the loss each layer is recomputed in the backward
-(``torch.utils.checkpoint``), as the reference remats its scan body.
+Port of ``repro.models.transformer`` for two block kinds: ``attn``
+(attention + GLU MLP, pre-norm RMSNorm, RoPE, optional QKV bias) and
+``mamba`` (the Mamba-1 mixer of models/ssm.py with no FFN), with a tied or
+separate LM head. Every weight access goes through a parameter view: the
+training engine's ``core.engine.ParamView`` (ZeRO gathers with custom
+backwards) or serving's ``serve.resident.ResidentView`` (the INT8
+residency). ``v.mm`` runs the fused dequant-matmul, ``v.get`` returns a
+dense leaf. The reference's ``lax.scan`` over stacked layers becomes a
+Python loop over ``view.sub(i)``; in the loss each layer is recomputed in
+the backward (``torch.utils.checkpoint``), as the reference remats its
+scan body.
 
 Caches: prefill returns K/V at compute dtype (prefill attends over the
 un-rounded values); the serving pool stores them as bf16, and decode writes
 the new K/V into the bf16 cache *before* attending over it, as the
-reference does.
+reference does. A mamba layer's caches are its f32 scan state ``h`` and
+conv tail; decode writes both back into the layer's cache in place.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.partition import MATMUL, PLAIN, LeafSpec
 from . import layers as L
 from .config import ArchConfig
+from .ssm import mamba_decode, mamba_mixer
 
 
 @dataclass(frozen=True)
@@ -63,11 +67,13 @@ def kind_meta(kind: str, cfg: ArchConfig) -> KindMeta:
 
 
 def _ported(kind: str, cfg: ArchConfig) -> KindMeta:
-    """The block kinds this slice runs: attention + GLU MLP, sequential
-    residual, RMSNorm. Anything else raises instead of running wrong."""
+    """The block kinds the port runs: attention + GLU MLP, or the mamba
+    mixer with no FFN; sequential residual, RMSNorm. Anything else raises
+    instead of running wrong."""
     m = kind_meta(kind, cfg)
-    if (m.mixer != "attn" or m.ffn != "mlp" or m.cross or m.parallel
-            or m.window or cfg.norm != "rms" or cfg.act != "silu_glu"
+    block = (m.mixer, m.ffn) == ("mamba", "none") or (
+        (m.mixer, m.ffn) == ("attn", "mlp") and cfg.act == "silu_glu")
+    if (not block or m.cross or m.parallel or m.window or cfg.norm != "rms"
             or cfg.embed_scale or cfg.n_patches or cfg.enc_layers):
         raise NotImplementedError(
             f"{cfg.name}: block kind {kind!r} ({m}, norm={cfg.norm}, "
@@ -81,10 +87,23 @@ def _norm_specs(name: str, d: int) -> dict[str, LeafSpec]:
 
 def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
     """Per-layer leaf specs for one block kind (stack applied by the model)."""
-    _ported(kind, cfg)
+    m = _ported(kind, cfg)
     d, h, kv, hd, ff = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hdim, cfg.d_ff
     s: dict[str, LeafSpec] = {}
     s.update(_norm_specs("ln1", d))
+    if m.mixer == "mamba":
+        c = cfg.ssm
+        din, dtr = cfg.d_inner, cfg.dt_rank
+        s["w_in"] = LeafSpec("w_in", (d, 2 * din), MATMUL)
+        s["conv_w"] = LeafSpec("conv_w", (din, c.d_conv), PLAIN, init_scale=0.5)
+        s["conv_b"] = LeafSpec("conv_b", (din,), PLAIN, init="zeros")
+        s["w_xproj"] = LeafSpec("w_xproj", (din, dtr + 2 * c.d_state), MATMUL)
+        s["w_dt"] = LeafSpec("w_dt", (dtr, din), MATMUL)
+        s["dt_bias"] = LeafSpec("dt_bias", (din,), PLAIN, init="dt_bias")
+        s["A_log"] = LeafSpec("A_log", (din, c.d_state), PLAIN, init="ssm_a")
+        s["D"] = LeafSpec("D", (din,), PLAIN, init="ones")
+        s["w_out"] = LeafSpec("w_out", (din, d), MATMUL)
+        return s
     for name, shape in (("wq", (d, h * hd)), ("wk", (d, kv * hd)),
                         ("wv", (d, kv * hd)), ("wo", (h * hd, d))):
         s[name] = LeafSpec(name, shape, MATMUL)
@@ -161,18 +180,32 @@ def block_fwd(kind: str, v, cfg: ArchConfig, x, ctx: Ctx):
     """Returns (x, cache_entry | None)."""
     m = _ported(kind, cfg)
     p = kind + "."
-    o, cache = _attn_fwd(v, p, cfg, m, _norm(v, p, "ln1", x), ctx)
+    h = _norm(v, p, "ln1", x)
+    if m.mixer == "mamba":
+        o, (h_last, conv_tail) = mamba_mixer(v, p, cfg, h)
+        cache = {"h": h_last, "conv": conv_tail} if ctx.want_cache else None
+    else:
+        o, cache = _attn_fwd(v, p, cfg, m, h, ctx)
     x = x + o
-    return x + _ffn(v, p, x), cache
+    return (x if m.ffn == "none" else x + _ffn(v, p, x)), cache
 
 
 def block_decode(kind: str, v, cfg: ArchConfig, x, cache, dc: DecCtx):
-    """x (B,1,d); cache = this layer's entry. Returns (x, new_cache)."""
+    """x (B,1,d); cache = this layer's entry, updated in place. Returns
+    (x, new_cache)."""
     m = _ported(kind, cfg)
     p = kind + "."
-    o, new_cache = _attn_decode(v, p, cfg, m, _norm(v, p, "ln1", x), cache, dc)
+    h = _norm(v, p, "ln1", x)
+    if m.mixer == "mamba":
+        o, (h_new, new_tail) = mamba_decode(v, p, cfg, h,
+                                            (cache["h"], cache["conv"]))
+        cache["h"].copy_(h_new)
+        cache["conv"].copy_(new_tail)
+        new_cache = cache
+    else:
+        o, new_cache = _attn_decode(v, p, cfg, m, h, cache, dc)
     x = x + o
-    return x + _ffn(v, p, x), new_cache
+    return (x if m.ffn == "none" else x + _ffn(v, p, x)), new_cache
 
 
 class LM:
@@ -235,7 +268,8 @@ class LM:
 
     def prefill(self, view, batch):
         """batch: {"tokens": (B, S)}. Returns (last-position logits (B, V)
-        f32, caches {kind: {"k", "v": (L, B, S, Hkv, D)}, "pos": S})."""
+        f32, caches {kind: {"k", "v": (L, B, S, Hkv, D)} for attention,
+        {"h": (L, B, din, N), "conv": (L, B, K-1, din)} for mamba, "pos": S})."""
         x = self._embed(view, batch["tokens"])
         s_total = x.shape[1]
         ctx = Ctx(positions=torch.arange(s_total, device=x.device),

@@ -9,9 +9,10 @@ compute dtype. The embedding lookup dequantizes only the looked-up rows:
 each row of ``embed`` is whole quant blocks, so the numbers equal the
 reference's dequantize-the-whole-table-then-take.
 
-The weights come from ``init_primaries`` (a seeded init with the
-reference's distributions, drawn from a ``torch.Generator``) or from the
-reference's own primaries (``repro_torch.convert.from_jax_primaries``).
+The weights come from ``iter_primaries`` / ``init_primaries`` (a seeded
+init with the reference's distributions, drawn from a ``torch.Generator``)
+or from the reference's own primaries
+(``repro_torch.convert.from_jax_primaries``).
 """
 from __future__ import annotations
 
@@ -86,43 +87,74 @@ class ResidentLayout:
                 self.cfg, psi, res_degree=self.res_degree)))
 
 
-def init_primaries(layout: ResidentLayout, seed: int, device) -> dict:
-    """Seeded padded primaries at compute dtype, layout ``[stack,] pad``.
+def _init_values(spec: LeafSpec, rows: int, n: int, gen, device):
+    """The f32 (rows, n) initial values of one leaf, or None for zeros."""
+    if spec.init == "zeros":
+        return None
+    if spec.init == "ones":
+        return torch.ones((rows, n), dtype=torch.float32, device=device)
+    if spec.init == "ssm_a":
+        # mamba: A_log = log(1..d_state) broadcast over d_inner
+        d_inner, d_state = spec.shape
+        a = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32,
+                                   device=device))
+        return a.expand(rows, d_inner, d_state).reshape(rows, n)
+    if spec.init == "dt_bias":
+        # mamba: softplus^-1 of dt drawn log-uniform in [1e-3, 1e-1]
+        lo, hi = 1e-3, 1e-1
+        u = torch.rand((rows, n), generator=gen, device=device)
+        dt = torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo))
+        return torch.log(torch.exp(dt) - 1.0 + 1e-9)
+    scale = spec.init_scale
+    if scale is None:
+        fan_in = spec.shape[0] if len(spec.shape) >= 2 else n
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+    return torch.randn((rows, n), generator=gen, device=device).mul_(scale)
+
+
+def iter_primaries(layout: ResidentLayout, seed: int, device):
+    """Yields (name, seeded padded primary at compute dtype, layout
+    ``[stack,] pad``), one leaf at a time in sorted leaf order.
 
     The distributions of the reference's ``ZeroEngine._init_full``: zeros,
-    ones, or normal * (init_scale or 1/sqrt(fan_in)), zero-padded. Drawn
-    from one ``torch.Generator`` in sorted leaf order; the numbers differ
-    from ``jax.random`` and need not match them."""
+    ones, ``ssm_a`` (log(1..N) per row), ``dt_bias`` (softplus^-1 of a
+    log-uniform draw in [1e-3, 1e-1]), or normal * (init_scale or
+    1/sqrt(fan_in)), zero-padded. Drawn from one ``torch.Generator``; the
+    numbers differ from ``jax.random`` and need not match them. Only one
+    leaf's f32 draw is alive at a time, so a consumer that drops each
+    primary once it is used (``build_resident``) keeps the peak near the
+    residency plus the largest leaf."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    out = {}
     for name in sorted(layout.specs):
         spec = layout.specs[name]
         rows, n, pad = spec.stack or 1, spec.logical_size, layout.pad[name]
-        full = torch.zeros((rows, pad), dtype=torch.float32, device=device)
-        if spec.init == "ones":
-            full[:, :n] = 1.0
-        elif spec.init != "zeros":
-            scale = spec.init_scale
-            if scale is None:
-                fan_in = spec.shape[0] if len(spec.shape) >= 2 else n
-                scale = 1.0 / math.sqrt(max(fan_in, 1))
-            full[:, :n] = torch.randn((rows, n), generator=gen,
-                                      device=device) * scale
-        full = full.to(layout.dtype)
-        out[name] = full if spec.stack else full[0]
-    return out
+        full = torch.zeros((rows, pad), dtype=layout.dtype, device=device)
+        values = _init_values(spec, rows, n, gen, device)
+        if values is not None:
+            full[:, :n] = values
+        del values
+        yield name, (full if spec.stack else full[0])
+        del full
 
 
-def build_resident(layout: ResidentLayout, primaries: dict) -> dict:
+def init_primaries(layout: ResidentLayout, seed: int, device) -> dict:
+    """All of ``iter_primaries`` as one dict {name: primary}."""
+    return dict(iter_primaries(layout, seed, device))
+
+
+def build_resident(layout: ResidentLayout, primaries) -> dict:
     """Primaries -> residency: ``{"q", "s"}`` wire buffers for WIRE leaves
     (``[stack,] pad`` int8 and ``[stack,] pad // block`` f32), dense
-    ``[stack,] *shape`` compute-dtype tensors for DENSE leaves."""
+    ``[stack,] *shape`` compute-dtype tensors for DENSE leaves.
+
+    ``primaries`` is an iterable of (name, primary) pairs (``iter_primaries``
+    or a dict's ``items()``); a pair's primary is dropped once it is built."""
     out = {}
-    for name, spec in layout.specs.items():
+    for name, prim in primaries:
+        spec = layout.specs[name]
         lcfg = layout.leaf_cfg[name]
-        prim = primaries[name]
         want = ((spec.stack,) if spec.stack else ()) + (layout.pad[name],)
         if tuple(prim.shape) != want:
             raise ValueError(f"{name}: primary shape {tuple(prim.shape)}, "
@@ -139,6 +171,10 @@ def build_resident(layout: ResidentLayout, primaries: dict) -> dict:
             n = spec.logical_size
             dense = prim[..., :n].reshape(want[:-1] + spec.shape)
             out[name] = dense.to(linear._dtype(lcfg))
+        del prim
+    if set(out) != set(layout.specs):
+        raise ValueError(f"primaries missing for "
+                         f"{sorted(set(layout.specs) - set(out))}")
     return out
 
 

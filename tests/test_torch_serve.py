@@ -62,7 +62,7 @@ def _pair():
         {n: np.asarray(a) for n, a in state["primaries"].items()}, arch,
         device="cpu")
     port = dict(arch=arch, model=model, layout=layout, prim=prim,
-                res=build_resident(layout, prim))
+                res=build_resident(layout, prim.items()))
     return ref, port
 
 

@@ -1,0 +1,333 @@
+"""The port's SSM serving slice (falcon-mamba-7b) against the JAX package.
+
+The reference is set up as its own tests set it up: falcon-mamba-7b
+reduced (d_model 256, d_inner 512, dt_rank 16, d_state 16, 2 layers, vocab
+512), zero_topo, quant_block=64, compute_dtype float32 on the one-device
+(1, 1, 1) mesh. Its primaries go across through
+``convert.from_jax_primaries``. Tolerances:
+
+- the scan, y and h_last: rtol = atol = 1e-5 against the reference's jnp
+  oracle and its Pallas kernel in interpret mode. Both sides run the same
+  f32 ops per step; XLA's and torch's ``exp`` may differ in the last bit,
+  and the N-sum runs in another order.
+- the residency: bit for bit (q, scales and the PLAIN leaves).
+- prefill and teacher-forced decode logits and states: rtol = atol = 1e-4,
+  as the qwen2 slice is held (the matmuls sum in another order).
+- the continuous batcher: the same greedy tokens and counters.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.core.engine import TrainHparams, ZeroEngine
+from repro.kernels import ops as jops
+from repro.launch.mesh import make_test_mesh, scheme_config
+from repro.models.config import ShapeConfig as JShape
+from repro.models.registry import build_model as jbuild, get_arch as jget
+from repro.serve.resident import ResidentServeEngine as JEngine
+from repro.serve.resident import build_resident as jbuild_resident
+from repro.serve.scheduler import ContinuousBatcher as JBatcher
+from repro.serve.scheduler import Request as JRequest
+from repro.serve.scheduler import ServeSLO as JSLO
+
+from repro_torch.convert import from_jax_primaries
+from repro_torch.core import linear
+from repro_torch.core.partition import single_device_config
+from repro_torch.kernels import ops
+from repro_torch.kernels.selective_scan import selective_scan_cuda
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models.config import ShapeConfig
+from repro_torch.models.registry import build_model, get_arch
+from repro_torch.serve.paged import seq_entry_keys
+from repro_torch.serve.resident import (ResidentLayout, ResidentServeEngine,
+                                        build_resident, init_primaries,
+                                        iter_primaries)
+from repro_torch.serve.scheduler import ContinuousBatcher, Request, ServeSLO
+
+ARCH = "falcon-mamba-7b"
+SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
+TOL = dict(rtol=1e-4, atol=1e-4)
+AX = ("data", "node", "gcd")
+
+
+@functools.lru_cache(maxsize=1)
+def _pair():
+    """(reference setup, port setup) sharing one set of weights."""
+    mesh = make_test_mesh(shape=(1, 1, 1), axes=AX)
+    jarch = jget(ARCH).reduced()
+    jmodel = jbuild(jarch)
+    jcfg = scheme_config("zero_topo", mesh, quant_block=64,
+                         compute_dtype="float32")
+    eng = ZeroEngine(jmodel.leaf_specs(), jcfg, mesh, TrainHparams())
+    state = eng.init_state(jax.random.key(0))
+    jres = jbuild_resident(eng, state, mesh)[1]
+    ref = dict(mesh=mesh, arch=jarch, model=jmodel, eng=eng, state=state,
+               res=jres)
+
+    arch = get_arch(ARCH).reduced()
+    model = build_model(arch)
+    layout = ResidentLayout(model.leaf_specs(), single_device_config(
+        "zero_topo", quant_block=64, compute_dtype="float32"))
+    prim = from_jax_primaries(
+        {n: np.asarray(a) for n, a in state["primaries"].items()}, arch,
+        device="cpu")
+    port = dict(arch=arch, model=model, layout=layout, prim=prim,
+                res=build_resident(layout, prim.items()))
+    return ref, port
+
+
+def _tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the scan
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(bsz, s, d, n, seed=0):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    dt = np.log1p(np.exp(rng.standard_normal((bsz, s, d)))).astype(f32)
+    x = rng.standard_normal((bsz, s, d)).astype(f32)
+    b = rng.standard_normal((bsz, s, n)).astype(f32)
+    c = rng.standard_normal((bsz, s, n)).astype(f32)
+    a_log = np.log(np.arange(1, n + 1, dtype=f32))[None] \
+        + 0.1 * rng.standard_normal((d, n)).astype(f32)
+    a = (-np.exp(a_log)).astype(f32)
+    h0 = rng.standard_normal((bsz, d, n)).astype(f32)
+    return dt, x, b, c, a, h0
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("shape", [(2, 40, 24, 16), (1, 300, 8, 16),
+                                   (2, 1, 24, 16)],
+                         ids=["B2-S40", "S300-block4", "S1"])
+def test_selective_scan_matches_reference(impl, shape):
+    """The port's scan (the plain version on the CPU) against the
+    reference's jnp oracle and its Pallas kernel: y and h_last. At S=300
+    the reference's time block halves to 4 (75 blocks carry the state)."""
+    args = _scan_inputs(*shape)
+    jy, jh = jops.selective_scan(*(jnp.asarray(t) for t in args), impl=impl)
+    y, h = ops.selective_scan(*(torch.from_numpy(t) for t in args))
+    assert y.shape == shape[:3] and h.shape == (shape[0], shape[2], shape[3])
+    assert y.dtype == h.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SCAN_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **SCAN_TOL)
+
+
+def test_selective_scan_checks_and_no_fallback():
+    """Shapes are checked; the CUDA wrapper refuses a CPU tensor instead of
+    running anything else; the kernel is counted only where it launches."""
+    args = [torch.from_numpy(t) for t in _scan_inputs(1, 5, 8, 16)]
+    with pytest.raises(ValueError):
+        ops.selective_scan(args[0], args[1][:, :4], *args[2:])
+    with pytest.raises(ValueError):
+        ops.selective_scan(*args, impl="pallas")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        selective_scan_cuda(*args)
+    ops.reset_launches()
+    ops.selective_scan(*args)
+    ops.selective_scan(*args, impl="plain")
+    assert ops.launches()["selective_scan"] == 0
+    assert "selective_scan" in ops.KERNELS
+
+
+# ---------------------------------------------------------------------------
+# the residency and its inits
+# ---------------------------------------------------------------------------
+
+def test_residency_bitwise():
+    ref, port = _pair()
+    layout = port["layout"]
+    assert set(port["res"]) == set(ref["res"])
+    wire = []
+    for name, entry in ref["res"].items():
+        mine = port["res"][name]
+        if layout.mode(name) == "wire":
+            wire.append(name)
+            np.testing.assert_array_equal(mine["q"].numpy(),
+                                          np.asarray(entry["q"]))
+            np.testing.assert_array_equal(
+                mine["s"].numpy().view(np.uint32),
+                np.asarray(entry["s"]).view(np.uint32))
+        else:
+            np.testing.assert_array_equal(mine.numpy(), np.asarray(entry))
+    assert sorted(wire) == ["embed", "mamba.w_dt", "mamba.w_in",
+                            "mamba.w_out", "mamba.w_xproj"]
+    # w_xproj (512, 48): 48 is not a whole number of 64-blocks, so it is
+    # dequantized whole and multiplied dense
+    spec = layout.specs["mamba.w_xproj"]
+    assert spec.shape == (512, 48)
+    assert not linear._fusable(spec, layout.leaf_cfg["mamba.w_xproj"])
+    assert linear._fusable(layout.specs["mamba.w_in"],
+                           layout.leaf_cfg["mamba.w_in"])
+
+
+def test_init_primaries_ssm_leaves():
+    """A_log = log(1..N) on every row; softplus(dt_bias) in [1e-3, 1e-1]
+    (to 1e-4 relative: exp(dt) - 1 rounds in f32 near 1); the one-leaf
+    iterator builds the same residency as the dict."""
+    _, port = _pair()
+    layout, arch = port["layout"], port["arch"]
+    din, n = arch.d_inner, arch.ssm.d_state
+    prim = init_primaries(layout, 0, "cpu")
+    a_log = prim["mamba.A_log"][:, : din * n].reshape(-1, din, n)
+    want = np.log(np.arange(1, n + 1, dtype=np.float32))
+    np.testing.assert_allclose(a_log.numpy(),
+                               np.broadcast_to(want, a_log.shape),
+                               rtol=2 ** -23, atol=0)
+    dt = torch.nn.functional.softplus(prim["mamba.dt_bias"][:, :din])
+    assert float(dt.min()) >= 1e-3 * (1 - 1e-4)
+    assert float(dt.max()) <= 1e-1 * (1 + 1e-4)
+    assert float(dt.max()) / float(dt.min()) > 50       # spread, log-uniform
+    res_dict = build_resident(layout, prim.items())
+    res_iter = build_resident(layout, iter_primaries(layout, 0, "cpu"))
+    for name, entry in res_dict.items():
+        if isinstance(entry, dict):
+            for k in ("q", "s"):
+                assert torch.equal(entry[k], res_iter[name][k]), name
+        else:
+            assert torch.equal(entry, res_iter[name]), name
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode
+# ---------------------------------------------------------------------------
+
+def _prefill_both(ref, port, tokens):
+    b, s = tokens.shape
+    jpre = JEngine(ref["model"], ref["eng"], ref["mesh"],
+                   JShape("p", s, b, "decode")).make_prefill()
+    jl, jc = jpre(ref["res"], {"tokens": jnp.asarray(tokens)})
+    pre = ResidentServeEngine(port["model"], port["layout"],
+                              ShapeConfig("p", s, b, "decode")).make_prefill()
+    tl, tc = pre(port["res"], {"tokens": torch.as_tensor(tokens).long()})
+    return (jl, jc), (tl, tc)
+
+
+def _assert_states(tc, jc, what):
+    for name in ("h", "conv"):
+        np.testing.assert_allclose(tc["mamba"][name].numpy(),
+                                   np.asarray(jc["mamba"][name]), **TOL,
+                                   err_msg=f"{name} {what}")
+
+
+@pytest.mark.parametrize("plen", [16, 2], ids=["prompt16", "prompt2"])
+def test_prefill_and_teacher_forced_decode(plen):
+    """Prefill logits and states (h (L,B,din,N), conv (L,B,K-1,din)); then 4
+    decode steps of fixed tokens, each side from its own state, logits and
+    states per step. A prompt of 2 < d_conv - 1 left-pads the conv tail."""
+    ref, port = _pair()
+    arch = port["arch"]
+    steps, b = 4, 2
+    tokens = _tokens(plen, (b, plen), arch.vocab)
+    forced = _tokens(100 + plen, (steps, b), arch.vocab)
+    (jl, jc), (tl, tc) = _prefill_both(ref, port, tokens)
+    assert tl.shape == (b, arch.vocab) and tl.dtype == torch.float32
+    assert tc["mamba"]["h"].shape == (2, b, arch.d_inner, arch.ssm.d_state)
+    assert tc["mamba"]["conv"].shape == (2, b, arch.ssm.d_conv - 1,
+                                         arch.d_inner)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_states(tc, jc, "after prefill")
+    assert int(tc["pos"]) == int(jc["pos"]) == plen
+
+    shape = ShapeConfig("d", plen + steps, b, "decode")
+    jdec = JEngine(ref["model"], ref["eng"], ref["mesh"],
+                   JShape("d", plen + steps, b, "decode")).make_decode()
+    dec = ResidentServeEngine(port["model"], port["layout"],
+                              shape).make_decode()
+    for i in range(steps):
+        tl, tc = dec(port["res"], tc,
+                     {"token": torch.as_tensor(forced[i]).long()})
+        jl, jc = jdec(ref["res"], jc, {"token": jnp.asarray(forced[i])})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL,
+                                   err_msg=f"decode step {i}")
+        _assert_states(tc, jc, f"after decode step {i}")
+        assert int(tc["pos"]) == int(jc["pos"]) == plen + i + 1
+
+
+def test_decode_matches_prefill():
+    """Inside the port: prefill(tokens[:n]) then teacher-forced decode of
+    tokens[n:] gives prefill(tokens)'s logits and states (f32, the scan and
+    the conv run in another order than the per-token update: 1e-4). A
+    decode that did not write its state back would fail here."""
+    _, port = _pair()
+    b, n_prompt, n_extra = 2, 12, 4
+    total = n_prompt + n_extra
+    toks = _tokens(7, (b, total), port["arch"].vocab)
+    eng = ResidentServeEngine(port["model"], port["layout"],
+                              ShapeConfig("t", total, b, "decode"))
+    full_l, full_c = eng.make_prefill()(
+        port["res"], {"tokens": torch.as_tensor(toks).long()})
+    logits, caches = eng.make_prefill()(
+        port["res"], {"tokens": torch.as_tensor(toks[:, :n_prompt]).long()})
+    decode = eng.make_decode()
+    for i in range(n_extra):
+        logits, caches = decode(port["res"], caches, {
+            "token": torch.as_tensor(toks[:, n_prompt + i]).long()})
+    np.testing.assert_allclose(logits.numpy(), full_l.numpy(), **TOL)
+    for name in ("h", "conv"):
+        np.testing.assert_allclose(caches["mamba"][name].numpy(),
+                                   full_c["mamba"][name].numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the continuous batcher and the CLI
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [
+    # 3 requests recycle 2 slots (the reference's test_scheduler setting)
+    dict(n_slots=2, max_len=24, prompt_len=8, page_size=0, n_pages=0,
+         n_req=3, max_new=6, expect=None),
+    # no cache entry pages, but the page accounting still runs: too few
+    # pages preempt the youngest slot, as in the reference
+    dict(n_slots=3, max_len=32, prompt_len=8, page_size=8, n_pages=4,
+         n_req=4, max_new=8, expect="preempted"),
+], ids=["provisioned", "oversubscribed"])
+def test_batcher_tokens_and_counters(case):
+    ref, port = _pair()
+    vocab = port["arch"].vocab
+    prompts = [_tokens(20 + i, (case["prompt_len"],), vocab)
+               for i in range(case["n_req"])]
+    common = dict(n_slots=case["n_slots"], max_len=case["max_len"],
+                  prompt_len=case["prompt_len"],
+                  page_size=case["page_size"] or None,
+                  n_pages=case["n_pages"])
+    slo = dict(max_queue_steps=50 if case["expect"] else 0)
+
+    jcb = JBatcher(ref["model"], ref["eng"], ref["mesh"], backend="resident",
+                   slo=JSLO(**slo), **common)
+    jreqs = [JRequest(rid=i, prompt=p, max_new=case["max_new"])
+             for i, p in enumerate(prompts)]
+    jcb.run(ref["res"], jreqs)
+
+    cb = ContinuousBatcher(port["model"], port["layout"], device="cpu",
+                           slo=ServeSLO(**slo), **common)
+    assert not cb.paged.seq_keys
+    assert not seq_entry_keys(port["model"], ShapeConfig("p", 16, 2, "decode"))
+    reqs = [Request(rid=i, prompt=p, max_new=case["max_new"])
+            for i, p in enumerate(prompts)]
+    cb.run(port["res"], reqs)
+
+    assert cb.counters == jcb.counters
+    assert cb.step_count == jcb.step_count
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+    assert cb.paged.free_pages() == cb.paged.n_pages
+    assert all(len(r.out) == case["max_new"] for r in reqs)
+    if case["expect"]:
+        assert cb.counters[case["expect"]] > 0
+
+
+def test_serve_cli_cpu(capsys):
+    serve_cli.main(["--arch", ARCH, "--device", "cpu", "--reduced",
+                    "--requests", "3", "--slots", "2", "--prompt-len", "8",
+                    "--max-len", "24", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "arch=falcon-mamba-7b-reduced" in out
+    assert "admitted 3 rejected 0 preempted 0 retired 3" in out
+    assert "-> 12 tokens" in out
