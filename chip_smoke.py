@@ -28,6 +28,17 @@ either is missing or any phase fails. Phases, in order:
             w_out for M = 4 and 128 and its LM head at M = 1 and 4;
             dequantize_int8 of w_xproj; quantize_int8 and dequantize_int8
             of the whole 2^32-element w_in stack (plain versions per chunk).
+            dequantize_int8_sum (the bits=8 receive side, d = 2 at the
+            embedding's size, and ragged) and dequantize_int4 (136.1 M
+            elements, block 128, to f32 and bf16, and ragged) bit for bit;
+            dequant_matmul_blocked at qwen2's w_up and ragged (K = 2 and 3
+            blocks) within BLOCKED_RTOL * |ref| + BLOCKED_ATOL * max|ref|.
+2b. ops    : two ops-level paths, each with the counters zeroed before and
+            read after: benchmarks/quant_error.py's experiment (2^16
+            heavy-tailed values, INT8 and INT4 round trips at blocks 64 ...
+            16384, each bit for bit with the plain versions; block 64 must
+            beat block 16384) and the reference's test of the 2-D-blocked
+            dequant-matmul at its three shapes.
 3. serve  : zeroes the launch counters, builds the qwen2-0.5b INT8 residency
             at published width from the seeded init and serves 8 requests
             (4 slots, prompt 128, 32 new tokens, max_len 256) through the
@@ -58,12 +69,26 @@ either is missing or any phase fails. Phases, in order:
             state with --kernel-impl plain (no kernel may launch);
             per-step loss and grad norm must agree (TRAIN_LOSS_RTOL,
             TRAIN_GNORM_RTOL).
+4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
+            quantized reduce-scatter at bits 4 and 8 over W, E and all four
+            ranks on an embedding-sized f32 shard each; every kernel of
+            COLLECTIVE_KERNELS must launch on every rank; wire bytes bit for
+            bit and sums within one f32 ulp of the same calls through the
+            plain versions; the error against the exact f32 reduce-scatter
+            within the reference scenario's bound.
+4c. regimes: the train phase's run again for 3 steps with --overlap, then
+            with --overlap --stream-grads: TRAIN_KERNELS on every rank, losses and grad norms held
+            against the seed run's first 3 steps (bitwise reported, failing
+            beyond TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL), step time, tokens/s,
+            peak memory, grad_buffer and prefetch_buffer beside the seed's.
 5. timing : device time of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the
             serving and training shapes (CUDA graphs of repeated launches,
             CUDA events).
-6. report : a JSON line of the kernels, serve, serve_ssm and train lines, the card's
-            name and power limit (nvidia-smi), and last the line
+6. report : JSON lines (serve, serve_ssm, train, regimes, collectives,
+            kernels_extra, then the kernels line: all 11 kernels with their
+            launches on every path), the card's name and power limit
+            (nvidia-smi), and last the line
             {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -78,6 +103,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import torch
@@ -123,6 +149,17 @@ SSM_SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
 TRAIN_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
                  "flash_attention", "quantize_int4", "dequantize_int4_sum",
                  "matmul_quant")
+# the reference's own tolerance between dequant_matmul_pallas and its
+# oracle (tests/test_kernels.py): the f32 sums run in another order
+BLOCKED_RTOL, BLOCKED_ATOL = 2e-5, 5e-4
+QUANT_ERROR_BLOCKS = (64, 256, 1024, 4096, 16384)   # benchmarks/quant_error.py
+# the bits 4 and 8 quantized reduce-scatters run these on every rank
+COLLECTIVE_KERNELS = ("quantize_int8", "quantize_int4", "dequantize_int4_sum",
+                      "dequantize_int8_sum")
+REGIME_STEPS = 3        # the --overlap [--stream-grads] runs
+# the prefetch alone, then with the streaming grads: each one's peak memory
+# against the seed run's shows what each regime does to it
+REGIME_FLAGS = (("--overlap",), ("--overlap", "--stream-grads"))
 SCAN_D, SCAN_N = 8192, 16           # falcon-mamba-7b's d_inner and d_state
 MAMBA_D, MAMBA_DTR, MAMBA_V, MAMBA_L = 4096, 256, 65_024, 64
 
@@ -143,6 +180,12 @@ KERNEL_INFO = {
                      "src/repro/kernels/dequant_matmul.py:209"),
     "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:56"),
+    "dequantize_int8_sum": ("src/repro_torch/csrc/quant_int8.cu",
+                            "src/repro/kernels/quant_blockwise.py:92"),
+    "dequantize_int4": ("src/repro_torch/csrc/quant_int4.cu",
+                        "src/repro/kernels/quant_int4.py:68"),
+    "dequant_matmul_blocked": ("src/repro_torch/csrc/dequant_matmul_blocked.cu",
+                               "src/repro/kernels/dequant_matmul.py:39"),
 }
 # (K, N) of one layer's seven dW products (wq wk wv wo w_gate w_up w_down)
 LAYER_KN = ((896, 896), (896, 128), (896, 128), (896, 896), (896, 4864),
@@ -202,14 +245,18 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def add_check(checks, name, what, err, tol):
+    checks.setdefault(name, []).append(dict(case=what, max_abs_err=err,
+                                            tolerance=tol))
+    print(f"  {name:16s} {what:44s} max_abs_err={err:.3e} tol={tol}")
+
+
 def check_kernels(dev, gen, checks):
     from repro_torch.kernels import ops
     from repro_torch.models import layers
 
     def record(name, what, err, tol):
-        checks.setdefault(name, []).append(dict(case=what, max_abs_err=err,
-                                                tolerance=tol))
-        print(f"  {name:16s} {what:44s} max_abs_err={err:.3e} tol={tol}")
+        add_check(checks, name, what, err, tol)
 
     def quant_case(what, n_blocks, block, dtype, scale_spread=True):
         x = torch.randn((n_blocks, block), generator=gen, device=dev)
@@ -414,6 +461,150 @@ def check_kernels(dev, gen, checks):
     scan_case(f"B=1 S=128 D={SCAN_D} h0=0 (prefill)", 1, 128, SCAN_D, True, 3.0)
     scan_case(f"B=1 S=2048 D={SCAN_D} h0=0", 1, 2048, SCAN_D, True, 3.0)
     scan_case("B=3 S=37 D=96 h0!=0 ragged", 3, 37, 96, False, 0.0)
+
+
+def blocked_quant(w: torch.Tensor, bk: int):
+    """w (K, N) f32 -> (q (K, N) int8, scales (K // bk, N) f32): each column
+    quantized down K in runs of bk rows, as the reference's test of
+    dequant_matmul_pallas quantizes its weight."""
+    k, n = w.shape
+    wb = w.reshape(k // bk, bk, n)
+    absmax = wb.abs().amax(dim=1)
+    scales = torch.where(absmax == 0, 1.0, absmax / 127.0)
+    q = torch.clamp(torch.round(wb / scales[:, None, :]), -127, 127)
+    return q.to(torch.int8).reshape(k, n), scales
+
+
+def check_dequant_kernels(dev, gen, checks):
+    """dequantize_int8_sum, dequantize_int4 and dequant_matmul_blocked
+    against their plain versions: the two dequantizes bit for bit, the
+    blocked matmul within BLOCKED_RTOL * |ref| + BLOCKED_ATOL * max|ref|."""
+    from repro_torch.kernels import ops
+
+    def sum8_case(what, nb, block, d):
+        x = torch.randn((d * nb, block), generator=gen, device=dev)
+        x *= torch.rand((d * nb, 1), generator=gen, device=dev) * 50
+        x[nb // 2] = 0.0
+        q, s = ops.quantize_int8(x.reshape(-1), block)
+        del x
+        rk = ops.dequantize_int8_sum(q, s, d, block)
+        rp = ops.dequantize_int8_sum(q, s, d, block, impl="plain")
+        if not torch.equal(rk.view(torch.int32), rp.view(torch.int32)):
+            raise Failed(f"dequantize_int8_sum {what}: not bitwise")
+        add_check(checks, "dequantize_int8_sum", what, 0.0, "bitwise")
+
+    # the tied embedding's stage-1 receive at bits 8 (W = 2), ragged
+    sum8_case(f"d=2 x ({EMBED_N // 2}/128, 128) (embed grad)",
+              EMBED_N // 2 // 128, 128, 2)
+    sum8_case("d=4 (3, 128) ragged", 3, 128, 4)
+    sum8_case("d=3 (5, 6) ragged", 5, 6, 3)
+
+    def int4_dequant_case(what, nb, block):
+        x = torch.randn((nb, block), generator=gen, device=dev)
+        x *= torch.rand((nb, 1), generator=gen, device=dev) * 50
+        x[nb // 2] = 0.0
+        q, s = ops.quantize_int4(x.reshape(-1), block)
+        del x
+        for odt in (torch.float32, torch.bfloat16):
+            dk = ops.dequantize_int4(q, s, block, odt)
+            dp = ops.dequantize_int4(q, s, block, odt, impl="plain")
+            if dk.dtype != odt or not torch.equal(dk, dp):
+                raise Failed(f"dequantize_int4 {what} -> {odt}: not bitwise")
+            add_check(checks, "dequantize_int4", f"{what} -> {str(odt)[6:]}",
+                      0.0, "bitwise")
+
+    int4_dequant_case(f"({EMBED_N}/128, 128)", EMBED_N // 128, 128)
+    int4_dequant_case("(3, 16384) ragged", 3, 16384)
+    int4_dequant_case("(5, 8) ragged", 5, 8)
+    int4_dequant_case("(7, 6) ragged", 7, 6)
+
+    def blocked_case(what, m, k, n, bk):
+        blocked_check(checks, gen, dev, what, m, k, n, bk)
+
+    # qwen2's w_up at the training M, and ragged: K = 3 and 2 blocks, so a
+    # mixed-up scale layout cannot pass (the reference test's own shapes are
+    # the blocked_matmul path's)
+    blocked_case(f"({TRAIN_M}, 896, 4864) bk=128 (w_up)", TRAIN_M, 896, 4864, 128)
+    blocked_case("(70, 96, 100) bk=32 ragged", 70, 96, 100, 32)
+    blocked_case("(5, 40, 3) bk=20 ragged", 5, 40, 3, 20)
+
+
+def blocked_check(checks, gen, dev, what, m, k, n, bk):
+    """One dequant_matmul_blocked call on x (m, k) and a (k, n) weight
+    quantized down K in runs of bk rows, held against the plain version
+    within BLOCKED_RTOL * |ref| + BLOCKED_ATOL * max|ref|."""
+    from repro_torch.kernels import ops
+
+    x = torch.randn((m, k), generator=gen, device=dev) * 3.0
+    w = torch.randn((k, n), generator=gen, device=dev) * 3.0
+    q, s = blocked_quant(w, bk)
+    yk = ops.dequant_matmul_blocked(x, q, s)
+    yp = ops.dequant_matmul_blocked(x, q, s, impl="plain")
+    err, scale = rel_err(yk, yp)
+    worst = float(((yk - yp).abs() - BLOCKED_RTOL * yp.abs()).max())
+    tol = BLOCKED_ATOL * scale
+    if yk.shape != yp.shape or worst > tol:
+        raise Failed(f"dequant_matmul_blocked {what}: |d| - rtol*|ref| "
+                     f"{worst} > {tol}")
+    add_check(checks, "dequant_matmul_blocked", what, err,
+              f"rtol {BLOCKED_RTOL} + {tol:.3e}")
+
+
+def blocked_matmul_path(gen, dev, checks):
+    """The ops-level blocked dequant-matmul: the reference's own test of
+    dequant_matmul_pallas (tests/test_kernels.py) through the port's ops, at
+    its three shapes with bk 128. Returns the launch counts of the run."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    for m, k, n in ((128, 128, 128), (256, 128, 256), (128, 256, 384)):
+        blocked_check(checks, gen, dev, f"({m}, {k}, {n}) bk=128 (ref. test)",
+                      m, k, n, 128)
+    launches = ops.launches()
+    if launches["dequant_matmul_blocked"] == 0:
+        raise Failed("dequant_matmul_blocked not launched on its path")
+    return launches
+
+
+def quant_error_path(gen, dev, checks):
+    """benchmarks/quant_error.py's experiment through the port's ops: 2^16
+    heavy-tailed values (normal, 1 % of them x10) block-quantized to INT8
+    and INT4 and back at blocks 64 ... 16384. Each round trip is held bit
+    for bit against the plain versions; block 64 must beat block 16384 (the
+    benchmark's assertion). Returns (RMSE rows, launch counts of the run)."""
+    from repro_torch.kernels import ops
+
+    n = 1 << 16
+    x = torch.randn((n,), generator=gen, device=dev)
+    x = torch.where(torch.rand((n,), generator=gen, device=dev) < 0.01,
+                    x * 10.0, x)
+    ops.reset_launches()
+    rows = []
+    for block in QUANT_ERROR_BLOCKS:
+        r = {"block": block}
+        for bits, quant, dequant in ((8, ops.quantize_int8, ops.dequantize_int8),
+                                     (4, ops.quantize_int4, ops.dequantize_int4)):
+            qk, sk = quant(x, block)
+            dk = dequant(qk, sk, block)
+            qp, sp = quant(x, block, impl="plain")
+            dp = dequant(qp, sp, block, impl="plain")
+            if not (torch.equal(qk, qp) and torch.equal(dk, dp)):
+                raise Failed(f"quant_error INT{bits} block {block}: kernels "
+                             "and plain versions differ")
+            r[f"int{bits}_rmse"] = float(((dk - x) ** 2).mean().sqrt())
+        rows.append(r)
+        print(f"  quant_error block {block:6d}: INT8 rmse {r['int8_rmse']:.5f} "
+              f"INT4 rmse {r['int4_rmse']:.5f} scales {400.0 / block:.2f} %")
+    launches = ops.launches()
+    add_check(checks, "dequantize_int4", "quant_error 2^16, blocks 64..16384",
+              0.0, "bitwise")
+    if not rows[0]["int8_rmse"] < rows[-1]["int8_rmse"]:
+        raise Failed("quant_error: block 64 does not beat block 16384")
+    missing = [k for k in ("quantize_int8", "dequantize_int8", "quantize_int4",
+                           "dequantize_int4") if launches[k] == 0]
+    if missing:
+        raise Failed(f"kernels not launched on the quant_error path: {missing}")
+    return rows, launches
 
 
 def scan_inputs(gen, dev, b, seq, d, h0_zero=True, dt_shift=3.0):
@@ -677,6 +868,171 @@ def train_phase():
                 plain_run_s=t_plain)
 
 
+def regime_phase(tr, flags):
+    """The training step again with ``flags`` (--overlap, --stream-grads)
+    for 3 steps, the same batches from the same seed: every kernel of
+    TRAIN_KERNELS must launch on every rank, and the per-step loss and grad
+    norm are held against the seed kernel run's first 3 steps (bitwise is
+    expected: the kernels are deterministic and the arithmetic the same; the
+    run fails beyond TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL)."""
+    from repro_torch.launch import train
+
+    argv = list(TRAIN_ARGS)
+    argv[argv.index("--steps") + 1] = str(REGIME_STEPS)
+    t0 = time.perf_counter()
+    runs = train.run(train.build_parser().parse_args(argv + list(flags)))
+    run_s = time.perf_counter() - t0
+    for r in runs:
+        missing = [k for k in TRAIN_KERNELS if r["launches"][k] == 0]
+        if missing:
+            raise Failed(f"rank {r['rank']}: kernels not launched on the "
+                         f"{' '.join(flags)} path: {missing}")
+        if (r["losses"], r["grad_norms"]) != (runs[0]["losses"],
+                                              runs[0]["grad_norms"]):
+            raise Failed("ranks disagree on the global loss or grad norm")
+    seed = tr["kernel"][0]
+    r0 = runs[0]
+    loss_rel = [abs(a - b) / abs(b)
+                for a, b in zip(r0["losses"], seed["losses"][:REGIME_STEPS])]
+    gn_rel = [abs(a - b) / abs(b) for a, b in
+              zip(r0["grad_norms"], seed["grad_norms"][:REGIME_STEPS])]
+    if len(r0["losses"]) != REGIME_STEPS or \
+            not all(math.isfinite(v) for v in r0["losses"] + r0["grad_norms"]) \
+            or max(loss_rel) > TRAIN_LOSS_RTOL or max(gn_rel) > TRAIN_GNORM_RTOL:
+        raise Failed(f"{' '.join(flags)} vs seed: losses {r0['losses']}, "
+                     f"loss rel {loss_rel}, grad norm rel {gn_rel}")
+    bitwise = (r0["losses"] == seed["losses"][:REGIME_STEPS]
+               and r0["grad_norms"] == seed["grad_norms"][:REGIME_STEPS])
+    return dict(flags=list(flags), ranks=runs, loss_rel=loss_rel,
+                grad_norm_rel=gn_rel, bitwise=bitwise, run_s=run_s,
+                launches={k: sum(r["launches"][k] for r in runs)
+                          for k in runs[0]["launches"]})
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the quantized reduce-scatters on four ranks
+# ---------------------------------------------------------------------------
+
+def collective_rank(rank: int, port: int, queue) -> None:
+    """One of the four gloo ranks of the collectives phase (spawned)."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=4,
+                                timeout=timedelta(seconds=300))
+        queue.put((rank, collective_checks(rank), None))
+    except Exception:
+        queue.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def collective_checks(rank: int) -> dict:
+    """a2a_quant_reduce_scatter at bits 4 and 8 over W, over E and over all
+    four ranks on (1, 2, 2), on an embed-sized f32 shard per rank: the
+    kernel run with the counters zeroed, then the same calls through the
+    plain versions. Wire payloads must match bit for bit, the sums within one
+    f32 ulp of their largest value, and each error against the exact f32
+    reduce-scatter within the reference scenario's bound (d half-steps of the
+    group's largest value)."""
+    from repro_torch.core import collectives as col
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import (TEST_AXES, Mesh, config_axis_tuples,
+                                         scheme_config)
+
+    dev = torch.device("cuda", 0)
+    mesh = Mesh((1, 2, 2), TEST_AXES, rank)
+    cfg = scheme_config("zero_topo", mesh, quant_block=128)
+    plain = dataclasses.replace(cfg, impl="plain")
+    mesh.bind(config_axis_tuples(cfg))
+    col.bind(mesh)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1000 + rank)
+    x = torch.randn((EMBED_N,), generator=gen, device=dev) * 1e-3
+    cases = [(name, getattr(cfg.axes, cat), bits)
+             for name, cat in (("W", "weight"), ("E", "extra_grad"),
+                               ("all", "all")) for bits in (4, 8)]
+    ops.reset_launches()
+    got = {}
+    for name, axes, bits in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q2, s2 = col.a2a_rs_issue(x, axes, cfg, bits)
+        red = col.a2a_rs_wait(q2, s2, cfg.size(axes), cfg, bits)
+        torch.cuda.synchronize()
+        got[name, bits] = (q2, s2, red, time.perf_counter() - t0)
+    launches = ops.launches()
+    out = dict(rank=rank, launches=launches, cases=[])
+    for name, axes, bits in cases:
+        q2, s2, red, secs = got.pop((name, bits))
+        d = cfg.size(axes)
+        q2p, s2p = col.a2a_rs_issue(x, axes, plain, bits)
+        redp = col.a2a_rs_wait(q2p, s2p, d, plain, bits)
+        if not (torch.equal(q2, q2p) and torch.equal(s2.view(torch.int32),
+                                                     s2p.view(torch.int32))):
+            raise Failed(f"rank {rank} {name} bits={bits}: wire bytes differ")
+        err, scale = rel_err(red, redp)
+        ulp = float(torch.finfo(torch.float32).eps) * 2.0 ** math.floor(
+            math.log2(scale)) if scale > 0 else 0.0
+        if err > ulp:
+            raise Failed(f"rank {rank} {name} bits={bits}: sum err {err} > "
+                         f"one ulp {ulp}")
+        exact = col.psum_scatter(x, axes, cfg)
+        gmax = float(col.all_gather_flat(x.abs().max()[None], axes, cfg).max())
+        qmax = 7.0 if bits == 4 else 127.0
+        ratio = float((red - exact).abs().max()) / (d * (gmax / (2 * qmax)
+                                                         + 1e-6))
+        if ratio > 1.0:
+            raise Failed(f"rank {rank} {name} bits={bits}: error over bound "
+                         f"{ratio}")
+        out["cases"].append(dict(axes=name, bits=bits, d=d, max_abs_err=err,
+                                 ulp=ulp, abs_over_bound=ratio, host_s=secs))
+        del q2, s2, red, q2p, s2p, redp, exact
+    return out
+
+
+def collectives_phase() -> list[dict]:
+    """Four gloo ranks (processes) sharing the card run collective_checks;
+    every kernel of COLLECTIVE_KERNELS must launch on every rank."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=collective_rank, args=(r, port, queue))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        while len(results) + len(errors) < 4:
+            rank, res, err = queue.get(timeout=600)
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+            else:
+                results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise Failed("collectives phase failed\n" + "\n".join(errors))
+    for r in results.values():
+        missing = [k for k in COLLECTIVE_KERNELS if r["launches"][k] == 0]
+        if missing:
+            raise Failed(f"rank {r['rank']}: kernels not launched in the "
+                         f"reduce-scatters: {missing}")
+    return [results[r] for r in range(4)]
+
+
 # ---------------------------------------------------------------------------
 # phase 5: timing at the serving and training shapes
 # ---------------------------------------------------------------------------
@@ -724,6 +1080,25 @@ def run_matmuls(calls, impl=None):
     return fn
 
 
+def dense_weights(calls):
+    """Each call's weight dequantized to a bf16 (K, N) tensor beforehand:
+    the library yardstick's operand."""
+    from repro_torch.kernels import ref
+
+    return [ref.dequant_w_flat_ref(q[:kn[0] * kn[1]].view(kn),
+                                   sc[:kn[0] * kn[1] // block].view(
+                                       kn[0], kn[1] // block),
+                                   block).to(torch.bfloat16)
+            for _, q, sc, kn, block, _ in calls]
+
+
+def run_dense(calls, dense):
+    def fn():
+        for (x, _, _, _, _, transpose), w in zip(calls, dense):
+            x @ (w.T if transpose else w)
+    return fn
+
+
 def timing_phase(s, gen):
     from repro_torch.kernels import ops
     from repro_torch.serve.resident import init_primaries
@@ -766,11 +1141,27 @@ def timing_phase(s, gen):
     slots, plen = s["args"].slots, s["args"].prompt_len
     dec = matmul_calls(s, slots, slots, gen)
     b, o = matmul_work(dec)
+    dense = dense_weights(dec)
     out["dequant_matmul"] = dict(
         work=f"one decode step: {len(dec)} calls at M={slots}",
         ms=device_ms(run_matmuls(dec), reps=5),
         plain_ms=device_ms(run_matmuls(dec, "plain"), reps=2, replays=2),
-        library_ms=None, bound=bound_ms(b, o, "bf16"))
+        library_ms=device_ms(run_dense(dec, dense), reps=5),
+        library="torch.matmul by the dequantized bf16 weights, product only",
+        bound=bound_ms(b, o, "bf16"))
+    del dense
+    # the backward's dX at the training M: one layer's 7 transposed calls
+    dx = [(torch.randn((TRAIN_M, kn[1]), generator=gen, device=dev)
+           .to(torch.bfloat16), q, sc, kn, block, True)
+          for _, q, sc, kn, block, _ in dec[:7]]
+    dense = dense_weights(dx)
+    b, o = matmul_work(dx)
+    out["dequant_matmul_dx"] = dict(
+        work=f"one layer's 7 dX products at M={TRAIN_M} (transposed)",
+        ms=device_ms(run_matmuls(dx), reps=2),
+        library_ms=device_ms(run_dense(dx, dense), reps=2),
+        bound=bound_ms(b, o, "bf16"))
+    del dense, dx
     pre = matmul_calls(s, plen, 1, gen)
     b, o = matmul_work(pre)
     out["dequant_matmul_prefill"] = dict(
@@ -852,6 +1243,54 @@ def train_timing(gen, dev):
         bound=bound_ms(n / 2 + 4 * n / block + 4 * half, 2 * n, "f32"))
     del q, s
 
+    # bits=8 receive side at the same size: d = 2 chunks of n / 2 int8
+    g32 = torch.randn((n,), generator=gen, device=dev) * 1e-3
+    q, s = ops.quantize_int8(g32, block)
+    del g32
+    out["dequantize_int8_sum"] = dict(
+        work=f"embed grad stage 1 receive at bits 8: d=2 chunks of {half} "
+             "int8",
+        ms=device_ms(lambda: ops.dequantize_int8_sum(q, s, 2, block), reps=5),
+        plain_ms=device_ms(lambda: ops.dequantize_int8_sum(
+            q, s, 2, block, impl="plain"), reps=2),
+        library_ms=None,
+        bound=bound_ms(n + 4 * n / block + 4 * half, 1.5 * n, "f32"))
+    del q, s
+
+    # INT4 dequantize (the quant_error round trip) at the same size
+    q, s = ops.quantize_int4(torch.randn((n,), generator=gen, device=dev),
+                             block)
+    per_dtype = {}
+    for odt, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        per_dtype[str(odt)[6:]] = dict(
+            ms=device_ms(lambda: ops.dequantize_int4(q, s, block, odt), reps=5),
+            plain_ms=device_ms(lambda: ops.dequantize_int4(
+                q, s, block, odt, impl="plain"), reps=2),
+            bound=bound_ms(n / 2 + 4 * n / block + size * n, n, "f32"))
+    del q, s
+    f32 = per_dtype["float32"]
+    out["dequantize_int4"] = dict(
+        work=f"{n} elements, block {block}, to f32 (bf16 in per_dtype)",
+        ms=f32["ms"], plain_ms=f32["plain_ms"], library_ms=None,
+        bound=f32["bound"], per_dtype=per_dtype)
+
+    # the blocked dequant-matmul at qwen2's w_up shape and the training M;
+    # the library yardstick multiplies by the weight already dequantized
+    k, nn = 896, 4864
+    x = torch.randn((TRAIN_M, k), generator=gen, device=dev)
+    qb, sb = blocked_quant(torch.randn((k, nn), generator=gen, device=dev), 128)
+    wdense = qb.float() * sb.repeat_interleave(128, dim=0)
+    out["dequant_matmul_blocked"] = dict(
+        work=f"x ({TRAIN_M}, {k}) f32 @ w_up ({k}, {nn}) int8, bk 128",
+        ms=device_ms(lambda: ops.dequant_matmul_blocked(x, qb, sb), reps=5),
+        plain_ms=device_ms(lambda: ops.dequant_matmul_blocked(
+            x, qb, sb, impl="plain"), reps=5),
+        library_ms=device_ms(lambda: x @ wdense, reps=5),
+        library="torch.matmul by the dequantized f32 weight (TF32 off)",
+        bound=bound_ms(4 * TRAIN_M * k + k * nn + 4 * k * nn / 128
+                       + 4 * TRAIN_M * nn, 2 * TRAIN_M * k * nn, "f32"))
+    del x, qb, sb, wdense
+
     calls = [(torch.randn((TRAIN_M, k), generator=gen, device=dev),
               torch.randn((TRAIN_M, nn), generator=gen, device=dev) * 1e-2)
              for k, nn in LAYER_KN]
@@ -904,6 +1343,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -911,8 +1351,14 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     card = nvidia_smi()
+    t_start = time.perf_counter()
+    phases = {}                     # phase name -> seconds since the start
 
-    print("phase build", flush=True)
+    def phase(name):
+        phases[name] = time.perf_counter() - t_start
+        print(f"phase {name} (at {phases[name]:.1f} s)", flush=True)
+
+    phase("build")
     t0 = time.perf_counter()
     kcuda.build_all()
     print(f"  built {kcuda.BUILD_LOG['built']} in {time.perf_counter() - t0:.1f} s"
@@ -922,18 +1368,25 @@ def main(argv=None) -> int:
             if "registers" in line or re.search(r"[1-9]\d* bytes spill", line):
                 print(f"  ptxas {stem}: {line.strip()}")
 
-    print("phase kernels", flush=True)
+    phase("kernels")
     checks: dict[str, list] = {}
     check_kernels(dev, gen, checks)
+    check_dequant_kernels(dev, gen, checks)
 
-    print("phase serve", flush=True)
+    phase("ops (quant_error, blocked matmul)")
+    qe_rows, qe_launches = quant_error_path(gen, dev, checks)
+    bm_launches = blocked_matmul_path(gen, dev, checks)
+    print(f"  launches: quant_error {qe_launches}; blocked matmul "
+          f"{bm_launches}")
+
+    phase("serve")
     s = serve_phase(SERVE_ARGS, SERVE_KERNELS)
     pf = check_prefill(s)
     print(f"  launches {s['launches']}; counters {s['counters']}; prefill "
           f"logits max_abs_err {pf['logits_err']:.3e} (max|ref| "
           f"{pf['logits_scale']:.3e}, argmax equal {pf['argmax_equal']})")
 
-    print("phase ssm", flush=True)
+    phase("ssm")
     m, mpf, scan_t = ssm_phase(gen, dev)
     print(f"  launches {m['launches']}; counters {m['counters']}; prefill "
           f"logits max_abs_err {mpf['logits_err']:.3e} (max|ref| "
@@ -952,7 +1405,7 @@ def main(argv=None) -> int:
               f"{tm['plain_ms']:.4f} ms, bound {tm['bound'][0]:.4f} ms "
               f"({tm['bound'][1]})")
 
-    print("phase train", flush=True)
+    phase("train")
     tr = train_phase()
     for label, run in (("kernels", tr["kernel"]), ("plain", tr["plain"])):
         for r in run:
@@ -963,7 +1416,37 @@ def main(argv=None) -> int:
     print(f"  kernel vs plain: loss rel {tr['loss_rel']}, grad norm rel "
           f"{tr['grad_norm_rel']}")
 
-    print("phase timing", flush=True)
+    phase("collectives")
+    cl = collectives_phase()
+    for r in cl:
+        print(f"  rank {r['rank']}: launches {r['launches']}")
+        for c in r["cases"]:
+            print(f"    {c['axes']:3s} bits={c['bits']} d={c['d']}: sum vs plain "
+                  f"{c['max_abs_err']:.3e} (ulp {c['ulp']:.3e}), error/bound "
+                  f"{c['abs_over_bound']:.4f}, host_s {c['host_s']:.3f}")
+    cl_launches = {k: sum(r["launches"][k] for r in cl) for k in ops.KERNELS}
+
+    regimes = []
+    for flags in REGIME_FLAGS:
+        phase(f"regimes ({' '.join(flags)})")
+        rg = regime_phase(tr, flags)
+        for r, sr in zip(rg["ranks"], tr["kernel"]):
+            print(f"  rank {r['rank']}: loss {r['losses']} grad_norm "
+                  f"{r['grad_norms']} step_s {r['step_times']} (seed "
+                  f"{sr['step_times'][:REGIME_STEPS]}) tok/s "
+                  f"{r['tokens_per_s']} (seed "
+                  f"{sr['tokens_per_s'][:REGIME_STEPS]}) peak_bytes "
+                  f"{r['peak_bytes']} (seed {sr['peak_bytes']}) grad_buffer "
+                  f"{r['memory']['grad_buffer']} (seed "
+                  f"{sr['memory']['grad_buffer']}) prefetch_buffer "
+                  f"{r['memory']['prefetch_buffer']} payload_bytes "
+                  f"{r['payload_bytes']}")
+        print(f"  vs the seed run's first {REGIME_STEPS} steps: bitwise "
+              f"{rg['bitwise']}, loss rel {rg['loss_rel']}, grad norm rel "
+              f"{rg['grad_norm_rel']}")
+        regimes.append(rg)
+
+    phase("timing")
     t = timing_phase(s, gen)
     t.update(train_timing(gen, dev))
     plen = m["args"].prompt_len
@@ -975,7 +1458,11 @@ def main(argv=None) -> int:
         bms, by = tm["bound"]
         by_path = dict(serve=s["launches"][name],
                        serve_ssm=m["launches"][name],
-                       train=tr["launches"][name])
+                       train=tr["launches"][name],
+                       collectives=cl_launches[name],
+                       regimes=sum(rg["launches"][name] for rg in regimes),
+                       quant_error=qe_launches[name],
+                       blocked_matmul=bm_launches[name])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -984,6 +1471,16 @@ def main(argv=None) -> int:
             tolerance=[c["tolerance"] for c in checks[name]],
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bms, bound_by=by,
             library_ms=tm["library_ms"], work=tm["work"]))
+    dx = t["dequant_matmul_dx"]
+    dq4 = t["dequantize_int4"]["per_dtype"]["bfloat16"]
+    kernels_extra = dict(
+        dequant_matmul_dx=dict(work=dx["work"], ms=dx["ms"],
+                               library_ms=dx["library_ms"],
+                               bound_ms=dx["bound"][0],
+                               bound_by=dx["bound"][1]),
+        dequantize_int4_bf16=dict(ms=dq4["ms"], plain_ms=dq4["plain_ms"],
+                                  bound_ms=dq4["bound"][0],
+                                  bound_by=dq4["bound"][1]))
     serve_line = dict(
         arch=s["arch"].name, requests=len(s["reqs"]), slots=s["args"].slots,
         prompt_len=s["args"].prompt_len, gen=s["args"].gen,
@@ -1045,11 +1542,45 @@ def main(argv=None) -> int:
         traced_step_top_kernels_rank0=k0["profile"]["top"],
         state_bytes_per_rank=k0["memory"], run_s=tr["run_s"],
         plain_run_s=tr["plain_run_s"])
+    regimes_line = dict(
+        steps=REGIME_STEPS, seed_losses=k0["losses"][:REGIME_STEPS],
+        seed_grad_norms=k0["grad_norms"][:REGIME_STEPS],
+        seed_step_s=k0["step_times"][:REGIME_STEPS],
+        seed_peak_bytes_per_rank=[r["peak_bytes"] for r in tr["kernel"]],
+        seed_grad_buffer=k0["memory"]["grad_buffer"], runs=[])
+    for rg in regimes:
+        r0 = rg["ranks"][0]
+        regimes_line["runs"].append(dict(
+            flags=rg["flags"], losses=r0["losses"],
+            grad_norms=r0["grad_norms"], bitwise_vs_seed=rg["bitwise"],
+            loss_rel=rg["loss_rel"], grad_norm_rel=rg["grad_norm_rel"],
+            step_s=r0["step_times"],
+            step_s_median=statistics.median(r0["step_times"][1:]),
+            tok_s_median=statistics.median(r0["tokens_per_s"][1:]),
+            peak_bytes_per_rank=[r["peak_bytes"] for r in rg["ranks"]],
+            grad_buffer=r0["memory"]["grad_buffer"],
+            prefetch_buffer=r0["memory"]["prefetch_buffer"],
+            payload_bytes_per_step_per_rank={
+                op: b / REGIME_STEPS for op, b in r0["payload_bytes"].items()},
+            phase_s_per_step=[{k: v / REGIME_STEPS
+                               for k, v in r["phase_s"].items()}
+                              for r in rg["ranks"]],
+            run_s=rg["run_s"]))
+    collectives_line = dict(
+        mesh=[1, 2, 2], ranks=4, elements_per_rank=EMBED_N, quant_block=128,
+        cases=cl[0]["cases"],
+        max_abs_over_bound=max(c["abs_over_bound"] for r in cl
+                               for c in r["cases"]),
+        quant_error=qe_rows)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
-            card=card, kernels=kernels, serve=serve_line, serve_ssm=ssm_line,
-            train=train_line,
+            card=card, phases=phases, kernels=kernels,
+            kernels_extra=kernels_extra,
+            serve=serve_line, serve_ssm=ssm_line, train=train_line,
+            regimes=regimes_line, collectives=collectives_line,
+            collective_ranks=cl,
+            regime_ranks=[rg["ranks"] for rg in regimes],
             train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
             checks=checks, timing={k: v for k, v in t.items()},
             launches=s["launches"], launches_ssm=m["launches"],
@@ -1057,9 +1588,13 @@ def main(argv=None) -> int:
             torch=torch.__version__, cuda=torch.version.cuda),
             indent=1, default=str))
 
+    phase("report")
     print("serve " + json.dumps(serve_line))
     print("serve_ssm " + json.dumps(ssm_line))
     print("train " + json.dumps(train_line))
+    print("regimes " + json.dumps(regimes_line))
+    print("collectives " + json.dumps(collectives_line))
+    print("kernels_extra " + json.dumps(kernels_extra))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,10 @@ the one-device serving path needs no process group at all. Larger tuples run
 over the process groups of the mesh bound with ``bind`` (launch/mesh.py).
 
 The key primitive is the all-to-all based quantized reduce-scatter (ZeRO++):
-the input is split into d chunks, each chunk is quantized once to INT4,
-exchanged with one all-to-all, and the receiver dequantizes and sums the d
-chunks in one pass (``ops.dequantize_int4_sum``).
+the input is split into d chunks, each chunk is quantized once to INT4 (or
+INT8 with ``bits=8``), exchanged with one all-to-all, and the receiver
+dequantizes and sums the d chunks in one pass (``ops.dequantize_int4_sum`` /
+``ops.dequantize_int8_sum``).
 
 Transport. The process group is gloo (four ranks share one card, which
 NCCL refuses). Payloads move bit for bit in their own dtype: INT8 q, packed
@@ -82,6 +83,32 @@ def _gather(t: torch.Tensor, axes: AxisTuple, op: str) -> torch.Tensor:
     return torch.stack([outs[g.to_group[j]] for j in range(g.size)])
 
 
+class _Pending:
+    """An all-gather in flight (``async_op=True``): ``wait()`` waits on its
+    work handle and returns what ``_gather`` returns. It holds the input
+    until then, so the memory the transport reads from is not reused."""
+
+    def __init__(self, t: torch.Tensor, axes: AxisTuple, op: str):
+        g = _group(axes)
+        self._t = t.contiguous()
+        self._outs = [torch.empty_like(self._t) for _ in range(g.size)]
+        self._order = [g.to_group[j] for j in range(g.size)]
+        self._op = op
+        PAYLOAD[op] += self._t.numel() * self._t.element_size()
+        t0 = time.perf_counter()
+        self._work = dist.all_gather(self._outs, self._t, group=g.pg,
+                                     async_op=True)
+        SECONDS[op] += time.perf_counter() - t0
+
+    def wait(self) -> torch.Tensor:
+        t0 = time.perf_counter()
+        self._work.wait()
+        SECONDS[self._op] += time.perf_counter() - t0
+        out = torch.stack([self._outs[i] for i in self._order])
+        self._t = self._outs = None
+        return out
+
+
 def _all_to_all(t: torch.Tensor, axes: AxisTuple, op: str) -> torch.Tensor:
     """t (d, L): row j goes to member j; returns (d, L) whose row j came
     from member j (the reference's untiled ``all_to_all`` over axis 0)."""
@@ -148,18 +175,38 @@ def gather_issue_int8(shard: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig):
     return q, s
 
 
+class GatherBuf:
+    """Gathers in flight: each of ``parts`` all-gathered over ``axes`` with
+    ``async_op=True``. ``wait()`` returns them tiled, as ``all_gather_flat``
+    returns one; every caller waits before it reads."""
+
+    def __init__(self, parts, axes: AxisTuple, cfg: ZeroConfig):
+        if cfg.size(tuple(axes)) == 1:
+            self._done, self._pending = tuple(parts), None
+        else:
+            self._done = None
+            self._pending = tuple(_Pending(p, axes, "all_gather") for p in parts)
+
+    def wait(self) -> tuple:
+        if self._done is None:
+            self._done = tuple(_tiled(p.wait()) for p in self._pending)
+            self._pending = None
+        return self._done
+
+
+def gather_issue_int8_async(shard: torch.Tensor, axes: AxisTuple,
+                            cfg: ZeroConfig) -> GatherBuf:
+    """``gather_issue_int8`` with the all-gathers left in flight: the
+    prefetch half of the forward gather. ``wait()`` gives the same
+    (q, scales)."""
+    q, s = ops.quantize_int8(shard, cfg.quant_block, impl=cfg.impl)
+    return GatherBuf((q, s), axes, cfg)
+
+
 def gather_wait_int8(qf, sf, cfg: ZeroConfig, out_dtype=torch.bfloat16):
     """Local dequant of a gathered (q, scales) buffer (no communication)."""
     return ops.dequantize_int8(qf, sf, cfg.quant_block, out_dtype,
                                impl=cfg.impl)
-
-
-def quant_all_gather_int8(shard: torch.Tensor, axes: AxisTuple,
-                          cfg: ZeroConfig, out_dtype=torch.bfloat16):
-    """INT8 block-quantized all-gather: quantize -> gather(q, s) -> dequant.
-    Returns the full dequantized tensor and the gathered (q, scales)."""
-    qf, sf = gather_issue_int8(shard, axes, cfg)
-    return gather_wait_int8(qf, sf, cfg, out_dtype), qf, sf
 
 
 def gather_issue_int8_rows(rows: torch.Tensor, axes: AxisTuple,
@@ -179,13 +226,18 @@ def gather_issue_int8_rows(rows: torch.Tensor, axes: AxisTuple,
     return q, s
 
 
-def a2a_rs_issue(x: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig):
-    """Quantize the d chunks of a flat tensor to INT4 and exchange them with
-    one all-to-all (chunk j -> member j), without the receive-side sum.
-    Returns the received (q2, s2) wire buffers, row j from member j. (The
-    reference's ``bits=8`` variant needs ``dequantize_int8_sum``, which is
-    not ported.)"""
-    q, s = ops.quantize_int4(x.reshape(-1), cfg.quant_block, impl=cfg.impl)
+def a2a_rs_issue(x: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig,
+                 bits: int = 4):
+    """Quantize the d chunks of a flat tensor (INT4 with ``bits=4``, INT8 with
+    ``bits=8``) and exchange them with one all-to-all (chunk j -> member j),
+    without the receive-side sum. Returns the received (q2, s2) wire
+    buffers, row j from member j."""
+    if bits == 4:
+        q, s = ops.quantize_int4(x.reshape(-1), cfg.quant_block, impl=cfg.impl)
+    elif bits == 8:
+        q, s = ops.quantize_int8(x.reshape(-1), cfg.quant_block, impl=cfg.impl)
+    else:
+        raise ValueError(f"a2a_rs_issue: bits {bits}, not 4 or 8")
     return a2a_rs_issue_q(q, s, axes, cfg)
 
 
@@ -199,23 +251,25 @@ def a2a_rs_issue_q(q: torch.Tensor, s: torch.Tensor, axes: AxisTuple,
     return q2, s2
 
 
-def a2a_rs_wait(q2, s2, d: int, cfg: ZeroConfig,
+def a2a_rs_wait(q2, s2, d: int, cfg: ZeroConfig, bits: int = 4,
                 out_dtype=torch.float32) -> torch.Tensor:
-    """Receive side: fused unpack + dequant + sum over the d chunks."""
-    red = ops.dequantize_int4_sum(q2.reshape(-1), s2.reshape(-1), d,
-                                  cfg.quant_block, torch.float32, impl=cfg.impl)
+    """Receive side: fused (unpack +) dequant + sum over the d chunks."""
+    sum_fn = ops.dequantize_int4_sum if bits == 4 else ops.dequantize_int8_sum
+    red = sum_fn(q2.reshape(-1), s2.reshape(-1), d, cfg.quant_block,
+                 torch.float32, impl=cfg.impl)
     return red.to(out_dtype)
 
 
 def a2a_quant_reduce_scatter(x, axes: AxisTuple, cfg: ZeroConfig,
-                             out_dtype=torch.float32):
-    """All-to-all based INT4 reduce-scatter: x flat (n,), n % (d * block)
-    == 0 -> this rank's (n // d,) slice of the sum over the group."""
+                             bits: int = 4, out_dtype=torch.float32):
+    """All-to-all based quantized reduce-scatter (INT4 by default, INT8 with
+    ``bits=8``): x flat (n,), n % (d * block) == 0 -> this rank's (n // d,)
+    slice of the sum over the group."""
     d = cfg.size(tuple(axes))
     if d == 1:
         return x.to(out_dtype)
-    q2, s2 = a2a_rs_issue(x, axes, cfg)
-    return a2a_rs_wait(q2, s2, d, cfg, out_dtype)
+    q2, s2 = a2a_rs_issue(x, axes, cfg, bits)
+    return a2a_rs_wait(q2, s2, d, cfg, bits, out_dtype)
 
 
 def reduce_scatter_flat(x, axes: AxisTuple, cfg: ZeroConfig, *,

@@ -1,9 +1,11 @@
 """ZeroEngine: the training step on one rank of a ``torch.distributed`` mesh.
 
-Port of the seed-regime train step of ``repro.core.engine`` (``init_state``
-:501, ``make_train_step`` :602, ``_make_local_grads`` :645, ``_stage2_rs``
-:541, ``_replica_sync`` :553, ``_clip_grads`` :719, ``_apply_updates`` :574,
-``memory_report`` :440). The reference runs one program over the mesh
+Port of the train step of ``repro.core.engine`` (``init_state`` :501,
+``make_train_step`` :602, ``_make_local_grads`` :645, ``_stage2_rs`` :541,
+``_replica_sync`` :553, ``_clip_grads`` :719, ``_apply_updates`` :574,
+``memory_report`` :440, ``stream_leaf_names`` :415, ``_zero_sinks`` :533,
+``_grads_to_os`` :567), in both gradient regimes and with or without the
+gather prefetch (``ZeroConfig.overlap``). The reference runs one program over the mesh
 inside ``shard_map``; here every rank runs this code on its own shards and
 the collectives meet over the mesh's process groups.
 
@@ -25,10 +27,19 @@ One step:
 4. Grad-norm clipping (``det_psum``: the same sum on every process layout),
    AdamW on the master shard.
 5. The update all-gather over E + R rebuilds the primary shards.
+
+With ``stream_grads`` the stacked MATMUL / GATHER_Q leaves run steps 2 and 3
+inside each layer's backward and hand the fully reduced fp32 os-shard row
+to a zero sink (core/linear.py), so their microbatch grads accumulate in
+os layout (4 * psi / os_degree instead of 4 * psi / w_degree); the tied
+embedding and the PLAIN leaves keep the path above. At one microbatch the
+two regimes give the same bits. With ``overlap`` the layer loop prefetches
+each layer's gathers during the previous layer (core/schedule.py).
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -38,9 +49,11 @@ import torch
 
 from ..optim.adamw import adamw_update, cosine_lr
 from . import collectives as col
-from .linear import PlainGather, ZeroGatherQ, ZeroMatmul, _dtype
+from . import schedule as sched
+from .linear import PlainGather, ZeroGatherQ, ZeroMatmul, _dtype, gather_issue
 from .partition import (GATHER_Q, MATMUL, PLAIN, LeafSpec, ZeroConfig,
-                        grad_buffer_bytes, padded_flat_size)
+                        grad_buffer_bytes, padded_flat_size,
+                        prefetch_buffer_bytes)
 
 
 @dataclass
@@ -54,13 +67,18 @@ class TrainHparams:
     total_steps: int = 1000
     min_lr_frac: float = 0.1
     n_microbatch: int = 1
+    overlap: bool | None = None   # None: ZeroConfig.overlap; a bool overrides
+    # the scheme config (the train CLI's --overlap)
+    stream_grads: bool | None = None  # None: ZeroConfig.stream_grads; a bool
+    # overrides the scheme config (the train CLI's --stream-grads)
 
 
 @dataclass(frozen=True)
 class _LeafFns:
     spec: LeafSpec
-    mm: Callable | None
-    full: Callable
+    mm: Callable | None        # (x, primary, sink, transpose, buf) -> y
+    full: Callable             # (primary, sink, buf) -> dense tensor
+    issue: Callable | None = None   # prefetch: primary -> GatherBuf
 
 
 class ParamView:
@@ -70,21 +88,55 @@ class ParamView:
     re-gather backward, quantized grad reduce-scatter) without keeping the
     dense weight; ``get(name)`` materializes the dense tensor (norms, biases,
     the tied embedding). ``sub(i)`` binds layer ``i`` of the stacked leaves,
-    whose primaries are held one row per layer."""
+    whose primaries are held one row per layer.
+
+    ``bufs`` (overlap; core/schedule.py ``loop_layers``): the bound layer's
+    prefetched gathers, {name: GatherBuf}. Each is consumed once: the first
+    ``mm`` / ``get`` of the leaf waits on it and takes it in place of the
+    inline gather. The layer's recompute in the backward (one checkpoint
+    per layer) finds it gone and gathers inline, so the step makes the same
+    gathers with overlap on and off and no buffer lives past its layer.
+
+    ``sinks`` (streaming): {name: [zero fp32 optimizer-shard row per layer]}
+    for the stacked MATMUL / GATHER_Q leaves; the bound layer's row takes
+    that leaf's fully reduced gradient."""
 
     def __init__(self, fns: dict[str, _LeafFns], leaves: dict, impl,
-                 layer: int | None = None):
+                 layer: int | None = None, *, bufs: dict | None = None,
+                 sinks: dict | None = None, overlap: bool = False):
         self._fns = fns
         self._p = leaves
         self._impl = impl
         self._layer = layer
+        self._bufs = bufs
+        self._sinks = sinks
+        self.overlap = overlap
 
     @property
     def impl(self):
         return self._impl
 
-    def sub(self, layer: int) -> "ParamView":
-        return ParamView(self._fns, self._p, self._impl, layer)
+    @property
+    def fns(self) -> dict[str, _LeafFns]:
+        return self._fns
+
+    def sub(self, layer: int, bufs: dict | None = None) -> "ParamView":
+        return ParamView(self._fns, self._p, self._impl, layer, bufs=bufs,
+                         sinks=self._sinks, overlap=self.overlap)
+
+    def stacked_names(self, kind: str) -> list[str]:
+        """The stacked leaves of one block kind, in name order."""
+        return [n for n in sorted(self._fns)
+                if n.startswith(kind + ".") and self._fns[n].spec.stack]
+
+    def layer_primaries(self, names, layer: int) -> dict:
+        return {n: self._p[n][layer] for n in names}
+
+    def loop_layers(self, body, carry, steps):
+        """The layer loop through the prefetch rotation (core/schedule.py):
+        ``body(sub_view, carry, tag) -> carry`` over ``steps`` = [(tag,
+        layer)]."""
+        return sched.loop_layers(self, body, carry, steps)
 
     def _leaf(self, name: str):
         if self._fns[name].spec.stack:
@@ -93,14 +145,28 @@ class ParamView:
             return self._p[name][self._layer]
         return self._p[name]
 
+    def _buf(self, name: str):
+        """The bound layer's prefetched gather of ``name``, waited; None when
+        there is none or it was consumed."""
+        if not self._bufs or name not in self._bufs:
+            return None
+        return self._bufs.pop(name).wait()
+
+    def _sink(self, name: str):
+        if self._sinks is None or name not in self._sinks:
+            return None
+        return self._sinks[name][self._layer]
+
     def mm(self, name: str, x, transpose: bool = False):
         fn = self._fns[name]
         if fn.mm is None:
             raise ValueError(f"{name} is not a matmul leaf")
-        return fn.mm(x, self._leaf(name), transpose)
+        return fn.mm(x, self._leaf(name), self._sink(name), transpose,
+                     self._buf(name))
 
     def get(self, name: str):
-        return self._fns[name].full(self._leaf(name))
+        return self._fns[name].full(self._leaf(name), self._sink(name),
+                                    self._buf(name))
 
     def embed_lookup(self, name: str, ids):
         return self.get(name)[ids]
@@ -112,6 +178,12 @@ class ZeroEngine:
 
     def __init__(self, specs: dict[str, LeafSpec], cfg: ZeroConfig, mesh,
                  hp: TrainHparams | None = None, device="cpu"):
+        if hp is not None:
+            over = {k: v for k, v in (("overlap", hp.overlap),
+                                      ("stream_grads", hp.stream_grads))
+                    if v is not None and v != getattr(cfg, k)}
+            if over:
+                cfg = dataclasses.replace(cfg, **over)
         cfg.validate_dependency_rule()
         for a, size in cfg.axis_sizes:
             if mesh.shape.get(a) != size:
@@ -134,17 +206,21 @@ class ZeroEngine:
         col.bind(mesh)
 
     def _build_fns(self, spec: LeafSpec) -> _LeafFns:
-        import dataclasses
         ls = dataclasses.replace(spec, stack=None)
         lcfg = self.leaf_cfg[spec.name]
         if spec.kind in (MATMUL, GATHER_Q):
             mm = None
             if spec.kind == MATMUL:
-                def mm(x, p, transpose=False):
-                    return ZeroMatmul.apply(x, p, ls, lcfg, transpose)
-            return _LeafFns(spec, mm, lambda p: ZeroGatherQ.apply(p, ls, lcfg))
+                def mm(x, p, sink, transpose, buf):
+                    return ZeroMatmul.apply(x, p, sink, ls, lcfg, transpose,
+                                            buf)
+            return _LeafFns(spec, mm,
+                            lambda p, sink, buf: ZeroGatherQ.apply(
+                                p, sink, ls, lcfg, buf),
+                            lambda p: gather_issue(p, lcfg))
         if spec.kind == PLAIN:
-            return _LeafFns(spec, None, lambda p: PlainGather.apply(p, ls, lcfg))
+            return _LeafFns(spec, None,
+                            lambda p, sink, buf: PlainGather.apply(p, ls, lcfg))
         raise ValueError(spec.kind)
 
     # -- shapes ---------------------------------------------------------------
@@ -161,20 +237,50 @@ class ZeroEngine:
     def padded_param_count(self) -> int:
         return sum(self._pad[n] * (s.stack or 1) for n, s in self.specs.items())
 
+    def stream_leaf_names(self) -> tuple[str, ...]:
+        """Leaves on the streaming grad path (stacked MATMUL / GATHER_Q):
+        their grads are reduced inside each layer's backward and accumulate
+        in fp32 optimizer-shard layout."""
+        return tuple(n for n in sorted(self.specs)
+                     if self.specs[n].stack
+                     and self.specs[n].kind in (MATMUL, GATHER_Q))
+
+    def _prefetch_slot_bytes(self) -> int:
+        """One slot of the 2-slot prefetch buffer: the largest layer's
+        gathered wire-format weights (INT8 payload + f32 scales when
+        quantized, compute dtype otherwise) over its prefetchable leaves."""
+        per_kind: dict[str, int] = {}
+        bytes_per = torch.empty((), dtype=_dtype(self.cfg)).element_size()
+        for n, s in self.specs.items():
+            if not s.stack or self.fns[n].issue is None:
+                continue
+            kind = n.split(".", 1)[0]
+            pad, lcfg = self._pad[n], self.leaf_cfg[n]
+            b = pad + 4 * pad // lcfg.quant_block \
+                if lcfg.quantize_weights else bytes_per * pad
+            per_kind[kind] = per_kind.get(kind, 0) + b
+        return max(per_kind.values(), default=0)
+
     def memory_report(self) -> dict[str, int]:
-        """Per-rank training-state bytes by the reference's formulas."""
+        """Per-rank training-state bytes by the reference's formulas:
+        ``grad_buffer`` counts streamed leaves at fp32 os-shard layout and
+        the rest at fp32 primary layout; ``prefetch_buffer`` is the 2-slot
+        gathered-weight buffer of the overlap (0 when it is off)."""
         cfg = self.cfg
         psi = self.padded_param_count()
         bytes_per = torch.empty((), dtype=_dtype(cfg)).element_size()
         primary = bytes_per * psi // cfg.w_degree
         sec = 0 if cfg.sec_degree is None else \
             psi // cfg.sec_degree + 4 * psi // (cfg.quant_block * cfg.sec_degree)
-        grads = sum(grad_buffer_bytes(cfg, self._pad[n] * (s.stack or 1))
+        stream = set(self.stream_leaf_names()) if cfg.stream_grads else set()
+        grads = sum(grad_buffer_bytes(cfg, self._pad[n] * (s.stack or 1),
+                                      streaming=n in stream)
                     for n, s in self.specs.items())
         optimizer = 12 * psi // cfg.os_degree
+        prefetch = prefetch_buffer_bytes(cfg, self._prefetch_slot_bytes())
         return dict(primary=primary, secondary=sec, grad_buffer=grads,
-                    optimizer=optimizer, prefetch_buffer=0,
-                    total=primary + sec + grads + optimizer)
+                    optimizer=optimizer, prefetch_buffer=prefetch,
+                    total=primary + sec + grads + optimizer + prefetch)
 
     # -- state ------------------------------------------------------------------
 
@@ -233,17 +339,30 @@ class ZeroEngine:
 
     # -- the train step -------------------------------------------------------
 
-    def _leaves(self, primaries):
+    def _leaves(self, primaries, frozen=()):
         """Autograd leaves over the primaries: one per layer row of a stacked
-        leaf, so each row's cotangent lands in its own ``.grad``."""
+        leaf, so each row's cotangent lands in its own ``.grad``. The
+        ``frozen`` leaves (streamed: their grads leave through sinks) are
+        rows that take no grad."""
         out = {}
         for n, p in primaries.items():
+            want = n not in frozen
             if self.specs[n].stack:
-                out[n] = [p[i].detach().requires_grad_(True)
+                out[n] = [p[i].detach().requires_grad_(want)
                           for i in range(p.shape[0])]
             else:
-                out[n] = p.detach().requires_grad_(True)
+                out[n] = p.detach().requires_grad_(want)
         return out
+
+    def _zero_sinks(self, names) -> dict[str, list[torch.Tensor]]:
+        """fp32 optimizer-shard gradient sinks, one zero row per layer of each
+        streamed leaf: their grads are the os-layout accumulation. Each row
+        is one zero expanded to the row's length, so the sinks take no
+        memory of their own (their grads do)."""
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        return {n: [zero.expand(self.os_shard_len(n)).requires_grad_()
+                    for _ in range(self.specs[n].stack)]
+                for n in names}
 
     @staticmethod
     def _grad(leaf) -> torch.Tensor:
@@ -256,29 +375,37 @@ class ZeroEngine:
 
     def local_grads(self, loss_fn: Callable, primaries, batch):
         """The microbatch loop: ``loss_fn(view, batch) -> (loss_sum, tokens)``.
-        Returns (primary-layout f32 grads, global mean loss, global tokens).
-        Each microbatch loss is normalized by its global token count."""
+        Returns (f32 grads, global mean loss, global tokens). Each microbatch
+        loss is normalized by its global token count. The grads are in
+        primary layout, except that with ``stream_grads`` the streamed leaves'
+        (``stream_leaf_names``) arrive fully reduced, in os-shard layout,
+        from their sinks."""
         n_mb = self.hp.n_microbatch
-        axes = self.cfg.axes.all
+        cfg = self.cfg
+        axes = cfg.axes.all
+        stream = self.stream_leaf_names() if cfg.stream_grads else ()
         gacc = None
         loss = gtok = 0.0
         for j in range(n_mb):
             mb = {k: v.chunk(n_mb)[j] for k, v in batch.items()}
-            leaves = self._leaves(primaries)
-            view = ParamView(self.fns, leaves, self.cfg.impl)
+            leaves = self._leaves(primaries, frozen=stream)
+            sinks = self._zero_sinks(stream)
+            view = ParamView(self.fns, leaves, cfg.impl, sinks=sinks,
+                             overlap=cfg.overlap)
             loss_sum, tok = loss_fn(view, mb)
             # token counts are integers in f32: exact in any order
-            t = col.det_psum(tok.float(), axes, self.cfg)
+            t = col.det_psum(tok.float(), axes, cfg)
             l_mb = loss_sum.float() / torch.clamp(t, min=1.0)
             l_mb.backward()
-            g = {n: self._grad(leaves[n]) for n in sorted(self.specs)}
+            g = {n: self._grad(sinks[n] if n in sinks else leaves[n])
+                 for n in sorted(self.specs)}
             gacc = g if gacc is None else {n: gacc[n] + g[n] for n in g}
             loss = loss + l_mb.detach()
             gtok = gtok + t
         if n_mb > 1:
             gacc = {n: g / n_mb for n, g in gacc.items()}
             loss = loss / n_mb
-        return gacc, col.det_psum(loss, axes, self.cfg), gtok
+        return gacc, col.det_psum(loss, axes, cfg), gtok
 
     def _stage2_rs(self, name: str, g: torch.Tensor) -> torch.Tensor:
         """Reduce-scatter a primary-layout grad over E (INT4 a2a). Each row
@@ -347,7 +474,9 @@ class ZeroEngine:
         t = time.perf_counter()
         grads, loss, gtok = self.local_grads(loss_fn, state["primaries"], batch)
         t = self._phase("grads", t)
-        os_grads = {n: self._replica_sync(n, self._stage2_rs(n, grads[n]))
+        streamed = self.stream_leaf_names() if self.cfg.stream_grads else ()
+        os_grads = {n: grads[n] if n in streamed else
+                    self._replica_sync(n, self._stage2_rs(n, grads[n]))
                     for n in sorted(self.specs)}
         del grads
         t = self._phase("stage2", t)

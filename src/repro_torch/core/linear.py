@@ -2,8 +2,12 @@
 
 Port of ``repro.core.linear``: ``make_zero_matmul`` (:301, with
 ``_mm_bwd_core``, ``_mm_dw_stage1`` and ``_dw_fusable``),
-``make_zero_gather_q`` (:333) and ``make_plain_gather`` (:590), the inline
-path only (no prefetch, no streaming sinks).
+``make_zero_gather_q`` (:333) and ``make_plain_gather`` (:590), with their
+prefetched-buffer forms (``make_gather_issue``, ``_consume_buf``,
+``make_zero_matmul_pre``, ``make_zero_gather_q_pre``, :366-470) and streaming
+forms (``make_zero_matmul_stream[_pre]``, ``make_zero_gather_q_stream``,
+``_os_tail`` :203). Each reference variant is one of the two Functions here
+with a ``buf`` and / or a ``sink`` argument.
 
 ``zero_matmul``:
   forward : INT8 block-quantized all-gather of the primary shard over the
@@ -21,8 +25,15 @@ path only (no prefetch, no streaming sinks).
 ``zero_gather_q`` is the same machinery for weights read whole (the tied
 embedding: its lookup and its LM head): quantized gather forward, quantized
 reduce-scatter backward. ``plain_gather`` is the fp gather of small leaves,
-whose backward is a reduce-scatter over W. The cross-replica and stage-2
-reductions are left to the engine.
+whose backward is a reduce-scatter over W.
+
+Prefetch (``ZeroConfig.overlap``): ``gather_issue`` starts a layer's
+quantize + all-gathers ahead of the layer; the Functions take the waited
+buffer in place of the inline gather, so the forward is bitwise the same.
+Streaming (``ZeroConfig.stream_grads``): the backward also runs stage 2 and
+the cross-replica sync (``_os_tail``) and returns the fully reduced fp32
+optimizer-shard row as the gradient of a zero sink tensor; otherwise the
+stage-2 and cross-replica reductions are left to the engine.
 """
 from __future__ import annotations
 
@@ -79,16 +90,13 @@ def _mm_apply_q(x, qf, sf, transpose: bool, spec: LeafSpec, cfg: ZeroConfig):
 
 
 def _gather_full(primary, spec: LeafSpec, cfg: ZeroConfig):
-    """Forward gather -> (w (logical shape), sec_q, sec_s)."""
-    n = spec.logical_size
+    """Forward gather -> (w (logical shape), sec_q, sec_s): the INT8 wire
+    buffer gathered over W when weights are quantized, else the primary."""
     if cfg.quantize_weights:
-        full, qf, sf = col.quant_all_gather_int8(primary, cfg.axes.weight, cfg,
-                                                 _dtype(cfg))
-        sec_q, sec_s = _secondary(qf, sf, cfg)
+        buf = col.gather_issue_int8(primary, cfg.axes.weight, cfg)
     else:
-        full = col.all_gather_flat(primary, cfg.axes.weight, cfg).to(_dtype(cfg))
-        sec_q = sec_s = None
-    return full[:n].reshape(spec.shape), sec_q, sec_s
+        buf = (col.all_gather_flat(primary, cfg.axes.weight, cfg),)
+    return _consume_buf(buf, spec, cfg)
 
 
 def _secondary(qf, sf, cfg: ZeroConfig):
@@ -116,6 +124,9 @@ def _grad_stage1(dw, spec: LeafSpec, cfg: ZeroConfig):
     return sched.grad_rs_wait(tok, cfg, out_dtype=torch.float32)
 
 
+GRAD_RS_BITS = 4        # stage-1 wire width (the reduce-scatter's default)
+
+
 def _dw_fusable(spec: LeafSpec, cfg: ZeroConfig) -> bool:
     """Fuse the dW matmul with its wire-format quantize? Only when stage 1
     is the quantized a2a (INT4 grads, W group > 1) and the flat quant blocks
@@ -136,10 +147,11 @@ def _mm_dw_stage1(x2, g2, transpose: bool, spec: LeafSpec, cfg: ZeroConfig):
             # dW = (x2.T g2).T = g2.T x2: swap the operands, the wire layout
             # is row-major over N
             x2, g2 = g2, x2
-        q, s = ops.matmul_quant(x2, g2, cfg.quant_block, bits=4,
+        q, s = ops.matmul_quant(x2, g2, cfg.quant_block, bits=GRAD_RS_BITS,
                                 pad_to=padded_flat_size(spec.logical_size, cfg),
                                 impl=cfg.impl)
-        tok = sched.grad_rs_issue_q(q, s, cfg.axes.weight, cfg)
+        tok = sched.grad_rs_issue_q(q, s, cfg.axes.weight, cfg,
+                                    bits=GRAD_RS_BITS)
         return sched.grad_rs_wait(tok, cfg, out_dtype=torch.float32)
     dw2 = torch.matmul(x2.T, g2)
     if transpose:
@@ -149,7 +161,7 @@ def _mm_dw_stage1(x2, g2, transpose: bool, spec: LeafSpec, cfg: ZeroConfig):
 
 def _mm_bwd(x, primary, sec_q, sec_s, g, transpose: bool, spec: LeafSpec,
             cfg: ZeroConfig):
-    """Matmul backward: (dX, the primary-shard weight cotangent)."""
+    """Matmul backward: (dX, the primary-layout fp32 stage-1 weight grad)."""
     if _fusable(spec, cfg):
         qf, sf = sched.regather_issue(primary, sec_q, sec_s, cfg)
         gx = _mm_apply_q(g, qf, sf, not transpose, spec, cfg).to(x.dtype)
@@ -161,24 +173,76 @@ def _mm_bwd(x, primary, sec_q, sec_s, g, transpose: bool, spec: LeafSpec,
         gx = torch.matmul(g, w2.T).to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1]).float()
     g2 = g.reshape(-1, g.shape[-1]).float()
-    g1 = _mm_dw_stage1(x2, g2, transpose, spec, cfg)
-    return gx, g1.to(_dtype(cfg))
+    return gx, _mm_dw_stage1(x2, g2, transpose, spec, cfg)
+
+
+def gather_issue(primary, cfg: ZeroConfig) -> col.GatherBuf:
+    """Prefetch half of the forward gather (``make_gather_issue``): the
+    quantize and the all-gathers over W in flight, nothing dequantized."""
+    with torch.no_grad():
+        if cfg.quantize_weights:
+            return col.gather_issue_int8_async(primary, cfg.axes.weight, cfg)
+        return col.GatherBuf((primary,), cfg.axes.weight, cfg)
+
+
+def _consume_buf(buf, spec: LeafSpec, cfg: ZeroConfig):
+    """A gathered buffer, (q, scales) or (flat,), -> (w (logical shape),
+    sec_q, sec_s): the wait half of the prefetch and the tail of the inline
+    gather, so both give the same forward."""
+    n = spec.logical_size
+    if cfg.quantize_weights:
+        qf, sf = buf
+        full = col.gather_wait_int8(qf, sf, cfg, _dtype(cfg))
+        sec_q, sec_s = _secondary(qf, sf, cfg)
+    else:
+        full = buf[0].to(_dtype(cfg))
+        sec_q = sec_s = None
+    return full[:n].reshape(spec.shape), sec_q, sec_s
+
+
+def _os_tail(g1, cfg: ZeroConfig):
+    """Stage-1 shard -> the fully reduced fp32 optimizer-shard row: the cast
+    through the compute dtype (the seed path's primary cotangent has it, so
+    streaming stays bitwise at one microbatch), stage 2 over E, the
+    cross-replica sync over R."""
+    g1 = g1.to(_dtype(cfg)).float()
+    tok = sched.grad_rs_issue(g1, cfg.axes.extra_grad, cfg)
+    g2 = sched.grad_rs_wait(tok, cfg, out_dtype=torch.float32)
+    return col.cross_replica_grad(g2, cfg, torch.float32)
+
+
+def _cotangents(g1, stream: bool, cfg: ZeroConfig):
+    """(primary cotangent, sink cotangent) of a stage-1 shard: the primary
+    takes it in the seed regime, the sink takes its os-shard row when
+    streaming (and the primary none)."""
+    if stream:
+        return None, _os_tail(g1, cfg)
+    return g1.to(_dtype(cfg)), None
 
 
 class ZeroMatmul(torch.autograd.Function):
-    """y = x @ W (or x @ W.T) for a MATMUL leaf given by its primary shard."""
+    """y = x @ W (or x @ W.T) for a MATMUL leaf given by its primary shard.
+
+    ``buf`` is this layer's prefetched gather, already waited (the
+    ``*_pre`` forms), or None to gather inline. ``sink`` is None in the seed
+    regime (the weight grad is the primary-layout stage-1 shard) or this
+    layer's zero optimizer-shard sink (the ``*_stream`` forms: its grad is
+    the fully reduced fp32 row, and the primary gets none)."""
 
     @staticmethod
-    def forward(ctx, x, primary, spec: LeafSpec, cfg: ZeroConfig,
-                transpose: bool):
+    def forward(ctx, x, primary, sink, spec: LeafSpec, cfg: ZeroConfig,
+                transpose: bool, buf):
         if _fusable(spec, cfg):
-            qf, sf = col.gather_issue_int8(primary, cfg.axes.weight, cfg)
+            qf, sf = buf if buf is not None else \
+                col.gather_issue_int8(primary, cfg.axes.weight, cfg)
             sec_q, sec_s = _secondary(qf, sf, cfg)
             y = _mm_apply_q(x, qf, sf, transpose, spec, cfg)
         else:
-            w, sec_q, sec_s = _gather_full(primary, spec, cfg)
+            w, sec_q, sec_s = _consume_buf(buf, spec, cfg) if buf is not None \
+                else _gather_full(primary, spec, cfg)
             y = _mm_apply(x, w, transpose, cfg)
         ctx.spec, ctx.cfg, ctx.transpose = spec, cfg, transpose
+        ctx.stream = sink is not None
         ctx.has_sec = sec_q is not None
         if ctx.has_sec:
             ctx.save_for_backward(x, sec_q, sec_s)
@@ -195,24 +259,28 @@ class ZeroMatmul(torch.autograd.Function):
         else:
             x, primary = ctx.saved_tensors
             sec_q = sec_s = None
-        gx, gw = _mm_bwd(x, primary, sec_q, sec_s, g, ctx.transpose, ctx.spec,
+        gx, g1 = _mm_bwd(x, primary, sec_q, sec_s, g, ctx.transpose, ctx.spec,
                          ctx.cfg)
-        return gx, gw, None, None, None
+        gp, gs = _cotangents(g1, ctx.stream, ctx.cfg)
+        return gx, gp, gs, None, None, None, None
 
 
 class ZeroGatherQ(torch.autograd.Function):
-    """primary shard -> the dense logical tensor, quantized gather forward,
-    quantized reduce-scatter backward."""
+    """primary shard -> the dense logical tensor, quantized gather forward
+    (inline, or from a waited prefetch ``buf``), quantized reduce-scatter
+    backward into the primary or, when streaming, into the ``sink``."""
 
     @staticmethod
-    def forward(ctx, primary, spec: LeafSpec, cfg: ZeroConfig):
-        ctx.spec, ctx.cfg = spec, cfg
+    def forward(ctx, primary, sink, spec: LeafSpec, cfg: ZeroConfig, buf):
+        ctx.spec, ctx.cfg, ctx.stream = spec, cfg, sink is not None
+        if buf is not None:
+            return _consume_buf(buf, spec, cfg)[0]
         return _gather_full(primary, spec, cfg)[0]
 
     @staticmethod
     def backward(ctx, g):
         g1 = _grad_stage1(g, ctx.spec, ctx.cfg)
-        return g1.to(_dtype(ctx.cfg)), None, None
+        return (*_cotangents(g1, ctx.stream, ctx.cfg), None, None, None)
 
 
 class PlainGather(torch.autograd.Function):

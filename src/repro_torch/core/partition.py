@@ -4,7 +4,8 @@ The port's own copy of the pure-Python half of ``repro.core.partition``:
 the per-category axes and degrees, the scheme presets, the per-leaf
 quantization block (``ZeroConfig.block_for`` / ``for_leaf``), the flat
 padding rule (``padded_flat_size``), the leaf kinds and ``LeafSpec``, and the
-memory formulas the engine reports. Each category of training state is
+memory formulas the engine reports (``grad_buffer_bytes``,
+``prefetch_buffer_bytes``). Each category of training state is
 sharded over a prefix of the bandwidth hierarchy: weights over W, gradients
 over W + E, optimizer state over W + E + R, with the flat slices nested in
 that major -> minor order.
@@ -50,6 +51,11 @@ class ZeroConfig:
     quantize_weights: bool = False      # INT8 block quant on weight all-gather
     quantize_grads: bool = False        # INT4 a2a-based gradient reduce-scatter
     quant_block: int = 512
+    overlap: bool = False               # prefetch layer i+1's weight gathers
+    # while layer i computes; schedule only: the same collectives and numbers
+    stream_grads: bool = False          # reduce each stacked layer's weight
+    # grad to the optimizer shard inside its backward (stage 1 over W, stage 2
+    # over E, the replica sync over R); grads accumulate in os layout
     impl: str | None = None             # None: the kernel for a CUDA tensor and
     # the plain version for a CPU tensor; "plain": the plain version on any
     # device (the reference chip_smoke.py holds the kernels against)
@@ -170,10 +176,21 @@ def single_device_config(scheme: str = "zero_topo", **over) -> ZeroConfig:
                   **over)
 
 
-def grad_buffer_bytes(cfg: ZeroConfig, psi: int) -> int:
+def grad_buffer_bytes(cfg: ZeroConfig, psi: int, *,
+                      streaming: bool | None = None) -> int:
     """Bytes of the gradient buffer the engine allocates: microbatch grads
-    accumulate in fp32 primary layout (``4 * psi / w_degree``)."""
-    return 4 * psi // cfg.w_degree
+    accumulate in fp32 primary layout (``4 * psi / w_degree``), or, on the
+    streaming path, in fp32 optimizer-shard layout (``4 * psi / os_degree``)."""
+    if streaming is None:
+        streaming = cfg.stream_grads
+    deg = cfg.os_degree if streaming else cfg.w_degree
+    return 4 * psi // deg
+
+
+def prefetch_buffer_bytes(cfg: ZeroConfig, layer_bytes: int) -> int:
+    """Bytes of the 2-slot gather-prefetch buffer: two layers' gathered
+    weights in wire format (``layer_bytes`` each); 0 when overlap is off."""
+    return 2 * layer_bytes if cfg.overlap else 0
 
 
 def resident_memory_bytes(cfg: ZeroConfig, psi: int, *,

@@ -1,27 +1,34 @@
-// INT4 block quantize (nibble-packed) and the fused unpack-dequant-sum of the
-// a2a gradient reduce-scatter.
+// INT4 block quantize (nibble-packed), its dequantize, and the fused
+// unpack-dequant-sum of the a2a gradient reduce-scatter.
 //
-// Replaces src/repro/kernels/quant_int4.py::quantize_int4_pallas (:46) and
-// ::dequantize_int4_sum_pallas (:105).
+// Replaces src/repro/kernels/quant_int4.py::quantize_int4_pallas (:46),
+// ::dequantize_int4_pallas (:68) and ::dequantize_int4_sum_pallas (:105).
 //
 // quantize_int4: a flat tensor is cut into contiguous blocks of `bs` elements
 // (bs even); each block gets scale = absmax * (1/7) (1 for an all-zero block)
 // and q = clamp(rint(x / scale), -7, 7) + 8, two nibbles per byte with the
 // even element in the low nibble. It is the send side of the reduce-scatter.
 //
+// dequantize_int4: nb packed blocks and their scales -> (nb, bs) f32 or bf16,
+// (nibble - 8) * s in f32 with the low nibble to the even element, then cast.
+//
 // dequantize_int4_sum: d received chunks of nb packed blocks and their scales
 // -> (nb, bs) f32 = sum_j q_j * s_j, summed in order j = 0..d-1. It is the
 // receive side.
 //
 // Bound on the H100: bytes. Quantize reads each input once (2 or 4 bytes) and
-// writes half a byte plus 4/bs bytes of scale; the sum reads d * (1/2 + 4/bs)
+// writes half a byte plus 4/bs bytes of scale; the dequantize reads half a
+// byte plus 4/bs and writes the output dtype; the sum reads d * (1/2 + 4/bs)
 // bytes and writes 4 per element. A few f32 operations per element are far
 // below what the card issues for those bytes.
 //
 // Design: quantize gives one warp to each block (the TPU kernel's (8, bs)
 // VMEM tile becomes 8 warps of 32 lanes); each lane takes element pairs so it
 // writes whole bytes, the absmax is a warp-shuffle reduction and the second
-// pass over the block hits L1. The sum gives each thread 4 packed bytes (one
+// pass over the block hits L1. The dequantize gives each thread 4 packed
+// bytes (8 outputs: two float4 or one 16-byte bf16 store) when the block
+// allows it, else one byte; block sizes run from 4 to 16,384 and the scale
+// index is the byte index over bs / 2. The sum gives each thread 4 packed bytes (one
 // 4-byte load per chunk, two float4 stores) when the chunk length allows it,
 // else one byte. Numerics: the scale multiplies by the f32 reciprocal
 // constant, as XLA does to `absmax / 7` under jit; the quotient is an IEEE
@@ -114,6 +121,57 @@ dequantize_int4_sum_byte(const uint8_t* __restrict__ q, const float* __restrict_
   }
 }
 
+template <typename T>
+__device__ __forceinline__ void store8(T* o, const float* v);
+template <>
+__device__ __forceinline__ void store8<float>(float* o, const float* v) {
+  float4* p = reinterpret_cast<float4*>(o);
+  p[0] = make_float4(v[0], v[1], v[2], v[3]);
+  p[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+template <>
+__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* o, const float* v) {
+  __align__(16) __nv_bfloat16 b[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) b[t] = from_f32<__nv_bfloat16>(v[t]);
+  *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(b);
+}
+
+// one thread per 4 packed bytes: `half` is a multiple of 4, q is 4-byte and
+// out 16-byte aligned
+template <typename T>
+__global__ void __launch_bounds__(SUM_THREADS)
+dequantize_int4_vec4(const uint8_t* __restrict__ q, const float* __restrict__ s,
+                     T* __restrict__ out, long long nbytes, int half) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x; w < nbytes / 4;
+       w += stride) {
+    const long long i = w * 4;
+    const uint32_t word = *reinterpret_cast<const uint32_t*>(q + i);
+    const float sc = s[i / half];
+    float v[8];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      unpack_add((word >> (8 * t)) & 0xFFu, sc, true, v[2 * t], v[2 * t + 1]);
+    store8<T>(out + 2 * i, v);
+  }
+}
+
+// one thread per packed byte: any even block size and any alignment
+template <typename T>
+__global__ void __launch_bounds__(SUM_THREADS)
+dequantize_int4_byte(const uint8_t* __restrict__ q, const float* __restrict__ s,
+                     T* __restrict__ out, long long nbytes, int half) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nbytes;
+       i += stride) {
+    float lo, hi;
+    unpack_add(q[i], s[i / half], true, lo, hi);
+    out[2 * i] = from_f32<T>(lo);
+    out[2 * i + 1] = from_f32<T>(hi);
+  }
+}
+
 unsigned grid_for(long long items) {
   const long long blocks = (items + SUM_THREADS - 1) / SUM_THREADS;
   return (unsigned)(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
@@ -134,6 +192,37 @@ extern "C" int quantize_int4(const void* x, int dtype, void* q, void* s,
   else if (dtype == DT_BF16)
     quantize_int4_kernel<__nv_bfloat16><<<grid, QUANT_WARPS * 32, 0, st>>>(
         (const __nv_bfloat16*)x, (uint8_t*)q, (float*)s, nb, bs);
+  else
+    return (int)cudaErrorInvalidValue;
+  return launch_status();
+}
+
+// q: (nb * bs / 2,) uint8, s: (nb,) f32 -> out: (nb * bs,) f32 or bf16.
+// vec4 != 0 asks for the 4-bytes-per-thread path: the caller guarantees that
+// bs / 2 is a multiple of 4, q is 4-byte and out 16-byte aligned.
+extern "C" int dequantize_int4(const void* q, const void* s, void* out, int dtype,
+                               long long nb, int bs, int vec4, void* stream) {
+  if (nb <= 0) return 0;
+  if (bs <= 0 || bs % 2 != 0 || (vec4 && (bs / 2) % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const int half = bs / 2;
+  const long long nbytes = nb * half;
+  const unsigned grid = grid_for(vec4 ? nbytes / 4 : nbytes);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* qb = (const uint8_t*)q;
+  const float* sf = (const float*)s;
+  if (dtype == DT_F32 && vec4)
+    dequantize_int4_vec4<float><<<grid, SUM_THREADS, 0, st>>>(qb, sf, (float*)out,
+                                                               nbytes, half);
+  else if (dtype == DT_F32)
+    dequantize_int4_byte<float><<<grid, SUM_THREADS, 0, st>>>(qb, sf, (float*)out,
+                                                               nbytes, half);
+  else if (dtype == DT_BF16 && vec4)
+    dequantize_int4_vec4<__nv_bfloat16><<<grid, SUM_THREADS, 0, st>>>(
+        qb, sf, (__nv_bfloat16*)out, nbytes, half);
+  else if (dtype == DT_BF16)
+    dequantize_int4_byte<__nv_bfloat16><<<grid, SUM_THREADS, 0, st>>>(
+        qb, sf, (__nv_bfloat16*)out, nbytes, half);
   else
     return (int)cudaErrorInvalidValue;
   return launch_status();

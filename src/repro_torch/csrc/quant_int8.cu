@@ -1,23 +1,35 @@
-// INT8 block quantize / dequantize on the flat wire layout.
+// INT8 block quantize / dequantize on the flat wire layout, and the fused
+// dequant-sum of the INT8 a2a gradient reduce-scatter.
 //
-// Replaces src/repro/kernels/quant_blockwise.py::quantize_int8_pallas (:40)
-// and ::dequantize_int8_pallas (:63). A flat tensor is cut into contiguous
-// blocks of `bs` elements; each block gets scale = absmax * (1/127) (1 for an
-// all-zero block) and q = clamp(rint(x / scale), -127, 127).
+// Replaces src/repro/kernels/quant_blockwise.py::quantize_int8_pallas (:40),
+// ::dequantize_int8_pallas (:63) and ::dequantize_int8_sum_pallas (:92). A
+// flat tensor is cut into contiguous blocks of `bs` elements; each block gets
+// scale = absmax * (1/127) (1 for an all-zero block) and
+// q = clamp(rint(x / scale), -127, 127). The sum takes d received chunks of
+// nb blocks and their scales -> (nb, bs) f32 = sum_j q_j * s_j, in order
+// j = 0..d-1 (the receive side of the bits=8 reduce-scatter).
 //
 // Bound on the H100: bytes. Quantize reads each input once (2 or 4 bytes)
 // and writes 1 byte plus 4/bs bytes of scale; dequantize reads 1 + 4/bs and
-// writes the output dtype. The arithmetic is a few f32 operations per
-// element, far below what the card can issue for those bytes.
+// writes the output dtype; the sum reads d * (1 + 4/bs) and writes 4 bytes
+// per element. The arithmetic is a few f32 operations per element, far below
+// what the card can issue for those bytes.
 //
 // Design: quantize gives one warp to each block (the TPU kernel's (8, bs)
 // VMEM tile becomes 8 warps of 32 lanes). Lanes stride the block so every
 // warp load touches consecutive addresses; the absmax is a warp-shuffle
 // reduction, and the second pass over the block hits L1. Dequantize is a
-// grid-stride elementwise loop. Numerics: the scale multiplies by the f32
-// reciprocal constant (what XLA does to `absmax / 127` under jit, which the
-// reference always runs under), the quotient uses IEEE division (no
-// --use_fast_math), and rintf rounds half to even like jnp.round.
+// grid-stride elementwise loop. The sum gives each thread 4 contiguous int8
+// of one block (one 4-byte load per chunk, one float4 store) when the block
+// size allows it, else one element; offsets are 64-bit (the tied
+// embedding's stage-1 payload is 136 M elements). It writes every product
+// and every add as its own rounded operation (__fmul_rn, __fadd_rn), so nvcc
+// cannot contract them into an FMA and the result is bit for bit the plain
+// version's q * s, then +, like the INT4 sum in quant_int4.cu.
+// Numerics of the quantize: the scale multiplies by the f32 reciprocal
+// constant (what XLA does to `absmax / 127` under jit, which the reference
+// always runs under), the quotient uses IEEE division (no --use_fast_math),
+// and rintf rounds half to even like jnp.round.
 #include "common.cuh"
 
 namespace {
@@ -57,6 +69,57 @@ dequantize_int8_kernel(const int8_t* __restrict__ q, const float* __restrict__ s
     out[i] = from_f32<T>((float)q[i] * s[i / bs]);
 }
 
+constexpr int SUM_THREADS = 256;
+
+__device__ __forceinline__ float dq_add(int8_t v, float sc, bool first, float acc) {
+  const float p = __fmul_rn((float)v, sc);
+  return first ? p : __fadd_rn(acc, p);
+}
+
+// one thread per 4 int8 of one block: bs and the chunk length are multiples
+// of 4, q is 4-byte and out 16-byte aligned
+__global__ void __launch_bounds__(SUM_THREADS)
+dequantize_int8_sum_vec4(const int8_t* __restrict__ q, const float* __restrict__ s,
+                         float* __restrict__ out, int d, long long n, int bs) {
+  const long long nb = n / bs;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x; w < n / 4;
+       w += stride) {
+    const long long i = w * 4;
+    const long long blk = i / bs;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < d; ++j) {
+      const char4 v = *reinterpret_cast<const char4*>(q + j * n + i);
+      const float sc = s[j * nb + blk];
+      acc.x = dq_add(v.x, sc, j == 0, acc.x);
+      acc.y = dq_add(v.y, sc, j == 0, acc.y);
+      acc.z = dq_add(v.z, sc, j == 0, acc.z);
+      acc.w = dq_add(v.w, sc, j == 0, acc.w);
+    }
+    *reinterpret_cast<float4*>(out + i) = acc;
+  }
+}
+
+// one thread per element: any block size and any alignment
+__global__ void __launch_bounds__(SUM_THREADS)
+dequantize_int8_sum_elem(const int8_t* __restrict__ q, const float* __restrict__ s,
+                         float* __restrict__ out, int d, long long n, int bs) {
+  const long long nb = n / bs;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const long long blk = i / bs;
+    float acc = 0.f;
+    for (int j = 0; j < d; ++j) acc = dq_add(q[j * n + i], s[j * nb + blk], j == 0, acc);
+    out[i] = acc;
+  }
+}
+
+unsigned sum_grid(long long items) {
+  const long long blocks = (items + SUM_THREADS - 1) / SUM_THREADS;
+  return (unsigned)(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
+}
+
 }  // namespace
 
 // x: (nb * bs,) f32 or bf16 -> q: (nb * bs,) int8, s: (nb,) f32
@@ -91,5 +154,25 @@ extern "C" int dequantize_int8(const void* q, const void* s, void* out, int dtyp
         (const int8_t*)q, (const float*)s, (__nv_bfloat16*)out, n, bs);
   else
     return (int)cudaErrorInvalidValue;
+  return launch_status();
+}
+
+// q: (d, nb * bs) int8, s: (d, nb) f32 -> out: (nb * bs,) f32, summed over d in
+// order. vec4 != 0 asks for the 4-elements-per-thread path: the caller
+// guarantees that bs is a multiple of 4, q is 4-byte and out 16-byte aligned.
+extern "C" int dequantize_int8_sum(const void* q, const void* s, void* out, int d,
+                                   long long nb, int bs, int vec4, void* stream) {
+  if (nb <= 0) return 0;
+  if (d <= 0 || bs <= 0) return (int)cudaErrorInvalidValue;
+  const long long n = nb * bs;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec4) {
+    if (bs % 4 != 0) return (int)cudaErrorInvalidValue;
+    dequantize_int8_sum_vec4<<<sum_grid(n / 4), SUM_THREADS, 0, st>>>(
+        (const int8_t*)q, (const float*)s, (float*)out, d, n, bs);
+  } else {
+    dequantize_int8_sum_elem<<<sum_grid(n), SUM_THREADS, 0, st>>>(
+        (const int8_t*)q, (const float*)s, (float*)out, d, n, bs);
+  }
   return launch_status();
 }

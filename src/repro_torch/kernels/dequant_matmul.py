@@ -1,8 +1,10 @@
 """Fused INT8-dequant x matmul and weight-grad matmul x quantize on the card
-(csrc/dequant_matmul.cu, csrc/matmul_quant.cu).
+(csrc/dequant_matmul.cu, csrc/dequant_matmul_blocked.cu, csrc/matmul_quant.cu).
 
 Port of ``repro.kernels.dequant_matmul``:
 
+* ``dequant_matmul_pallas`` (:39): ``x @ dequant(q)`` with 2-D blocked
+  scales (the scale of q[k, n] is scales[k // bk, n]);
 * ``dequant_matmul_flat_pallas`` (:113), both orientations: ``x @ dequant(q)``
   and ``x @ dequant(q).T`` with the flat-shard scale layout (the scale of
   q[k, j] is scales[k, j // block]);
@@ -10,8 +12,8 @@ Port of ``repro.kernels.dequant_matmul``:
   or packed INT4 wire format in the matmul's epilogue.
 
 The source notes in csrc/ give the bounds and the designs;
-``ref.dequant_matmul_flat_ref`` and ``ref.matmul_quant_ref`` are the plain
-versions. Callers go through ``kernels/ops.py``, which counts the launches.
+``ref.dequant_matmul_blocked_ref``, ``ref.dequant_matmul_flat_ref`` and
+``ref.matmul_quant_ref`` are the plain versions. Callers go through ``kernels/ops.py``, which counts the launches.
 """
 from __future__ import annotations
 
@@ -57,6 +59,30 @@ def dequant_matmul_flat_cuda(x: torch.Tensor, q: torch.Tensor,
                             cuda.DTYPE_CODE[x.dtype], m, k, n, block,
                             int(transpose), cuda.stream(x))
     cuda.check(rc, "dequant_matmul")
+    return out
+
+
+BLOCKED_SIGNATURES = {
+    "dequant_matmul_blocked": (c_int, [c_void_p, c_void_p, c_void_p, c_void_p,
+                                       c_int, c_int, c_int, c_int, c_void_p]),
+}
+
+
+def dequant_matmul_blocked_cuda(x: torch.Tensor, q: torch.Tensor,
+                                scales: torch.Tensor) -> torch.Tensor:
+    """x (M, K) f32, q (K, N) int8, scales (K // bk, N) f32 -> (M, N) f32."""
+    cuda.require(x, "x", (torch.float32,))
+    cuda.require(q, "q", (torch.int8,))
+    cuda.require(scales, "scales", (torch.float32,))
+    m, k = x.shape
+    n = q.shape[1]
+    kb = scales.shape[0]           # ops.dequant_matmul_blocked checks shapes
+    lib = cuda.library("dequant_matmul_blocked", BLOCKED_SIGNATURES)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    rc = lib.dequant_matmul_blocked(x.data_ptr(), q.data_ptr(),
+                                    scales.data_ptr(), out.data_ptr(), m, k, n,
+                                    k // kb, cuda.stream(x))
+    cuda.check(rc, "dequant_matmul_blocked")
     return out
 
 

@@ -24,15 +24,19 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .dequant_matmul import dequant_matmul_flat_cuda, matmul_quant_cuda
+from .dequant_matmul import (dequant_matmul_blocked_cuda,
+                             dequant_matmul_flat_cuda, matmul_quant_cuda)
 from .flash_attention import flash_attention_cuda
-from .quant_blockwise import dequantize_int8_cuda, quantize_int8_cuda
-from .quant_int4 import dequantize_int4_sum_cuda, quantize_int4_cuda
+from .quant_blockwise import (dequantize_int8_cuda, dequantize_int8_sum_cuda,
+                              quantize_int8_cuda)
+from .quant_int4 import (dequantize_int4_cuda, dequantize_int4_sum_cuda,
+                         quantize_int4_cuda)
 from .selective_scan import selective_scan_cuda
 
 KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
            "flash_attention", "quantize_int4", "dequantize_int4_sum",
-           "matmul_quant", "selective_scan")
+           "matmul_quant", "selective_scan", "dequantize_int8_sum",
+           "dequantize_int4", "dequant_matmul_blocked")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -97,6 +101,38 @@ def quantize_int4(x: torch.Tensor, block: int, impl: str | None = None):
     else:
         q, s = ref.quantize_int4_ref(b)
     return q.reshape(-1), s.reshape(-1)
+
+
+def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor, block: int,
+                    dtype=torch.float32, impl: str | None = None):
+    """Flat packed INT4 (size // 2,) uint8 + per-block scales -> flat
+    ``dtype`` values (size,)."""
+    qb = packed.reshape(-1, block // 2)
+    sb = scales.reshape(-1, 1)
+    if _kernel(packed, impl):
+        LAUNCHES["dequantize_int4"] += 1
+        out = dequantize_int4_cuda(qb.contiguous(), sb.contiguous(), dtype)
+    else:
+        out = ref.dequantize_int4_ref(qb, sb, dtype)
+    return out.reshape(-1)
+
+
+def dequantize_int8_sum(q: torch.Tensor, scales: torch.Tensor, d: int,
+                        block: int, dtype=torch.float32,
+                        impl: str | None = None) -> torch.Tensor:
+    """Fused dequant + sum of d received INT8 chunks.
+
+    q: flat (d * n,) int8 (d chunks, row-major); scales: flat
+    (d * n // block,). Returns (n,) ``dtype``: the sum over the chunks in f32,
+    in chunk order, cast at the end."""
+    qb = q.reshape(d, -1, block)
+    sb = scales.reshape(d, -1, 1)
+    if _kernel(q, impl):
+        LAUNCHES["dequantize_int8_sum"] += 1
+        out = dequantize_int8_sum_cuda(qb.contiguous(), sb.contiguous())
+    else:
+        out = ref.dequantize_int8_sum_ref(qb, sb)
+    return out.reshape(-1).to(dtype)
 
 
 def dequantize_int4_sum(packed: torch.Tensor, scales: torch.Tensor, d: int,
@@ -185,6 +221,24 @@ def dequant_matmul(x2: torch.Tensor, q_flat: torch.Tensor,
                                         transpose=transpose)
     return ref.dequant_matmul_flat_ref(x2, q2, s2, block, transpose=transpose,
                                        dtype=dtype)
+
+
+def dequant_matmul_blocked(x: torch.Tensor, q: torch.Tensor,
+                           scales: torch.Tensor, impl: str | None = None):
+    """x (M, K) @ dequant(q (K, N) int8) -> (M, N) f32, with 2-D blocked
+    scales (K // bk, N): one scale per column for each run of bk = K //
+    scales.shape[0] rows. Not the flat layout of ``dequant_matmul``."""
+    k, n = q.shape
+    kb = scales.shape[0]
+    if x.ndim != 2 or x.shape[1] != k or kb == 0 or k % kb \
+            or scales.shape != (kb, n):
+        raise ValueError(f"dequant_matmul_blocked: x {tuple(x.shape)}, q "
+                         f"{tuple(q.shape)}, scales {tuple(scales.shape)}")
+    if _kernel(x, impl):
+        LAUNCHES["dequant_matmul_blocked"] += 1
+        return dequant_matmul_blocked_cuda(x.float().contiguous(),
+                                           q.contiguous(), scales.contiguous())
+    return ref.dequant_matmul_blocked_ref(x, q, scales)
 
 
 def attention_fusable(sq: int, sk: int, d: int, dv: int, *,

@@ -1,9 +1,11 @@
-"""INT8 block quantize / dequantize on the card (csrc/quant_int8.cu).
+"""INT8 block quantize / dequantize and the fused dequant-sum on the card
+(csrc/quant_int8.cu).
 
-Port of ``repro.kernels.quant_blockwise``'s ``quantize_int8_pallas`` (:40)
-and ``dequantize_int8_pallas`` (:63). The source note in csrc/quant_int8.cu
-gives the bound and the design; ``ref.quantize_int8_ref`` /
-``ref.dequantize_int8_ref`` are the plain versions. Callers go through
+Port of ``repro.kernels.quant_blockwise``'s ``quantize_int8_pallas`` (:40),
+``dequantize_int8_pallas`` (:63) and ``dequantize_int8_sum_pallas`` (:92).
+The source note in csrc/quant_int8.cu gives the bound and the design;
+``ref.quantize_int8_ref``, ``ref.dequantize_int8_ref`` and
+``ref.dequantize_int8_sum_ref`` are the plain versions. Callers go through
 ``kernels/ops.py``, which counts the launches.
 """
 from __future__ import annotations
@@ -19,6 +21,8 @@ SIGNATURES = {
                               c_int, c_void_p]),
     "dequantize_int8": (c_int, [c_void_p, c_void_p, c_void_p, c_int,
                                 c_longlong, c_int, c_void_p]),
+    "dequantize_int8_sum": (c_int, [c_void_p, c_void_p, c_void_p, c_int,
+                                    c_longlong, c_int, c_int, c_void_p]),
 }
 
 
@@ -53,4 +57,22 @@ def dequantize_int8_cuda(q: torch.Tensor, scales: torch.Tensor,
                                 cuda.DTYPE_CODE[dtype], nb * bs, bs,
                                 cuda.stream(q))
     cuda.check(rc, "dequantize_int8")
+    return out
+
+
+def dequantize_int8_sum_cuda(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(d, nb, bs) int8, (d, nb, 1) f32 -> (nb, bs) f32, the sum over the d
+    chunks in order j = 0..d-1."""
+    cuda.require(q, "q", (torch.int8,))
+    cuda.require(scales, "scales", (torch.float32,))
+    d, nb, bs = q.shape
+    if scales.numel() != d * nb:
+        raise ValueError(f"dequantize_int8_sum: q {tuple(q.shape)}, scales "
+                         f"{tuple(scales.shape)}")
+    out = torch.empty((nb, bs), dtype=torch.float32, device=q.device)
+    vec4 = bs % 4 == 0 and q.data_ptr() % 4 == 0
+    rc = _lib().dequantize_int8_sum(q.data_ptr(), scales.data_ptr(),
+                                    out.data_ptr(), d, nb, bs, int(vec4),
+                                    cuda.stream(q))
+    cuda.check(rc, "dequantize_int8_sum")
     return out

@@ -1,11 +1,12 @@
-"""INT4 block quantize and the fused unpack-dequant-sum on the card
-(csrc/quant_int4.cu).
+"""INT4 block quantize, dequantize and the fused unpack-dequant-sum on the
+card (csrc/quant_int4.cu).
 
-Port of ``repro.kernels.quant_int4``'s ``quantize_int4_pallas`` (:46) and
-``dequantize_int4_sum_pallas`` (:105), the two halves of the INT4 all-to-all
-gradient reduce-scatter. The source note in csrc/quant_int4.cu gives the
-bound and the design; ``ref.quantize_int4_ref`` / ``ref.dequantize_int4_sum_ref``
-are the plain versions. Callers go through ``kernels/ops.py``, which counts
+Port of ``repro.kernels.quant_int4``'s ``quantize_int4_pallas`` (:46),
+``dequantize_int4_pallas`` (:68) and ``dequantize_int4_sum_pallas`` (:105);
+the first and the last are the two halves of the INT4 all-to-all gradient
+reduce-scatter. The source note in csrc/quant_int4.cu gives the bound and
+the design; ``ref.quantize_int4_ref``, ``ref.dequantize_int4_ref`` and
+``ref.dequantize_int4_sum_ref`` are the plain versions. Callers go through ``kernels/ops.py``, which counts
 the launches.
 """
 from __future__ import annotations
@@ -21,6 +22,8 @@ SIGNATURES = {
                               c_int, c_void_p]),
     "dequantize_int4_sum": (c_int, [c_void_p, c_void_p, c_void_p, c_int,
                                     c_longlong, c_int, c_int, c_void_p]),
+    "dequantize_int4": (c_int, [c_void_p, c_void_p, c_void_p, c_int,
+                                c_longlong, c_int, c_int, c_void_p]),
 }
 
 
@@ -41,6 +44,24 @@ def quantize_int4_cuda(blocks: torch.Tensor):
                               cuda.stream(blocks))
     cuda.check(rc, "quantize_int4")
     return q, s
+
+
+def dequantize_int4_cuda(packed: torch.Tensor, scales: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """(nb, bs // 2) uint8, (nb, 1) f32 -> (nb, bs) ``dtype`` (f32 | bf16)."""
+    cuda.require(packed, "packed", (torch.uint8,))
+    cuda.require(scales, "scales", (torch.float32,))
+    nb, half = packed.shape
+    if scales.numel() != nb or dtype not in cuda.DTYPE_CODE:
+        raise ValueError(f"dequantize_int4: packed {tuple(packed.shape)}, "
+                         f"scales {tuple(scales.shape)}, dtype {dtype}")
+    out = torch.empty((nb, 2 * half), dtype=dtype, device=packed.device)
+    vec4 = half % 4 == 0 and packed.data_ptr() % 4 == 0
+    rc = _lib().dequantize_int4(packed.data_ptr(), scales.data_ptr(),
+                                out.data_ptr(), cuda.DTYPE_CODE[dtype], nb,
+                                2 * half, int(vec4), cuda.stream(packed))
+    cuda.check(rc, "dequantize_int4")
+    return out
 
 
 def dequantize_int4_sum_cuda(packed: torch.Tensor,

@@ -54,22 +54,33 @@ def quantize_int4_ref(blocks: torch.Tensor):
     return _pack_int4(q), scales
 
 
-def _dequantize_int4(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """(nb, bs // 2) uint8, (nb, 1) f32 -> (nb, bs) f32."""
+def dequantize_int4_ref(packed: torch.Tensor, scales: torch.Tensor,
+                        dtype=torch.float32) -> torch.Tensor:
+    """(nb, bs // 2) uint8, (nb, 1) f32 -> (nb, bs) ``dtype``: the low nibble
+    to the even element, the high to the odd, (nibble - 8) * scale in f32."""
     p = packed.to(torch.int32)
     lo = (p & 0xF) - 8
     hi = ((p >> 4) & 0xF) - 8
     out = torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
-    return out.float() * scales
+    return (out.float() * scales).to(dtype)
+
+
+def dequantize_int8_sum_ref(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(d, nb, bs) int8, (d, nb, 1) f32 -> (nb, bs) f32: the sum over the d
+    chunks of their dequantized values, in order j = 0..d-1."""
+    acc = dequantize_int8_ref(q[0], scales[0])
+    for j in range(1, q.shape[0]):
+        acc = acc + dequantize_int8_ref(q[j], scales[j])
+    return acc
 
 
 def dequantize_int4_sum_ref(packed: torch.Tensor,
                             scales: torch.Tensor) -> torch.Tensor:
     """(d, nb, bs // 2) uint8, (d, nb, 1) f32 -> (nb, bs) f32: the sum over
     the d chunks of their dequantized values, in order j = 0..d-1."""
-    acc = _dequantize_int4(packed[0], scales[0])
+    acc = dequantize_int4_ref(packed[0], scales[0])
     for j in range(1, packed.shape[0]):
-        acc = acc + _dequantize_int4(packed[j], scales[j])
+        acc = acc + dequantize_int4_ref(packed[j], scales[j])
     return acc
 
 
@@ -86,6 +97,17 @@ def matmul_quant_ref(x: torch.Tensor, g: torch.Tensor, block: int, *,
     qv = torch.clamp(torch.round(c / scales), -qmax, qmax).reshape(kk, n)
     q = _pack_int4(qv) if bits == 4 else qv.to(torch.int8)
     return q, scales.reshape(kk, n // block)
+
+
+def dequant_matmul_blocked_ref(x: torch.Tensor, q: torch.Tensor,
+                              scales: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ dequant(q (K, N) int8) -> (M, N) f32 with 2-D blocked
+    scales (K // bk, N): the scale of q[k, n] is scales[k // bk, n]. One f32
+    matmul, so the sum runs in another order than the reference's K-blocked
+    loop (tests state the tolerance)."""
+    kb = q.shape[0] // scales.shape[0]
+    w = q.float() * scales.repeat_interleave(kb, dim=0)
+    return x.float() @ w
 
 
 def dequant_w_flat_ref(q: torch.Tensor, scales: torch.Tensor,

@@ -149,7 +149,8 @@ def zero_tiers(mesh: Mesh) -> dict[str, AxisTuple]:
 
 
 def scheme_config(scheme: str, mesh: Mesh, **over) -> ZeroConfig:
-    """The preset ZeroConfig of ``scheme`` on ``mesh`` (no planner)."""
+    """The preset ZeroConfig of ``scheme`` on ``mesh`` (no planner); keyword
+    overrides (quant_block, overlap, stream_grads, impl, ...) apply to it."""
     tiers = zero_tiers(mesh)
     cfg = preset(scheme, intra_axes=tiers["intra"], inter_axes=tiers["inter"],
                  l0_axes=tiers["l0"], axis_sizes=dict(mesh.shape), **over)

@@ -6,7 +6,8 @@
         --reduced --devices 4 --steps 3
 
 Port of ``repro.launch.train`` with the flags ``--arch --scheme --steps
---batch --seq --reduced --quant-block --lr --compute-dtype --log-json`` plus
+--batch --seq --reduced --quant-block --overlap --stream-grads --lr
+--compute-dtype --log-json`` plus
 ``--device`` (default ``cuda``; there is no CPU fallback), ``--devices N``,
 ``--seed``, ``--microbatches``, ``--kernel-impl plain`` (the plain PyTorch version of every
 kernel, the reference the kernels are held against) and ``--init-npz`` (start
@@ -53,6 +54,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true",
                     help="train ArchConfig.reduced() (CPU-sized)")
     ap.add_argument("--quant-block", type=int, default=128)
+    ap.add_argument("--overlap", action="store_true",
+                    help="double-buffered prefetch of the per-layer weight "
+                         "all-gather (DESIGN.md §3)")
+    ap.add_argument("--stream-grads", action="store_true",
+                    help="streaming gradient path (DESIGN.md §8): per-layer "
+                         "grad reduce-scatter fused into the backward, "
+                         "microbatch grads accumulated in fp32 "
+                         "optimizer-shard layout (grad buffer 4*psi/os "
+                         "instead of 4*psi/w)")
     ap.add_argument("--compute-dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--kernel-impl", default=None, choices=["plain"],
@@ -128,18 +138,21 @@ def train_rank(rank: int, world: int, args) -> dict:
     model = build_model(arch)
     mesh = Mesh(mesh_shape(args), TEST_AXES, rank)
     cfg = scheme_config(args.scheme, mesh, quant_block=args.quant_block,
+                        overlap=args.overlap, stream_grads=args.stream_grads,
                         compute_dtype=args.compute_dtype, impl=args.kernel_impl)
     hp = TrainHparams(lr=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 2),
-                      n_microbatch=args.microbatches)
+                      n_microbatch=args.microbatches, overlap=args.overlap,
+                      stream_grads=args.stream_grads)
     eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp, device)
     if args.init_npz:
         state = from_jax_state(load_global_state(args.init_npz), eng)
     else:
         state = eng.init_state(args.seed)
     log0(f"arch={arch.name} scheme={cfg.name} mesh={mesh.shape} "
-         f"params={eng.param_count():,} device={device} "
-         f"kernel_impl={cfg.impl or 'kernel'} ranks={world}")
+         f"params={eng.param_count():,} overlap={eng.cfg.overlap} "
+         f"stream_grads={eng.cfg.stream_grads} device={device} "
+         f"kernel_impl={eng.cfg.impl or 'kernel'} ranks={world}")
     log0(f"per-rank state bytes: {eng.memory_report()}")
 
     tr = Trainer(model, eng, BatchSpec(args.batch, args.seq, arch.vocab),

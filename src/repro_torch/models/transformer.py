@@ -251,16 +251,21 @@ class LM:
 
     def loss(self, view, batch):
         """batch: {"tokens": (B, S + 1)}. Next-token CE over the S inputs:
-        returns (loss_sum f32, token_count). Each layer's forward is
-        recomputed in the backward, re-issuing its gathers."""
+        returns (loss_sum f32, token_count). The layers run through the
+        view's loop (the gather prefetch rotation when it overlaps), each
+        under its own checkpoint: its forward is recomputed in the backward,
+        re-issuing its gathers inline (a prefetched buffer is consumed by the
+        first forward only, so the checkpoint never keeps one alive)."""
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         x = self._embed(view, inputs)
         ctx = Ctx(positions=torch.arange(x.shape[1], device=x.device))
-        for kind, i in self._layers():
-            def layer(h, kind=kind, v=view.sub(i)):
-                return block_fwd(kind, v, self.cfg, h, ctx)[0]
-            x = checkpoint(layer, x, use_reentrant=False)
+
+        def body(v, h, kind):
+            return checkpoint(lambda t: block_fwd(kind, v, self.cfg, t, ctx)[0],
+                              h, use_reentrant=False)
+
+        x = view.loop_layers(body, x, list(self._layers()))
         x = _norm(view, "", "final_norm", x)
         return L.chunked_cross_entropy(
             x, self._head_weight(view), labels,

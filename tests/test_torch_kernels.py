@@ -14,6 +14,8 @@ import jax
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.dequant_matmul import dequant_matmul_pallas
 from repro.models import layers as jlayers
 from repro_torch.kernels import ops
 from repro_torch.models import layers
@@ -230,3 +232,93 @@ def test_attention_grads():
     for gt, gjx in zip((tq.grad, tk.grad, tv.grad), gj):
         np.testing.assert_allclose(gt.numpy(), np.asarray(gjx), rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ("eager",) + IMPLS)
+@pytest.mark.parametrize("nb", [1, 3, 12, 20])
+@pytest.mark.parametrize("d", [2, 8])
+def test_dequantize_int8_sum(impl, nb, d):
+    """The INT8 sum of d received chunks: bit for bit the reference's oracle
+    run eagerly (the same multiply, then add, in chunk order); within one
+    f32 ulp of the largest |value| of the jitted oracle and the interpret
+    kernel, which XLA may contract into FMAs (ROADMAP caveat b; at nb = 1
+    those two differ from each other by 1.19e-7). The block counts are the
+    reference's own cases (tests/test_kernels.py)."""
+    rng = np.random.default_rng(8)
+    block = 128
+    x = _blocks_input(rng, d * nb, block, jnp.float32)
+    q, s = jax.jit(lambda v: jops.quantize_int8(v, block, impl="jnp"))(x)
+    q, s = np.asarray(q), np.asarray(s)
+    rt = ops.dequantize_int8_sum(_torch(q), _torch(s), d, block).numpy()
+    assert rt.shape == (nb * block,) and rt.dtype == np.float32
+    if impl == "eager":
+        rj = np.asarray(jref.dequantize_int8_sum_ref(
+            jnp.asarray(q).reshape(d, nb, block),
+            jnp.asarray(s).reshape(d, nb, 1))).reshape(-1)
+        np.testing.assert_array_equal(rt.view(np.uint32), rj.view(np.uint32))
+        return
+    rj = np.asarray(jax.jit(lambda a, b: jops.dequantize_int8_sum(
+        a, b, d, block, jnp.float32, impl=impl))(q, s))
+    ulp = np.spacing(np.float32(np.abs(rj).max()))
+    np.testing.assert_allclose(rt, rj, rtol=0, atol=ulp)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("block", [64, 16384])
+@pytest.mark.parametrize("nb", [1, 3, 12, 20])
+def test_dequantize_int4_bitwise(impl, dtype, block, nb):
+    """INT4 unpack + dequant bit for bit against the jitted oracle and the
+    interpret kernel, to f32 and bf16, at the smallest and largest blocks
+    of the reference's quant_error sweep."""
+    rng = np.random.default_rng(9)
+    x = _blocks_input(rng, nb, block, jnp.float32)
+    q, s = jax.jit(lambda v: jops.quantize_int4(v, block, impl="jnp"))(x)
+    q, s = np.asarray(q), np.asarray(s)
+    dj = np.asarray(jax.jit(lambda a, b: jops.dequantize_int4(
+        a, b, block, dtype, impl=impl))(q, s))
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    dt = ops.dequantize_int4(_torch(q), _torch(s), block, tdtype)
+    assert dt.dtype == tdtype and dt.shape == (nb * block,)
+    bits = (torch.int32, np.int32) if tdtype == torch.float32 \
+        else (torch.int16, np.int16)
+    np.testing.assert_array_equal(dt.view(bits[0]).numpy(), dj.view(bits[1]))
+
+
+@pytest.mark.parametrize("mkn,bk", [
+    ((128, 128, 128), 128), ((256, 128, 256), 128), ((128, 256, 384), 128),
+    ((128, 384, 128), 128), ((64, 256, 128), 64)])
+def test_dequant_matmul_blocked(mkn, bk):
+    """x @ dequant(q) with 2-D blocked scales (one per column for each run
+    of bk rows) against the interpret kernel, at the reference test's three
+    shapes (tests/test_kernels.py) with its tolerance (rtol 2e-5, atol
+    5e-4: the sums run in another order) and at K = 3 bk and bk = 64, where
+    a mixed-up scale layout cannot pass."""
+    m, k, n = mkn
+    rng = np.random.default_rng(10)
+    x = (rng.standard_normal((m, k)) * 3.0).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 3.0).astype(np.float32)
+    wb = w.reshape(k // bk, bk, n)
+    absmax = np.abs(wb).max(axis=1)
+    scales = np.where(absmax == 0, 1.0, absmax / 127.0).astype(np.float32)
+    q = np.clip(np.round(wb / scales[:, None, :]), -127, 127).astype(np.int8)
+    q = q.reshape(k, n)
+    yj = np.asarray(dequant_matmul_pallas(x, q, scales, bm=min(m, 128), bn=128,
+                                          bk=bk, interpret=True))
+    yt = ops.dequant_matmul_blocked(_torch(x), _torch(q), _torch(scales))
+    assert yt.shape == (m, n) and yt.dtype == torch.float32
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=2e-5, atol=5e-4)
+
+
+def test_new_kernels_do_not_fall_back():
+    """A tensor on neither the CPU nor a card raises; nothing runs the
+    plain version in place of a kernel."""
+    q = torch.zeros(256, dtype=torch.int8, device="meta")
+    s = torch.ones(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.dequantize_int8_sum(q, s, 2, 64)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.dequantize_int4(q.view(torch.uint8), s, 128)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.dequant_matmul_blocked(torch.zeros((2, 64), device="meta"),
+                                   q.reshape(64, 4), s.reshape(1, 4))

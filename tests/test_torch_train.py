@@ -42,8 +42,10 @@ LOSS_RTOL, GNORM_RTOL = 3e-5, 2e-4
 
 
 def reference_run(mesh, out_dir: Path, n_microbatch: int = 1,
-                  scheme: str = "zero_topo") -> dict:
-    """Train the reference; save its initial global state and metrics."""
+                  scheme: str = "zero_topo", batch: int = RUN["batch"],
+                  **over) -> dict:
+    """Train the reference; save its initial global state and metrics.
+    ``over`` overrides the scheme config (e.g. ``stream_grads=True``)."""
     import jax
 
     from repro.core.engine import TrainHparams, ZeroEngine
@@ -55,7 +57,7 @@ def reference_run(mesh, out_dir: Path, n_microbatch: int = 1,
 
     model = build_model(get_arch("qwen2-0.5b").reduced())
     cfg = scheme_config(scheme, mesh, quant_block=RUN["quant_block"],
-                        compute_dtype="float32")
+                        compute_dtype="float32", **over)
     hp = TrainHparams(lr=RUN["lr"], total_steps=RUN["steps"],
                       warmup_steps=max(RUN["steps"] // 20, 2),
                       n_microbatch=n_microbatch)
@@ -66,7 +68,7 @@ def reference_run(mesh, out_dir: Path, n_microbatch: int = 1,
             {n: np.asarray(a) for n, a in state[k].items()})
         for k in ("primaries", "master", "opt_m", "opt_v", "step")})
     tr = Trainer(model, eng, mesh,
-                 ShapeConfig("t", RUN["seq"], RUN["batch"], "train"))
+                 ShapeConfig("t", RUN["seq"], batch, "train"))
     tr.run(state, RUN["steps"], log_every=0)
     out = dict(losses=tr.log.losses, grad_norms=tr.log.grad_norms)
     (out_dir / "metrics.json").write_text(json.dumps(out))
