@@ -33,6 +33,17 @@ either is missing or any phase fails. Phases, in order:
             elements, block 128, to f32 and bf16, and ragged) bit for bit;
             dequant_matmul_blocked at qwen2's w_up and ragged (K = 2 and 3
             blocks) within BLOCKED_RTOL * |ref| + BLOCKED_ATOL * max|ref|.
+            dequant_matmul's rounding is reported (not held): the share of
+            bf16 outputs off the exact product, kernel and plain version,
+            at three shapes. Its two paths: each case must take the path its
+            shape names (dequant_matmul_path): bf16 at M = 2,048 in both
+            orientations at qwen2's four shapes, each side of the tensor
+            cores' thresholds, f32 at M = 128, ragged tiles (block 64, M =
+            130 and 2,047, K = 72 and 328) on the tensor cores and K = 333
+            (rows off the 16-byte grid) on the SIMT path; flash_attention
+            in bf16 (the tensor-core kernel) at the training shape, ragged,
+            with a query offset and with a window; all within one bf16 ulp
+            of max|ref|.
 2b. ops    : two ops-level paths, each with the counters zeroed before and
             read after: benchmarks/quant_error.py's experiment (2^16
             heavy-tailed values, INT8 and INT4 round trips at blocks 64 ...
@@ -84,10 +95,17 @@ either is missing or any phase fails. Phases, in order:
 5. timing : device time of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the
             serving and training shapes (CUDA graphs of repeated launches,
-            CUDA events).
+            CUDA events). dequant_matmul also: one layer's 7 products at the
+            training M in each orientation beside bf16 cuBLAS, one prefill's
+            169 calls, each decode / prefill shape with its path, falcon-mamba's
+            three M = 128 shapes, and both paths forced at M = 8 ... 128
+            (the threshold rows); flash_attention also at the training shape
+            beside SDPA.
 6. report : JSON lines (serve, serve_ssm, train, regimes, collectives,
-            kernels_extra, then the kernels line: all 11 kernels with their
-            launches on every path), the card's name and power limit
+            kernels_extra with the extra timing rows and every
+            dequant_matmul shape's path, then the kernels line: all 11
+            kernels with their launches on every path), the card's name and
+            power limit
             (nvidia-smi), and last the line
             {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -191,6 +209,11 @@ KERNEL_INFO = {
 LAYER_KN = ((896, 896), (896, 128), (896, 128), (896, 896), (896, 4864),
             (896, 4864), (4864, 896))
 TRAIN_M = 2048                      # tokens per rank: 8 x 1024 over 4 ranks
+# bf16 rows from which dequant_matmul takes the tensor cores, x @ W and
+# x @ W.T (chosen by the timing phase's dequant_matmul_threshold rows;
+# csrc/dequant_matmul.cu's TC_MIN_M, TC_MIN_M_T): the checks hold the path
+# of each shape to them
+TC_MIN_M, TC_MIN_M_T = 16, 64
 EMBED_N = 151_936 * 896             # the tied embedding's padded length
 
 
@@ -253,6 +276,7 @@ def add_check(checks, name, what, err, tol):
 
 def check_kernels(dev, gen, checks):
     from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import PATHS, dequant_matmul_path
     from repro_torch.models import layers
 
     def record(name, what, err, tol):
@@ -320,11 +344,17 @@ def check_kernels(dev, gen, checks):
     stack_case(f"({MAMBA_L}*{MAMBA_D}*{2 * SCAN_D}/128, 128) bf16 (w_in stack)",
                MAMBA_L * MAMBA_D * 2 * SCAN_D, 128)
 
-    def mm_case(what, m, k, n, block, transpose, dtype):
+    def mm_case(what, m, k, n, block, transpose, dtype, path=None):
+        """One dequant_matmul against its plain version; ``path`` (when
+        given) is the path the shape must take."""
         w = torch.randn(k * n + 3 * block, generator=gen, device=dev) * 0.05
         q, s = ops.quantize_int8(w, block)
         x = torch.randn((m, n if transpose else k), generator=gen,
                         device=dev).to(dtype)
+        took = PATHS[dequant_matmul_path(m, k, n, block, transpose, dtype)]
+        if path is not None and took != path:
+            raise Failed(f"dequant_matmul {what}: took the {took} path, not "
+                         f"{path}")
         yk = ops.dequant_matmul(x, q, s, (k, n), block, transpose=transpose,
                                 dtype=dtype)
         yp = ops.dequant_matmul(x, q, s, (k, n), block, transpose=transpose,
@@ -332,8 +362,8 @@ def check_kernels(dev, gen, checks):
         err, scale = rel_err(yk, yp)
         tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) * scale
         if yk.shape != yp.shape or err > tol:
-            raise Failed(f"dequant_matmul {what}: err {err} > {tol}")
-        record("dequant_matmul", what, err, f"{tol:.3e}")
+            raise Failed(f"dequant_matmul {what} ({took}): err {err} > {tol}")
+        record("dequant_matmul", f"{what} {took}", err, f"{tol:.3e}")
 
     d, ff, hd, V = 896, 4864, 64, 151_936
     for m in (4, 128):
@@ -356,6 +386,28 @@ def check_kernels(dev, gen, checks):
     mm_case("M=7 (333, 192).T f32 ragged", 7, 333, 192, 64, True, torch.float32)
     mm_case("M=130 (72, 256) bf16 ragged", 130, 72, 256, 64, False,
             torch.bfloat16)
+    # the tensor-core path: the training M in both orientations at qwen2's
+    # four shapes, the threshold and one past it, f32 at the prefill M
+    for k, n in sorted(set(LAYER_KN)):
+        for tr in (False, True):
+            mm_case(f"M={TRAIN_M} ({k}, {n}){'.T' if tr else ''} bf16", TRAIN_M,
+                    k, n, 128, tr, torch.bfloat16, "tensor_core")
+    for tr, first in ((False, TC_MIN_M), (True, TC_MIN_M_T)):
+        for m in (first - 1, first, first + 1):
+            mm_case(f"M={m} ({d}, {ff}){'.T' if tr else ''} bf16", m, d, ff, 128,
+                    tr, torch.bfloat16, "tensor_core" if m >= first else "simt")
+    mm_case("M=128 (896, 4864) f32", 128, d, ff, 128, False, torch.float32,
+            "simt")
+    # ragged against the 128 x 128 tile but 16-byte aligned rows (block 64):
+    # tensor cores; K = 333 leaves x (or out) rows off the 16-byte grid: SIMT
+    for m, k, n in ((130, 72, 192), (2047, 328, 256), (130, 328, 64),
+                    (2047, 72, 320)):
+        for tr in (False, True):
+            mm_case(f"M={m} ({k}, {n}){'.T' if tr else ''} bf16 ragged", m, k, n,
+                    64, tr, torch.bfloat16, "tensor_core")
+    for tr in (False, True):
+        mm_case(f"M=130 (333, 192){'.T' if tr else ''} bf16 ragged", 130, 333,
+                192, 64, tr, torch.bfloat16, "simt")
 
     def attn_case(what, b, h, hkv, sq, sk, q_offset, window, dtype):
         q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
@@ -378,6 +430,16 @@ def check_kernels(dev, gen, checks):
     attn_case("B=1 H=4/1 Sq=64 Sk=128 q_offset=64 f32", 1, 4, 1, 64, 128, 64, 0,
               torch.float32)
     attn_case("B=1 H=14/2 S=256 window=32 bf16", 1, 14, 2, 256, 256, 0, 32,
+              torch.bfloat16)
+    # the tensor-core kernel: the training step's shape, ragged, a query
+    # offset, and a window that skips key tiles on both sides
+    attn_case("B=2 H=14/2 S=1024 causal bf16 (training)", 2, 14, 2, 1024,
+              1024, 0, 0, torch.bfloat16)
+    attn_case("B=2 H=6/2 S=100 causal bf16 ragged", 2, 6, 2, 100, 100, 0, 0,
+              torch.bfloat16)
+    attn_case("B=1 H=4/1 Sq=64 Sk=128 q_offset=64 bf16", 1, 4, 1, 64, 128, 64,
+              0, torch.bfloat16)
+    attn_case("B=1 H=14/2 S=512 window=32 bf16", 1, 14, 2, 512, 512, 0, 32,
               torch.bfloat16)
 
     def int4_case(what, n_blocks, block, dtype, d=2):
@@ -1159,14 +1221,29 @@ def timing_phase(s, gen):
     out["dequant_matmul_dx"] = dict(
         work=f"one layer's 7 dX products at M={TRAIN_M} (transposed)",
         ms=device_ms(run_matmuls(dx), reps=2),
+        plain_ms=device_ms(run_matmuls(dx, "plain"), reps=1, replays=2),
         library_ms=device_ms(run_dense(dx, dense), reps=2),
         bound=bound_ms(b, o, "bf16"))
-    del dense, dx
+    # the training forward (and its recompute): the same 7 weights, x @ W
+    fw = [(torch.randn((TRAIN_M, kn[0]), generator=gen, device=dev)
+           .to(torch.bfloat16), q, sc, kn, block, False)
+          for _, q, sc, kn, block, _ in dec[:7]]
+    b, o = matmul_work(fw)
+    out["dequant_matmul_fwd"] = dict(
+        work=f"one layer's 7 forward products at M={TRAIN_M}",
+        ms=device_ms(run_matmuls(fw), reps=2),
+        plain_ms=device_ms(run_matmuls(fw, "plain"), reps=1, replays=2),
+        library_ms=device_ms(run_dense(fw, dense), reps=2),
+        bound=bound_ms(b, o, "bf16"))
+    del dense, dx, fw
+    out["dequant_matmul_threshold"] = path_threshold(dec[:7], gen, dev)
     pre = matmul_calls(s, plen, 1, gen)
     b, o = matmul_work(pre)
     out["dequant_matmul_prefill"] = dict(
         work=f"one prefill: {len(pre)} calls at M={plen} (head M=1)",
-        ms=device_ms(run_matmuls(pre), reps=3), bound=bound_ms(b, o, "bf16"))
+        ms=device_ms(run_matmuls(pre), reps=3),
+        plain_ms=device_ms(run_matmuls(pre, "plain"), reps=1, replays=2),
+        bound=bound_ms(b, o, "bf16"))
     shapes = []
     for label, calls in (("decode", dec), ("prefill", pre)):
         for j in range(7):
@@ -1174,7 +1251,7 @@ def timing_phase(s, gen):
             b, o = matmul_work(per)
             x, _, _, kn, _, _ = per[0]
             shapes.append(dict(step=label, M=x.shape[0], K=kn[0], N=kn[1],
-                               transpose=False,
+                               transpose=False, path=call_path(per[0]),
                                ms_per_call=device_ms(run_matmuls(per), reps=3)
                                / len(per),
                                bound_ms_per_call=bound_ms(b, o, "bf16")[0]
@@ -1183,8 +1260,10 @@ def timing_phase(s, gen):
         b, o = matmul_work(head)
         shapes.append(dict(step=label, M=head[0][0].shape[0], K=head[0][3][0],
                            N=head[0][3][1], transpose=True,
+                           path=call_path(head[0]),
                            ms_per_call=device_ms(run_matmuls(head), reps=10),
                            bound_ms_per_call=bound_ms(b, o, "bf16")[0]))
+    shapes += falcon_prefill_shapes(gen, dev)
     out["dequant_matmul_shapes"] = shapes
 
     # the whole decode step as a CUDA graph, beside the host-clock
@@ -1212,7 +1291,120 @@ def timing_phase(s, gen):
                                                            is_causal=True),
                              reps=50),
         bound=bound_ms(2 * (2 * h + 2 * hkv) * S * hd, 4 * hd * pairs, "bf16"))
+    # the training step's forward: B = 2 x 14 heads over 2, S = 1024, causal
+    bsz, S = TRAIN_M // 1024, 1024
+    q = torch.randn((bsz * h, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((bsz * hkv, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((bsz * hkv, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+    q4 = q.view(bsz, h, S, hd)
+    k4 = k.view(bsz, hkv, S, hd).repeat_interleave(h // hkv, dim=1).contiguous()
+    v4 = v.view(bsz, hkv, S, hd).repeat_interleave(h // hkv, dim=1).contiguous()
+    pairs = bsz * h * S * (S + 1) // 2
+    out["flash_attention_train"] = dict(
+        work=f"training attention: B={bsz} x {h} heads over {hkv}, S={S}, "
+             f"D={hd}, causal, bf16",
+        ms=device_ms(lambda: ops.flash_attention(q, k, v), reps=20),
+        plain_ms=device_ms(lambda: ops.flash_attention(q, k, v, impl="plain"),
+                           reps=5),
+        library_ms=device_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(q4, k4, v4,
+                                                           is_causal=True),
+                             reps=20),
+        bound=bound_ms(2 * (2 * h + 2 * hkv) * bsz * S * hd, 4 * hd * pairs,
+                       "bf16"))
     return out
+
+
+def rounding_flips(gen, dev):
+    """Share of bf16 outputs that round away from the exact product (f64 on
+    the f32 weights, rounded once to bf16), for the kernel and for the plain
+    version (f32 cuBLAS), at falcon-mamba's w_in at M = 128 and qwen2's
+    w_down / w_up.T at M = 2,048: how close each path's f32 sums come to
+    exact before their one bf16 rounding."""
+    from repro_torch.kernels import ops
+
+    rows = []
+    for k, n, m, tr in ((MAMBA_D, 2 * SCAN_D, 128, False),
+                        (4864, 896, TRAIN_M, False), (896, 4864, TRAIN_M, True)):
+        w = torch.randn(k * n, generator=gen, device=dev) * 0.05
+        q, sc = ops.quantize_int8(w, 128)
+        del w
+        x = torch.randn((m, n if tr else k), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        w64 = (q.view(k, n).double()
+               * sc.view(k, n // 128).double().repeat_interleave(128, 1))
+        exact = (x.double() @ (w64.T if tr else w64)).to(torch.bfloat16)
+        del w64
+        row = dict(M=m, K=k, N=n, transpose=tr,
+                   path=call_path((x, q, sc, (k, n), 128, tr)))
+        for impl in (None, "plain"):
+            y = ops.dequant_matmul(x, q, sc, (k, n), 128, transpose=tr,
+                                   impl=impl)
+            row["plain_flips" if impl else "kernel_flips"] = float(
+                (y != exact).double().mean())
+        rows.append(row)
+        print(f"  dequant_matmul rounding M={m} ({k}, {n}){'.T' if tr else ''}: "
+              f"outputs off the exact bf16 {row['kernel_flips']:.5f} "
+              f"({row['path']}), plain {row['plain_flips']:.5f}")
+    return rows
+
+
+def call_path(call) -> str:
+    """The path ("simt" | "tensor_core") a dequant_matmul call takes."""
+    from repro_torch.kernels.dequant_matmul import PATHS, dequant_matmul_path
+
+    x, _, _, (k, n), block, transpose = call
+    return PATHS[dequant_matmul_path(x.shape[0], k, n, block, transpose,
+                                     x.dtype)]
+
+
+def path_threshold(layer, gen, dev):
+    """One layer's 7 products (x @ W and x @ W.T) at M = 8 ... 128 on each
+    path, forced: where the tensor cores start to win."""
+    from repro_torch.kernels.dequant_matmul import PATHS, dequant_matmul_flat_cuda
+
+    rows = []
+    for m in (8, 16, 32, 64, 128):
+        for tr in (False, True):
+            calls = [(torch.randn((m, kn[1] if tr else kn[0]), generator=gen,
+                                  device=dev).to(torch.bfloat16), q, sc, kn,
+                      block, tr) for _, q, sc, kn, block, _ in layer]
+            row = dict(M=m, transpose=tr, path=call_path(calls[0]))
+            for path, name in enumerate(PATHS):
+                def fn(path=path):
+                    for x, q, sc, (k, n), block, _ in calls:
+                        dequant_matmul_flat_cuda(
+                            x, q[:k * n].view(k, n),
+                            sc[:k * n // block].view(k, n // block), block,
+                            transpose=tr, path=path)
+                row[f"{name}_ms"] = device_ms(fn, reps=5)
+            rows.append(row)
+    return rows
+
+
+def falcon_prefill_shapes(gen, dev):
+    """falcon-mamba-7b's three prefill products (w_in, w_dt, w_out) at
+    M = 128 on seeded weights, per call: kernel, bf16 cuBLAS on the
+    dequantized weight, bound."""
+    from repro_torch.kernels import ops
+
+    rows = []
+    for k, n in ((MAMBA_D, 2 * SCAN_D), (MAMBA_DTR, SCAN_D), (SCAN_D, MAMBA_D)):
+        w = torch.randn(k * n, generator=gen, device=dev) * 0.05
+        q, sc = ops.quantize_int8(w, 128)
+        del w
+        call = (torch.randn((128, k), generator=gen, device=dev)
+                .to(torch.bfloat16), q, sc, (k, n), 128, False)
+        dense = dense_weights([call])
+        b, o = matmul_work([call])
+        rows.append(dict(step="falcon-mamba prefill", M=128, K=k, N=n,
+                         transpose=False, path=call_path(call),
+                         ms_per_call=device_ms(run_matmuls([call]), reps=10),
+                         library_ms_per_call=device_ms(
+                             run_dense([call], dense), reps=10),
+                         bound_ms_per_call=bound_ms(b, o, "bf16")[0]))
+        del q, sc, dense, call
+    return rows
 
 
 def train_timing(gen, dev):
@@ -1373,6 +1565,8 @@ def main(argv=None) -> int:
     check_kernels(dev, gen, checks)
     check_dequant_kernels(dev, gen, checks)
 
+    flips = rounding_flips(gen, dev)
+
     phase("ops (quant_error, blocked matmul)")
     qe_rows, qe_launches = quant_error_path(gen, dev, checks)
     bm_launches = blocked_matmul_path(gen, dev, checks)
@@ -1471,13 +1665,18 @@ def main(argv=None) -> int:
             tolerance=[c["tolerance"] for c in checks[name]],
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bms, bound_by=by,
             library_ms=tm["library_ms"], work=tm["work"]))
-    dx = t["dequant_matmul_dx"]
     dq4 = t["dequantize_int4"]["per_dtype"]["bfloat16"]
-    kernels_extra = dict(
-        dequant_matmul_dx=dict(work=dx["work"], ms=dx["ms"],
-                               library_ms=dx["library_ms"],
-                               bound_ms=dx["bound"][0],
-                               bound_by=dx["bound"][1]),
+    kernels_extra = {
+        key: dict(work=t[key]["work"], ms=t[key]["ms"],
+                  plain_ms=t[key].get("plain_ms"),
+                  library_ms=t[key].get("library_ms"),
+                  bound_ms=t[key]["bound"][0], bound_by=t[key]["bound"][1])
+        for key in ("dequant_matmul_dx", "dequant_matmul_fwd",
+                    "dequant_matmul_prefill", "flash_attention_train")}
+    kernels_extra.update(
+        dequant_matmul_rounding=flips,
+        dequant_matmul_threshold=t["dequant_matmul_threshold"],
+        dequant_matmul_shapes=t["dequant_matmul_shapes"],
         dequantize_int4_bf16=dict(ms=dq4["ms"], plain_ms=dq4["plain_ms"],
                                   bound_ms=dq4["bound"][0],
                                   bound_by=dq4["bound"][1]))

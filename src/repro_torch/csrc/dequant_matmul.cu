@@ -4,20 +4,68 @@
 // (:113), both orientations:
 //   transpose = 0: out (M, N) = x (M, K) @ dequant(q (K, N))
 //   transpose = 1: out (M, K) = x (M, N) @ dequant(q (K, N)).T
-// The scale of q[k, j] is s[k, j / block] (N % block == 0). Products and sums
-// are f32; x and out share the compute dtype (f32 or bf16).
+// The scale of q[k, j] is s[k, j / block] (N % block == 0). x and out share
+// the compute dtype (f32 or bf16); sums are f32.
 //
-// Bound on the H100: bytes. Serving runs M = n_slots (decode), M = 1 (the
-// LM head of a prefill) and M = prompt_len (prefill): every INT8 weight byte
-// is read once and feeds 2*M flops, far below the ~300 flops per byte at
-// which the card stops being memory-bound for M <= 128 on tensor cores.
+// Two paths, chosen by shape and dtype alone (dequant_matmul_path):
+//  * tensor cores (wgmma), for bf16 with block % 64 == 0, K % 8 == 0 (every
+//    bf16 row of x and out 16-byte aligned, as cp.async needs) and
+//    M >= TC_MIN_M = 16 for x @ W, M >= TC_MIN_M_T = 64 for x @ W.T (the
+//    crossovers measured on the card against the SIMT path: PERF.md): the
+//    M = 128 prefills and the M = 2,048 training products;
+//  * SIMT f32 FMA for everything else: f32 of any M, bf16 decode (M = slots)
+//    and the LM head (M = 1 or slots), and shapes the tensor cores do not
+//    take.
 //
-// Design (simple first; wgmma/TMA come later): the weight never leaves
+// Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16; weight, scales, x and out
+// each moved once): qwen2-0.5b prefill at M = 128, 0.11-1.78 us a call
+// (bytes: the INT8 weight); falcon-mamba-7b prefill at M = 128, w_in
+// (4,096 x 16,384) 22.2 us, w_out 11.3 us (bytes, with the tensor work
+// within 1.3x of it); the training step at M = 2,048, 0.47-18.1 us a call
+// (operations: one layer's 7 products 61 GFLOP, 0.0617 ms); decode at M = 4,
+// 0.04-1.36 us (bytes).
+//
+// Tensor-core path: 128 x 128 output tiles, two warpgroups of 64 x 128
+// (wgmma.m64n128k16, bf16 in, f32 accumulators in registers), contraction
+// steps of 64 staged through a 4-deep cp.async ring in shared memory, the
+// next step fetched and converted while the tensor cores run the current
+// one. Deterministic: no atomics, a fixed order of sums.
+//  * x @ W.T (the dX of training): the contraction runs along a q row, where
+//    one quant block shares one scale. Both operands are K-major, so both
+//    come from shared memory under the 128-byte swizzle: x as loaded, and
+//    the raw int8 q widened to bf16 (exact: |q| <= 128) by all threads. The
+//    products of bf16 x and int8 q are exact in f32. Each block's run of
+//    the contraction sums into a partial f32 accumulator (wgmma restarts it
+//    at the block's first step), which is then scaled by s[k, jb] per
+//    output column k into the result. Only the order of the f32 sums
+//    differs from the reference.
+//  * x @ W (the forward): the scale changes with every contraction row, so
+//    it stays with the weight, and W is N-major. The kernel computes
+//    out.T = dequant(q).T @ x.T: A, the weight, comes from registers, where
+//    each thread dequantizes its own fragment straight from the raw int8
+//    tile (2-byte loads of two adjacent output columns, which the thread's
+//    two A rows are mapped to); B is the staged x tile, K-major. Each weight
+//    is w = q * s in f32 (the reference's value), split into hi = bf16(w)
+//    and lo = bf16(w - hi); both run against the same x tile, which keeps
+//    16 bits of each weight (each product within 2^-16 of the reference's)
+//    at twice the tensor work of one bf16 weight, whose single rounding
+//    would add an error the size of a second rounding of the output. A grid
+//    that does not fill the card splits K, and a second kernel adds the f32
+//    partial sums in split order.
+//  * Both orientations fold the tensor cores' sums into an f32 accumulator
+//    in ordinary arithmetic every 64 (x @ W) or `block` (x @ W.T)
+//    contraction rows: the tensor core's own accumulator rounds toward
+//    zero, and left to run over a whole contraction it rounded many times
+//    more bf16 outputs away from the exact product than the plain version
+//    does, most of them toward zero. chip_smoke.py reports the share of
+//    outputs off the exact product for both (dequant_matmul_rounding).
+//
+// SIMT path (the port's first design, PR 11): the weight never leaves
 // registers as a dense tile. Each lane loads 4 consecutive INT8 weights with
 // one 4-byte load (a warp reads 128 contiguous bytes), scales them in
-// registers with their flat-layout block scale, and applies them to MT rows
-// of x that the block staged in shared memory as f32, so each weight byte is
-// reused MT times from registers.
+// registers with their flat-layout block scale, and applies them to MT <= 8
+// rows of x that the block staged in shared memory as f32, so each weight
+// byte is reused MT times from registers.
 //  * x @ W: a block owns 128 output columns and a K range; its 8 warps split
 //    the K rows and meet in shared memory. When the (column, row-tile) grid
 //    is too small to fill 132 SMs, K is also split across blocks, and a
@@ -25,7 +73,7 @@
 //    no atomics).
 //  * x @ W.T: the contraction runs along a contiguous q row, so one warp
 //    owns one output column k and reduces its lanes with shuffles.
-#include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -183,6 +231,356 @@ dmm_tn_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core path (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_MIN_M = 16;       // x @ W: bf16 rows from which the tensor cores win
+constexpr int TC_MIN_M_T = 64;     // x @ W.T: the same (its grid does not split K)
+constexpr int TBM = 128, TBN = 128;  // output tile
+constexpr int WG_BK = 64;          // contraction step: 128 bytes of bf16
+constexpr int WG_STAGES = 4;       // cp.async ring depth
+constexpr int TC_THREADS = 256;    // two warpgroups
+constexpr int TC_NT_CTAS = 132;    // x @ W: one CTA an SM fills the card
+constexpr int TC_MIN_SPLIT = 128;  // x @ W: never split K finer than this
+constexpr int SC_SLOTS = 8;        // x @ W: scale columns a tile row can span
+constexpr int QPAD = TBN + 16;     // x @ W: raw q row (bytes), 2-byte column reads without conflicts
+constexpr int SC_PAD = SC_SLOTS + 1;
+
+enum { PATH_SIMT = 0, PATH_TC = 1 };
+
+bool tc_takes(int K, int block, int dtype) {
+  return dtype == DT_BF16 && block % WG_BK == 0 && K % 8 == 0;
+}
+
+// K split of the tensor-core x @ W: number of splits and rows (a multiple
+// of WG_BK) per split
+void tc_split(int M, int K, int N, int* splits, int* chunk) {
+  const long long natural = (long long)((N + TBN - 1) / TBN) * ((M + TBM - 1) / TBM);
+  long long s = TC_NT_CTAS / natural;
+  const long long most = (K + TC_MIN_SPLIT - 1) / TC_MIN_SPLIT;
+  if (s > most) s = most;
+  if (s < 1) s = 1;
+  int c = (int)((K + s - 1) / s);
+  c = (c + WG_BK - 1) / WG_BK * WG_BK;
+  *chunk = c;
+  *splits = (K + c - 1) / c;
+}
+
+struct alignas(1024) WgStage {     // one contraction step of x @ W.T
+  __nv_bfloat16 x[TBM * WG_BK];    // 128 rows of x, 128-byte swizzle (wgmma A)
+  int8_t q[TBN][WG_BK];            // 128 q rows (output columns k), as loaded
+  float s[TBN];                    // their scales in this step's block
+};
+struct alignas(1024) WgWeights {   // q of one step as bf16, 128-byte swizzle (wgmma B)
+  __nv_bfloat16 w[TBN * WG_BK];
+};
+
+// out (M, K) = x (M, N) @ dequant(q (K, N)).T; grid (K tiles, M tiles).
+// Two warpgroups, each 64 rows x 128 columns of the tile with wgmma.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+dmm_tc_tn_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                 const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
+                 int M, int K, int N, int block) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  WgStage* st = reinterpret_cast<WgStage*>(smem);
+  WgWeights* wt = reinterpret_cast<WgWeights*>(smem + WG_STAGES * sizeof(WgStage));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, wg = warp / 4;
+  const int m0 = blockIdx.y * TBM, k0 = blockIdx.x * TBN;
+  const int nblk = N / block, nk = N / WG_BK, per_block = block / WG_BK;
+
+  auto load = [&](int kt) {
+    WgStage& S = st[kt % WG_STAGES];
+    const int j0 = kt * WG_BK;
+#pragma unroll
+    for (int h = 0; h < TBM * 8 / TC_THREADS; ++h) {
+      const int i = tid + h * TC_THREADS, r = i / 8, c = i % 8;
+      const bool in = m0 + r < M;
+      cp_async16(reinterpret_cast<char*>(S.x) + sw128(r, c),
+                 in ? x + (size_t)(m0 + r) * N + j0 + c * 8 : x, in);
+    }
+#pragma unroll
+    for (int h = 0; h < TBN * 4 / TC_THREADS; ++h) {
+      const int i = tid + h * TC_THREADS, r = i / 4, c = i % 4;
+      const bool in = k0 + r < K;
+      cp_async16(&S.q[r][c * 16], in ? q + (size_t)(k0 + r) * N + j0 + c * 16 : q, in);
+    }
+    if (tid < TBN) {
+      const bool in = k0 + tid < K;
+      cp_async4(&S.s[tid], in ? s + (size_t)(k0 + tid) * nblk + j0 / block : s, in);
+    }
+  };
+  // the raw int8 q of step kt -> bf16 (exact) in wgmma's layout
+  auto widen = [&](int kt, WgWeights& W) {
+    const WgStage& S = st[kt % WG_STAGES];
+#pragma unroll
+    for (int h = 0; h < TBN * 8 / TC_THREADS; ++h) {
+      const int i = tid + h * TC_THREADS, r = i / 8, c = i % 8;
+      const uint2 raw = *reinterpret_cast<const uint2*>(&S.q[r][c * 8]);
+      uint4 w;
+      i8x4_to_bf16x4(raw.x, w.x, w.y);
+      i8x4_to_bf16x4(raw.y, w.z, w.w);
+      *reinterpret_cast<uint4*>(reinterpret_cast<char*>(W.w) + sw128(r, c)) = w;
+    }
+  };
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < WG_STAGES - 1; ++i) {
+    if (i < nk) load(i);
+    cp_async_commit();
+  }
+  cp_async_wait<WG_STAGES - 2>();
+  __syncthreads();
+  widen(0, wt[0]);
+  fence_proxy_async();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    // step kt: its x has landed and its q is widened, both visible to wgmma
+    const WgStage& S = st[kt % WG_STAGES];
+    const uint64_t da = sw128_desc(reinterpret_cast<const char*>(S.x) + wg * 64 * 128);
+    const uint64_t db = sw128_desc(wt[kt & 1].w);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk)
+      wgmma_m64n128k16(part, da + 2 * kk, db + 2 * kk, kk > 0 || kt % per_block != 0);
+    wgmma_commit();
+    // while the tensor cores run: fetch step kt + 3, widen step kt + 1
+    if (kt + WG_STAGES - 1 < nk) load(kt + WG_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<WG_STAGES - 2>();
+    __syncthreads();  // step kt + 1 has landed for every thread
+    if (kt + 1 < nk) widen(kt + 1, wt[(kt + 1) & 1]);
+    fence_proxy_async();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) fence_operand(part[i]);
+    if ((kt + 1) % per_block == 0) {  // the quant block ends: scale and fold
+#pragma unroll
+      for (int ni = 0; ni < TBN / 8; ++ni) {  // columns ni * 8 + 2t, + 1
+        const float2 sc = *reinterpret_cast<const float2*>(&S.s[ni * 8 + 2 * t]);
+        acc[4 * ni] = fmaf(part[4 * ni], sc.x, acc[4 * ni]);
+        acc[4 * ni + 1] = fmaf(part[4 * ni + 1], sc.y, acc[4 * ni + 1]);
+        acc[4 * ni + 2] = fmaf(part[4 * ni + 2], sc.x, acc[4 * ni + 2]);
+        acc[4 * ni + 3] = fmaf(part[4 * ni + 3], sc.y, acc[4 * ni + 3]);
+      }
+    }
+    __syncthreads();  // step kt + 1 widened; step kt's buffers free
+  }
+  cp_async_wait<0>();
+
+  const int row_base = m0 + wg * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+  for (int ni = 0; ni < TBN / 8; ++ni) {
+    const int col = k0 + ni * 8 + 2 * t;  // K % 8 == 0: col + 1 < K too
+    if (col >= K) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_base + 8 * h;
+      if (row < M)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * K + col) =
+            pack_bf16(acc[ni * 4 + 2 * h], acc[ni * 4 + 2 * h + 1]);
+    }
+  }
+}
+
+struct alignas(1024) WfStage {     // one contraction step of x @ W
+  __nv_bfloat16 x[TBM * WG_BK];    // 128 rows of x, 128-byte swizzle (wgmma B)
+  int8_t q[WG_BK][QPAD];           // 64 q rows, 128 output columns (+ pad)
+  float s[WG_BK][SC_PAD];          // their scales: s[k][nb0 + c], c < SC_SLOTS
+};
+constexpr int TERMS = 2;           // bf16 terms of each forward weight: hi, lo
+
+// a pair of f32 weights w -> hi = bf16(w) and lo = bf16(w - hi), as bf16 pairs
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t (&r)[TERMS]) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  r[0] = *reinterpret_cast<const uint32_t*>(&h);
+  r[1] = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+// out (M, N) = x (M, K) @ dequant(q (K, N)), or with part != nullptr the f32
+// partial sum of split blockIdx.y into part[split][M][N]; grid (N tiles,
+// splits, M tiles). Computed as out.T = dequant(q).T @ x.T: A (output
+// columns x K) is dequantized from the raw int8 tile into registers, B is
+// the staged x tile. Each warpgroup owns 64 output columns x 128 rows.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+dmm_tc_nt_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                 const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ part, int M, int K, int N, int block, int chunk) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  WfStage* st = reinterpret_cast<WfStage*>(smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, wg = warp / 4;
+  const int n0 = blockIdx.x * TBN, m0 = blockIdx.z * TBM;
+  const int kbeg = blockIdx.y * chunk, kend = min(K, kbeg + chunk);
+  const int nblk = N / block, nb0 = n0 / block;
+  const int nk = (kend - kbeg + WG_BK - 1) / WG_BK;
+  // A rows g and g + 8 of this warp are output columns nl and nl + 1: the
+  // two share a q row's 2 bytes (one load) and, block % 64 == 0, a scale
+  const int nl = wg * 64 + (warp % 4) * 16 + 2 * g;
+  const int slot = (n0 + nl) / block - nb0;
+
+  auto load = [&](int kt) {
+    WfStage& S = st[kt % WG_STAGES];
+    const int kc = kbeg + kt * WG_BK;
+#pragma unroll
+    for (int h = 0; h < TBM * 8 / TC_THREADS; ++h) {
+      const int i = tid + h * TC_THREADS, r = i / 8, c = i % 8;
+      const bool in = m0 + r < M && kc + c * 8 < kend;
+      cp_async16(reinterpret_cast<char*>(S.x) + sw128(r, c),
+                 in ? x + (size_t)(m0 + r) * K + kc + c * 8 : x, in);
+    }
+#pragma unroll
+    for (int h = 0; h < WG_BK * 8 / TC_THREADS; ++h) {
+      const int i = tid + h * TC_THREADS, r = i / 8, c = i % 8;
+      const bool qin = kc + r < kend && n0 + c * 16 < N;
+      cp_async16(&S.q[r][c * 16], qin ? q + (size_t)(kc + r) * N + n0 + c * 16 : q, qin);
+      const bool sin = kc + r < kend && nb0 + c < nblk;
+      cp_async4(&S.s[r][c], sin ? s + (size_t)(kc + r) * nblk + nb0 + c : s, sin);
+    }
+  };
+
+  // the A fragment of k16 slice kk of step kt: w = q * s in f32 (the
+  // reference's value; rows past K and columns past N are 0), split into
+  // hi and lo
+  auto dequant = [&](int kt, int kk, uint32_t (&A)[TERMS][4]) {
+    const WfStage& S = st[kt % WG_STAGES];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {  // rows k, k + 1 feed a0, a1 (p = 0) or a2, a3
+      const int k = kk * 16 + 2 * t + 8 * p;
+      const uint32_t r0 = *reinterpret_cast<const uint16_t*>(&S.q[k][nl]);
+      const uint32_t r1 = *reinterpret_cast<const uint16_t*>(&S.q[k + 1][nl]);
+      const uint32_t u = (r0 | (r1 << 16)) ^ 0x80808080u;
+      const float s0 = S.s[k][slot], s1 = S.s[k + 1][slot];
+      // (k, n) (k + 1, n) -> A row g; (k, n + 1) (k + 1, n + 1) -> row g + 8
+      uint32_t row_g[TERMS], row_g8[TERMS];
+      split_bf16(i8_to_f32<0>(u) * s0, i8_to_f32<2>(u) * s1, row_g);
+      split_bf16(i8_to_f32<1>(u) * s0, i8_to_f32<3>(u) * s1, row_g8);
+#pragma unroll
+      for (int e = 0; e < TERMS; ++e) {
+        A[e][2 * p] = row_g[e];
+        A[e][2 * p + 1] = row_g8[e];
+      }
+    }
+  };
+  auto keep = [&](uint32_t (&A)[TERMS][4]) {
+#pragma unroll
+    for (int e = 0; e < TERMS; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) keep_operand(A[e][i]);
+  };
+
+  float acc[64], step_sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = step_sum[i] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < WG_STAGES - 1; ++i) {
+    if (i < nk) load(i);
+    cp_async_commit();
+  }
+  cp_async_wait<WG_STAGES - 2>();
+  fence_proxy_async();
+  __syncthreads();
+  uint32_t a[2][TERMS][4];  // the fragments of two k16 slices in turn
+  if (nk > 0) dequant(0, 0, a[0]);
+
+  // each k16 slice on the tensor cores while the next is dequantized; the
+  // step's sum collects in step_sum and is added to acc in f32 after the step
+  for (int kt = 0; kt < nk; ++kt) {
+    const uint64_t db = sw128_desc(st[kt % WG_STAGES].x);
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      wgmma_fence();
+#pragma unroll
+      for (int e = 0; e < TERMS; ++e)
+        wgmma_m64n128k16_rs(step_sum, a[kk & 1][e], db + 2 * kk, kk > 0 || e > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // slice kk - 1 is done: its fragment may be rewritten
+      keep(a[(kk + 1) & 1]);
+      if (kk + 1 < WG_BK / 16) {
+        dequant(kt, kk + 1, a[(kk + 1) & 1]);
+      } else {
+        cp_async_wait<WG_STAGES - 3>();
+        fence_proxy_async();
+        __syncthreads();  // step kt + 1 landed; every warpgroup is done with step kt - 1
+        if (kt + WG_STAGES - 1 < nk) load(kt + WG_STAGES - 1);
+        cp_async_commit();
+        if (kt + 1 < nk) dequant(kt + 1, 0, a[0]);
+      }
+    }
+    wgmma_wait<0>();
+    keep(a[1]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      fence_operand(step_sum[i]);
+      acc[i] += step_sum[i];
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+
+  const int n = n0 + nl;  // N % 64 == 0: n + 1 < N too
+  if (n >= N) return;
+#pragma unroll
+  for (int ni = 0; ni < TBM / 8; ++ni)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + ni * 8 + 2 * t + h;
+      if (row >= M) continue;
+      const float v0 = acc[ni * 4 + h], v1 = acc[ni * 4 + 2 + h];  // columns n, n + 1
+      if (part != nullptr)
+        *reinterpret_cast<float2*>(part + ((size_t)blockIdx.y * M + row) * N + n) =
+            make_float2(v0, v1);
+      else
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * N + n) = pack_bf16(v0, v1);
+    }
+}
+
+constexpr size_t TN_SMEM = WG_STAGES * sizeof(WgStage) + 2 * sizeof(WgWeights) + 1024;
+constexpr size_t NT_SMEM = WG_STAGES * sizeof(WfStage) + 1024;
+
+int launch_tc(const void* x, const void* q, const void* s, void* out, void* work,
+              int M, int K, int N, int block, int transpose, cudaStream_t st) {
+  const __nv_bfloat16* xt = (const __nv_bfloat16*)x;
+  const int8_t* qt = (const int8_t*)q;
+  const float* stt = (const float*)s;
+  __nv_bfloat16* ot = (__nv_bfloat16*)out;
+  const unsigned mtiles = (unsigned)((M + TBM - 1) / TBM);
+  if (transpose) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        dmm_tc_tn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TN_SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+    dim3 grid((unsigned)((K + TBN - 1) / TBN), mtiles);
+    dmm_tc_tn_kernel<<<grid, TC_THREADS, TN_SMEM, st>>>(xt, qt, stt, ot, M, K, N, block);
+    return launch_status();
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dmm_tc_nt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)NT_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  int splits, chunk;
+  tc_split(M, K, N, &splits, &chunk);
+  float* part = splits > 1 ? (float*)work : nullptr;
+  if (splits > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)((N + TBN - 1) / TBN), (unsigned)splits, mtiles);
+  dmm_tc_nt_kernel<<<grid, TC_THREADS, NT_SMEM, st>>>(xt, qt, stt, ot, part, M, K, N,
+                                                       block, chunk);
+  int rc = launch_status();
+  if (rc != 0 || splits == 1) return rc;
+  const long long mn = (long long)M * N;
+  long long blocks = (mn + THREADS - 1) / THREADS;
+  dmm_split_sum_kernel<__nv_bfloat16><<<(unsigned)(blocks < 132 * 8 ? blocks : 132 * 8),
+                                        THREADS, 0, st>>>(part, ot, splits, mn);
+  return launch_status();
+}
+
 template <typename T, int MT>
 int launch(const T* x, const int8_t* q, const float* s, T* out, float* work,
            int M, int K, int N, int block, int transpose, cudaStream_t st) {
@@ -226,23 +624,53 @@ int launch_rows(const void* x, const void* q, const void* s, void* out, void* wo
 
 }  // namespace
 
-// f32 elements of scratch the call needs for its K-split partial sums (0: none)
-extern "C" long long dequant_matmul_workspace(int M, int K, int N, int transpose) {
+// The path a call of this shape and dtype takes: 0 = SIMT, 1 = tensor cores
+extern "C" int dequant_matmul_path(int M, int K, int N, int block, int transpose,
+                                   int dtype) {
+  (void)N;
+  return M >= (transpose ? TC_MIN_M_T : TC_MIN_M) && tc_takes(K, block, dtype) ? PATH_TC
+                                                                                  : PATH_SIMT;
+}
+
+// f32 elements of scratch a call on ``path`` needs for its K-split partial
+// sums (0: none)
+extern "C" long long dequant_matmul_workspace(int M, int K, int N, int transpose,
+                                              int path) {
   if (transpose || M <= 0) return 0;
   int splits, chunk;
-  nt_split(M, K, N, &splits, &chunk);
+  if (path == PATH_TC)
+    tc_split(M, K, N, &splits, &chunk);
+  else
+    nt_split(M, K, N, &splits, &chunk);
   return splits > 1 ? (long long)splits * M * N : 0;
 }
 
-extern "C" int dequant_matmul(const void* x, const void* q, const void* s, void* out,
-                              void* work, int dtype, int M, int K, int N, int block,
-                              int transpose, void* stream) {
+// One call on the given path; fails on a shape, dtype or alignment the path
+// does not take (the tensor cores want 16-byte aligned x and q)
+extern "C" int dequant_matmul_on_path(const void* x, const void* q, const void* s,
+                                      void* out, void* work, int dtype, int M, int K,
+                                      int N, int block, int transpose, int path,
+                                      void* stream) {
   if (M <= 0) return 0;
   if (block <= 0 || block % 4 != 0 || N % block != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (path == PATH_TC) {
+    if (!tc_takes(K, block, dtype) || ((uintptr_t)x | (uintptr_t)q) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    return launch_tc(x, q, s, out, work, M, K, N, block, transpose, st);
+  }
+  if (path != PATH_SIMT) return (int)cudaErrorInvalidValue;
   if (dtype == DT_F32)
     return launch_rows<float>(x, q, s, out, work, M, K, N, block, transpose, st);
   if (dtype == DT_BF16)
     return launch_rows<__nv_bfloat16>(x, q, s, out, work, M, K, N, block, transpose, st);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int dequant_matmul(const void* x, const void* q, const void* s, void* out,
+                              void* work, int dtype, int M, int K, int N, int block,
+                              int transpose, void* stream) {
+  return dequant_matmul_on_path(x, q, s, out, work, dtype, M, K, N, block, transpose,
+                                dequant_matmul_path(M, K, N, block, transpose, dtype),
+                                stream);
 }

@@ -1,26 +1,40 @@
 // Online-softmax attention, forward only.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas (:92).
-// q (BH, Sq, D); k, v (BH / n_rep, Sk, D) -> o (BH, Sq, D) in the dtype of q.
-// Query row i sits at absolute position q_offset + i, key j at j; causal
-// keeps j <= q_pos, window > 0 keeps q_pos - j < window. As in the TPU
-// kernel: the softmax scale is folded into q before the dot, masked scores
-// are NEG_INF = -1e30 (not -inf), the output is acc / max(l, 1e-30), and KV
-// tiles that the mask empties for the whole query tile are skipped.
+// q (BH, Sq, D); k, v (BH / n_rep, Sk, D) -> o (BH, Sq, D) in the dtype of q;
+// D = 64. Query row i sits at absolute position q_offset + i, key j at j;
+// causal keeps j <= q_pos, window > 0 keeps q_pos - j < window. As in the
+// TPU kernel: the softmax scale is folded into q before the dot, masked
+// scores are NEG_INF = -1e30 (not -inf), keys past Sk weigh exactly 0, the
+// output is acc / max(l, 1e-30), and KV tiles that the mask empties for the
+// whole query tile are skipped. GQA reads KV head bh / n_rep instead of
+// materialising the repeat, which gives the same numbers.
 //
-// Bound on the H100: at serving's prefill shapes (D = 64, S <= a few
-// thousand) the work is q + k + v + o bytes and 4*D flops per unmasked
-// (query, key) pair; for S = 128 both are well under a microsecond, so what
-// bounds this kernel in practice is its own latency and parallelism.
+// Bound on the H100 (q, k, v, o moved once; 4*D flops per unmasked (query,
+// key) pair at 989 TFLOP/s bf16): serving's prefill (14 heads over 2, S =
+// 128, causal) 0.16 us (bytes); the training step's forward (B = 2 x 14
+// heads over 2, S = 1,024, causal) 3.8 us (operations). At both the kernel
+// is far from its bound: the prefill's 28 CTAs are a latency problem.
 //
-// Design (simple first; tensor-core tiles come later): one block of 64
-// threads per (batch*head, 64-row query tile), one query row per thread with
-// its scaled q row and f32 accumulator in registers. K and V tiles of 64
-// keys are staged in shared memory as f32 and read by every thread at the
-// same address (broadcast, no bank conflicts); the running max / sum update
-// once per 16 keys. GQA reads KV head bh / n_rep instead of materialising
-// the repeat, which gives the same numbers.
-#include "common.cuh"
+// Two kernels, by dtype:
+//  * bf16 (serving and training): tensor cores in the FlashAttention-2
+//    shape. A CTA of 4 warps takes 64 query rows, 16 a warp, with the Q
+//    fragment in registers (q * 1/8 is exact in bf16, so the fold is the
+//    reference's). K and V tiles of 64 keys are double-buffered in shared
+//    memory by cp.async. S = Q K^T and O += P V run on mma.sync.m16n8k16
+//    with f32 accumulation, V through ldmatrix.trans. The running max and
+//    sum stay in registers on the S fragments (f32, expf). P is rounded to
+//    bf16 for the P V product (the reference keeps it in f32): an error of
+//    at most 2^-8 of max|v| per output, within the card check's one bf16 ulp
+//    of max|ref|. Query tiles run heaviest (latest) first.
+//  * f32 (the port's first design, PR 11; no path runs attention in f32,
+//    the card checks do): one block of 64 threads per (batch*head, 64-row
+//    query tile), one query row per thread with its scaled q row and f32
+//    accumulator in registers. K and V tiles of 64 keys are staged in
+//    shared memory as f32 and read by every thread at the same address
+//    (broadcast, no bank conflicts); the running max / sum update once per
+//    16 keys.
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -123,6 +137,183 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] / den);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WARPS = 4;
+constexpr int TQ = 16 * TC_WARPS;  // query rows per CTA
+constexpr int TK = 64;             // keys per shared-memory tile
+constexpr int HD = 64;             // head dim
+constexpr int RS = HD + 8;         // smem row (bf16): 144 bytes, ldmatrix without conflicts
+
+__global__ void __launch_bounds__(TC_WARPS * 32)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ o, int Sq, int Sk, int n_rep,
+                          int causal, int window, int q_offset, float scale) {
+  __shared__ __align__(16) __nv_bfloat16 qs[TQ][RS];
+  __shared__ __align__(16) __nv_bfloat16 ks[2][TK][RS];
+  __shared__ __align__(16) __nv_bfloat16 vs[2][TK][RS];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ;  // latest (heaviest) tiles first
+  const int first_q = q_offset + q0;
+  const int last_q = q_offset + min(Sq, q0 + TQ) - 1;
+  const __nv_bfloat16* qb = q + (size_t)bh * Sq * HD;
+  const __nv_bfloat16* kb = k + (size_t)(bh / n_rep) * Sk * HD;
+  const __nv_bfloat16* vb = v + (size_t)(bh / n_rep) * Sk * HD;
+
+  // the key tiles the mask leaves non-empty for some row of this query
+  // tile: a prefix (causal) intersected with a suffix (window)
+  auto runs = [&](int j) {
+    const int t0 = j * TK, last_k = min(Sk, t0 + TK) - 1;
+    bool r = true;
+    if (causal) r = r && t0 <= last_q;
+    if (window) r = r && last_k > first_q - window;
+    return r;
+  };
+  int j_lo = 0, j_hi = (Sk + TK - 1) / TK;
+  while (j_hi > j_lo && !runs(j_hi - 1)) --j_hi;
+  while (j_lo < j_hi && !runs(j_lo)) ++j_lo;
+
+  auto load_kv = [&](int j, int buf) {
+#pragma unroll
+    for (int h = 0; h < TK * HD / 8 / (TC_WARPS * 32); ++h) {
+      const int i = tid + h * TC_WARPS * 32, r = i / 8, c = (i % 8) * 8;
+      const int key = j * TK + r;
+      const bool in = key < Sk;
+      cp_async16(&ks[buf][r][c], in ? kb + (size_t)key * HD + c : kb, in);
+      cp_async16(&vs[buf][r][c], in ? vb + (size_t)key * HD + c : vb, in);
+    }
+  };
+#pragma unroll
+  for (int h = 0; h < TQ * HD / 8 / (TC_WARPS * 32); ++h) {
+    const int i = tid + h * TC_WARPS * 32, r = i / 8, c = (i % 8) * 8;
+    const bool in = q0 + r < Sq;
+    cp_async16(&qs[r][c], in ? qb + (size_t)(q0 + r) * HD + c : qb, in);
+  }
+  if (j_lo < j_hi) load_kv(j_lo, 0);
+  cp_async_commit();
+
+  const int row0 = q_offset + q0 + warp * 16 + g;  // absolute positions of
+  const int row1 = row0 + 8;                       // this thread's two rows
+  uint32_t qf[HD / 16][4];
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  const float minus_inf = -__int_as_float(0x7f800000);
+  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
+
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int buf = (j - j_lo) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; every warp is done with tile j - 1
+    if (j + 1 < j_hi) load_kv(j + 1, buf ^ 1);
+    cp_async_commit();
+    if (j == j_lo) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        ldsm_x4(qf[kk], &qs[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&qf[kk][e]);
+          h = __hmul2(h, scale2);  // scale = 2^-3: exact
+          qf[kk][e] = *reinterpret_cast<uint32_t*>(&h);
+        }
+      }
+    }
+    // S = (q * scale) K^T: 16 rows x 64 keys a warp
+    float sc[TK / 8][4];
+#pragma unroll
+    for (int n = 0; n < TK / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < TK / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, &ks[buf][np * 16 + (lane / 16) * 8 + lane % 8][kk * 16 + ((lane / 8) % 2) * 8]);
+        mma_bf16(sc[2 * np], qf[kk], b[0], b[1]);
+        mma_bf16(sc[2 * np + 1], qf[kk], b[2], b[3]);
+      }
+    // mask, then the online softmax of each of the thread's two rows
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < TK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = j * TK + n * 8 + 2 * t + (e & 1);
+        const int qp = e < 2 ? row0 : row1;
+        bool keep = true;
+        if (causal) keep = keep && qp >= kp;
+        if (window) keep = keep && qp - kp < window;
+        sc[n][e] = kp < Sk ? (keep ? sc[n][e] : NEG_INF) : minus_inf;
+        mx[e / 2] = fmaxf(mx[e / 2], sc[n][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      corr[r] = expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+      l_r[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < TK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = expf(sc[n][e] - m_r[e / 2]);
+        l_r[e / 2] += sc[n][e];  // this thread's share; the quad adds up at the end
+      }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+    // O += P V, P rounded to bf16: the S fragments of keys 16kk..16kk+15 are
+    // the A fragment of this product
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, &vs[buf][kk * 16 + lane % 16][np * 16 + (lane / 16) * 8]);
+        mma_bf16(acc[2 * np], pa, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    l_r[r] = fmaxf(l_r[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= Sq) continue;
+    __nv_bfloat16* op = o + ((size_t)bh * Sq + row) * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(op + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2 * r] / l_r[r], acc[n][2 * r + 1] / l_r[r]);
+  }
+}
+
 }  // namespace
 
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -131,17 +322,21 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
   if (D != 64 || n_rep <= 0 || BH % n_rep != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)BH);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == DT_F32)
+  if (dtype == DT_F32) {
+    dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)BH);
     flash_attention_kernel<float, 64><<<grid, BQ, 0, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk, n_rep,
         causal, window, q_offset, scale);
-  else if (dtype == DT_BF16)
-    flash_attention_kernel<__nv_bfloat16, 64><<<grid, BQ, 0, st>>>(
+  } else if (dtype == DT_BF16) {
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned)((Sq + TQ - 1) / TQ), (unsigned)BH);
+    flash_attention_tc_kernel<<<grid, TC_WARPS * 32, 0, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
         (__nv_bfloat16*)o, Sq, Sk, n_rep, causal, window, q_offset, scale);
-  else
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
   return launch_status();
 }

@@ -11,6 +11,14 @@ Port of ``repro.kernels.dequant_matmul``:
 * ``matmul_quant_pallas`` (:209): ``C = x.T @ g`` block-quantized to the INT8
   or packed INT4 wire format in the matmul's epilogue.
 
+The flat dequant-matmul has two paths, chosen by shape and dtype alone
+(``dequant_matmul_path``): tensor cores (wgmma) for bf16 with a block that
+is a multiple of 64, K % 8 == 0 (every bf16 row 16-byte aligned) and
+M >= 16 (x @ W) or M >= 64 (x @ W.T), and SIMT f32 FMA for the rest (f32,
+bf16 decode and the LM head). The tensor cores take x @ W.T with exact
+products of bf16 x and the raw int8 q, scaled after each quant block, and
+x @ W with each f32 weight split into two bf16 terms (hi + lo, 16 bits).
+
 The source notes in csrc/ give the bounds and the designs;
 ``ref.dequant_matmul_blocked_ref``, ``ref.dequant_matmul_flat_ref`` and
 ``ref.matmul_quant_ref`` are the plain versions. Callers go through ``kernels/ops.py``, which counts the launches.
@@ -24,18 +32,31 @@ import torch
 from . import cuda
 
 SIGNATURES = {
-    "dequant_matmul_workspace": (c_longlong, [c_int, c_int, c_int, c_int]),
-    "dequant_matmul": (c_int, [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,
-                               c_int, c_int, c_int, c_int, c_int, c_int,
-                               c_void_p]),
+    "dequant_matmul_path": (c_int, [c_int] * 6),
+    "dequant_matmul_workspace": (c_longlong, [c_int] * 5),
+    "dequant_matmul_on_path": (c_int, [c_void_p] * 5 + [c_int] * 7
+                               + [c_void_p]),
 }
+PATHS = ("simt", "tensor_core")     # csrc/dequant_matmul.cu: PATH_SIMT, PATH_TC
+
+
+def dequant_matmul_path(m: int, k: int, n: int, block: int, transpose: bool,
+                        dtype: torch.dtype) -> int:
+    """Index into ``PATHS`` of the path a call of this shape takes."""
+    lib = cuda.library("dequant_matmul", SIGNATURES)
+    return lib.dequant_matmul_path(m, k, n, block, int(transpose),
+                                   cuda.DTYPE_CODE[dtype])
 
 
 def dequant_matmul_flat_cuda(x: torch.Tensor, q: torch.Tensor,
                              scales: torch.Tensor, block: int, *,
-                             transpose: bool = False) -> torch.Tensor:
+                             transpose: bool = False,
+                             path: int | None = None) -> torch.Tensor:
     """x (M, K) -> (M, N), or x (M, N) -> (M, K) with ``transpose``; q (K, N)
-    int8, scales (K, N // block) f32; the output has x's dtype (f32 | bf16)."""
+    int8, scales (K, N // block) f32; the output has x's dtype (f32 | bf16).
+    ``path`` (an index into ``PATHS``) overrides the shape's own path, to
+    time both paths at one shape; the call raises if that path cannot take
+    the shape."""
     cuda.require(x, "x", tuple(cuda.DTYPE_CODE))
     cuda.require(q, "q", (torch.int8,))
     cuda.require(scales, "scales", (torch.float32,))
@@ -49,16 +70,23 @@ def dequant_matmul_flat_cuda(x: torch.Tensor, q: torch.Tensor,
             f"{tuple(scales.shape)}, block {block}, transpose {transpose}: "
             "needs N % block == 0, block % 4 == 0 and 4-byte aligned q")
     lib = cuda.library("dequant_matmul", SIGNATURES)
+    if path is None:
+        path = dequant_matmul_path(m, k, n, block, transpose, x.dtype)
+    if PATHS[path] == "tensor_core":
+        if x.data_ptr() % 16:
+            x = x.clone()                # a fresh allocation is 16-byte aligned
+        if q.data_ptr() % 16:
+            raise ValueError("dequant_matmul: the tensor-core path needs a "
+                             "16-byte aligned q")
     out = torch.empty((m, out_dim), dtype=x.dtype, device=x.device)
-    n_work = lib.dequant_matmul_workspace(m, k, n, int(transpose))
+    n_work = lib.dequant_matmul_workspace(m, k, n, int(transpose), path)
     work = torch.empty((n_work,), dtype=torch.float32, device=x.device) \
         if n_work else None
-    rc = lib.dequant_matmul(x.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                            out.data_ptr(),
-                            work.data_ptr() if work is not None else None,
-                            cuda.DTYPE_CODE[x.dtype], m, k, n, block,
-                            int(transpose), cuda.stream(x))
-    cuda.check(rc, "dequant_matmul")
+    rc = lib.dequant_matmul_on_path(
+        x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        work.data_ptr() if work is not None else None, cuda.DTYPE_CODE[x.dtype],
+        m, k, n, block, int(transpose), path, cuda.stream(x))
+    cuda.check(rc, f"dequant_matmul ({PATHS[path]} path)")
     return out
 
 

@@ -1,9 +1,11 @@
 """Online-softmax attention on the card (csrc/flash_attention.cu).
 
 Port of ``repro.kernels.flash_attention.flash_attention_pallas`` (:92),
-forward only. The source note in csrc/flash_attention.cu gives the bound and
-the design; ``ref.flash_attention_ref`` is the plain version. Callers go
-through ``kernels/ops.py``, which counts the launches.
+forward only, D = 64. bf16 runs a tensor-core kernel (FlashAttention-2
+tiles, P rounded to bf16 for the P V product), f32 a CUDA-core kernel with
+one thread a query row. The source note in csrc/flash_attention.cu gives the
+bounds and the designs; ``ref.flash_attention_ref`` is the plain version.
+Callers go through ``kernels/ops.py``, which counts the launches.
 """
 from __future__ import annotations
 
@@ -37,6 +39,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} (head dim "
                          f"must be one of {HEAD_DIMS})")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel copies 16-byte rows: a view that starts
+        # off that grid is copied to a fresh (aligned) allocation
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     lib = cuda.library("flash_attention", SIGNATURES)
     o = torch.empty_like(q)
     rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),

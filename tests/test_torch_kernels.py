@@ -322,3 +322,122 @@ def test_new_kernels_do_not_fall_back():
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.dequant_matmul_blocked(torch.zeros((2, 64), device="meta"),
                                    q.reshape(64, 4), s.reshape(1, 4))
+
+
+# The tensor-core paths' arithmetic, replayed in plain torch on the CPU (the
+# CUDA kernels run only on the card) and held against the reference's oracle
+# and its Pallas kernel in interpret mode on the same bf16 inputs.
+
+def _tc_dequant_matmul(x, q, s, block, transpose):
+    """What csrc/dequant_matmul.cu's tensor-core path computes, in f32 before
+    its final bf16 cast. Transposed: per quant block, the exact products of
+    bf16 x and the raw int8 q summed in f32, then scaled by that block's
+    scale and added in block order. Forward: w = q * s in f32, split into
+    hi = bf16(w) and lo = bf16(w - hi), x @ hi + x @ lo."""
+    xf, qf = x.float(), q.float()
+    k, n = q.shape
+    if transpose:
+        acc = torch.zeros((x.shape[0], k))
+        for b in range(n // block):
+            cols = slice(b * block, (b + 1) * block)
+            acc = acc + (xf[:, cols] @ qf[:, cols].T) * s[:, b]
+        return acc
+    w = qf * s.repeat_interleave(block, dim=1)
+    hi = w.to(torch.bfloat16).float()
+    lo = (w - hi).to(torch.bfloat16).float()
+    return xf @ hi + xf @ lo
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("m,k,n,block", [
+    (16, 96, 192, 64),      # the threshold M
+    (33, 72, 256, 64),      # ragged against a 128 x 128 tile
+    (20, 256, 256, 128),    # qwen2's block
+])
+def test_dequant_matmul_tensor_core_rounding(impl, transpose, m, k, n, block):
+    """Against the oracle in f32 on bf16 x. Transposed: the products are
+    exact, so only the order of the f32 sums differs (1e-5 of max|ref|).
+    Forward: |w - hi - lo| <= 2^-16 |w|, so each output is within
+    2^-16 * (|x| @ |w|) of the f32 product, plus the same f32 order term;
+    one bf16 rounding of w would allow 2^-8 * (|x| @ |w|), 256 times more."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal(k * n + 2 * block).astype(np.float32) * 0.1
+    q, s = jax.jit(lambda v: jops.quantize_int8(v, block, impl="jnp"))(w)
+    q, s = np.asarray(q), np.asarray(s)
+    x = np.asarray(jnp.asarray(
+        rng.standard_normal((m, n if transpose else k)), jnp.bfloat16))
+    yj = np.asarray(jax.jit(lambda a, b, c: jops.dequant_matmul(
+        a, b, c, (k, n), block, transpose=transpose, dtype=jnp.float32,
+        impl=impl))(x, q, s))
+    q2 = _torch(q)[: k * n].view(k, n)
+    s2 = _torch(s)[: k * n // block].view(k, n // block)
+    yt = _tc_dequant_matmul(_torch(x), q2, s2, block, transpose)
+    assert yt.shape == yj.shape == (m, k if transpose else n)
+    order = 1e-5 * float(np.abs(yj).max())
+    if transpose:
+        np.testing.assert_allclose(yt.numpy(), yj, rtol=0, atol=order)
+    else:
+        w_abs = (q2.float() * s2.repeat_interleave(block, 1)).abs()
+        bound = 2.0 ** -16 * (_torch(x).float().abs() @ w_abs) + order
+        assert bool(((yt - _torch(yj)).abs() <= bound).all())
+
+
+def _tc_attention(q, k, v, causal, window, q_offset):
+    """csrc/flash_attention.cu's bf16 kernel in plain torch: q * 2^-3 in
+    bf16 (exact), key tiles of 64 with an online softmax in f32 (masked
+    scores NEG_INF, keys past Sk never reached), P rounded to bf16 for the
+    P V product, the output acc / max(l, 1e-30) in f32 before its bf16
+    cast. q (BH, Sq, 64), k, v (BH, Sk, 64) bf16."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    qs = (q * 0.125).float()
+    kf, vf = k.float(), v.float()
+    q_pos = q_offset + torch.arange(sq)[:, None]
+    m_r = torch.full((bh, sq, 1), -1e30)
+    l_r = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    for t0 in range(0, sk, 64):
+        kp = torch.arange(t0, min(sk, t0 + 64))[None, :]
+        keep = torch.ones((sq, kp.shape[1]), dtype=torch.bool)
+        if causal:
+            keep &= q_pos >= kp
+        if window:
+            keep &= q_pos - kp < window
+        sc = torch.where(keep, qs @ kf[:, t0:t0 + 64].transpose(1, 2), -1e30)
+        m_new = torch.maximum(m_r, sc.amax(-1, keepdim=True))
+        corr = torch.exp(m_r - m_new)
+        p = torch.exp(sc - m_new)
+        l_r = l_r * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, t0:t0 + 64]
+        m_r = m_new
+    return acc / l_r.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (128, 128, 0, 0),     # two key tiles, causal
+    (100, 100, 0, 0),     # ragged
+    (64, 128, 64, 0),     # a query offset
+    (128, 128, 0, 32),    # a window
+])
+def test_flash_attention_tensor_core_rounding(impl, sq, sk, q_offset, window):
+    """Against the oracle on bf16 inputs, compared in f32 (the oracle fed the
+    same values as f32, which bf16 holds exactly). Rounding P to bf16 moves
+    each weight by at most 2^-8 of itself, so each output by at most 2^-8 of
+    max|v| (the weights sum to 1); the order of the f32 sums adds 1e-5."""
+    rng = np.random.default_rng(12)
+    bh, d = 6, 64
+
+    def bf16(shape):
+        return np.asarray(jnp.asarray(rng.standard_normal(shape),
+                                      jnp.bfloat16)).astype(np.float32)
+
+    q, k, v = bf16((bh, sq, d)), bf16((bh, sk, d)), bf16((bh, sk, d))
+    oj = np.asarray(jax.jit(lambda a, b, c: jops.flash_attention(
+        a, b, c, causal=True, window=window, q_offset=q_offset,
+        impl=impl))(q, k, v))
+    ot = _tc_attention(*(_torch(a).to(torch.bfloat16) for a in (q, k, v)),
+                       True, window, q_offset)
+    np.testing.assert_allclose(ot.numpy(), oj, rtol=0,
+                               atol=2.0 ** -8 * float(np.abs(v).max()) + 1e-5)
