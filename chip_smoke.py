@@ -19,7 +19,12 @@ either is missing or any phase fails. Phases, in order:
             matmul_quant (bits 4 and 8, with and without pad_to) with scales
             within 1e-5 relative, q within +-1 in at most 1e-3 of the entries
             and the dequantized C within one quant step of the plain product
-            (the two sum M in another order).
+            (the two sum M in another order). Its two paths: each case must
+            take the path its shape names (matmul_quant_path), and its line
+            ends in that path: bf16 operands at the seven shapes on the
+            tensor cores, the same in f32 on the SIMT path, bf16 ragged
+            (M = 130 and 2,047, K = 72 and 328, blocks 8 and 64) on the
+            tensor cores and K = 10 or 70 or block 256 on the SIMT path.
             selective_scan is held in f32 within 1e-5 * max|ref| for y and
             h_last (a last-bit difference of exp per step in a decaying
             recurrence, and another order of the N-sum) at the prefill shape
@@ -40,7 +45,8 @@ either is missing or any phase fails. Phases, in order:
             orientations at qwen2's four shapes, each side of the tensor
             cores' thresholds, f32 at M = 128, ragged tiles (block 64, M =
             130 and 2,047, K = 72 and 328) on the tensor cores and K = 333
-            (rows off the 16-byte grid) on the SIMT path; flash_attention
+            (rows off the 16-byte grid) on the SIMT path, and q as a view at
+            byte offset 1 of a larger buffer on each path; flash_attention
             in bf16 (the tensor-core kernel) at the training shape, ragged,
             with a query offset and with a window; all within one bf16 ulp
             of max|ref|.
@@ -58,6 +64,10 @@ either is missing or any phase fails. Phases, in order:
             against the same prefill through the plain versions on the card
             (bf16 compute across 24 layers: max|d| <= 5e-2 * max|ref|), and
             one prefill is traced by torch.profiler (device ms, top kernels).
+            The same prefill in f32 (kernels against plain, max|d| <=
+            PREFILL_F32_TOL * max|ref|) and in bf16 against the f32 plain
+            one: the kernels' gap at most PREFILL_BF16_RATIO x the plain
+            versions' (both archs).
 3b. ssm   : the same for falcon-mamba-7b at published width and depth (64
             mamba layers, d_inner 8192, INT8 residency of 7.0 GB built leaf
             by leaf): the same traffic, its own kernel list (quantize_int8,
@@ -79,7 +89,9 @@ either is missing or any phase fails. Phases, in order:
             gives every kernel's count). Then the same steps from the same
             state with --kernel-impl plain (no kernel may launch);
             per-step loss and grad norm must agree (TRAIN_LOSS_RTOL,
-            TRAIN_GNORM_RTOL).
+            TRAIN_GNORM_RTOL). Every rank's traced step must show the
+            tensor-core matmul_quant kernel as many times as a step launches
+            matmul_quant, and the SIMT one never.
 4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
             quantized reduce-scatter at bits 4 and 8 over W, E and all four
             ranks on an embedding-sized f32 shard each; every kernel of
@@ -100,7 +112,10 @@ either is missing or any phase fails. Phases, in order:
             169 calls, each decode / prefill shape with its path, falcon-mamba's
             three M = 128 shapes, and both paths forced at M = 8 ... 128
             (the threshold rows); flash_attention also at the training shape
-            beside SDPA.
+            beside SDPA and in f32 at the prefill shape beside f32 SDPA;
+            matmul_quant on one layer's seven dW shapes with bf16 operands
+            (tensor cores, beside bf16 cuBLAS x.T @ g) and with f32 operands
+            (SIMT, beside f32 cuBLAS), each also per shape.
 6. report : JSON lines (serve, serve_ssm, train, regimes, collectives,
             kernels_extra with the extra timing rows and every
             dequant_matmul shape's path, then the kernels line: all 11
@@ -141,6 +156,11 @@ PREFILL_TOL = 5e-2
 # 100x through 64 layers that stays 10x under this limit, while a wrong tile,
 # split or offset at the served shapes moves whole products
 PREFILL_F32_TOL = 1e-4
+# the bf16 prefill through the kernels against the f32 plain one may lie at
+# most this many times as far off as the bf16 plain prefill does, in the same
+# run: two correct bf16 runs differ by rounding alone (about 1x), while a
+# wrong tile moves whole products, far above 1.5x
+PREFILL_BF16_RATIO = 1.5
 
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "8", "--slots", "4",
               "--prompt-len", "128", "--gen", "32", "--max-len", "256",
@@ -276,7 +296,8 @@ def add_check(checks, name, what, err, tol):
 
 def check_kernels(dev, gen, checks):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.dequant_matmul import PATHS, dequant_matmul_path
+    from repro_torch.kernels.dequant_matmul import (PATHS, dequant_matmul_path,
+                                                    matmul_quant_path)
     from repro_torch.models import layers
 
     def record(name, what, err, tol):
@@ -344,11 +365,17 @@ def check_kernels(dev, gen, checks):
     stack_case(f"({MAMBA_L}*{MAMBA_D}*{2 * SCAN_D}/128, 128) bf16 (w_in stack)",
                MAMBA_L * MAMBA_D * 2 * SCAN_D, 128)
 
-    def mm_case(what, m, k, n, block, transpose, dtype, path=None):
+    def mm_case(what, m, k, n, block, transpose, dtype, path=None,
+                offset=0):
         """One dequant_matmul against its plain version; ``path`` (when
-        given) is the path the shape must take."""
+        given) is the path the shape must take. ``offset`` puts q at that
+        byte offset into a larger int8 buffer (a view off the 16-byte grid)."""
         w = torch.randn(k * n + 3 * block, generator=gen, device=dev) * 0.05
         q, s = ops.quantize_int8(w, block)
+        if offset:
+            buf = torch.zeros(q.numel() + 16, dtype=torch.int8, device=dev)
+            buf[offset:offset + q.numel()] = q
+            q = buf[offset:offset + q.numel()]
         x = torch.randn((m, n if transpose else k), generator=gen,
                         device=dev).to(dtype)
         took = PATHS[dequant_matmul_path(m, k, n, block, transpose, dtype)]
@@ -408,6 +435,11 @@ def check_kernels(dev, gen, checks):
     for tr in (False, True):
         mm_case(f"M=130 (333, 192){'.T' if tr else ''} bf16 ragged", 130, 333,
                 192, 64, tr, torch.bfloat16, "simt")
+    # q as a view at byte offset 1 of a larger buffer, on each path
+    for m, path in ((128, "tensor_core"), (4, "simt")):
+        for tr in (False, True):
+            mm_case(f"M={m} ({d}, {ff}){'.T' if tr else ''} bf16 q at offset 1",
+                    m, d, ff, 128, tr, torch.bfloat16, path, offset=1)
 
     def attn_case(what, b, h, hkv, sq, sk, q_offset, window, dtype):
         q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
@@ -466,9 +498,15 @@ def check_kernels(dev, gen, checks):
     int4_case("(34, 4) bf16 ragged", 34, 4, torch.bfloat16)
     int4_case("(38, 64) f32 ragged", 38, 64, torch.float32)
 
-    def mq_case(what, m, k, n, block, bits, pad=0):
-        x = torch.randn((m, k), generator=gen, device=dev)
-        g = torch.randn((m, n), generator=gen, device=dev) * 1e-2
+    def mq_case(what, m, k, n, block, bits, dtype, path, pad=0):
+        """One matmul_quant against its plain version on the same operands
+        (drawn in f32, then rounded to ``dtype``); ``path`` is the path the
+        shape must take."""
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        g = (torch.randn((m, n), generator=gen, device=dev) * 1e-2).to(dtype)
+        took = PATHS[matmul_quant_path(m, k, n, block, dtype)]
+        if took != path:
+            raise Failed(f"matmul_quant {what}: took the {took} path, not {path}")
         pad_to = k * n + pad if pad else None
         qk, sk = ops.matmul_quant(x, g, block, bits=bits, pad_to=pad_to)
         qp, sp = ops.matmul_quant(x, g, block, bits=bits, pad_to=pad_to,
@@ -487,26 +525,48 @@ def check_kernels(dev, gen, checks):
         diff = (lk - lp).abs()
         frac = float((diff != 0).float().mean())
         step = sk.repeat_interleave(block)
-        c = (x.T @ g).reshape(-1)
+        c = (x.float().T @ g.float()).reshape(-1)
         deq_err = float(((lk[:c.numel()] * step[:c.numel()] - c).abs()
                          / step[:c.numel()]).max())
         if srel > 1e-5 or int(diff.max()) > 1 or frac > 1e-3 or deq_err > 1.0:
-            raise Failed(f"matmul_quant {what}: scale rel {srel}, q diff "
-                         f"{int(diff.max())} in {frac}, dequant {deq_err} steps")
-        record("matmul_quant", what, float(((lk * step - lp * sp.repeat_interleave(
-            block)).abs()).max()), f"scales 1e-5 rel, q +-1 in <= 1e-3 "
-               f"(here {frac:.1e}), C within 1 step (here {deq_err:.2f})")
+            raise Failed(f"matmul_quant {what} ({took}): scale rel {srel}, q "
+                         f"diff {int(diff.max())} in {frac}, dequant {deq_err} "
+                         "steps")
+        record("matmul_quant", f"{what} {took}", float(((
+            lk * step - lp * sp.repeat_interleave(block)).abs()).max()),
+            f"scales 1e-5 rel, q +-1 in <= 1e-3 (here {frac:.1e}), C within 1 "
+            f"step (here {deq_err:.2f})")
 
-    for k, n in sorted(set(LAYER_KN)):
-        for bits in (4, 8):
-            mq_case(f"M={TRAIN_M} ({k}, {n}) bits={bits}", TRAIN_M, k, n, 128,
-                    bits)
-    mq_case(f"M={TRAIN_M} (896, 128) bits=4 pad_to +512", TRAIN_M, 896, 128, 128,
-            4, pad=512)
-    mq_case("M=100 (72, 192) bits=8 pad_to +64 ragged", 100, 72, 192, 64, 8,
-            pad=64)
-    mq_case("M=33 (10, 512) bits=4 block 256 ragged", 33, 10, 512, 256, 4)
-    mq_case("M=20 (70, 1024) bits=8 block 512 ragged", 20, 70, 1024, 512, 8)
+    # the training step's seven shapes: bf16 on the tensor cores, f32 SIMT
+    bf, f32 = torch.bfloat16, torch.float32
+    for dtype, path in ((bf, "tensor_core"), (f32, "simt")):
+        for k, n in sorted(set(LAYER_KN)):
+            for bits in (4, 8):
+                mq_case(f"M={TRAIN_M} ({k}, {n}) bits={bits} {str(dtype)[6:]}",
+                        TRAIN_M, k, n, 128, bits, dtype, path)
+        mq_case(f"M={TRAIN_M} (896, 128) bits=4 pad_to +512 {str(dtype)[6:]}",
+                TRAIN_M, 896, 128, 128, 4, dtype, path, pad=512)
+    mq_case("M=100 (72, 192) bits=8 pad_to +64 ragged f32", 100, 72, 192, 64, 8,
+            f32, "simt", pad=64)
+    mq_case("M=33 (10, 512) bits=4 block 256 ragged f32", 33, 10, 512, 256, 4,
+            f32, "simt")
+    mq_case("M=20 (70, 1024) bits=8 block 512 ragged f32", 20, 70, 1024, 512, 8,
+            f32, "simt")
+    # bf16 ragged against the 128 x 128 tile and the 64-row stage (tensor
+    # cores: M = 130, 2,047; K = 72, 328; N = 192, 200; blocks 8 and 64),
+    # and K off TMA's 16-byte row grid or a block past the tile (SIMT)
+    mq_case("M=130 (72, 256) bits=8 block 64 ragged bf16", 130, 72, 256, 64, 8,
+            bf, "tensor_core")
+    mq_case("M=2047 (328, 192) bits=4 block 64 ragged bf16", 2047, 328, 192, 64,
+            4, bf, "tensor_core")
+    mq_case("M=2047 (72, 200) bits=8 block 8 ragged bf16", 2047, 72, 200, 8, 8,
+            bf, "tensor_core")
+    mq_case("M=130 (10, 256) bits=4 ragged bf16", 130, 10, 256, 128, 4, bf,
+            "simt")
+    mq_case("M=2047 (70, 512) bits=8 block 64 ragged bf16", 2047, 70, 512, 64, 8,
+            bf, "simt")
+    mq_case("M=33 (72, 512) bits=4 block 256 ragged bf16", 33, 72, 512, 256, 4,
+            bf, "simt")
 
     def scan_case(what, b, seq, d, h0_zero, dt_shift):
         dt, x, bm, cm, a, h0 = scan_inputs(gen, dev, b, seq, d, h0_zero,
@@ -801,9 +861,10 @@ def check_prefill_f32(s):
     """The first request's prefill with f32 activations, through the kernels
     and through the plain versions, on the same INT8 weights (the residency's
     dense leaves widened to f32): they must agree within PREFILL_F32_TOL *
-    max|ref|. Also reports how far each bf16 prefill (kernels, plain) lies
-    from the f32 plain one, which shows how much of the bf16 kernel-vs-plain
-    gap is bf16 rounding shared by both."""
+    max|ref|. Each bf16 prefill (kernels, plain) is also held against the
+    f32 plain one: the kernels' may lie at most PREFILL_BF16_RATIO times as
+    far off as the plain versions' (the bf16 tensor-core paths against the
+    f32 truth, not against another bf16 run)."""
     from repro_torch.serve.resident import ResidentLayout, ResidentServeEngine
     from repro_torch.models.config import ShapeConfig
 
@@ -827,9 +888,22 @@ def check_prefill_f32(s):
         raise Failed(f"f32 prefill logits: err {err} > {PREFILL_F32_TOL} * "
                      f"{scale}")
     bf = layout.cfg.compute_dtype
+    bf_kernel = rel_err(out["kernel", bf], ref32)[0]
+    bf_plain = rel_err(out["plain", bf], ref32)[0]
+    if bf_kernel > PREFILL_BF16_RATIO * bf_plain:
+        raise Failed(f"{bf} prefill logits against the f32 plain ones: kernels "
+                     f"{bf_kernel} > {PREFILL_BF16_RATIO} x plain {bf_plain}")
     return dict(f32_logits_err=err, f32_logits_scale=scale,
-                bf16_kernel_vs_f32_plain=rel_err(out["kernel", bf], ref32)[0],
-                bf16_plain_vs_f32_plain=rel_err(out["plain", bf], ref32)[0])
+                bf16_kernel_vs_f32_plain=bf_kernel,
+                bf16_plain_vs_f32_plain=bf_plain)
+
+
+def print_prefill_f32(pf):
+    print(f"  f32 prefill logits max_abs_err {pf['f32_logits_err']:.3e} (max|ref| "
+          f"{pf['f32_logits_scale']:.3e}, tol {PREFILL_F32_TOL}); bf16 vs f32 "
+          f"plain: kernels {pf['bf16_kernel_vs_f32_plain']:.3e}, plain "
+          f"{pf['bf16_plain_vs_f32_plain']:.3e} (kernels at most "
+          f"{PREFILL_BF16_RATIO}x plain)")
 
 
 def decode_graph_ms(s):
@@ -902,6 +976,22 @@ def train_phase():
         if missing:
             raise Failed(f"rank {r['rank']}: kernels not launched on the "
                          f"training path: {missing}")
+    # the traced step ran every fused dW on the tensor-core kernel (its bf16
+    # operands), none on the SIMT one
+    mq_traced = []
+    for r in kern:
+        per_step = r["launches"]["matmul_quant"] / steps
+        calls = {path: sum(row["calls"] for row in r["profile"]["kernels"]
+                           if f"matmul_quant_{path}_kernel" in row["name"])
+                 for path in ("tc", "simt")}
+        mq_traced.append(dict(rank=r["rank"], launches_per_step=per_step,
+                              traced_calls=calls,
+                              traced_ms=sum(row["ms"] for row in r["profile"]
+                                            ["kernels"] if "matmul_quant_"
+                                            in row["name"])))
+        if calls["tc"] != per_step or calls["simt"]:
+            raise Failed(f"rank {r['rank']}: traced matmul_quant calls {calls}, "
+                         f"{per_step} launches a step")
     for r in plain:
         if any(r["launches"].values()):
             raise Failed(f"rank {r['rank']}: kernels launched in the plain run")
@@ -927,7 +1017,7 @@ def train_phase():
                 per_rank_step_launches={k: kern[0]["launches"][k] / steps
                                         for k in ops.KERNELS},
                 loss_rel=loss_rel, grad_norm_rel=gn_rel, run_s=t_kern,
-                plain_run_s=t_plain)
+                plain_run_s=t_plain, matmul_quant_traced=mq_traced)
 
 
 def regime_phase(tr, flags):
@@ -1291,6 +1381,19 @@ def timing_phase(s, gen):
                                                            is_causal=True),
                              reps=50),
         bound=bound_ms(2 * (2 * h + 2 * hkv) * S * hd, 4 * hd * pairs, "bf16"))
+    # the f32 kernel (CUDA cores) at the same prefill shape, beside f32 SDPA
+    q, k, v, q4, k4, v4 = (t.float() for t in (q, k, v, q4, k4, v4))
+    out["flash_attention_f32"] = dict(
+        work=f"prefill attention: {h} heads over {hkv}, S={S}, D={hd}, "
+             "causal, f32",
+        ms=device_ms(lambda: ops.flash_attention(q, k, v), reps=50),
+        plain_ms=device_ms(lambda: ops.flash_attention(q, k, v, impl="plain"),
+                           reps=50),
+        library_ms=device_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(q4, k4, v4,
+                                                           is_causal=True),
+                             reps=50),
+        bound=bound_ms(4 * (2 * h + 2 * hkv) * S * hd, 4 * hd * pairs, "f32"))
     # the training step's forward: B = 2 x 14 heads over 2, S = 1024, causal
     bsz, S = TRAIN_M // 1024, 1024
     q = torch.randn((bsz * h, S, hd), generator=gen, device=dev).to(torch.bfloat16)
@@ -1483,9 +1586,36 @@ def train_timing(gen, dev):
                        + 4 * TRAIN_M * nn, 2 * TRAIN_M * k * nn, "f32"))
     del x, qb, sb, wdense
 
-    calls = [(torch.randn((TRAIN_M, k), generator=gen, device=dev),
-              torch.randn((TRAIN_M, nn), generator=gen, device=dev) * 1e-2)
-             for k, nn in LAYER_KN]
+    # one layer's seven dW products: bf16 operands on the tensor cores (the
+    # training step's), f32 operands on the SIMT path, each beside cuBLAS's
+    # bare x.T @ g in the same dtype
+    for key, dtype, path in (("matmul_quant", torch.bfloat16, "tensor_core"),
+                             ("matmul_quant_simt", torch.float32, "simt")):
+        out[key] = mq_timing(gen, dev, dtype, path, block)
+    return out
+
+
+def mq_timing(gen, dev, dtype, path, block):
+    """One layer's seven matmul_quant calls at M = TRAIN_M, bits 4, operands
+    in ``dtype`` (each call must take ``path``): kernel, plain version,
+    cuBLAS's x.T @ g, and per distinct shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import PATHS, matmul_quant_path
+
+    size = torch.finfo(dtype).bits // 8
+    op_type = "bf16" if dtype == torch.bfloat16 else "f32"
+    calls = [(torch.randn((TRAIN_M, k), generator=gen, device=dev).to(dtype),
+              (torch.randn((TRAIN_M, nn), generator=gen, device=dev) * 1e-2)
+              .to(dtype)) for k, nn in LAYER_KN]
+    for k, nn in LAYER_KN:
+        took = PATHS[matmul_quant_path(TRAIN_M, k, nn, block, dtype)]
+        if took != path:
+            raise Failed(f"matmul_quant timing ({k}, {nn}) {dtype}: took the "
+                         f"{took} path, not {path}")
+
+    def work(k, nn):
+        return (size * TRAIN_M * (k + nn) + k * nn / 2 + 4 * k * nn / block,
+                2 * TRAIN_M * k * nn)
 
     def run(impl=None):
         def fn():
@@ -1497,25 +1627,22 @@ def train_timing(gen, dev):
         for x, gg in calls:
             x.T @ gg
 
-    n_bytes = sum(4 * TRAIN_M * (k + nn) + k * nn / 2 + 4 * k * nn / block
-                  for k, nn in LAYER_KN)
-    n_ops = sum(2 * TRAIN_M * k * nn for k, nn in LAYER_KN)
     per = []
     for j in (0, 1, 4, 6):           # the four distinct shapes
         (k, nn), (x, gg) = LAYER_KN[j], calls[j]
-        per.append(dict(M=TRAIN_M, K=k, N=nn, ms=device_ms(
+        per.append(dict(M=TRAIN_M, K=k, N=nn, path=path, ms=device_ms(
             lambda: ops.matmul_quant(x, gg, block, bits=4), reps=5),
             cublas_ms=device_ms(lambda: x.T @ gg, reps=5),
-            bound_ms=bound_ms(4 * TRAIN_M * (k + nn) + k * nn / 2
-                              + 4 * k * nn / block, 2 * TRAIN_M * k * nn,
-                              "f32")[0]))
-    out["matmul_quant"] = dict(
-        work=f"one layer's 7 dW products at M={TRAIN_M}, bits 4, block {block}",
+            bound_ms=bound_ms(*work(k, nn), op_type)[0]))
+    n_bytes = sum(work(k, nn)[0] for k, nn in LAYER_KN)
+    n_ops = sum(work(k, nn)[1] for k, nn in LAYER_KN)
+    return dict(
+        work=f"one layer's 7 dW products at M={TRAIN_M}, {op_type} operands "
+             f"({path}), bits 4, block {block}",
         ms=device_ms(run(), reps=3), plain_ms=device_ms(run("plain"), reps=3),
         library_ms=device_ms(cublas, reps=3),
-        library="x.T @ g (cuBLAS f32, no quantize epilogue)",
-        bound=bound_ms(n_bytes, n_ops, "f32"), per_shape=per)
-    return out
+        library=f"x.T @ g (cuBLAS {op_type}, no quantize epilogue)",
+        bound=bound_ms(n_bytes, n_ops, op_type), per_shape=per)
 
 
 def nvidia_smi() -> str:
@@ -1576,19 +1703,18 @@ def main(argv=None) -> int:
     phase("serve")
     s = serve_phase(SERVE_ARGS, SERVE_KERNELS)
     pf = check_prefill(s)
+    pf.update(check_prefill_f32(s))
     print(f"  launches {s['launches']}; counters {s['counters']}; prefill "
           f"logits max_abs_err {pf['logits_err']:.3e} (max|ref| "
           f"{pf['logits_scale']:.3e}, argmax equal {pf['argmax_equal']})")
+    print_prefill_f32(pf)
 
     phase("ssm")
     m, mpf, scan_t = ssm_phase(gen, dev)
     print(f"  launches {m['launches']}; counters {m['counters']}; prefill "
           f"logits max_abs_err {mpf['logits_err']:.3e} (max|ref| "
           f"{mpf['logits_scale']:.3e}, argmax equal {mpf['argmax_equal']})")
-    print(f"  f32 prefill logits max_abs_err {mpf['f32_logits_err']:.3e} (max|ref| "
-          f"{mpf['f32_logits_scale']:.3e}, tol {PREFILL_F32_TOL}); bf16 vs f32 "
-          f"plain: kernels {mpf['bf16_kernel_vs_f32_plain']:.3e}, plain "
-          f"{mpf['bf16_plain_vs_f32_plain']:.3e}")
+    print_prefill_f32(mpf)
     print(f"  prefill_ms {mpf['prefill_ms']:.3f} decode_step_ms "
           f"{m['decode_step_ms']:.3f} decode_step_graph_ms "
           f"{m['decode_step_graph_ms']:.3f} tok_s {m['tokens'] / m['run_s']:.3f} "
@@ -1609,6 +1735,7 @@ def main(argv=None) -> int:
                   f"launches {r['launches']} payload_bytes {r['payload_bytes']}")
     print(f"  kernel vs plain: loss rel {tr['loss_rel']}, grad norm rel "
           f"{tr['grad_norm_rel']}")
+    print(f"  traced step, matmul_quant by path: {tr['matmul_quant_traced']}")
 
     phase("collectives")
     cl = collectives_phase()
@@ -1672,11 +1799,14 @@ def main(argv=None) -> int:
                   library_ms=t[key].get("library_ms"),
                   bound_ms=t[key]["bound"][0], bound_by=t[key]["bound"][1])
         for key in ("dequant_matmul_dx", "dequant_matmul_fwd",
-                    "dequant_matmul_prefill", "flash_attention_train")}
+                    "dequant_matmul_prefill", "flash_attention_train",
+                    "flash_attention_f32", "matmul_quant_simt")}
     kernels_extra.update(
         dequant_matmul_rounding=flips,
         dequant_matmul_threshold=t["dequant_matmul_threshold"],
         dequant_matmul_shapes=t["dequant_matmul_shapes"],
+        matmul_quant_per_shape=t["matmul_quant"]["per_shape"],
+        matmul_quant_simt_per_shape=t["matmul_quant_simt"]["per_shape"],
         dequantize_int4_bf16=dict(ms=dq4["ms"], plain_ms=dq4["plain_ms"],
                                   bound_ms=dq4["bound"][0],
                                   bound_by=dq4["bound"][1]))
@@ -1690,6 +1820,10 @@ def main(argv=None) -> int:
         setup_s=s["setup_s"], residency_bytes=s["memory"]["wire_bytes"],
         prefill_logits_max_abs_err=pf["logits_err"],
         prefill_logits_max_abs_ref=pf["logits_scale"],
+        prefill_f32_logits_max_abs_err=pf["f32_logits_err"],
+        prefill_f32_logits_max_abs_ref=pf["f32_logits_scale"],
+        prefill_bf16_kernel_vs_f32_plain=pf["bf16_kernel_vs_f32_plain"],
+        prefill_bf16_plain_vs_f32_plain=pf["bf16_plain_vs_f32_plain"],
         traced_prefill_wall_ms=pf["traced"]["wall_ms"],
         traced_prefill_device_ms=pf["traced"]["device_ms"],
         traced_prefill_top_kernels=pf["traced"]["top"])
@@ -1739,6 +1873,7 @@ def main(argv=None) -> int:
         traced_step_wall_ms=[r["profile"]["wall_ms"] for r in tr["kernel"]],
         traced_step_device_ms=[r["profile"]["device_ms"] for r in tr["kernel"]],
         traced_step_top_kernels_rank0=k0["profile"]["top"],
+        traced_step_matmul_quant=tr["matmul_quant_traced"],
         state_bytes_per_rank=k0["memory"], run_s=tr["run_s"],
         plain_run_s=tr["plain_run_s"])
     regimes_line = dict(

@@ -141,7 +141,10 @@ def _dw_fusable(spec: LeafSpec, cfg: ZeroConfig) -> bool:
 
 def _mm_dw_stage1(x2, g2, transpose: bool, spec: LeafSpec, cfg: ZeroConfig):
     """dW of a matmul backward -> primary-layout fp32 stage-1 shard: straight
-    into wire format when fusable, else the dense matmul + quantize pair."""
+    into wire format when fusable, else the dense matmul + quantize pair.
+    x2, g2 come in the compute dtype: the fused kernel takes them as they
+    are (its products and sums are f32, as the reference's kernel widens each
+    tile), the dense matmul widens them to f32 first."""
     if _dw_fusable(spec, cfg):
         if transpose:
             # dW = (x2.T g2).T = g2.T x2: swap the operands, the wire layout
@@ -153,7 +156,7 @@ def _mm_dw_stage1(x2, g2, transpose: bool, spec: LeafSpec, cfg: ZeroConfig):
         tok = sched.grad_rs_issue_q(q, s, cfg.axes.weight, cfg,
                                     bits=GRAD_RS_BITS)
         return sched.grad_rs_wait(tok, cfg, out_dtype=torch.float32)
-    dw2 = torch.matmul(x2.T, g2)
+    dw2 = torch.matmul(x2.float().T, g2.float())
     if transpose:
         dw2 = dw2.T
     return _grad_stage1(dw2.reshape(spec.shape), spec, cfg)
@@ -171,8 +174,8 @@ def _mm_bwd(x, primary, sec_q, sec_s, g, transpose: bool, spec: LeafSpec,
         if transpose:
             w2 = w2.T
         gx = torch.matmul(g, w2.T).to(x.dtype)
-    x2 = x.reshape(-1, x.shape[-1]).float()
-    g2 = g.reshape(-1, g.shape[-1]).float()
+    x2 = x.reshape(-1, x.shape[-1])
+    g2 = g.reshape(-1, g.shape[-1])
     return gx, _mm_dw_stage1(x2, g2, transpose, spec, cfg)
 
 

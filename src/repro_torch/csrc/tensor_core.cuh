@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy helpers shared by the tensor-core
-// kernels (dequant_matmul.cu, flash_attention.cu): cp.async into shared
-// memory, ldmatrix, mma.sync.m16n8k16 (a warp; bf16 in, f32 accumulate), and
-// Hopper's wgmma.m64n128k16 (a warpgroup; B, and A or not, K-major in shared
-// memory under the 128-byte swizzle; f32 accumulators in registers).
+// kernels (dequant_matmul.cu, flash_attention.cu, matmul_quant.cu): cp.async
+// into shared memory, ldmatrix, mma.sync.m16n8k16 (a warp; bf16 in, f32
+// accumulate), Hopper's wgmma.m64n128k16 (a warpgroup; operands in shared
+// memory under the 128-byte swizzle, K-major or MN-major; f32 accumulators in
+// registers), and TMA tile loads that complete on mbarriers.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4), each 32-bit
 // register a pair of bf16 with the lower index in the low half:
@@ -101,6 +102,16 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// Descriptor of an MN-major operand under the 128-byte swizzle, as TMA writes
+// a box of 64 bf16 columns (M or N) by one row per contraction index: 8-row
+// groups along the contraction 1024 bytes apart (stride byte offset), 64-wide
+// atoms along M or N `atom_bytes` apart (leading byte offset). Adding 128 to
+// it moves 16 rows (one k16 step) along the contraction.
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p, uint32_t atom_bytes) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(atom_bytes >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -123,7 +134,10 @@ __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 
-// d (64 x 128 f32, 64 registers a thread) = a (64 x 16) * b (16 x 128) + (acc ? d : 0)
+// d (64 x 128 f32, 64 registers a thread) = a (64 x 16) * b (16 x 128) + (acc ? d : 0);
+// MN = 0: both operands K-major (sw128_desc), MN = 1: both MN-major
+// (sw128_mn_desc), through wgmma's transpose immediates (16-bit types only)
+template <int MN = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
                                                  int acc) {
   asm volatile(
@@ -132,7 +146,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -142,7 +156,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc)
+      : "l"(da), "l"(db), "r"(acc), "n"(MN)
       : "memory");
 }
 
@@ -173,3 +187,49 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
 
 // keeps a register alive (and unchanged) up to this point
 __device__ __forceinline__ void keep_operand(uint32_t r) { asm volatile("" ::"r"(r)); }
+
+// ---------------------------------------------------------------------------
+// TMA and mbarriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// one arrival that also expects `bytes` more of TMA data in this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// waits until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+// one box of a 2-D tensor map at (c0 inner, c1 outer) -> shared memory,
+// completing `bar`'s transaction bytes; elements past the tensor's edge are
+// written as zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}

@@ -18,6 +18,13 @@ M >= 16 (x @ W) or M >= 64 (x @ W.T), and SIMT f32 FMA for the rest (f32,
 bf16 decode and the LM head). The tensor cores take x @ W.T with exact
 products of bf16 x and the raw int8 q, scaled after each quant block, and
 x @ W with each f32 weight split into two bf16 terms (hi + lo, 16 bits).
+A q or x off the 16-byte grid (or q off 4 bytes on the SIMT path) is
+copied to a fresh allocation first, so every view the reference takes runs.
+
+The weight-grad matmul has two paths too (``matmul_quant_path``): tensor
+cores (TMA + wgmma) for bf16 operands with K % 8 == 0, N % 8 == 0 and a
+block of 8 ... 128, their exact products summed in f32; SIMT f32 FMA for
+f32 operands and every other shape (bf16 widened on the load).
 
 The source notes in csrc/ give the bounds and the designs;
 ``ref.dequant_matmul_blocked_ref``, ``ref.dequant_matmul_flat_ref`` and
@@ -64,20 +71,21 @@ def dequant_matmul_flat_cuda(x: torch.Tensor, q: torch.Tensor,
     m = x.shape[0]
     c_len, out_dim = (n, k) if transpose else (k, n)
     if x.shape != (m, c_len) or n % block or block % 4 \
-            or scales.shape != (k, n // block) or q.data_ptr() % 4:
+            or scales.shape != (k, n // block):
         raise ValueError(
             f"dequant_matmul: x {tuple(x.shape)}, q {tuple(q.shape)}, scales "
             f"{tuple(scales.shape)}, block {block}, transpose {transpose}: "
-            "needs N % block == 0, block % 4 == 0 and 4-byte aligned q")
+            "needs N % block == 0 and block % 4 == 0")
     lib = cuda.library("dequant_matmul", SIGNATURES)
     if path is None:
         path = dequant_matmul_path(m, k, n, block, transpose, x.dtype)
+    # the tensor cores load 16-byte chunks of x and q, the SIMT path 4-byte
+    # words of q; a view off that grid is copied (a fresh allocation is on it)
     if PATHS[path] == "tensor_core":
-        if x.data_ptr() % 16:
-            x = x.clone()                # a fresh allocation is 16-byte aligned
-        if q.data_ptr() % 16:
-            raise ValueError("dequant_matmul: the tensor-core path needs a "
-                             "16-byte aligned q")
+        x = _aligned(x, 16)
+        q = _aligned(q, 16)
+    else:
+        q = _aligned(q, 4)
     out = torch.empty((m, out_dim), dtype=x.dtype, device=x.device)
     n_work = lib.dequant_matmul_workspace(m, k, n, int(transpose), path)
     work = torch.empty((n_work,), dtype=torch.float32, device=x.device) \
@@ -88,6 +96,10 @@ def dequant_matmul_flat_cuda(x: torch.Tensor, q: torch.Tensor,
         m, k, n, block, int(transpose), path, cuda.stream(x))
     cuda.check(rc, f"dequant_matmul ({PATHS[path]} path)")
     return out
+
+
+def _aligned(t: torch.Tensor, n_bytes: int) -> torch.Tensor:
+    return t.clone() if t.data_ptr() % n_bytes else t
 
 
 BLOCKED_SIGNATURES = {
@@ -115,18 +127,27 @@ def dequant_matmul_blocked_cuda(x: torch.Tensor, q: torch.Tensor,
 
 
 MQ_SIGNATURES = {
-    "matmul_quant": (c_int, [c_void_p, c_void_p, c_void_p, c_void_p, c_int,
-                             c_int, c_int, c_int, c_int, c_void_p]),
+    "matmul_quant_path": (c_int, [c_int] * 5),
+    "matmul_quant_on_path": (c_int, [c_void_p] * 4 + [c_int] * 7 + [c_void_p]),
 }
+
+
+def matmul_quant_path(m: int, k: int, n: int, block: int,
+                      dtype: torch.dtype) -> int:
+    """Index into ``PATHS`` of the path a matmul_quant call of this shape
+    and operand dtype takes."""
+    lib = cuda.library("matmul_quant", MQ_SIGNATURES)
+    return lib.matmul_quant_path(m, k, n, block, cuda.DTYPE_CODE[dtype])
 
 
 def matmul_quant_cuda(x: torch.Tensor, g: torch.Tensor, block: int,
                       bits: int):
-    """x (M, K) f32, g (M, N) f32 -> (q, scales): q (K, N) int8 (bits 8) or
-    (K, N // 2) uint8 (bits 4), scales (K, N // block) f32. ``block`` is a
-    power of two up to 512 that divides N."""
-    cuda.require(x, "x", (torch.float32,))
-    cuda.require(g, "g", (torch.float32,))
+    """x (M, K), g (M, N), both f32 or both bf16 -> (q, scales): q (K, N)
+    int8 (bits 8) or (K, N // 2) uint8 (bits 4), scales (K, N // block) f32.
+    ``block`` is a power of two up to 512 that divides N. The path is the
+    shape's own (``matmul_quant_path``)."""
+    cuda.require(x, "x", tuple(cuda.DTYPE_CODE))
+    cuda.require(g, "g", (x.dtype,))
     m, k = x.shape
     n = g.shape[1]
     if g.shape[0] != m or bits not in (4, 8) or n % block or block > 512 \
@@ -135,12 +156,17 @@ def matmul_quant_cuda(x: torch.Tensor, g: torch.Tensor, block: int,
                          f"block {block}, bits {bits}: needs N % block == 0 "
                          "and a power-of-two block <= 512")
     lib = cuda.library("matmul_quant", MQ_SIGNATURES)
+    path = matmul_quant_path(m, k, n, block, x.dtype)
+    if PATHS[path] == "tensor_core":     # TMA reads from 16-byte aligned rows
+        x = _aligned(x, 16)
+        g = _aligned(g, 16)
     if bits == 4:
         q = torch.empty((k, n // 2), dtype=torch.uint8, device=x.device)
     else:
         q = torch.empty((k, n), dtype=torch.int8, device=x.device)
     s = torch.empty((k, n // block), dtype=torch.float32, device=x.device)
-    rc = lib.matmul_quant(x.data_ptr(), g.data_ptr(), q.data_ptr(), s.data_ptr(),
-                          m, k, n, block, bits, cuda.stream(x))
-    cuda.check(rc, "matmul_quant")
+    rc = lib.matmul_quant_on_path(x.data_ptr(), g.data_ptr(), q.data_ptr(),
+                                  s.data_ptr(), cuda.DTYPE_CODE[x.dtype], m, k,
+                                  n, block, bits, path, cuda.stream(x))
+    cuda.check(rc, f"matmul_quant ({PATHS[path]} path)")
     return q, s

@@ -159,7 +159,11 @@ def matmul_quant(x2: torch.Tensor, g2: torch.Tensor, block: int, *,
     """Wire-format weight grad: C = x2.T @ g2, block-quantized in the matmul
     epilogue (the dense f32 C is never written out).
 
-    x2 (M, K), g2 (M, N) f32; N % block == 0. Returns flat (q, scales) in the
+    x2 (M, K), g2 (M, N); N % block == 0. As in the reference's kernel, the
+    operands keep their own dtype (bf16 operands go to the tensor cores as
+    they are) and the products and sums are f32; operands of two dtypes, or
+    of another float dtype, are widened to f32 first, which is exact.
+    Returns flat (q, scales) in the
     layout ``quantize_int{8,4}(C.reshape(-1))`` gives: INT8 q is (K*N,) int8,
     INT4 q is (K*N // 2,) packed uint8, optionally padded to ``pad_to``
     logical elements with exact zero blocks (q 0 / 0x88, scale 1), which is
@@ -169,6 +173,9 @@ def matmul_quant(x2: torch.Tensor, g2: torch.Tensor, block: int, *,
         raise ValueError(f"matmul_quant: N={n} is not a whole number of "
                          f"{block}-element blocks")
     if _kernel(x2, impl):
+        if x2.dtype != g2.dtype or x2.dtype not in (torch.float32,
+                                                    torch.bfloat16):
+            x2, g2 = x2.float(), g2.float()
         LAUNCHES["matmul_quant"] += 1
         q, s = matmul_quant_cuda(x2.contiguous(), g2.contiguous(), block, bits)
     else:

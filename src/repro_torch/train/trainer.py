@@ -115,7 +115,8 @@ def _profiler(device: torch.device):
 def _device_summary(prof, step: int, wall_s: float, top: int = 12) -> dict:
     """Device time of the traced step: the sum over the events that ran on
     the card (kernels, copies, memsets; not the host ops that launched
-    them, which would count each kernel twice) and the largest by name."""
+    them, which would count each kernel twice), the largest by name, and
+    every one by its full name (``kernels``)."""
     rows = [(e.key, e.device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU
@@ -123,4 +124,5 @@ def _device_summary(prof, step: int, wall_s: float, top: int = 12) -> dict:
     rows.sort(key=lambda r: -r[1])
     return dict(step=step, wall_ms=wall_s * 1e3,
                 device_ms=sum(r[1] for r in rows),
-                top=[dict(name=k[:80], ms=ms, calls=c) for k, ms, c in rows[:top]])
+                top=[dict(name=k[:80], ms=ms, calls=c) for k, ms, c in rows[:top]],
+                kernels=[dict(name=k, ms=ms, calls=c) for k, ms, c in rows])

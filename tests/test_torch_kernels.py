@@ -170,26 +170,12 @@ def test_dequantize_int4_sum(impl, d):
     np.testing.assert_allclose(rt, rj, rtol=0, atol=ulp)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-@pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("pad", [0, 128])
-def test_matmul_quant(impl, bits, pad):
-    """C = x.T @ g quantized in the epilogue. The reference sums M in
-    blocked steps, the port in one f32 matmul, so C differs in its last
-    bits: scales agree to 1e-5 relative; q to within +-1 in at most 1e-3 of
-    the entries (a C value on a rounding boundary); the dequantized C to
-    within one quant step of the f32 product. The pad_to tail is exact."""
-    rng = np.random.default_rng(6)
-    m, k, n, block = 48, 40, 192, 64
-    x = rng.standard_normal((m, k)).astype(np.float32)
-    g = rng.standard_normal((m, n)).astype(np.float32)
-    pad_to = k * n + pad if pad else None
-    qj, sj = jax.jit(lambda a, b: jops.matmul_quant(
-        a, b, block, bits=bits, pad_to=pad_to, impl=impl))(x, g)
-    qj, sj = np.asarray(qj), np.asarray(sj)
-    qt, st = ops.matmul_quant(_torch(x), _torch(g), block, bits=bits,
-                              pad_to=pad_to)
-    qt, st = qt.numpy(), st.numpy()
+def _hold_matmul_quant(qt, st, qj, sj, x, g, block, bits):
+    """The port's (q, scales) against the reference's, for C = x.T @ g
+    (numpy f32): scales within 1e-5 relative; q within +-1 in at most 1e-3
+    of the entries (a C value on a rounding boundary, summed in another
+    order); the dequantized C within one quant step of the f32 product.
+    Returns the port's levels."""
     assert qt.dtype == qj.dtype and qt.shape == qj.shape and st.shape == sj.shape
     np.testing.assert_allclose(st, sj, rtol=1e-5)
 
@@ -207,9 +193,35 @@ def test_matmul_quant(impl, bits, pad):
     c = (x.T @ g).reshape(-1)
     deq = lt * step
     assert np.all(np.abs(deq[:c.size] - c) <= step[:c.size])
+    return lt
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("pad", [0, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_quant(impl, bits, pad, dtype):
+    """C = x.T @ g quantized in the epilogue. The reference sums M in
+    blocked steps, the port in one f32 matmul, so C differs in its last
+    bits (``_hold_matmul_quant``). The pad_to tail is exact. bf16 operands
+    go to the port as bf16 (the training step's fused dW) and to the
+    reference widened to f32: the products of bf16 values are exact in f32,
+    so both compute the same C up to the order of the sums."""
+    rng = np.random.default_rng(6)
+    m, k, n, block = 48, 40, 192, 64
+    x = np.asarray(jnp.asarray(rng.standard_normal((m, k)), dtype))
+    g = np.asarray(jnp.asarray(rng.standard_normal((m, n)), dtype))
+    pad_to = k * n + pad if pad else None
+    x32, g32 = x.astype(np.float32), g.astype(np.float32)
+    qj, sj = jax.jit(lambda a, b: jops.matmul_quant(
+        a, b, block, bits=bits, pad_to=pad_to, impl=impl))(x32, g32)
+    qt, st = ops.matmul_quant(_torch(x), _torch(g), block, bits=bits,
+                              pad_to=pad_to)
+    lt = _hold_matmul_quant(qt.numpy(), st.numpy(), np.asarray(qj),
+                            np.asarray(sj), x32, g32, block, bits)
     if pad:
-        np.testing.assert_array_equal(lt[c.size:], 0)
-        np.testing.assert_array_equal(st[c.size // block:], 1.0)
+        np.testing.assert_array_equal(lt[k * n:], 0)
+        np.testing.assert_array_equal(st.numpy()[k * n // block:], 1.0)
 
 
 def test_attention_grads():
@@ -381,6 +393,52 @@ def test_dequant_matmul_tensor_core_rounding(impl, transpose, m, k, n, block):
         w_abs = (q2.float() * s2.repeat_interleave(block, 1)).abs()
         bound = 2.0 ** -16 * (_torch(x).float().abs() @ w_abs) + order
         assert bool(((yt - _torch(yj)).abs() <= bound).all())
+
+
+def _tc_matmul_quant(x, g, block, bits):
+    """What csrc/matmul_quant.cu's tensor-core path computes: for each stage
+    of 64 rows of M, the exact products of the bf16 operands summed in f32,
+    each stage's sum added to an f32 accumulator in stage order; then the
+    epilogue's block quantize (scale = absmax * (1/qmax), 1 for a zero
+    block; q = clamp(rint(c / scale))). x (M, K), g (M, N) bf16 -> (q (K, N)
+    int8 | (K, N // 2) uint8 packed, scales (K, N // block) f32)."""
+    xf, gf = x.float(), g.float()
+    k, n = x.shape[1], g.shape[1]
+    acc = torch.zeros((k, n))
+    for m0 in range(0, x.shape[0], 64):
+        acc = acc + xf[m0:m0 + 64].T @ gf[m0:m0 + 64]
+    qmax = 7.0 if bits == 4 else 127.0
+    c = acc.reshape(k, n // block, block)
+    absmax = c.abs().amax(-1, keepdim=True)
+    scales = torch.where(absmax == 0, 1.0, absmax * (1.0 / qmax))
+    qv = torch.clamp(torch.round(c / scales), -qmax, qmax).reshape(k, n)
+    if bits == 4:
+        u = (qv + 8).to(torch.uint8).reshape(k, n // 2, 2)
+        q = u[..., 0] | (u[..., 1] << 4)
+    else:
+        q = qv.to(torch.int8)
+    return q, scales.reshape(k, n // block)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_matmul_quant_tensor_core_rounding(impl, block, bits):
+    """The tensor-core path's arithmetic against the reference on bf16
+    operands widened to f32, at a shape ragged against its 128 x 128 tile
+    and its 64-row stages (M = 130, K = 72, N = 256): the products are
+    exact, so only the order of the f32 sums differs, and the tolerances
+    are test_matmul_quant's."""
+    rng = np.random.default_rng(13)
+    m, k, n = 130, 72, 256
+    x = np.asarray(jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16))
+    g = np.asarray(jnp.asarray(rng.standard_normal((m, n)), jnp.bfloat16))
+    x32, g32 = x.astype(np.float32), g.astype(np.float32)
+    qj, sj = jax.jit(lambda a, b: jops.matmul_quant(
+        a, b, block, bits=bits, impl=impl))(x32, g32)
+    qt, st = _tc_matmul_quant(_torch(x), _torch(g), block, bits)
+    _hold_matmul_quant(qt.numpy().reshape(-1), st.numpy().reshape(-1),
+                       np.asarray(qj), np.asarray(sj), x32, g32, block, bits)
 
 
 def _tc_attention(q, k, v, causal, window, q_offset):

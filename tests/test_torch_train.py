@@ -28,7 +28,9 @@ few flipped elements move the grad norm and, through AdamW, the next losses
 by more than the float noise.
 """
 import json
+import multiprocessing as mp
 import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -159,6 +161,65 @@ def test_train_step_four_ranks(tmp_path, shape, scheme):
         assert p["losses"] == ports[0]["losses"]
         assert p["grad_norms"] == ports[0]["grad_norms"]
     _check(ref, ports[0])
+
+
+def _bf16_dw_rank(rank: int, port: int, out_dir: Path) -> None:
+    """One of 2 gloo ranks on the mesh (1, 1, 2), W = 2, where every fusable
+    dW takes the fused path: one bf16 step with ``ops.matmul_quant`` wrapped
+    to record its operands' dtypes and whether its wire output equals that
+    of the same call on the operands widened to f32."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    real, seen = ops.matmul_quant, []
+
+    def spy(x2, g2, block, **kw):
+        q, s = real(x2, g2, block, **kw)
+        q32, s32 = real(x2.float(), g2.float(), block, **kw)
+        seen.append((x2.dtype, g2.dtype, torch.equal(q, q32),
+                     torch.equal(s.view(torch.int32), s32.view(torch.int32))))
+        return q, s
+
+    ops.matmul_quant = spy
+    args = train.build_parser().parse_args([
+        "--device", "cpu", "--reduced", "--devices", "2", "--steps", "1",
+        "--batch", str(RUN["batch"]), "--seq", str(RUN["seq"]),
+        "--quant-block", str(RUN["quant_block"]), "--compute-dtype",
+        "bfloat16", "--timeout", "120"])
+    train._init_group(rank, 2, args, f"tcp://127.0.0.1:{port}")
+    try:
+        train.train_rank(rank, 2, args)
+        torch.save(seen, out_dir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_fused_dw_takes_bf16_operands(tmp_path):
+    """Under compute_dtype bfloat16 the fused dW path hands
+    ``ops.matmul_quant`` its bf16 operands as they are (the tensor-core
+    kernel's input on a card), and its wire bytes and scales are bit for bit
+    those of the same values widened to f32."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_bf16_dw_rank, args=(r, port, tmp_path))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=240)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        seen = torch.load(tmp_path / f"rank{r}.pt")
+        assert seen, "no fused dW ran"
+        assert all(rec == (torch.bfloat16, torch.bfloat16, True, True)
+                   for rec in seen), seen
 
 
 if __name__ == "__main__":
