@@ -28,7 +28,9 @@ either is missing or any phase fails. Phases, in order:
             selective_scan is held in f32 within 1e-5 * max|ref| for y and
             h_last (a last-bit difference of exp per step in a decaying
             recurrence, and another order of the N-sum) at the prefill shape
-            (B=1, S=128, D=8192, N=16, h0 = 0), at S=2048 and ragged.
+            (B=1, S=128, D=8192, N=16, h0 = 0), at S=2048 and ragged; and its
+            gradients (dt, x, b, c, a, h0 through both outputs, the kernel's
+            forward against the plain one) within the same tolerance.
             falcon-mamba-7b's shapes too: dequant_matmul at w_in, w_dt and
             w_out for M = 4 and 128 and its LM head at M = 1 and 4;
             dequantize_int8 of w_xproj; quantize_int8 and dequantize_int8
@@ -36,18 +38,25 @@ either is missing or any phase fails. Phases, in order:
             dequantize_int8_sum (the bits=8 receive side, d = 2 at the
             embedding's size, and ragged) and dequantize_int4 (136.1 M
             elements, block 128, to f32 and bf16, and ragged) bit for bit;
-            dequant_matmul_blocked at qwen2's w_up and ragged (K = 2 and 3
-            blocks) within BLOCKED_RTOL * |ref| + BLOCKED_ATOL * max|ref|.
+            dequant_matmul_blocked at qwen2's w_up (tensor cores), ragged
+            M and N with bk 64 (tensor cores) and bk 32 / 20 with K of 3 and
+            2 blocks (SIMT), each on the path its shape names
+            (dequant_matmul_blocked_path), within BLOCKED_RTOL * |ref| +
+            BLOCKED_ATOL * max|ref|.
             dequant_matmul's rounding is reported (not held): the share of
             bf16 outputs off the exact product, kernel and plain version,
-            at three shapes. Its two paths: each case must take the path its
-            shape names (dequant_matmul_path): bf16 at M = 2,048 in both
-            orientations at qwen2's four shapes, each side of the tensor
-            cores' thresholds, f32 at M = 128, ragged tiles (block 64, M =
-            130 and 2,047, K = 72 and 328) on the tensor cores and K = 333
-            (rows off the 16-byte grid) on the SIMT path, and q as a view at
-            byte offset 1 of a larger buffer on each path; flash_attention
-            in bf16 (the tensor-core kernel) at the training shape, ragged,
+            at three shapes. Its three paths: each case must take the path
+            its shape names (dequant_matmul_path, held to expected_path):
+            both LM heads (qwen2's and falcon-mamba's, M = 1 and 4), f32,
+            and x @ W.T at M = 12 and 16 and block 32 on the decode path;
+            bf16 at M = 2,048 in both orientations at qwen2's four shapes,
+            each side of the thresholds, ragged tiles (block 64, M = 130 and
+            2,047, K = 72 and 328) on the tensor cores; every decode-step
+            layer product (x @ W at M = 4, qwen2's and falcon-mamba's), f32
+            at M = 128, K = 333 (rows off the 16-byte grid), x @ W at block
+            32 and x @ W.T at M = 17 ... 63 or past N = 4,096 on the SIMT
+            path; q as a view at byte
+            offset 1 of a larger buffer on each path; flash_attention in bf16 (the tensor-core kernel) at the training shape, ragged,
             with a query offset and with a window; all within one bf16 ulp
             of max|ref|.
 2b. ops    : two ops-level paths, each with the counters zeroed before and
@@ -107,11 +116,15 @@ either is missing or any phase fails. Phases, in order:
 5. timing : device time of each kernel, its plain version and, where one
             PyTorch call computes the same function, that call, at the
             serving and training shapes (CUDA graphs of repeated launches,
-            CUDA events). dequant_matmul also: one layer's 7 products at the
-            training M in each orientation beside bf16 cuBLAS, one prefill's
-            169 calls, each decode / prefill shape with its path, falcon-mamba's
-            three M = 128 shapes, and both paths forced at M = 8 ... 128
-            (the threshold rows); flash_attention also at the training shape
+            CUDA events). dequant_matmul also: one decode step's 169 calls
+            all on the SIMT kernel (forced: the head as before its decode path), one
+            layer's 7 products at the training M in each orientation beside
+            bf16 cuBLAS, one prefill's 169 calls, each decode / prefill shape
+            with its path (decode shapes also on SIMT and beside bf16
+            cuBLAS), falcon-mamba's three M = 128 shapes and its four decode
+            shapes at M = 4, and all three paths forced at M = 4 ... 128
+            (the threshold rows); dequant_matmul_blocked at w_up on its path
+            and on SIMT (forced); flash_attention also at the training shape
             beside SDPA and in f32 at the prefill shape beside f32 SDPA;
             matmul_quant on one layer's seven dW shapes with bf16 operands
             (tensor cores, beside bf16 cuBLAS x.T @ g) and with f32 operands
@@ -233,7 +246,12 @@ TRAIN_M = 2048                      # tokens per rank: 8 x 1024 over 4 ranks
 # x @ W.T (chosen by the timing phase's dequant_matmul_threshold rows;
 # csrc/dequant_matmul.cu's TC_MIN_M, TC_MIN_M_T): the checks hold the path
 # of each shape to them
-TC_MIN_M, TC_MIN_M_T = 16, 64
+TC_MIN_M, TC_MIN_M_T = 5, 64
+# rows up to which the decode path takes an x @ W.T call
+# (csrc/dequant_matmul.cu's DEC_MAX_M_T; chosen by the timing phase's
+# dequant_matmul_threshold rows), and the largest row it takes (one 16-byte
+# chunk a thread)
+DEC_MAX_M_T, DEC_TN_MAX_N = 16, 4096
 EMBED_N = 151_936 * 896             # the tied embedding's padded length
 
 
@@ -292,6 +310,20 @@ def add_check(checks, name, what, err, tol):
     checks.setdefault(name, []).append(dict(case=what, max_abs_err=err,
                                             tolerance=tol))
     print(f"  {name:16s} {what:44s} max_abs_err={err:.3e} tol={tol}")
+
+
+def expected_path(m, k, n, block, transpose, dtype) -> str:
+    """The flat dequant-matmul's path by the rule csrc/dequant_matmul.cu
+    documents: decode for x @ W.T at M <= DEC_MAX_M_T with block % 16 == 0
+    and N <= DEC_TN_MAX_N, then the tensor cores for bf16 (block % 64 == 0,
+    K % 8 == 0, M >= TC_MIN_M / TC_MIN_M_T), else SIMT."""
+    if transpose and m <= DEC_MAX_M_T and block % 16 == 0 \
+            and n <= DEC_TN_MAX_N:
+        return "decode"
+    if dtype == torch.bfloat16 and block % 64 == 0 and k % 8 == 0 and \
+            m >= (TC_MIN_M_T if transpose else TC_MIN_M):
+        return "tensor_core"
+    return "simt"
 
 
 def check_kernels(dev, gen, checks):
@@ -365,11 +397,10 @@ def check_kernels(dev, gen, checks):
     stack_case(f"({MAMBA_L}*{MAMBA_D}*{2 * SCAN_D}/128, 128) bf16 (w_in stack)",
                MAMBA_L * MAMBA_D * 2 * SCAN_D, 128)
 
-    def mm_case(what, m, k, n, block, transpose, dtype, path=None,
-                offset=0):
-        """One dequant_matmul against its plain version; ``path`` (when
-        given) is the path the shape must take. ``offset`` puts q at that
-        byte offset into a larger int8 buffer (a view off the 16-byte grid)."""
+    def mm_case(what, m, k, n, block, transpose, dtype, offset=0):
+        """One dequant_matmul against its plain version; the shape must take
+        the path ``expected_path`` names. ``offset`` puts q at that byte
+        offset into a larger int8 buffer (a view off the 16-byte grid)."""
         w = torch.randn(k * n + 3 * block, generator=gen, device=dev) * 0.05
         q, s = ops.quantize_int8(w, block)
         if offset:
@@ -379,7 +410,8 @@ def check_kernels(dev, gen, checks):
         x = torch.randn((m, n if transpose else k), generator=gen,
                         device=dev).to(dtype)
         took = PATHS[dequant_matmul_path(m, k, n, block, transpose, dtype)]
-        if path is not None and took != path:
+        path = expected_path(m, k, n, block, transpose, dtype)
+        if took != path:
             raise Failed(f"dequant_matmul {what}: took the {took} path, not "
                          f"{path}")
         yk = ops.dequant_matmul(x, q, s, (k, n), block, transpose=transpose,
@@ -409,37 +441,48 @@ def check_kernels(dev, gen, checks):
     for m in (1, 4):
         mm_case(f"M={m} ({MAMBA_V}, {MAMBA_D}).T bf16 (falcon-mamba LM head)",
                 m, MAMBA_V, MAMBA_D, 128, True, torch.bfloat16)
+    # the decode path (x @ W.T): f32 and ragged K (a last stage cut short),
+    # three row tiles (M = 12), the last decode M and the first past it (bf16
+    # and f32), block 32 (x @ W: SIMT), and past DEC_TN_MAX_N (SIMT, the
+    # threshold cases below); x @ W at M = 3, f32, ragged: SIMT
     mm_case("M=3 (200, 192) f32 ragged", 3, 200, 192, 64, False, torch.float32)
     mm_case("M=7 (333, 192).T f32 ragged", 7, 333, 192, 64, True, torch.float32)
+    mm_case(f"M=12 ({ff}, {d}).T bf16", 12, ff, d, 128, True, torch.bfloat16)
+    for m in (DEC_MAX_M_T, DEC_MAX_M_T + 1):
+        mm_case(f"M={m} ({ff}, {d}).T bf16", m, ff, d, 128, True,
+                torch.bfloat16)
+        mm_case(f"M={m} ({ff}, {d}).T f32", m, ff, d, 64, True, torch.float32)
+    for tr in (False, True):
+        mm_case(f"M=4 (64, 192){'.T' if tr else ''} bf16 block 32", 4, 64, 192,
+                32, tr, torch.bfloat16)
     mm_case("M=130 (72, 256) bf16 ragged", 130, 72, 256, 64, False,
             torch.bfloat16)
     # the tensor-core path: the training M in both orientations at qwen2's
-    # four shapes, the threshold and one past it, f32 at the prefill M
+    # four shapes, each side of the thresholds, f32 at the prefill M
     for k, n in sorted(set(LAYER_KN)):
         for tr in (False, True):
             mm_case(f"M={TRAIN_M} ({k}, {n}){'.T' if tr else ''} bf16", TRAIN_M,
-                    k, n, 128, tr, torch.bfloat16, "tensor_core")
+                    k, n, 128, tr, torch.bfloat16)
     for tr, first in ((False, TC_MIN_M), (True, TC_MIN_M_T)):
         for m in (first - 1, first, first + 1):
             mm_case(f"M={m} ({d}, {ff}){'.T' if tr else ''} bf16", m, d, ff, 128,
-                    tr, torch.bfloat16, "tensor_core" if m >= first else "simt")
-    mm_case("M=128 (896, 4864) f32", 128, d, ff, 128, False, torch.float32,
-            "simt")
+                    tr, torch.bfloat16)
+    mm_case("M=128 (896, 4864) f32", 128, d, ff, 128, False, torch.float32)
     # ragged against the 128 x 128 tile but 16-byte aligned rows (block 64):
     # tensor cores; K = 333 leaves x (or out) rows off the 16-byte grid: SIMT
     for m, k, n in ((130, 72, 192), (2047, 328, 256), (130, 328, 64),
                     (2047, 72, 320)):
         for tr in (False, True):
             mm_case(f"M={m} ({k}, {n}){'.T' if tr else ''} bf16 ragged", m, k, n,
-                    64, tr, torch.bfloat16, "tensor_core")
+                    64, tr, torch.bfloat16)
     for tr in (False, True):
         mm_case(f"M=130 (333, 192){'.T' if tr else ''} bf16 ragged", 130, 333,
-                192, 64, tr, torch.bfloat16, "simt")
+                192, 64, tr, torch.bfloat16)
     # q as a view at byte offset 1 of a larger buffer, on each path
-    for m, path in ((128, "tensor_core"), (4, "simt")):
+    for m, n in ((128, ff), (20, ff), (4, ff), (4, d)):
         for tr in (False, True):
-            mm_case(f"M={m} ({d}, {ff}){'.T' if tr else ''} bf16 q at offset 1",
-                    m, d, ff, 128, tr, torch.bfloat16, path, offset=1)
+            mm_case(f"M={m} ({d}, {n}){'.T' if tr else ''} bf16 q at offset 1",
+                    m, d, n, 128, tr, torch.bfloat16, offset=1)
 
     def attn_case(what, b, h, hkv, sq, sk, q_offset, window, dtype):
         q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
@@ -584,6 +627,38 @@ def check_kernels(dev, gen, checks):
     scan_case(f"B=1 S=2048 D={SCAN_D} h0=0", 1, 2048, SCAN_D, True, 3.0)
     scan_case("B=3 S=37 D=96 h0!=0 ragged", 3, 37, 96, False, 0.0)
 
+    def scan_grad_case(what, b, seq, d):
+        """The scan's gradients through the kernel forward (autograd through
+        the plain version at the saved inputs) against autograd through the
+        plain forward, on the same random cotangents of y and h_last: dt, x,
+        b, c, a and h0 each within F32_TOL * max|ref| (the two backwards run
+        the same ops on the same inputs, so they agree to the last bit; the
+        kernel's forward is held to the same tolerance)."""
+        inputs = scan_inputs(gen, dev, b, seq, d, False, 3.0)
+        gy = torch.randn((b, seq, d), generator=gen, device=dev)
+        gh = torch.randn((b, d, SCAN_N), generator=gen, device=dev)
+        out = {}
+        for impl in (None, "plain"):
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            before = ops.launches()["selective_scan"]
+            y, h = ops.selective_scan(*leaves, impl=impl)
+            launched = ops.launches()["selective_scan"] - before
+            if launched != (impl is None):
+                raise Failed(f"selective_scan grads {what}: {launched} launches "
+                             f"with impl={impl}")
+            out[impl] = (y.detach(), h.detach()) + torch.autograd.grad(
+                (y, h), leaves, (gy, gh))
+        names = ("y", "h_last", "d dt", "d x", "d b", "d c", "d a", "d h0")
+        for name, got, want in zip(names, out[None], out["plain"]):
+            err, scale = rel_err(got, want)
+            tol = F32_TOL * scale
+            if got.shape != want.shape or err > tol:
+                raise Failed(f"selective_scan grads {what} {name}: err {err} > "
+                             f"{tol}")
+            record("selective_scan", f"{what} {name}", err, f"{tol:.3e}")
+
+    scan_grad_case("grads B=2 S=64 D=256", 2, 64, 256)
+
 
 def blocked_quant(w: torch.Tensor, bk: int):
     """w (K, N) f32 -> (q (K, N) int8, scales (K // bk, N) f32): each column
@@ -643,20 +718,37 @@ def check_dequant_kernels(dev, gen, checks):
     def blocked_case(what, m, k, n, bk):
         blocked_check(checks, gen, dev, what, m, k, n, bk)
 
-    # qwen2's w_up at the training M, and ragged: K = 3 and 2 blocks, so a
-    # mixed-up scale layout cannot pass (the reference test's own shapes are
-    # the blocked_matmul path's)
+    # qwen2's w_up at the training M (tensor cores), ragged M and N against
+    # the 128 x 128 tile with bk 64 (tensor cores), and bk 32 or 20 with K
+    # of 3 and 2 blocks (SIMT), so a mixed-up scale layout cannot pass (the
+    # reference test's own shapes are the blocked_matmul path's)
     blocked_case(f"({TRAIN_M}, 896, 4864) bk=128 (w_up)", TRAIN_M, 896, 4864, 128)
+    blocked_case("(130, 192, 200) bk=64 ragged", 130, 192, 200, 64)
     blocked_case("(70, 96, 100) bk=32 ragged", 70, 96, 100, 32)
     blocked_case("(5, 40, 3) bk=20 ragged", 5, 40, 3, 20)
+
+
+def blocked_path(m, k, n, bk) -> str:
+    """The blocked dequant-matmul's path by the rule
+    csrc/dequant_matmul_blocked.cu documents: tensor cores for bk % 64 == 0,
+    K % 8 == 0 and N % 8 == 0, else SIMT."""
+    return "tensor_core" if bk % 64 == 0 and k % bk == 0 and k % 8 == 0 \
+        and n % 8 == 0 else "simt"
 
 
 def blocked_check(checks, gen, dev, what, m, k, n, bk):
     """One dequant_matmul_blocked call on x (m, k) and a (k, n) weight
     quantized down K in runs of bk rows, held against the plain version
-    within BLOCKED_RTOL * |ref| + BLOCKED_ATOL * max|ref|."""
+    within BLOCKED_RTOL * |ref| + BLOCKED_ATOL * max|ref|; the shape must
+    take the path ``blocked_path`` names, and the check line ends in it."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import (
+        PATHS, dequant_matmul_blocked_path)
 
+    took = PATHS[dequant_matmul_blocked_path(m, k, n, bk)]
+    if took != blocked_path(m, k, n, bk):
+        raise Failed(f"dequant_matmul_blocked {what}: took the {took} path, "
+                     f"not {blocked_path(m, k, n, bk)}")
     x = torch.randn((m, k), generator=gen, device=dev) * 3.0
     w = torch.randn((k, n), generator=gen, device=dev) * 3.0
     q, s = blocked_quant(w, bk)
@@ -668,7 +760,7 @@ def blocked_check(checks, gen, dev, what, m, k, n, bk):
     if yk.shape != yp.shape or worst > tol:
         raise Failed(f"dequant_matmul_blocked {what}: |d| - rtol*|ref| "
                      f"{worst} > {tol}")
-    add_check(checks, "dequant_matmul_blocked", what, err,
+    add_check(checks, "dequant_matmul_blocked", f"{what} {took}", err,
               f"rtol {BLOCKED_RTOL} + {tol:.3e}")
 
 
@@ -1232,6 +1324,20 @@ def run_matmuls(calls, impl=None):
     return fn
 
 
+def run_on_path(calls, path):
+    """The calls on path ``path`` (an index into PATHS), forced: to time a
+    shape on another path than its own (the SIMT kernel the heads' decode
+    path replaced, the threshold rows). The launches are not counted."""
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_flat_cuda
+
+    def fn():
+        for x, q, sc, (k, n), block, transpose in calls:
+            dequant_matmul_flat_cuda(x, q[:k * n].view(k, n),
+                                     sc[:k * n // block].view(k, n // block),
+                                     block, transpose=transpose, path=path)
+    return fn
+
+
 def dense_weights(calls):
     """Each call's weight dequantized to a bf16 (K, N) tensor beforehand:
     the library yardstick's operand."""
@@ -1253,6 +1359,7 @@ def run_dense(calls, dense):
 
 def timing_phase(s, gen):
     from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import PATHS
     from repro_torch.serve.resident import init_primaries
 
     layout, res, dev = s["layout"], s["residency"], s["device"]
@@ -1294,13 +1401,24 @@ def timing_phase(s, gen):
     dec = matmul_calls(s, slots, slots, gen)
     b, o = matmul_work(dec)
     dense = dense_weights(dec)
+    took = [call_path(c) for c in dec]
+    if set(took[:-1]) != {"simt"} or took[-1] != "decode":
+        raise Failed(f"decode step's dequant_matmul paths {set(took[:-1])} "
+                     f"(layers), {took[-1]} (head)")
     out["dequant_matmul"] = dict(
-        work=f"one decode step: {len(dec)} calls at M={slots}",
+        work=f"one decode step: {len(dec)} calls at M={slots} (layers SIMT, "
+             "head decode path)",
         ms=device_ms(run_matmuls(dec), reps=5),
         plain_ms=device_ms(run_matmuls(dec, "plain"), reps=2, replays=2),
         library_ms=device_ms(run_dense(dec, dense), reps=5),
         library="torch.matmul by the dequantized bf16 weights, product only",
         bound=bound_ms(b, o, "bf16"))
+    # the same calls all on the SIMT kernel (the head as it ran before the
+    # decode path)
+    out["dequant_matmul_decode_simt"] = dict(
+        work=f"one decode step: {len(dec)} calls at M={slots}, SIMT path forced",
+        ms=device_ms(run_on_path(dec, PATHS.index("simt")), reps=5),
+        bound=out["dequant_matmul"]["bound"])
     del dense
     # the backward's dX at the training M: one layer's 7 transposed calls
     dx = [(torch.randn((TRAIN_M, kn[1]), generator=gen, device=dev)
@@ -1336,24 +1454,25 @@ def timing_phase(s, gen):
         bound=bound_ms(b, o, "bf16"))
     shapes = []
     for label, calls in (("decode", dec), ("prefill", pre)):
-        for j in range(7):
-            per = calls[j:-1:7]                      # one shape, all 24 layers
+        for per, reps in [(calls[j:-1:7], 3) for j in range(7)] \
+                + [(calls[-1:], 10)]:                # one shape, all layers
             b, o = matmul_work(per)
-            x, _, _, kn, _, _ = per[0]
-            shapes.append(dict(step=label, M=x.shape[0], K=kn[0], N=kn[1],
-                               transpose=False, path=call_path(per[0]),
-                               ms_per_call=device_ms(run_matmuls(per), reps=3)
-                               / len(per),
-                               bound_ms_per_call=bound_ms(b, o, "bf16")[0]
-                               / len(per)))
-        head = calls[-1:]
-        b, o = matmul_work(head)
-        shapes.append(dict(step=label, M=head[0][0].shape[0], K=head[0][3][0],
-                           N=head[0][3][1], transpose=True,
-                           path=call_path(head[0]),
-                           ms_per_call=device_ms(run_matmuls(head), reps=10),
-                           bound_ms_per_call=bound_ms(b, o, "bf16")[0]))
+            x, _, _, kn, _, tr = per[0]
+            row = dict(step=label, M=x.shape[0], K=kn[0], N=kn[1],
+                       transpose=tr, path=call_path(per[0]),
+                       ms_per_call=device_ms(run_matmuls(per), reps=reps)
+                       / len(per),
+                       bound_ms_per_call=bound_ms(b, o, "bf16")[0] / len(per))
+            if label == "decode":
+                dense = dense_weights(per)
+                row["library_ms_per_call"] = device_ms(
+                    run_dense(per, dense), reps=reps) / len(per)
+                row["simt_ms_per_call"] = device_ms(
+                    run_on_path(per, PATHS.index("simt")), reps=reps) / len(per)
+                del dense
+            shapes.append(row)
     shapes += falcon_prefill_shapes(gen, dev)
+    shapes += falcon_decode_shapes(gen, dev, slots)
     out["dequant_matmul_shapes"] = shapes
 
     # the whole decode step as a CUDA graph, beside the host-clock
@@ -1462,25 +1581,29 @@ def call_path(call) -> str:
 
 
 def path_threshold(layer, gen, dev):
-    """One layer's 7 products (x @ W and x @ W.T) at M = 8 ... 128 on each
-    path, forced: where the tensor cores start to win."""
-    from repro_torch.kernels.dequant_matmul import PATHS, dequant_matmul_flat_cuda
+    """One layer's 7 products (x @ W and x @ W.T) at M = 4 ... 128 on each
+    of the three paths, forced: where each path stops winning. A path that
+    does not take one of the seven shapes (the decode path's x @ W.T past
+    DEC_TN_MAX_N) times the layer without it, and the row says which; one
+    that takes none of them (the decode path's x @ W) gets no time."""
+    from repro_torch.kernels.dequant_matmul import PATHS, dequant_matmul_takes
 
     rows = []
-    for m in (8, 16, 32, 64, 128):
+    for m in (4, 8, 16, 32, 64, 128):
         for tr in (False, True):
             calls = [(torch.randn((m, kn[1] if tr else kn[0]), generator=gen,
                                   device=dev).to(torch.bfloat16), q, sc, kn,
                       block, tr) for _, q, sc, kn, block, _ in layer]
-            row = dict(M=m, transpose=tr, path=call_path(calls[0]))
+            row = dict(M=m, transpose=tr, paths=[call_path(c) for c in calls])
             for path, name in enumerate(PATHS):
-                def fn(path=path):
-                    for x, q, sc, (k, n), block, _ in calls:
-                        dequant_matmul_flat_cuda(
-                            x, q[:k * n].view(k, n),
-                            sc[:k * n // block].view(k, n // block), block,
-                            transpose=tr, path=path)
-                row[f"{name}_ms"] = device_ms(fn, reps=5)
+                takes = [dequant_matmul_takes(m, *c[3], c[4], tr, c[0].dtype,
+                                              path) for c in calls]
+                row[f"{name}_ms"] = device_ms(run_on_path(
+                    [c for c, t in zip(calls, takes) if t], path), reps=5) \
+                    if any(takes) else None
+                if not all(takes):
+                    row[f"{name}_skips"] = [list(c[3]) for c, t
+                                            in zip(calls, takes) if not t]
             rows.append(row)
     return rows
 
@@ -1510,10 +1633,43 @@ def falcon_prefill_shapes(gen, dev):
     return rows
 
 
+def falcon_decode_shapes(gen, dev, slots):
+    """falcon-mamba-7b's four decode products at M = slots on seeded
+    weights, per call: w_in, w_dt, w_out (x @ W, SIMT) and the tied LM head
+    (x @ W.T, decode), each on its own path, on the SIMT kernel (forced),
+    bf16 cuBLAS on the dequantized weight, and the bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import PATHS
+
+    rows = []
+    for k, n, tr in ((MAMBA_D, 2 * SCAN_D, False), (MAMBA_DTR, SCAN_D, False),
+                     (SCAN_D, MAMBA_D, False), (MAMBA_V, MAMBA_D, True)):
+        w = torch.randn(k * n, generator=gen, device=dev) * 0.05
+        q, sc = ops.quantize_int8(w, 128)
+        del w
+        call = (torch.randn((slots, n if tr else k), generator=gen, device=dev)
+                .to(torch.bfloat16), q, sc, (k, n), 128, tr)
+        dense = dense_weights([call])
+        b, o = matmul_work([call])
+        reps = 5 if k * n > 1 << 27 else 10
+        rows.append(dict(step="falcon-mamba decode", M=slots, K=k, N=n,
+                         transpose=tr, path=call_path(call),
+                         ms_per_call=device_ms(run_matmuls([call]), reps=reps),
+                         simt_ms_per_call=device_ms(
+                             run_on_path([call], PATHS.index("simt")), reps=reps),
+                         library_ms_per_call=device_ms(
+                             run_dense([call], dense), reps=reps),
+                         bound_ms_per_call=bound_ms(b, o, "bf16")[0]))
+        del q, sc, dense, call
+    return rows
+
+
 def train_timing(gen, dev):
     """The training kernels at the step's shapes: the tied embedding's
     stage-1 quantize and receive-side sum, one layer's seven dW products."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import (
+        PATHS, dequant_matmul_blocked_cuda, dequant_matmul_blocked_path)
 
     out = {}
     n, block = EMBED_N, 128
@@ -1575,15 +1731,28 @@ def train_timing(gen, dev):
     x = torch.randn((TRAIN_M, k), generator=gen, device=dev)
     qb, sb = blocked_quant(torch.randn((k, nn), generator=gen, device=dev), 128)
     wdense = qb.float() * sb.repeat_interleave(128, dim=0)
+    path = PATHS[dequant_matmul_blocked_path(TRAIN_M, k, nn, 128)]
+    if path != blocked_path(TRAIN_M, k, nn, 128):
+        raise Failed(f"dequant_matmul_blocked timing: took the {path} path")
+    n_bytes = 4 * TRAIN_M * k + k * nn + 4 * k * nn / 128 + 4 * TRAIN_M * nn
     out["dequant_matmul_blocked"] = dict(
-        work=f"x ({TRAIN_M}, {k}) f32 @ w_up ({k}, {nn}) int8, bk 128",
+        work=f"x ({TRAIN_M}, {k}) f32 @ w_up ({k}, {nn}) int8, bk 128 ({path})",
+        path=path,
         ms=device_ms(lambda: ops.dequant_matmul_blocked(x, qb, sb), reps=5),
         plain_ms=device_ms(lambda: ops.dequant_matmul_blocked(
             x, qb, sb, impl="plain"), reps=5),
         library_ms=device_ms(lambda: x @ wdense, reps=5),
         library="torch.matmul by the dequantized f32 weight (TF32 off)",
-        bound=bound_ms(4 * TRAIN_M * k + k * nn + 4 * k * nn / 128
-                       + 4 * TRAIN_M * nn, 2 * TRAIN_M * k * nn, "f32"))
+        bound=bound_ms(n_bytes, 2 * TRAIN_M * k * nn, "f32"),
+        # the tensor-core path's own work: three bf16 products (h, m, l)
+        bound_bf16_split=bound_ms(n_bytes, 3 * 2 * TRAIN_M * k * nn, "bf16"),
+        bound_bytes=bound_ms(n_bytes, 0, "bf16"))
+    # the same call on the SIMT kernel it took before the tensor-core path
+    out["dequant_matmul_blocked_simt"] = dict(
+        work=f"the same, SIMT path forced",
+        ms=device_ms(lambda: dequant_matmul_blocked_cuda(
+            x, qb, sb, path=PATHS.index("simt")), reps=5),
+        bound=out["dequant_matmul_blocked"]["bound"])
     del x, qb, sb, wdense
 
     # one layer's seven dW products: bf16 operands on the tensor cores (the
@@ -1799,9 +1968,15 @@ def main(argv=None) -> int:
                   library_ms=t[key].get("library_ms"),
                   bound_ms=t[key]["bound"][0], bound_by=t[key]["bound"][1])
         for key in ("dequant_matmul_dx", "dequant_matmul_fwd",
-                    "dequant_matmul_prefill", "flash_attention_train",
+                    "dequant_matmul_prefill", "dequant_matmul_decode_simt",
+                    "dequant_matmul_blocked_simt", "flash_attention_train",
                     "flash_attention_f32", "matmul_quant_simt")}
+    blk = t["dequant_matmul_blocked"]
     kernels_extra.update(
+        dequant_matmul_blocked_bounds=dict(
+            path=blk["path"], f32_operations_ms=blk["bound"][0],
+            bf16_split_ms=blk["bound_bf16_split"][0],
+            bytes_ms=blk["bound_bytes"][0]),
         dequant_matmul_rounding=flips,
         dequant_matmul_threshold=t["dequant_matmul_threshold"],
         dequant_matmul_shapes=t["dequant_matmul_shapes"],

@@ -7,23 +7,39 @@
 // The scale of q[k, j] is s[k, j / block] (N % block == 0). x and out share
 // the compute dtype (f32 or bf16); sums are f32.
 //
-// Two paths, chosen by shape and dtype alone (dequant_matmul_path):
+// Three paths, chosen by shape and dtype alone (dequant_matmul_path), in
+// this order (the crossovers measured on the card: PERF.md):
+//  * decode, for f32 or bf16 x @ W.T at M <= DEC_MAX_M_T = 16 (block % 16
+//    == 0, N <= 4,096): the LM heads of serving;
 //  * tensor cores (wgmma), for bf16 with block % 64 == 0, K % 8 == 0 (every
 //    bf16 row of x and out 16-byte aligned, as cp.async needs) and
-//    M >= TC_MIN_M = 16 for x @ W, M >= TC_MIN_M_T = 64 for x @ W.T (the
-//    crossovers measured on the card against the SIMT path: PERF.md): the
+//    M >= TC_MIN_M = 5 for x @ W, M >= TC_MIN_M_T = 64 for x @ W.T: the
 //    M = 128 prefills and the M = 2,048 training products;
-//  * SIMT f32 FMA for everything else: f32 of any M, bf16 decode (M = slots)
-//    and the LM head (M = 1 or slots), and shapes the tensor cores do not
-//    take.
+//  * SIMT f32 FMA for everything else: x @ W at M <= 4 (every decode-step
+//    layer product, where it beat both other paths on the card), f32 at
+//    larger M, bf16 x @ W.T at M = 17 ... 63, and shapes neither of the
+//    others takes.
 //
 // Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16; weight, scales, x and out
-// each moved once): qwen2-0.5b prefill at M = 128, 0.11-1.78 us a call
-// (bytes: the INT8 weight); falcon-mamba-7b prefill at M = 128, w_in
-// (4,096 x 16,384) 22.2 us, w_out 11.3 us (bytes, with the tensor work
-// within 1.3x of it); the training step at M = 2,048, 0.47-18.1 us a call
-// (operations: one layer's 7 products 61 GFLOP, 0.0617 ms); decode at M = 4,
-// 0.04-1.36 us (bytes).
+// each moved once): decode at M = 4, bytes: qwen2-0.5b 0.04-1.36 us a layer
+// call and 42 us its LM head (151,936 x 896), falcon-mamba-7b's w_in
+// (4,096 x 16,384) 20.7 us, w_dt 0.67 us, w_out 10.4 us and its LM head
+// (65,024 x 4,096) 82 us; prefill at M = 128 (qwen2 0.11-1.78 us a call,
+// falcon-mamba's w_in 22.2 us, w_out 11.3 us: bytes, with the tensor work
+// within 1.3x of them); the training step at M = 2,048, 0.47-18.1 us a call
+// (operations: one layer's 7 products 61 GFLOP, 0.0617 ms).
+//
+// Decode path (x @ W.T, the LM head): at small M the call is a stream of
+// int8 weight bytes, each read once. Persistent CTAs walk runs of
+// consecutive q rows, one contiguous 16-byte cp.async copy (.cg, not kept in
+// L1) a stage of a 3-deep ring in shared memory that all threads fill, so
+// bytes stay in flight without holding registers. Thread t owns 16-byte
+// chunk t of every row and holds those 16 columns of x (MT <= 4 rows) in
+// registers, so x is read once a CTA; its partial sum of a row is its
+// chunk's 16 exact products in order times the chunk's block scale. A warp
+// reduces 4 rows at once (halving by lane bits 4 and 3, then an xor tree),
+// and a row's warps are added in warp order. Deterministic: every sum runs
+// in a fixed order.
 //
 // Tensor-core path: 128 x 128 output tiles, two warpgroups of 64 x 128
 // (wgmma.m64n128k16, bf16 in, f32 accumulators in registers), contraction
@@ -235,7 +251,7 @@ dmm_tn_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
 // tensor-core path (bf16)
 // ---------------------------------------------------------------------------
 
-constexpr int TC_MIN_M = 16;       // x @ W: bf16 rows from which the tensor cores win
+constexpr int TC_MIN_M = 5;        // x @ W: bf16 rows from which the tensor cores win
 constexpr int TC_MIN_M_T = 64;     // x @ W.T: the same (its grid does not split K)
 constexpr int TBM = 128, TBN = 128;  // output tile
 constexpr int WG_BK = 64;          // contraction step: 128 bytes of bf16
@@ -247,7 +263,7 @@ constexpr int SC_SLOTS = 8;        // x @ W: scale columns a tile row can span
 constexpr int QPAD = TBN + 16;     // x @ W: raw q row (bytes), 2-byte column reads without conflicts
 constexpr int SC_PAD = SC_SLOTS + 1;
 
-enum { PATH_SIMT = 0, PATH_TC = 1 };
+enum { PATH_SIMT = 0, PATH_TC = 1, PATH_DECODE = 2 };
 
 bool tc_takes(int K, int block, int dtype) {
   return dtype == DT_BF16 && block % WG_BK == 0 && K % 8 == 0;
@@ -622,21 +638,264 @@ int launch_rows(const void* x, const void* q, const void* s, void* out, void* wo
   }
 }
 
+// ---------------------------------------------------------------------------
+// decode path (x @ W.T, M <= DEC_MAX_M_T)
+// ---------------------------------------------------------------------------
+
+// rows of x up to which the decode path takes an x @ W.T call (the
+// crossover measured on the card against the other paths: PERF.md)
+constexpr int DEC_MAX_M_T = 16;
+constexpr int DEC_THREADS = 256;
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_TN_MAX_N = 16 * DEC_THREADS;  // one 16-byte chunk of a q row a thread
+constexpr int DEC_TN_MAX_MT = 4;     // rows of x a CTA takes (its 16 columns in registers)
+constexpr int DEC_TN_ROWS = 8;       // q rows a row group takes from a stage
+constexpr int DEC_TN_BATCH = 4;      // rows whose sums a warp reduces at once
+constexpr int DEC_TN_STAGES = 3;     // cp.async ring depth: 2 stages in flight
+
+// x @ W.T: log2 of the warps that share a q row, one 16-byte chunk a lane
+int dec_tn_warps_log2(int N) {
+  int lg = 0;
+  while ((32 << lg) < N / 16) ++lg;
+  return lg;
+}
+
+// x @ W.T: bytes of shared memory: the ring of stages (DEC_TN_ROWS q rows
+// for each row group, with their scales) and the warps' row sums
+size_t dec_tn_smem(int N, int block) {
+  const size_t rows = (size_t)(DEC_WARPS >> dec_tn_warps_log2(N)) * DEC_TN_ROWS;
+  return DEC_TN_STAGES * rows * ((size_t)N + (size_t)(N / block) * 4) +
+         (size_t)DEC_WARPS * DEC_TN_ROWS * DEC_TN_MAX_MT * 4;
+}
+
+// x @ W.T with block % 16 == 0 (a 16-byte chunk of a q row under one
+// scale) and N <= 4,096 (one chunk a thread)
+bool dec_takes(int N, int block, int transpose, int dtype) {
+  if (dtype != DT_F32 && dtype != DT_BF16) return false;
+  return transpose && block % 16 == 0 && N <= DEC_TN_MAX_N;
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+// CTAs of `kernel` an SM holds with `smem` bytes of shared memory each
+template <typename F>
+int dec_ctas_per_sm(F kernel, size_t smem) {
+  int n = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, DEC_THREADS, smem);
+  return n < 1 ? 1 : n;
+}
+
+// the 16 int8 of a 16-byte word as exact f32
+__device__ __forceinline__ void i8x16_to_f32(const uint4& w, float (&f)[16]) {
+  const uint32_t wd[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
+                          w.w ^ 0x80808080u};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    f[4 * e] = i8_to_f32<0>(wd[e]);
+    f[4 * e + 1] = i8_to_f32<1>(wd[e]);
+    f[4 * e + 2] = i8_to_f32<2>(wd[e]);
+    f[4 * e + 3] = i8_to_f32<3>(wd[e]);
+  }
+}
+
+// out (M, K) = x (M, N) @ dequant(q (K, N)).T; grid (persistent CTAs, row
+// tiles of MT <= 4). Thread t owns 16-byte chunk c of every q row (2^wl
+// warps share a row, so 8 >> wl row groups run side by side) and holds
+// those 16 columns of x's MT rows in registers. Each stage of the cp.async
+// ring holds a run of consecutive q rows, one contiguous copy, with their
+// scales; a row group takes DEC_TN_ROWS of them. A thread's partial sum of
+// a row is its chunk's 16 exact products in order, times the chunk's block
+// scale; a warp reduces DEC_TN_BATCH rows at once (halving by lane bits 4
+// and 3, then an xor tree over bits 2, 1, 0, so lanes 8 i ... 8 i + 7 hold
+// row i), and the row group's warps are added in warp order.
+template <typename T, int MT>
+__global__ void __launch_bounds__(DEC_THREADS, 2)
+dmm_dec_tn_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+                  const float* __restrict__ s, T* __restrict__ out, int M, int K, int N,
+                  int block, int warps_log2) {
+  extern __shared__ float4 dec_smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wpr = 1 << warps_log2, groups = DEC_WARPS >> warps_log2;
+  const int rg = warp >> warps_log2, c = (warp & (wpr - 1)) * 32 + lane;
+  const int nch = N / 16, nblk = N / block;
+  const bool c_in = c < nch;
+  const int rows = groups * DEC_TN_ROWS;  // q rows a stage
+  const int stage_bytes = rows * (N + nblk * 4);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(dec_smem);
+  float* red = reinterpret_cast<float*>(ring + DEC_TN_STAGES * stage_bytes);  // [warp][row][m]
+  const int m0 = blockIdx.y * MT;
+  const int nrb = (K + rows - 1) / rows;  // runs of rows, taken by the CTAs in turn
+  const int nst = blockIdx.x < nrb ? (nrb - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+
+  auto issue = [&](int j) {
+    unsigned char* st = ring + (j % DEC_TN_STAGES) * stage_bytes;
+    float* ss = reinterpret_cast<float*>(st + rows * N);
+    const int r0 = (blockIdx.x + j * gridDim.x) * rows;
+    for (int i = tid; i < rows * nch; i += DEC_THREADS) {
+      const int r = i / nch, cc = i % nch;
+      const bool in = r0 + r < K;
+      cp_async16(st + r * N + cc * 16, in ? q + (size_t)(r0 + r) * N + cc * 16 : q, in);
+    }
+    for (int i = tid; i < rows * nblk; i += DEC_THREADS) {
+      const bool in = r0 + i / nblk < K;
+      cp_async4(ss + i, in ? s + (size_t)r0 * nblk + i : s, in);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < DEC_TN_STAGES - 1; ++j) {
+    if (j < nst) issue(j);
+    cp_async_commit();
+  }
+  float xr[MT][16];  // x[m0 + m][16 c + e]
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      xr[m][e] = c_in && m0 + m < M ? to_f32(x[(size_t)(m0 + m) * N + c * 16 + e]) : 0.f;
+  const int sblk = c_in ? c * 16 / block : 0;
+
+  for (int j = 0; j < nst; ++j) {
+    cp_async_wait<DEC_TN_STAGES - 2>();
+    __syncthreads();  // stage j has landed for all; every thread is done with stage j - 1
+    if (j + DEC_TN_STAGES - 1 < nst) issue(j + DEC_TN_STAGES - 1);  // stage j - 1's slot
+    cp_async_commit();
+    const unsigned char* st = ring + (j % DEC_TN_STAGES) * stage_bytes;
+    const float* ss = reinterpret_cast<const float*>(st + rows * N);
+    const int r0 = (blockIdx.x + j * gridDim.x) * rows;
+#pragma unroll
+    for (int b = 0; b < DEC_TN_ROWS; b += DEC_TN_BATCH) {
+      float p[DEC_TN_BATCH][MT];
+#pragma unroll
+      for (int i = 0; i < DEC_TN_BATCH; ++i) {
+        const int r = (b + i) * groups + rg;  // row of the stage
+        uint4 w = make_uint4(0u, 0u, 0u, 0u);
+        float sv = 0.f;
+        if (c_in) {
+          w = *reinterpret_cast<const uint4*>(st + r * N + c * 16);
+          sv = ss[r * nblk + sblk];
+        }
+        float f[16];
+        i8x16_to_f32(w, f);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          float d = 0.f;
+#pragma unroll
+          for (int e = 0; e < 16; ++e) d = fmaf(xr[m][e], f[e], d);
+          p[i][m] = d * sv;
+        }
+      }
+      // the batch's rows over the warp: lane bits 4 and 3 pick the row a
+      // lane keeps (halving), then an xor tree over bits 2, 1, 0
+      const int h4 = (lane >> 4) & 1, h3 = (lane >> 3) & 1;
+      float p2[2][MT], p1[MT];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float mine = h4 ? p[2 + i][m] : p[i][m];
+          const float other = h4 ? p[i][m] : p[2 + i][m];
+          p2[i][m] = mine + __shfl_xor_sync(0xffffffffu, other, 16);
+        }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float mine = h3 ? p2[1][m] : p2[0][m];
+        const float other = h3 ? p2[0][m] : p2[1][m];
+        p1[m] = mine + __shfl_xor_sync(0xffffffffu, other, 8);
+      }
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+#pragma unroll
+        for (int m = 0; m < MT; ++m) p1[m] += __shfl_xor_sync(0xffffffffu, p1[m], off);
+      if ((lane & 7) == 0) {
+        const int i = b + (lane >> 3);  // = b + 2 h4 + h3
+        if (wpr == 1) {
+          const int k = r0 + i * groups + rg;
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            if (k < K && m0 + m < M) out[(size_t)(m0 + m) * K + k] = from_f32<T>(p1[m]);
+        } else {
+#pragma unroll
+          for (int m = 0; m < MT; ++m) red[(warp * DEC_TN_ROWS + i) * MT + m] = p1[m];
+        }
+      }
+    }
+    if (wpr == 1) continue;
+    __syncthreads();  // the warps' row sums are in place
+    for (int o = tid; o < rows * MT; o += DEC_THREADS) {
+      const int r = o / MT, m = o % MT, g = r % groups, i = r / groups;
+      float v = red[(g * wpr * DEC_TN_ROWS + i) * MT + m];
+      for (int w = 1; w < wpr; ++w) v += red[((g * wpr + w) * DEC_TN_ROWS + i) * MT + m];
+      const int k = r0 + r;
+      if (k < K && m0 + m < M) out[(size_t)(m0 + m) * K + k] = from_f32<T>(v);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, int MT>
+int launch_dec_tn(const T* x, const int8_t* q, const float* s, T* out, int M, int K, int N,
+                  int block, cudaStream_t st) {
+  // a stage holds at most 32 KB of q and 8 KB of scales (block >= 16)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dmm_dec_tn_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, 128 * 1024);
+  if (attr != cudaSuccess) return (int)attr;
+  const int wl = dec_tn_warps_log2(N);
+  const size_t smem = dec_tn_smem(N, block);
+  const long long rows = (long long)(DEC_WARPS >> wl) * DEC_TN_ROWS;
+  long long ctas = (K + rows - 1) / rows;
+  const long long most = (long long)sm_count() * dec_ctas_per_sm(dmm_dec_tn_kernel<T, MT>, smem);
+  if (ctas > most) ctas = most;
+  dim3 grid((unsigned)ctas, (unsigned)((M + MT - 1) / MT));
+  dmm_dec_tn_kernel<T, MT><<<grid, DEC_THREADS, smem, st>>>(x, q, s, out, M, K, N, block, wl);
+  return launch_status();
+}
+
+template <typename T>
+int launch_dec_rows(const void* x, const void* q, const void* s, void* out, int M, int K,
+                    int N, int block, cudaStream_t st) {
+  const T* xt = (const T*)x;
+  const int8_t* qt = (const int8_t*)q;
+  const float* stt = (const float*)s;
+  T* ot = (T*)out;
+  if (M <= 1) return launch_dec_tn<T, 1>(xt, qt, stt, ot, M, K, N, block, st);
+  if (M <= 2) return launch_dec_tn<T, 2>(xt, qt, stt, ot, M, K, N, block, st);
+  return launch_dec_tn<T, DEC_TN_MAX_MT>(xt, qt, stt, ot, M, K, N, block, st);
+}
+
 }  // namespace
 
-// The path a call of this shape and dtype takes: 0 = SIMT, 1 = tensor cores
+// The path a call of this shape and dtype takes: 0 = SIMT, 1 = tensor cores,
+// 2 = decode
 extern "C" int dequant_matmul_path(int M, int K, int N, int block, int transpose,
                                    int dtype) {
-  (void)N;
+  if (M <= DEC_MAX_M_T && dec_takes(N, block, transpose, dtype)) return PATH_DECODE;
   return M >= (transpose ? TC_MIN_M_T : TC_MIN_M) && tc_takes(K, block, dtype) ? PATH_TC
                                                                                   : PATH_SIMT;
 }
 
+// 1 when ``path`` takes a call of this shape and dtype (it may not be the
+// shape's own path), else 0
+extern "C" int dequant_matmul_takes(int M, int K, int N, int block, int transpose, int dtype,
+                                    int path) {
+  if (M <= 0 || block <= 0 || block % 4 != 0 || N % block != 0) return 0;
+  if (path == PATH_DECODE) return dec_takes(N, block, transpose, dtype);
+  if (path == PATH_TC) return tc_takes(K, block, dtype);
+  return path == PATH_SIMT && (dtype == DT_F32 || dtype == DT_BF16);
+}
+
 // f32 elements of scratch a call on ``path`` needs for its K-split partial
-// sums (0: none)
+// sums (0: none; the decode path does not split K)
 extern "C" long long dequant_matmul_workspace(int M, int K, int N, int transpose,
                                               int path) {
-  if (transpose || M <= 0) return 0;
+  if (transpose || M <= 0 || path == PATH_DECODE) return 0;
   int splits, chunk;
   if (path == PATH_TC)
     tc_split(M, K, N, &splits, &chunk);
@@ -646,7 +905,8 @@ extern "C" long long dequant_matmul_workspace(int M, int K, int N, int transpose
 }
 
 // One call on the given path; fails on a shape, dtype or alignment the path
-// does not take (the tensor cores want 16-byte aligned x and q)
+// does not take (the tensor cores want 16-byte aligned x and q, the decode
+// path a 16-byte aligned q)
 extern "C" int dequant_matmul_on_path(const void* x, const void* q, const void* s,
                                       void* out, void* work, int dtype, int M, int K,
                                       int N, int block, int transpose, int path,
@@ -654,6 +914,13 @@ extern "C" int dequant_matmul_on_path(const void* x, const void* q, const void* 
   if (M <= 0) return 0;
   if (block <= 0 || block % 4 != 0 || N % block != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (path == PATH_DECODE) {
+    if (!dec_takes(N, block, transpose, dtype) || ((uintptr_t)x | (uintptr_t)q) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (dtype == DT_F32)
+      return launch_dec_rows<float>(x, q, s, out, M, K, N, block, st);
+    return launch_dec_rows<__nv_bfloat16>(x, q, s, out, M, K, N, block, st);
+  }
   if (path == PATH_TC) {
     if (!tc_takes(K, block, dtype) || ((uintptr_t)x | (uintptr_t)q) % 16 != 0)
       return (int)cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy helpers shared by the tensor-core
-// kernels (dequant_matmul.cu, flash_attention.cu, matmul_quant.cu): cp.async
+// kernels (dequant_matmul.cu, dequant_matmul_blocked.cu, flash_attention.cu,
+// matmul_quant.cu): cp.async
 // into shared memory, ldmatrix, mma.sync.m16n8k16 (a warp; bf16 in, f32
 // accumulate), Hopper's wgmma.m64n128k16 (a warpgroup; operands in shared
 // memory under the 128-byte swizzle, K-major or MN-major; f32 accumulators in
@@ -24,6 +25,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
@@ -162,7 +168,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 
 // the same with a (64 x 16) from registers: each warp of the warpgroup holds
 // 16 of its rows in mma.m16n8k16's A layout. The registers must stay
-// unchanged until the wgmma is waited on.
+// unchanged until the wgmma is waited on. TB = 0: b K-major (sw128_desc),
+// TB = 1: b MN-major (sw128_mn_desc), through the transpose immediate.
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
                                                     uint64_t db, int acc) {
   asm volatile(
@@ -171,7 +179,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       "setp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -181,7 +189,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB)
       : "memory");
 }
 

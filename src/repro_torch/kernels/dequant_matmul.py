@@ -11,15 +11,25 @@ Port of ``repro.kernels.dequant_matmul``:
 * ``matmul_quant_pallas`` (:209): ``C = x.T @ g`` block-quantized to the INT8
   or packed INT4 wire format in the matmul's epilogue.
 
-The flat dequant-matmul has two paths, chosen by shape and dtype alone
-(``dequant_matmul_path``): tensor cores (wgmma) for bf16 with a block that
-is a multiple of 64, K % 8 == 0 (every bf16 row 16-byte aligned) and
-M >= 16 (x @ W) or M >= 64 (x @ W.T), and SIMT f32 FMA for the rest (f32,
-bf16 decode and the LM head). The tensor cores take x @ W.T with exact
+The flat dequant-matmul has three paths, chosen by shape and dtype alone
+(``dequant_matmul_path``), in this order: decode, in f32 or bf16 for
+x @ W.T (the LM head) at M <= 16 with a block that is a multiple of 16 and
+N <= 4,096, which streams the weight through a cp.async ring in 16-byte
+copies on persistent CTAs and sums in f32 on the CUDA cores; tensor cores
+(wgmma) for bf16 with a block that is a multiple of 64, K % 8 == 0 (every
+bf16 row 16-byte aligned) and M >= 5 (x @ W) or M >= 64 (x @ W.T); and
+SIMT f32 FMA for the rest (x @ W at M <= 4, f32 at larger M, bf16 x @ W.T
+at M = 17 ... 63). The tensor cores take x @ W.T with exact
 products of bf16 x and the raw int8 q, scaled after each quant block, and
-x @ W with each f32 weight split into two bf16 terms (hi + lo, 16 bits).
-A q or x off the 16-byte grid (or q off 4 bytes on the SIMT path) is
-copied to a fresh allocation first, so every view the reference takes runs.
+x @ W with each f32 weight split into two bf16 terms (hi + lo, 16 bits). A
+q or x off the 16-byte grid (q off 4 bytes on the SIMT path) is copied to
+a fresh allocation first, so every view the reference takes runs.
+
+The blocked dequant-matmul has two paths too
+(``dequant_matmul_blocked_path``): tensor cores (wgmma) for bk % 64 == 0,
+K % 8 == 0 and N % 8 == 0, each f32 x split into three bf16 terms that
+hold all of its 24 bits against the exact bf16 q, and SIMT f32 FMA for the
+rest.
 
 The weight-grad matmul has two paths too (``matmul_quant_path``): tensor
 cores (TMA + wgmma) for bf16 operands with K % 8 == 0, N % 8 == 0 and a
@@ -40,11 +50,14 @@ from . import cuda
 
 SIGNATURES = {
     "dequant_matmul_path": (c_int, [c_int] * 6),
+    "dequant_matmul_takes": (c_int, [c_int] * 7),
     "dequant_matmul_workspace": (c_longlong, [c_int] * 5),
     "dequant_matmul_on_path": (c_int, [c_void_p] * 5 + [c_int] * 7
                                + [c_void_p]),
 }
-PATHS = ("simt", "tensor_core")     # csrc/dequant_matmul.cu: PATH_SIMT, PATH_TC
+# csrc/dequant_matmul.cu: PATH_SIMT, PATH_TC, PATH_DECODE (the first two
+# also csrc/dequant_matmul_blocked.cu's and csrc/matmul_quant.cu's)
+PATHS = ("simt", "tensor_core", "decode")
 
 
 def dequant_matmul_path(m: int, k: int, n: int, block: int, transpose: bool,
@@ -53,6 +66,15 @@ def dequant_matmul_path(m: int, k: int, n: int, block: int, transpose: bool,
     lib = cuda.library("dequant_matmul", SIGNATURES)
     return lib.dequant_matmul_path(m, k, n, block, int(transpose),
                                    cuda.DTYPE_CODE[dtype])
+
+
+def dequant_matmul_takes(m: int, k: int, n: int, block: int, transpose: bool,
+                         dtype: torch.dtype, path: int) -> bool:
+    """Whether path ``path`` (an index into ``PATHS``) takes a call of this
+    shape and dtype, as its own path or forced."""
+    lib = cuda.library("dequant_matmul", SIGNATURES)
+    return bool(lib.dequant_matmul_takes(m, k, n, block, int(transpose),
+                                         cuda.DTYPE_CODE[dtype], path))
 
 
 def dequant_matmul_flat_cuda(x: torch.Tensor, q: torch.Tensor,
@@ -79,13 +101,14 @@ def dequant_matmul_flat_cuda(x: torch.Tensor, q: torch.Tensor,
     lib = cuda.library("dequant_matmul", SIGNATURES)
     if path is None:
         path = dequant_matmul_path(m, k, n, block, transpose, x.dtype)
-    # the tensor cores load 16-byte chunks of x and q, the SIMT path 4-byte
-    # words of q; a view off that grid is copied (a fresh allocation is on it)
-    if PATHS[path] == "tensor_core":
+    # the tensor-core and decode paths load 16-byte chunks of x and q, the
+    # SIMT path 4-byte words of q; a view off that grid is copied (a fresh
+    # allocation is on it)
+    if PATHS[path] == "simt":
+        q = _aligned(q, 4)
+    else:
         x = _aligned(x, 16)
         q = _aligned(q, 16)
-    else:
-        q = _aligned(q, 4)
     out = torch.empty((m, out_dim), dtype=x.dtype, device=x.device)
     n_work = lib.dequant_matmul_workspace(m, k, n, int(transpose), path)
     work = torch.empty((n_work,), dtype=torch.float32, device=x.device) \
@@ -103,14 +126,24 @@ def _aligned(t: torch.Tensor, n_bytes: int) -> torch.Tensor:
 
 
 BLOCKED_SIGNATURES = {
-    "dequant_matmul_blocked": (c_int, [c_void_p, c_void_p, c_void_p, c_void_p,
-                                       c_int, c_int, c_int, c_int, c_void_p]),
+    "dequant_matmul_blocked_path": (c_int, [c_int] * 4),
+    "dequant_matmul_blocked_on_path": (c_int, [c_void_p] * 4 + [c_int] * 5
+                                       + [c_void_p]),
 }
 
 
+def dequant_matmul_blocked_path(m: int, k: int, n: int, bk: int) -> int:
+    """Index into ``PATHS`` of the path a blocked call of this shape takes
+    ("simt" or "tensor_core")."""
+    lib = cuda.library("dequant_matmul_blocked", BLOCKED_SIGNATURES)
+    return lib.dequant_matmul_blocked_path(m, k, n, bk)
+
+
 def dequant_matmul_blocked_cuda(x: torch.Tensor, q: torch.Tensor,
-                                scales: torch.Tensor) -> torch.Tensor:
-    """x (M, K) f32, q (K, N) int8, scales (K // bk, N) f32 -> (M, N) f32."""
+                                scales: torch.Tensor, *,
+                                path: int | None = None) -> torch.Tensor:
+    """x (M, K) f32, q (K, N) int8, scales (K // bk, N) f32 -> (M, N) f32.
+    ``path`` overrides the shape's own path (to time both at one shape)."""
     cuda.require(x, "x", (torch.float32,))
     cuda.require(q, "q", (torch.int8,))
     cuda.require(scales, "scales", (torch.float32,))
@@ -118,11 +151,15 @@ def dequant_matmul_blocked_cuda(x: torch.Tensor, q: torch.Tensor,
     n = q.shape[1]
     kb = scales.shape[0]           # ops.dequant_matmul_blocked checks shapes
     lib = cuda.library("dequant_matmul_blocked", BLOCKED_SIGNATURES)
+    if path is None:
+        path = dequant_matmul_blocked_path(m, k, n, k // kb)
+    if PATHS[path] == "tensor_core":     # 16-byte chunks of x and s, 8 of q
+        x, scales, q = _aligned(x, 16), _aligned(scales, 16), _aligned(q, 8)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    rc = lib.dequant_matmul_blocked(x.data_ptr(), q.data_ptr(),
-                                    scales.data_ptr(), out.data_ptr(), m, k, n,
-                                    k // kb, cuda.stream(x))
-    cuda.check(rc, "dequant_matmul_blocked")
+    rc = lib.dequant_matmul_blocked_on_path(
+        x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n,
+        k // kb, path, cuda.stream(x))
+    cuda.check(rc, f"dequant_matmul_blocked ({PATHS[path]} path)")
     return out
 
 

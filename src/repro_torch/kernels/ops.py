@@ -13,11 +13,10 @@ how chip_smoke.py computes the reference the kernels are held against.
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` / ``launches``).
 
-``selective_scan`` is forward only: serving is the one path that runs it.
-
-Attention is differentiable as in the reference (``ops.py:390-423``): its
-forward is the kernel (the plain version on the CPU) and its backward is
-autograd through the plain version at the saved inputs.
+Attention and the selective scan are differentiable as in the reference
+(``ops.py:390-423``, :453-463): each forward is the kernel (the plain version
+on the CPU) and each backward is autograd through the plain version at the
+saved inputs.
 """
 from __future__ import annotations
 
@@ -308,10 +307,38 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _Attention.apply(q, k, v, causal, window, q_offset, impl)
 
 
+class _SelectiveScan(torch.autograd.Function):
+    """Forward: the kernel (or the plain version); backward: autograd
+    through the plain version at the saved f32 inputs for both outputs, as
+    the reference's custom_vjp takes ``jax.vjp`` of its oracle. The kernel's
+    outputs carry no graph of their own: this gives the scan its gradient
+    on the card."""
+
+    @staticmethod
+    def forward(ctx, dt, x, b, c, a, h0, impl):
+        args = tuple(t.float() for t in (dt, x, b, c, a, h0))
+        ctx.save_for_backward(*args)
+        ctx.dtypes = tuple(t.dtype for t in (dt, x, b, c, a, h0))
+        if _kernel(dt, impl):
+            LAUNCHES["selective_scan"] += 1
+            return selective_scan_cuda(*(t.contiguous() for t in args))
+        return ref.selective_scan_ref(*args)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        args = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            y, h = ref.selective_scan_ref(*args)
+        grads = torch.autograd.grad((y, h), args, (gy, gh), allow_unused=True)
+        return tuple(None if g is None else g.to(dtype)
+                     for g, dtype in zip(grads, ctx.dtypes)) + (None,)
+
+
 def selective_scan(dt, x, b, c, a, h0, *, impl: str | None = None):
     """The Mamba-1 recurrence: dt, x (B, S, D); b, c (B, S, N); a (D, N);
     h0 (B, D, N) -> (y (B, S, D) f32, h_last (B, D, N) f32). Inputs are taken
-    in f32, as the reference's kernel casts them."""
+    in f32, as the reference's kernel casts them; gradients come back in the
+    inputs' dtypes."""
     bsz, s, d = dt.shape
     n = a.shape[-1]
     if x.shape != dt.shape or b.shape != (bsz, s, n) or c.shape != b.shape \
@@ -320,8 +347,4 @@ def selective_scan(dt, x, b, c, a, h0, *, impl: str | None = None):
             f"selective_scan: dt {tuple(dt.shape)}, x {tuple(x.shape)}, b "
             f"{tuple(b.shape)}, c {tuple(c.shape)}, a {tuple(a.shape)}, h0 "
             f"{tuple(h0.shape)}")
-    if _kernel(dt, impl):
-        LAUNCHES["selective_scan"] += 1
-        return selective_scan_cuda(*(t.float().contiguous()
-                                     for t in (dt, x, b, c, a, h0)))
-    return ref.selective_scan_ref(dt, x, b, c, a, h0)
+    return _SelectiveScan.apply(dt, x, b, c, a, h0, impl)

@@ -1,7 +1,8 @@
 """Mamba-1 selective scan on the card (csrc/selective_scan.cu).
 
 Port of ``repro.kernels.selective_scan.selective_scan_pallas`` (:56),
-forward only. The source note in csrc/selective_scan.cu gives the bound and
+forward only (``ops.selective_scan``'s backward is autograd through the
+plain version, as the reference's is). The source note in csrc/selective_scan.cu gives the bound and
 the design; ``ref.selective_scan_ref`` is the plain version. Callers go
 through ``kernels/ops.py``, which counts the launches.
 """

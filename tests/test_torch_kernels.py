@@ -297,16 +297,17 @@ def test_dequantize_int4_bitwise(impl, dtype, block, nb):
     np.testing.assert_array_equal(dt.view(bits[0]).numpy(), dj.view(bits[1]))
 
 
-@pytest.mark.parametrize("mkn,bk", [
-    ((128, 128, 128), 128), ((256, 128, 256), 128), ((128, 256, 384), 128),
-    ((128, 384, 128), 128), ((64, 256, 128), 64)])
-def test_dequant_matmul_blocked(mkn, bk):
-    """x @ dequant(q) with 2-D blocked scales (one per column for each run
-    of bk rows) against the interpret kernel, at the reference test's three
-    shapes (tests/test_kernels.py) with its tolerance (rtol 2e-5, atol
-    5e-4: the sums run in another order) and at K = 3 bk and bk = 64, where
-    a mixed-up scale layout cannot pass."""
-    m, k, n = mkn
+# the reference test's three shapes (tests/test_kernels.py), K = 3 bk, and
+# bk = 64, where a mixed-up scale layout cannot pass
+BLOCKED_CASES = [((128, 128, 128), 128), ((256, 128, 256), 128),
+                 ((128, 256, 384), 128), ((128, 384, 128), 128),
+                 ((64, 256, 128), 64)]
+
+
+def _blocked_inputs(m, k, n, bk):
+    """x (m, k) f32 and a (k, n) weight quantized down K in runs of bk rows
+    (q int8, scales (k // bk, n) f32), and the interpret kernel's x @
+    dequant(q), as the reference test makes them."""
     rng = np.random.default_rng(10)
     x = (rng.standard_normal((m, k)) * 3.0).astype(np.float32)
     w = (rng.standard_normal((k, n)) * 3.0).astype(np.float32)
@@ -317,6 +318,16 @@ def test_dequant_matmul_blocked(mkn, bk):
     q = q.reshape(k, n)
     yj = np.asarray(dequant_matmul_pallas(x, q, scales, bm=min(m, 128), bn=128,
                                           bk=bk, interpret=True))
+    return x, q, scales, yj
+
+
+@pytest.mark.parametrize("mkn,bk", BLOCKED_CASES)
+def test_dequant_matmul_blocked(mkn, bk):
+    """x @ dequant(q) with 2-D blocked scales (one per column for each run
+    of bk rows) against the interpret kernel, with the reference test's
+    tolerance (rtol 2e-5, atol 5e-4: the sums run in another order)."""
+    m, k, n = mkn
+    x, q, scales, yj = _blocked_inputs(m, k, n, bk)
     yt = ops.dequant_matmul_blocked(_torch(x), _torch(q), _torch(scales))
     assert yt.shape == (m, n) and yt.dtype == torch.float32
     np.testing.assert_allclose(yt.numpy(), yj, rtol=2e-5, atol=5e-4)
@@ -499,3 +510,129 @@ def test_flash_attention_tensor_core_rounding(impl, sq, sk, q_offset, window):
                        True, window, q_offset)
     np.testing.assert_allclose(ot.numpy(), oj, rtol=0,
                                atol=2.0 ** -8 * float(np.abs(v).max()) + 1e-5)
+
+
+def _fma(a, b, c):
+    """f32 fmaf(a, b, c): the product of two f32 is exact in f64, and the sum
+    rounds once to f32 (as a fused multiply-add does, but for a rare double
+    rounding)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tc_dequant_matmul_blocked(x, q, s, bk, terms=3):
+    """What csrc/dequant_matmul_blocked.cu's tensor-core path computes: each
+    f32 x split into bf16 terms h = bf16(x), m = bf16(x - h), l = bf16(x - h
+    - m) (``terms`` of them); for each stage of 64 rows of K, the exact
+    products of the terms and q summed in f32, folded into the f32 result
+    scaled by the stage's s[kb, n] (acc = fmaf(part, s, acc)). x (M, K) f32,
+    q (K, N) int8, s (K // bk, N) f32."""
+    xf, qf = x.float(), q.float()
+    parts, rest = [], xf
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        parts.append(t)
+        rest = rest - t
+    acc = torch.zeros((x.shape[0], q.shape[1]))
+    for k0 in range(0, q.shape[0], 64):
+        rows = slice(k0, k0 + 64)
+        part = sum(t[:, rows] @ qf[rows] for t in parts)
+        acc = _fma(part, s[k0 // bk][None], acc)
+    return acc
+
+
+@pytest.mark.parametrize("mkn,bk", BLOCKED_CASES)
+def test_dequant_matmul_blocked_tensor_core_rounding(mkn, bk):
+    """The tensor-core path's arithmetic against the interpret kernel:
+    three bf16 terms hold every bit of x, and the products with q are exact,
+    so only the order of the f32 sums differs (1e-5 of max|ref|). Two terms
+    keep 16 bits of x and land measurably further off (these inputs have
+    full 24-bit mantissas)."""
+    m, k, n = mkn
+    x, q, scales, yj = _blocked_inputs(m, k, n, bk)
+    args = (_torch(x), _torch(q), _torch(scales), bk)
+    scale = float(np.abs(yj).max())
+    err3 = float(np.abs(_tc_dequant_matmul_blocked(*args).numpy() - yj).max())
+    err2 = float(np.abs(_tc_dequant_matmul_blocked(*args, terms=2).numpy()
+                        - yj).max())
+    assert err3 <= 1e-5 * scale
+    assert err2 > 4 * err3 and err2 > 1e-6 * scale
+
+
+# The decode path's sum order (csrc/dequant_matmul.cu, x @ W.T only): one
+# 16-byte chunk of a q row a lane, 32 lanes a warp, rows reduced 4 at a time.
+
+
+def _decode_tree(p):
+    """A warp's sums of DEC_TN_BATCH = 4 rows: p (..., 4 rows, 32 lanes) ->
+    (..., 4): halving by lane bits 4 and 3 (the lane keeping a row adds its
+    partner's value to its own), then an xor tree over bits 2, 1, 0; row i
+    as lane 8 i holds it."""
+    lanes = torch.arange(32)
+    out = []
+    for i in range(4):
+        v = p[..., i, :]
+        v = v + v[..., lanes ^ 16]           # lanes with bit 4 = i >> 1
+        v = v + v[..., lanes ^ 8]            # lanes with bit 3 = i & 1
+        for off in (4, 2, 1):
+            v = v + v[..., lanes ^ off]
+        out.append(v[..., 8 * i])
+    return torch.stack(out, -1)
+
+
+def _decode_dequant_matmul(x, q, s, block):
+    """What csrc/dequant_matmul.cu's decode path computes for x @ W.T, in f32
+    before its final cast: a lane's partial of row k is its chunk's 16
+    products (fmaf in order) times the chunk's block scale; a warp reduces
+    them in _decode_tree's order and a row's warps are added in warp
+    order."""
+    xf, qf = x.float(), q.float()
+    k, n = q.shape
+    nch = n // 16
+    wpr = 1
+    while 32 * wpr < nch:
+        wpr *= 2
+    lanes = 32 * wpr
+    xc = torch.zeros((x.shape[0], lanes, 16))
+    xc[:, :nch] = xf.reshape(x.shape[0], nch, 16)
+    qc = torch.zeros((k, lanes, 16))
+    qc[:, :nch] = qf.reshape(k, nch, 16)
+    sc = torch.zeros((k, lanes))
+    sc[:, :nch] = s.repeat_interleave(block // 16, 1)
+    d = torch.zeros((x.shape[0], k, lanes))
+    for e in range(16):
+        d = _fma(xc[:, None, :, e], qc[None, :, :, e], d)
+    p = d * sc[None]                                 # (M, K, lanes)
+    kp = -(-k // 4) * 4
+    p = torch.nn.functional.pad(p, (0, 0, 0, kp - k))
+    p = p.reshape(x.shape[0], kp // 4, 4, wpr, 32).transpose(2, 3)
+    rows = _decode_tree(p)                           # (M, K / 4, wpr, 4)
+    out = rows[:, :, 0]
+    for w in range(1, wpr):
+        out = out + rows[:, :, w]
+    return out.reshape(x.shape[0], kp)[:, :k]
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("m", [1, 2, 4, 16])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("k,n", [(520, 256), (72, 1024)])
+def test_dequant_matmul_decode_rounding(impl, m, block, k, n):
+    """The decode path's sum order (x @ W.T) against the oracle on bf16 x,
+    compared in f32: rows of one warp (N = 256) and of two (N = 1,024), at
+    M = 1, 2, 4 and 16 (the kernel's row tiles of 1, 2 and 4); the products
+    and sums are f32, so the order of the sums is the only difference (1e-5
+    of max|ref|)."""
+    rng = np.random.default_rng(14)
+    w = rng.standard_normal(k * n + 2 * block).astype(np.float32) * 0.1
+    q, s = jax.jit(lambda v: jops.quantize_int8(v, block, impl="jnp"))(w)
+    q, s = np.asarray(q), np.asarray(s)
+    x = np.asarray(jnp.asarray(rng.standard_normal((m, n)), jnp.bfloat16))
+    yj = np.asarray(jax.jit(lambda a, b, c: jops.dequant_matmul(
+        a, b, c, (k, n), block, transpose=True, dtype=jnp.float32,
+        impl=impl))(x, q, s))
+    q2 = _torch(q)[: k * n].view(k, n)
+    s2 = _torch(s)[: k * n // block].view(k, n // block)
+    yt = _decode_dequant_matmul(_torch(x), q2, s2, block)
+    assert yt.shape == yj.shape == (m, k)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=0,
+                               atol=1e-5 * float(np.abs(yj).max()))

@@ -39,6 +39,7 @@ from repro_torch.convert import from_jax_primaries
 from repro_torch.core import linear
 from repro_torch.core.partition import single_device_config
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.selective_scan import selective_scan_cuda
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.config import ShapeConfig
@@ -135,6 +136,129 @@ def test_selective_scan_checks_and_no_fallback():
     ops.selective_scan(*args, impl="plain")
     assert ops.launches()["selective_scan"] == 0
     assert "selective_scan" in ops.KERNELS
+
+
+def _force_scan_kernel(monkeypatch):
+    """Take the scan's kernel branch on the CPU. ``_kernel`` says yes for a
+    3-D f32 tensor (the scan's dt: every other dispatch of the SSM family
+    sees 1-D or 2-D tensors), and the stand-in for ``selective_scan_cuda``
+    returns the plain result detached, as the CUDA kernel's output carries
+    no graph of its own. Returns the list of the stand-in's calls."""
+    calls = []
+    orig = ops._kernel
+
+    def kernel(t, impl):
+        if impl is None and t.ndim == 3 and t.dtype == torch.float32:
+            return True
+        return orig(t, impl)
+
+    def stand_in(*args):
+        calls.append(args)
+        with torch.no_grad():
+            y, h = kref.selective_scan_ref(*args)
+        return y.detach(), h.detach()
+
+    monkeypatch.setattr(ops, "_kernel", kernel)
+    monkeypatch.setattr(ops, "selective_scan_cuda", stand_in)
+    return calls
+
+
+def test_selective_scan_grads_through_kernel_branch(monkeypatch):
+    """The kernel branch of ``ops.selective_scan`` is differentiable: the
+    gradients of dt, x, b, c, a and h0 through both outputs equal autograd
+    through the plain version, exactly (the backward is autograd through
+    ``ref.selective_scan_ref`` at the saved inputs, as the reference's
+    custom_vjp is ``jax.vjp`` of its oracle). Under no_grad the forward is
+    the kernel's output as it is."""
+    rng = np.random.default_rng(5)
+    args = [torch.from_numpy(t) for t in _scan_inputs(2, 7, 8, 16, seed=3)]
+    gy = torch.from_numpy(rng.standard_normal((2, 7, 8)).astype(np.float32))
+    gh = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in args]
+        y, h = fn(*leaves)
+        return (y, h), torch.autograd.grad((y, h), leaves, (gy, gh))
+
+    (yp, hp), want = grads(kref.selective_scan_ref)
+    calls = _force_scan_kernel(monkeypatch)
+    ops.reset_launches()
+    (yk, hk), got = grads(ops.selective_scan)
+    assert len(calls) == 1 and ops.launches()["selective_scan"] == 1
+    assert torch.equal(yk, yp) and torch.equal(hk, hp)
+    for name, g, w in zip(("dt", "x", "b", "c", "a", "h0"), got, want):
+        assert g.dtype == w.dtype == torch.float32, name
+        assert torch.equal(g, w), name
+    with torch.no_grad():
+        y, h = ops.selective_scan(*args)
+    assert not y.requires_grad and torch.equal(y, yp) and torch.equal(h, hp)
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas_interpret"])
+def test_selective_scan_grads_match_reference(monkeypatch, impl):
+    """The kernel branch's gradients against the reference's: dt, x, b, c, a
+    and h0 through both outputs, from ``jax.vjp`` of the reference's scan
+    (a custom_vjp whose backward is ``jax.vjp`` of its oracle) on the same
+    inputs and cotangents, at the reduced falcon-mamba's widths (d_inner
+    512, d_state 16) with a non-zero h0, each within 1e-5 of max|ref|."""
+    rng = np.random.default_rng(11)
+    args = _scan_inputs(2, 16, 512, 16, seed=7)
+    assert np.abs(args[-1]).max() > 0
+    gy = rng.standard_normal((2, 16, 512)).astype(np.float32)
+    gh = rng.standard_normal((2, 512, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *t: jops.selective_scan(*t, impl=impl),
+                     *(jnp.asarray(t) for t in args))
+    want = vjp((jnp.asarray(gy), jnp.asarray(gh)))
+
+    calls = _force_scan_kernel(monkeypatch)
+    leaves = [torch.from_numpy(t).requires_grad_() for t in args]
+    y, h = ops.selective_scan(*leaves)
+    got = torch.autograd.grad((y, h), leaves,
+                              (torch.from_numpy(gy), torch.from_numpy(gh)))
+    assert len(calls) == 1
+    for name, g, w in zip(("dt", "x", "b", "c", "a", "h0"), got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+def test_mamba_loss_grads_through_kernel_branch(monkeypatch):
+    """One reduced falcon-mamba ``LM.loss`` backward with the scan's kernel
+    branch forced gives the plain branch's gradients for every leaf (the
+    same f32 ops in the same order: equal), so every leaf upstream of the
+    scan (w_in, the conv, w_xproj, w_dt, A_log, dt_bias) gets its gradient
+    on the card too."""
+    from repro_torch.core.engine import ZeroEngine
+    from repro_torch.data.pipeline import BatchSpec, SyntheticTokens
+    from repro_torch.launch.mesh import TEST_AXES, Mesh, scheme_config
+
+    arch = get_arch(ARCH).reduced()
+    model = build_model(arch)
+    mesh = Mesh((1, 1, 1), TEST_AXES)
+    eng = ZeroEngine(model.leaf_specs(), scheme_config(
+        "zero_topo", mesh, quant_block=64, compute_dtype="float32"), mesh)
+    state = eng.init_state(0)
+    batch = {k: torch.as_tensor(v) for k, v in SyntheticTokens(
+        BatchSpec(2, 8, arch.vocab), seed=0).batch(0).items()}
+
+    def run():
+        g, loss, _ = eng.local_grads(model.lm.loss, state["primaries"], batch)
+        return g, loss
+
+    want, loss_p = run()
+    calls = _force_scan_kernel(monkeypatch)
+    got, loss_k = run()
+    assert len(calls) == 2 * arch.n_layers    # forward and its recompute
+    assert torch.equal(loss_k, loss_p)
+    upstream = [n for n in want if any(k in n for k in (
+        "w_in", "conv_w", "w_xproj", "w_dt", "A_log", "dt_bias"))]
+    assert len(upstream) >= 6
+    for n in want:
+        assert torch.equal(got[n], want[n]), n
+    for n in upstream:
+        assert bool(got[n].abs().max() > 0), n
 
 
 # ---------------------------------------------------------------------------
