@@ -28,13 +28,18 @@ either is missing or any phase fails. Phases, in order:
             selective_scan is held in f32 within 1e-5 * max|ref| for y and
             h_last (a last-bit difference of exp per step in a decaying
             recurrence, and another order of the N-sum) at the prefill shape
-            (B=1, S=128, D=8192, N=16, h0 = 0), at S=2048 and ragged; and its
-            gradients (dt, x, b, c, a, h0 through both outputs, the kernel's
-            forward against the plain one) within the same tolerance.
+            (B=1, S=128, D=8192, N=16, h0 = 0), at S=2048 (also with small
+            dt, softplus(normal - 6), where a rounding difference in the
+            decay lasts longest) and ragged (D off the kernel's channel tile,
+            S off its chunk, D % 4 != 0); and its gradients (dt, x, b, c, a,
+            h0 through both outputs, the kernel's forward against the plain
+            one) within the same tolerance.
             falcon-mamba-7b's shapes too: dequant_matmul at w_in, w_dt and
             w_out for M = 4 and 128 and its LM head at M = 1 and 4;
             dequantize_int8 of w_xproj; quantize_int8 and dequantize_int8
-            of the whole 2^32-element w_in stack (plain versions per chunk).
+            of the whole 2^32-element w_in stack (plain versions per chunk);
+            dequantize_int8 of q as a view at byte offset 1 (its path for
+            any alignment and block), with n a multiple of 16 and not.
             dequantize_int8_sum (the bits=8 receive side, d = 2 at the
             embedding's size, and ragged) and dequantize_int4 (136.1 M
             elements, block 128, to f32 and bf16, and ragged) bit for bit;
@@ -85,9 +90,13 @@ either is missing or any phase fails. Phases, in order:
             5e-2 * max|ref|) and again with f32 activations on the same
             weights (max|d| <= PREFILL_F32_TOL * max|ref|, which rounding
             alone meets and a fault would not), peak device memory, the
-            decode step replayed as
-            a CUDA graph and the scan's device time at S=128 and S=2048; then
-            its residency is freed before the training ranks start.
+            decode step replayed as a CUDA graph, the traced prefill's scan
+            total, the scan's device time at S=128 and S=2048 beside its
+            bytes bound and its SFU floor (B*S*D*N exps over 132 SMs x 16 a
+            clock x nvidia-smi's clocks.max.sm), and dequantize_int8 of one
+            layer's w_xproj leaf of the residency (8192 x 288 -> bf16, the
+            call every layer makes); then its residency is freed before the
+            training ranks start.
 4. train  : repro_torch.launch.train with --devices 4: qwen2-0.5b at full
             width and depth under zero_topo on the mesh (data, node, gcd) =
             (1, 2, 2), four ranks (processes) on this one card over gloo,
@@ -160,6 +169,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM, ops/s by type
 HBM_BPS = 3.35e12
 PEAK = {"bf16": 989e12, "f32": 67e12}
+# SMs, and special-function (SFU) results a clock an SM on sm_90: the
+# scan's exp floor, B*S*D*N exps over SMS * SFU_PER_SM * the SM clock
+SMS, SFU_PER_SM = 132, 16
 BF16_TOL = 2.0 ** -7
 F32_TOL = 1e-5
 PREFILL_TOL = 5e-2
@@ -397,6 +409,26 @@ def check_kernels(dev, gen, checks):
     stack_case(f"({MAMBA_L}*{MAMBA_D}*{2 * SCAN_D}/128, 128) bf16 (w_in stack)",
                MAMBA_L * MAMBA_D * 2 * SCAN_D, 128)
 
+    def offset_case(what, n_blocks, block, offset):
+        """dequantize_int8 of q as a view at byte ``offset`` into a larger
+        int8 buffer (off the 16-byte grid), to bf16 and f32, bit for bit."""
+        x = torch.randn(n_blocks * block, generator=gen, device=dev) * 3
+        q, sc = ops.quantize_int8(x, block)
+        buf = torch.zeros(q.numel() + 16, dtype=torch.int8, device=dev)
+        buf[offset:offset + q.numel()] = q
+        qv = buf[offset:offset + q.numel()]
+        for odt in (torch.bfloat16, torch.float32):
+            dk = ops.dequantize_int8(qv, sc, block, odt)
+            dp = ops.dequantize_int8(qv, sc, block, odt, impl="plain")
+            if not torch.equal(dk, dp):
+                raise Failed(f"dequantize_int8 {what} -> {odt}: not bitwise")
+            record("dequantize_int8", f"{what} -> {str(odt)[6:]}", 0.0,
+                   "bitwise")
+
+    # q off the 16-byte grid, with n a multiple of 16 and not
+    offset_case("(37, 20) q at offset 1, n % 16 != 0", 37, 20, 1)
+    offset_case("(300, 128) q at offset 1", 300, 128, 1)
+
     def mm_case(what, m, k, n, block, transpose, dtype, offset=0):
         """One dequant_matmul against its plain version; the shape must take
         the path ``expected_path`` names. ``offset`` puts q at that byte
@@ -626,6 +658,15 @@ def check_kernels(dev, gen, checks):
     scan_case(f"B=1 S=128 D={SCAN_D} h0=0 (prefill)", 1, 128, SCAN_D, True, 3.0)
     scan_case(f"B=1 S=2048 D={SCAN_D} h0=0", 1, 2048, SCAN_D, True, 3.0)
     scan_case("B=3 S=37 D=96 h0!=0 ragged", 3, 37, 96, False, 0.0)
+    # small dt (softplus(normal - 6), about 2.5e-3): exp(dt * a) near 1, so
+    # the state forgets slowly and rounding differences last longest
+    scan_case(f"B=1 S=2048 D={SCAN_D} h0=0 small dt", 1, 2048, SCAN_D, True,
+              6.0)
+    # D off the channel tile and S off the staged chunk and the run of steps
+    # the N-sum takes at once; D % 4 != 0 stages dt and x 4 bytes at a time
+    scan_case("B=2 S=1001 D=8200 h0!=0 ragged tile", 2, 1001, 8200, False, 3.0)
+    scan_case("B=1 S=77 D=8190 h0!=0 ragged, D % 4 != 0", 1, 77, 8190, False,
+              3.0)
 
     def scan_grad_case(what, b, seq, d):
         """The scan's gradients through the kernel forward (autograd through
@@ -1012,6 +1053,27 @@ def decode_graph_ms(s):
                                             active), reps=3)
 
 
+def w_xproj_timing(s):
+    """dequantize_int8 of one layer's w_xproj leaf of the residency to bf16,
+    as ResidentView.mm runs it for that weight (8192 x 288: not a whole
+    number of blocks a row) through col.gather_wait_int8 in every layer."""
+    from repro_torch.kernels import ops
+
+    name = next(k for k in s["layout"].specs if k.endswith("w_xproj"))
+    block = s["layout"].leaf_cfg[name].quant_block
+    q, sc = s["residency"][name]["q"][0], s["residency"][name]["s"][0]
+    n = q.numel()
+    return dict(
+        work=f"{name} of one layer: {n} int8 -> bf16, block {block} "
+             f"({tuple(s['layout'].specs[name].shape)})",
+        ms=device_ms(lambda: ops.dequantize_int8(q, sc, block, torch.bfloat16),
+                     reps=50),
+        plain_ms=device_ms(lambda: ops.dequantize_int8(
+            q, sc, block, torch.bfloat16, impl="plain"), reps=50),
+        library_ms=None,
+        bound=bound_ms(n + 4 * n / block + 2 * n, n, "f32"))
+
+
 def ssm_phase(gen, dev):
     """falcon-mamba-7b served at published width and depth, its prefill
     held against the plain versions, its decode step and scan timed. Returns
@@ -1022,7 +1084,12 @@ def ssm_phase(gen, dev):
     pf = check_prefill(s)
     pf.update(check_prefill_f32(s))
     s["decode_step_graph_ms"] = decode_graph_ms(s)
+    scan_rows = [k for k in pf["traced"]["kernels"]
+                 if "selective_scan" in k["name"]]
+    pf["traced_scan_ms"] = sum(k["ms"] for k in scan_rows)
+    pf["traced_scan_calls"] = sum(k["calls"] for k in scan_rows)
     plen = s["args"].prompt_len
+    clock_hz = sm_clock_mhz() * 1e6
     timing = {}
     for seq in (plen, 2048):
         args = scan_inputs(gen, dev, 1, seq, SCAN_D)
@@ -1033,8 +1100,11 @@ def ssm_phase(gen, dev):
             ms=device_ms(lambda: ops.selective_scan(*args), reps=20),
             plain_ms=device_ms(lambda: ops.selective_scan(*args, impl="plain"),
                                reps=1, replays=2),
-            library_ms=None, bound=bound_ms(n_bytes, n_ops, "f32"))
+            library_ms=None, bound=bound_ms(n_bytes, n_ops, "f32"),
+            sfu_floor_ms=seq * SCAN_D * SCAN_N / (SMS * SFU_PER_SM * clock_hz)
+            * 1e3)
         del args
+    xproj = w_xproj_timing(s)
     record = {k: s[k] for k in ("args", "arch", "reqs", "launches", "counters",
                                 "setup_s", "run_s", "tokens", "steps",
                                 "decode_step_ms", "decode_steps_full",
@@ -1043,7 +1113,7 @@ def ssm_phase(gen, dev):
     del s
     gc.collect()
     torch.cuda.empty_cache()
-    return record, pf, timing
+    return record, pf, timing, xproj
 
 
 # ---------------------------------------------------------------------------
@@ -1814,6 +1884,14 @@ def mq_timing(gen, dev, dtype, path, block):
         bound=bound_ms(n_bytes, n_ops, op_type), per_shape=per)
 
 
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in MHz."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return float(res.stdout.strip().splitlines()[0])
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1879,7 +1957,7 @@ def main(argv=None) -> int:
     print_prefill_f32(pf)
 
     phase("ssm")
-    m, mpf, scan_t = ssm_phase(gen, dev)
+    m, mpf, scan_t, xproj_t = ssm_phase(gen, dev)
     print(f"  launches {m['launches']}; counters {m['counters']}; prefill "
           f"logits max_abs_err {mpf['logits_err']:.3e} (max|ref| "
           f"{mpf['logits_scale']:.3e}, argmax equal {mpf['argmax_equal']})")
@@ -1892,7 +1970,13 @@ def main(argv=None) -> int:
     for seq, tm in scan_t.items():
         print(f"  selective_scan S={seq}: {tm['ms']:.4f} ms, plain "
               f"{tm['plain_ms']:.4f} ms, bound {tm['bound'][0]:.4f} ms "
-              f"({tm['bound'][1]})")
+              f"({tm['bound'][1]}), SFU floor {tm['sfu_floor_ms']:.4f} ms")
+    print(f"  traced prefill: {mpf['traced_scan_calls']} scans "
+          f"{mpf['traced_scan_ms']:.4f} ms of {mpf['traced']['device_ms']:.3f} "
+          f"ms device time")
+    print(f"  dequantize_int8 {xproj_t['work']}: {xproj_t['ms']:.5f} ms, "
+          f"plain {xproj_t['plain_ms']:.5f} ms, bound "
+          f"{xproj_t['bound'][0]:.5f} ms")
 
     phase("train")
     tr = train_phase()
@@ -1941,6 +2025,7 @@ def main(argv=None) -> int:
     t.update(train_timing(gen, dev))
     plen = m["args"].prompt_len
     t["selective_scan"] = scan_t[plen]
+    t["dequantize_int8_w_xproj"] = xproj_t
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1970,7 +2055,8 @@ def main(argv=None) -> int:
         for key in ("dequant_matmul_dx", "dequant_matmul_fwd",
                     "dequant_matmul_prefill", "dequant_matmul_decode_simt",
                     "dequant_matmul_blocked_simt", "flash_attention_train",
-                    "flash_attention_f32", "matmul_quant_simt")}
+                    "flash_attention_f32", "matmul_quant_simt",
+                    "dequantize_int8_w_xproj")}
     blk = t["dequant_matmul_blocked"]
     kernels_extra.update(
         dequant_matmul_blocked_bounds=dict(
@@ -2022,8 +2108,11 @@ def main(argv=None) -> int:
         traced_prefill_wall_ms=mpf["traced"]["wall_ms"],
         traced_prefill_device_ms=mpf["traced"]["device_ms"],
         traced_prefill_top_kernels=mpf["traced"]["top"],
+        traced_prefill_scan_ms=mpf["traced_scan_ms"],
+        traced_prefill_scan_calls=mpf["traced_scan_calls"],
         scan={str(seq): dict(ms=tm["ms"], plain_ms=tm["plain_ms"],
-                             bound_ms=tm["bound"][0], bound_by=tm["bound"][1])
+                             bound_ms=tm["bound"][0], bound_by=tm["bound"][1],
+                             sfu_floor_ms=tm["sfu_floor_ms"])
               for seq, tm in scan_t.items()})
     k0 = tr["kernel"][0]
     # the first step pays for the kernels' first use, the last is traced

@@ -11,25 +11,39 @@
 //
 // Bound on the H100: bytes. Quantize reads each input once (2 or 4 bytes)
 // and writes 1 byte plus 4/bs bytes of scale; dequantize reads 1 + 4/bs and
-// writes the output dtype; the sum reads d * (1 + 4/bs) and writes 4 bytes
-// per element. The arithmetic is a few f32 operations per element, far below
-// what the card can issue for those bytes.
+// writes the output dtype (falcon-mamba's w_xproj, 8192 x 288 to bf16, the
+// weight every layer dequantizes whole: 7.15 MB, 2.13 us at 3.35 TB/s); the
+// sum reads d * (1 + 4/bs) and writes 4 bytes per element. The arithmetic is
+// a few operations per element, far below what the card can issue for those
+// bytes, but not below what its conversion unit takes (16 int -> float a
+// clock an SM). Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W):
+// dequantize at w_xproj 0.00294 ms against that 0.00213 ms bound (one
+// element a thread: 0.00595); at a prefill's 128 embedding rows 0.00176 ms,
+// the cost of a launch.
 //
 // Design: quantize gives one warp to each block (the TPU kernel's (8, bs)
 // VMEM tile becomes 8 warps of 32 lanes). Lanes stride the block so every
 // warp load touches consecutive addresses; the absmax is a warp-shuffle
-// reduction, and the second pass over the block hits L1. Dequantize is a
-// grid-stride elementwise loop. The sum gives each thread 4 contiguous int8
-// of one block (one 4-byte load per chunk, one float4 store) when the block
-// size allows it, else one element; offsets are 64-bit (the tied
-// embedding's stage-1 payload is 136 M elements). It writes every product
-// and every add as its own rounded operation (__fmul_rn, __fadd_rn), so nvcc
-// cannot contract them into an FMA and the result is bit for bit the plain
-// version's q * s, then +, like the INT4 sum in quant_int4.cu.
+// reduction, and the second pass over the block hits L1. Dequantize takes 16
+// int8 a thread where bs % 16 == 0 and q and out are 16-byte aligned, with
+// every load and 16-byte store contiguous across the warp, one scale load
+// for each 4 or 8 int8, and int8 -> f32 on the ALU and f32 pipes instead of
+// the conversion unit; offsets are 32-bit where n allows, 64-bit past that.
+// Any other block or alignment (a q view at an odd offset) takes one element
+// a thread. Both are bit for bit the plain version: an exact int8 -> f32,
+// one f32 multiply, round-to-nearest-even to bf16. The sum gives each thread
+// 4 contiguous int8 of one block (one 4-byte load per chunk, one float4
+// store) when the block size allows it, else one element; offsets are 64-bit
+// (the tied embedding's stage-1 payload is 136 M elements). It writes every
+// product and every add as its own rounded operation (__fmul_rn, __fadd_rn),
+// so nvcc cannot contract them into an FMA and the result is bit for bit the
+// plain version's q * s, then +, like the INT4 sum in quant_int4.cu.
 // Numerics of the quantize: the scale multiplies by the f32 reciprocal
 // constant (what XLA does to `absmax / 127` under jit, which the reference
 // always runs under), the quotient uses IEEE division (no --use_fast_math),
 // and rintf rounds half to even like jnp.round.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -59,14 +73,84 @@ quantize_int8_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
   if (lane == 0) s[b] = scale;
 }
 
-template <typename T>
+// A warp owns 512 elements; in slot k lane l takes the E int8 at
+// 32 * E * k + E * l (E = 8 for bf16, 4 for f32: one 8- or 4-byte load, one
+// 16-byte store), all under one scale since E divides bs. int8 -> f32: byte
+// e of w ^ 0x80808080 is v + 128; put under the exponent of 2^23
+// (0x4B000000) it reads 2^23 + v + 128, and subtracting that bias is exact.
+template <typename T, typename I>
 __global__ void __launch_bounds__(DEQ_THREADS)
-dequantize_int8_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
-                       T* __restrict__ out, long long n, int bs) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = from_f32<T>((float)q[i] * s[i / bs]);
+dequantize_int8_vec(const int8_t* __restrict__ q, const float* __restrict__ s,
+                    T* __restrict__ out, I n, I bs) {
+  constexpr int E = std::is_same<T, float>::value ? 4 : 8;
+  const I base = ((I)blockIdx.x * DEQ_THREADS + threadIdx.x) / 32 * 512 +
+                 (threadIdx.x % 32) * E;
+#pragma unroll
+  for (int k = 0; k < 16 / E; ++k) {
+    const I e0 = base + (I)k * 32 * E;
+    if (e0 >= n) break;
+    const float sc = __ldg(s + e0 / bs);
+    uint32_t w[E / 4];
+    if constexpr (E == 8) {
+      const uint2 r = __ldg(reinterpret_cast<const uint2*>(q + e0));
+      w[0] = r.x;
+      w[1] = r.y;
+    } else {
+      w[0] = __ldg(reinterpret_cast<const unsigned int*>(q + e0));
+    }
+    float f[E];
+#pragma unroll
+    for (int m = 0; m < E / 4; ++m) {
+      const uint32_t u = w[m] ^ 0x80808080u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f[4 * m + e] = __fmul_rn(
+            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + e)) - 8388736.0f, sc);
+    }
+    if constexpr (E == 8) {
+      uint4 o;
+      uint32_t* ou = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const __nv_bfloat162 pr = __floats2bfloat162_rn(f[2 * m], f[2 * m + 1]);
+        ou[m] = *reinterpret_cast<const uint32_t*>(&pr);
+      }
+      *reinterpret_cast<uint4*>(out + e0) = o;
+    } else {
+      *reinterpret_cast<float4*>(out + e0) = make_float4(f[0], f[1], f[2], f[3]);
+    }
+  }
+}
+
+// one element a thread: any block size and any alignment
+template <typename T, typename I>
+__global__ void __launch_bounds__(DEQ_THREADS)
+dequantize_int8_elem(const int8_t* __restrict__ q, const float* __restrict__ s,
+                     T* __restrict__ out, I n, I bs) {
+  const I i = (I)blockIdx.x * DEQ_THREADS + threadIdx.x;
+  if (i < n) out[i] = from_f32<T>(__fmul_rn((float)q[i], s[i / bs]));
+}
+
+template <typename T, typename I>
+void dequantize_launch(const int8_t* q, const float* s, T* out, long long n, int bs,
+                       bool vec, cudaStream_t st) {
+  const long long items = vec ? n / 16 : n;
+  const unsigned grid = (unsigned)((items + DEQ_THREADS - 1) / DEQ_THREADS);
+  if (vec)
+    dequantize_int8_vec<T, I><<<grid, DEQ_THREADS, 0, st>>>(q, s, out, (I)n, (I)bs);
+  else
+    dequantize_int8_elem<T, I><<<grid, DEQ_THREADS, 0, st>>>(q, s, out, (I)n, (I)bs);
+}
+
+template <typename T>
+void dequantize_any(const int8_t* q, const float* s, T* out, long long n, int bs,
+                    cudaStream_t st) {
+  const bool vec = bs % 16 == 0 && ((uintptr_t)q & 15) == 0 &&
+                   ((uintptr_t)out & 15) == 0;
+  if (n <= 0xFFFF0000LL)  // a warp's last slot may start up to 504 past n
+    dequantize_launch<T, unsigned>(q, s, out, n, bs, vec, st);
+  else
+    dequantize_launch<T, unsigned long long>(q, s, out, n, bs, vec, st);
 }
 
 constexpr int SUM_THREADS = 256;
@@ -139,19 +223,19 @@ extern "C" int quantize_int8(const void* x, int dtype, void* q, void* s,
   return launch_status();
 }
 
-// q: (n,) int8, s: (n / bs,) f32 -> out: (n,) f32 or bf16
+// q: (n,) int8, s: (n / bs,) f32 -> out: (n,) f32 or bf16. 16 elements a
+// thread where bs % 16 == 0 and q and out are 16-byte aligned, else one.
 extern "C" int dequantize_int8(const void* q, const void* s, void* out, int dtype,
                                long long n, int bs, void* stream) {
   if (n <= 0) return 0;
-  long long blocks = (n + DEQ_THREADS - 1) / DEQ_THREADS;
-  const unsigned grid = (unsigned)(blocks < 132 * 16 ? blocks : 132 * 16);
+  if (bs <= 0 || (n + DEQ_THREADS - 1) / DEQ_THREADS > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DT_F32)
-    dequantize_int8_kernel<float><<<grid, DEQ_THREADS, 0, st>>>(
-        (const int8_t*)q, (const float*)s, (float*)out, n, bs);
+    dequantize_any<float>((const int8_t*)q, (const float*)s, (float*)out, n, bs, st);
   else if (dtype == DT_BF16)
-    dequantize_int8_kernel<__nv_bfloat16><<<grid, DEQ_THREADS, 0, st>>>(
-        (const int8_t*)q, (const float*)s, (__nv_bfloat16*)out, n, bs);
+    dequantize_any<__nv_bfloat16>((const int8_t*)q, (const float*)s,
+                                  (__nv_bfloat16*)out, n, bs, st);
   else
     return (int)cudaErrorInvalidValue;
   return launch_status();

@@ -90,10 +90,10 @@ def _tokens(seed, shape, vocab):
 # the scan
 # ---------------------------------------------------------------------------
 
-def _scan_inputs(bsz, s, d, n, seed=0):
+def _scan_inputs(bsz, s, d, n, seed=0, dt_shift=0.0):
     rng = np.random.default_rng(seed)
     f32 = np.float32
-    dt = np.log1p(np.exp(rng.standard_normal((bsz, s, d)))).astype(f32)
+    dt = np.log1p(np.exp(rng.standard_normal((bsz, s, d)) - dt_shift)).astype(f32)
     x = rng.standard_normal((bsz, s, d)).astype(f32)
     b = rng.standard_normal((bsz, s, n)).astype(f32)
     c = rng.standard_normal((bsz, s, n)).astype(f32)
@@ -117,6 +117,54 @@ def test_selective_scan_matches_reference(impl, shape):
     y, h = ops.selective_scan(*(torch.from_numpy(t) for t in args))
     assert y.shape == shape[:3] and h.shape == (shape[0], shape[2], shape[3])
     assert y.dtype == h.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SCAN_TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **SCAN_TOL)
+
+
+# The card kernel's arithmetic (csrc/selective_scan.cu): the plain version's
+# per-step operations (exp, multiply, then add, unfused); a channel's 16
+# states over SCAN_LANES lanes, lane j holding states j, j + 4, j + 8, j + 12;
+# each lane's products h * c summed in state order, then (p0 + p1) + (p2 + p3)
+# across the lanes.
+SCAN_LANES = 4
+
+
+def _scan_kernel_order(dt, x, b, c, a, h0, lanes=SCAN_LANES):
+    """What csrc/selective_scan.cu computes, step by step in f32:
+    da = exp(fl(dt * a)), h = fl(fl(da * h) + fl(fl(dt * x) * b)), y = the
+    lanes' partial sums of h * c (states j + lanes * i, in order i) added as
+    (p0 + p1) + (p2 + p3)."""
+    bsz, seq, d = dt.shape
+    n = a.shape[-1]
+    h = h0.clone()
+    y = torch.empty((bsz, seq, d), dtype=torch.float32)
+    for t in range(seq):
+        da = torch.exp(dt[:, t, :, None] * a[None])
+        h = da * h + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :]
+        hc = (h * c[:, t, None, :]).reshape(bsz, d, n // lanes, lanes)
+        p = torch.zeros((bsz, d, lanes), dtype=torch.float32)
+        for i in range(n // lanes):
+            p = p + hc[..., i, :]
+        while p.shape[-1] > 1:      # lanes j and j ^ 1 first, then j ^ 2
+            p = p[..., 0::2] + p[..., 1::2]
+        y[:, t] = p[..., 0]
+    return y, h
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("shape,dt_shift", [((2, 40, 24, 16), 0.0),
+                                            ((1, 300, 8, 16), 0.0),
+                                            ((1, 2048, 16, 16), 6.0)],
+                         ids=["B2-S40", "S300", "S2048-small-dt"])
+def test_selective_scan_kernel_order(impl, shape, dt_shift):
+    """The card kernel's arithmetic and sum order, rehearsed on the CPU,
+    against the reference's jnp oracle and its Pallas kernel in interpret
+    mode: y and h_last within SCAN_TOL. At S=2048 dt is about 2.5e-3, so
+    exp(dt * a) is near 1 and a rounding difference in the decay lasts the
+    longest."""
+    args = _scan_inputs(*shape, seed=2, dt_shift=dt_shift)
+    jy, jh = jops.selective_scan(*(jnp.asarray(t) for t in args), impl=impl)
+    y, h = _scan_kernel_order(*(torch.from_numpy(t) for t in args))
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SCAN_TOL)
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), **SCAN_TOL)
 
