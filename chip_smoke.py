@@ -15,7 +15,11 @@ either is missing or any phase fails. Phases, in order:
             both sides round an f32 sum, summed in another order); f32
             outputs within 1e-5 * max|ref|.
             The training kernels are held at the training step's shapes:
-            quantize_int4 and dequantize_int4_sum (d = 2) bit for bit;
+            quantize_int4 and dequantize_int4_sum (d = 2) bit for bit, and
+            quantize_int4 also at blocks 8 ... 2,048 in bf16 and f32 with
+            the block count ragged against a warp's and a CTA's run, x off
+            the 16-byte grid and a block of 96, each on the variant
+            (quantize_int4_path: wide or warp) the rule names;
             matmul_quant (bits 4 and 8, with and without pad_to) with scales
             within 1e-5 relative, q within +-1 in at most 1e-3 of the entries
             and the dequantized C within one quant step of the plain product
@@ -49,18 +53,19 @@ either is missing or any phase fails. Phases, in order:
             (dequant_matmul_blocked_path), within BLOCKED_RTOL * |ref| +
             BLOCKED_ATOL * max|ref|.
             dequant_matmul's rounding is reported (not held): the share of
-            bf16 outputs off the exact product, kernel and plain version,
-            at three shapes. Its three paths: each case must take the path
-            its shape names (dequant_matmul_path, held to expected_path):
-            both LM heads (qwen2's and falcon-mamba's, M = 1 and 4), f32,
-            and x @ W.T at M = 12 and 16 and block 32 on the decode path;
-            bf16 at M = 2,048 in both orientations at qwen2's four shapes,
-            each side of the thresholds, ragged tiles (block 64, M = 130 and
-            2,047, K = 72 and 328) on the tensor cores; every decode-step
-            layer product (x @ W at M = 4, qwen2's and falcon-mamba's), f32
-            at M = 128, K = 333 (rows off the 16-byte grid), x @ W at block
-            32 and x @ W.T at M = 17 ... 63 or past N = 4,096 on the SIMT
-            path; q as a view at byte
+            bf16 outputs off the exact product, kernel, SIMT kernel and
+            plain version, at five shapes (two at the decode M). Its three
+            paths: each case must take the path its shape names
+            (dequant_matmul_path, held to expected_path): both LM heads
+            (qwen2's and falcon-mamba's, M = 1 and 4), f32, and x @ W.T at
+            M = 12 and 16 and block 32, and every decode-step layer product
+            (bf16 x @ W at M = 1 and 4, qwen2's and falcon-mamba's, M = 8,
+            K ragged against the 64-row step) on the decode path; bf16 at
+            M = 2,048 in both orientations at qwen2's four shapes, each side
+            of the thresholds, ragged tiles (block 64, M = 130 and 2,047, K =
+            72 and 328) on the tensor cores; f32 at M = 128, K = 333 (rows
+            off the 16-byte grid), x @ W at block 32 and x @ W.T at M = 17
+            ... 63 or past N = 4,096 on the SIMT path; q as a view at byte
             offset 1 of a larger buffer on each path; flash_attention in bf16 (the tensor-core kernel) at the training shape, ragged,
             with a query offset and with a window; all within one bf16 ulp
             of max|ref|.
@@ -78,6 +83,12 @@ either is missing or any phase fails. Phases, in order:
             against the same prefill through the plain versions on the card
             (bf16 compute across 24 layers: max|d| <= 5e-2 * max|ref|), and
             one prefill is traced by torch.profiler (device ms, top kernels).
+            One decode step of all 4 slots after a prefill of the first 4
+            prompts (every layer product at M = 4), from the same plain
+            caches: kernels against plain within the prefill's tolerance
+            in bf16 and PREFILL_F32_TOL in f32, and the bf16 step at most
+            PREFILL_BF16_RATIO x as far from the f32 plain one as the bf16
+            plain step (both archs).
             The same prefill in f32 (kernels against plain, max|d| <=
             PREFILL_F32_TOL * max|ref|) and in bf16 against the f32 plain
             one: the kernels' gap at most PREFILL_BF16_RATIO x the plain
@@ -89,8 +100,10 @@ either is missing or any phase fails. Phases, in order:
             against the plain versions (64 layers of bf16: max|d| <=
             5e-2 * max|ref|) and again with f32 activations on the same
             weights (max|d| <= PREFILL_F32_TOL * max|ref|, which rounding
-            alone meets and a fault would not), peak device memory, the
-            decode step replayed as a CUDA graph, the traced prefill's scan
+            alone meets and a fault would not), the decode step's check,
+            peak device memory, the decode step replayed as a CUDA graph
+            (with its layer products on their own path and forced onto the
+            SIMT kernel, in turns), the traced prefill's scan
             total, the scan's device time at S=128 and S=2048 beside its
             bytes bound and its SFU floor (B*S*D*N exps over 132 SMs x 16 a
             clock x nvidia-smi's clocks.max.sm), and dequantize_int8 of one
@@ -131,8 +144,10 @@ either is missing or any phase fails. Phases, in order:
             bf16 cuBLAS, one prefill's 169 calls, each decode / prefill shape
             with its path (decode shapes also on SIMT and beside bf16
             cuBLAS), falcon-mamba's three M = 128 shapes and its four decode
-            shapes at M = 4, and all three paths forced at M = 4 ... 128
-            (the threshold rows); dequant_matmul_blocked at w_up on its path
+            shapes at M = 4, and all three paths forced at M = 1 ... 16, 32,
+            64, 128 (x @ W) and M = 4 ... 128 (x @ W.T) (the threshold
+            rows); the qwen2 decode step as a CUDA graph with its layer
+            products on their own path and on SIMT, in turns; dequant_matmul_blocked at w_up on its path
             and on SIMT (forced); flash_attention also at the training shape
             beside SDPA and in f32 at the prefill shape beside f32 SDPA;
             matmul_quant on one layer's seven dW shapes with bf16 operands
@@ -149,6 +164,7 @@ either is missing or any phase fails. Phases, in order:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -264,6 +280,9 @@ TC_MIN_M, TC_MIN_M_T = 5, 64
 # dequant_matmul_threshold rows), and the largest row it takes (one 16-byte
 # chunk a thread)
 DEC_MAX_M_T, DEC_TN_MAX_N = 16, 4096
+# rows up to which the decode path takes a bf16 x @ W call
+# (csrc/dequant_matmul.cu's DEC_MAX_M; chosen by the same rows)
+DEC_MAX_M = 8
 EMBED_N = 151_936 * 896             # the tied embedding's padded length
 
 
@@ -327,10 +346,14 @@ def add_check(checks, name, what, err, tol):
 def expected_path(m, k, n, block, transpose, dtype) -> str:
     """The flat dequant-matmul's path by the rule csrc/dequant_matmul.cu
     documents: decode for x @ W.T at M <= DEC_MAX_M_T with block % 16 == 0
-    and N <= DEC_TN_MAX_N, then the tensor cores for bf16 (block % 64 == 0,
+    and N <= DEC_TN_MAX_N and for bf16 x @ W at M <= DEC_MAX_M with block %
+    64 == 0 and K % 8 == 0, then the tensor cores for bf16 (block % 64 == 0,
     K % 8 == 0, M >= TC_MIN_M / TC_MIN_M_T), else SIMT."""
     if transpose and m <= DEC_MAX_M_T and block % 16 == 0 \
             and n <= DEC_TN_MAX_N:
+        return "decode"
+    if not transpose and m <= DEC_MAX_M and dtype == torch.bfloat16 \
+            and block % 64 == 0 and k % 8 == 0:
         return "decode"
     if dtype == torch.bfloat16 and block % 64 == 0 and k % 8 == 0 and \
             m >= (TC_MIN_M_T if transpose else TC_MIN_M):
@@ -338,10 +361,22 @@ def expected_path(m, k, n, block, transpose, dtype) -> str:
     return "simt"
 
 
+def expected_int4_path(block, aligned) -> str:
+    """quantize_int4's variant by the rule csrc/quant_int4.cu documents:
+    wide for blocks of 8 times a power of two up to 2,048 elements on x
+    aligned to 16 bytes, else warp."""
+    units = block // 8
+    if aligned and block % 8 == 0 and 0 < units <= 256 \
+            and units & (units - 1) == 0:
+        return "wide"
+    return "warp"
+
+
 def check_kernels(dev, gen, checks):
     from repro_torch.kernels import ops
     from repro_torch.kernels.dequant_matmul import (PATHS, dequant_matmul_path,
                                                     matmul_quant_path)
+    from repro_torch.kernels.quant_int4 import INT4_PATHS, quantize_int4_path
     from repro_torch.models import layers
 
     def record(name, what, err, tol):
@@ -457,15 +492,15 @@ def check_kernels(dev, gen, checks):
         record("dequant_matmul", f"{what} {took}", err, f"{tol:.3e}")
 
     d, ff, hd, V = 896, 4864, 64, 151_936
-    for m in (4, 128):
+    for m in (1, 4, 128):
         for k, n in ((d, 14 * hd), (d, 2 * hd), (14 * hd, d), (d, ff), (ff, d)):
             mm_case(f"M={m} ({k}, {n}) bf16", m, k, n, 128, False, torch.bfloat16)
     for m in (1, 4):
         mm_case(f"M={m} ({V}, {d}).T bf16 (LM head)", m, V, d, 128, True,
                 torch.bfloat16)
-    # falcon-mamba-7b: w_in, w_dt, w_out at decode (M = 4 slots) and prefill
-    # (M = 128) sizes, the tied LM head at M = 1 and 4
-    for m in (4, 128):
+    # falcon-mamba-7b: w_in, w_dt, w_out at decode (M = 1, 4 slots) and
+    # prefill (M = 128) sizes, the tied LM head at M = 1 and 4
+    for m in (1, 4, 128):
         for k, n in ((MAMBA_D, 2 * SCAN_D), (MAMBA_DTR, SCAN_D),
                      (SCAN_D, MAMBA_D)):
             mm_case(f"M={m} ({k}, {n}) bf16 (falcon-mamba)", m, k, n, 128,
@@ -478,6 +513,15 @@ def check_kernels(dev, gen, checks):
     # and f32), block 32 (x @ W: SIMT), and past DEC_TN_MAX_N (SIMT, the
     # threshold cases below); x @ W at M = 3, f32, ragged: SIMT
     mm_case("M=3 (200, 192) f32 ragged", 3, 200, 192, 64, False, torch.float32)
+    # the decode path's x @ W: the last decode M and the first past it, K
+    # ragged against its 64-row step (block 64, three column tiles), and K
+    # off the 16-byte grid of x's rows (SIMT)
+    for m in (DEC_MAX_M, DEC_MAX_M + 1):
+        mm_case(f"M={m} ({ff}, {d}) bf16", m, ff, d, 128, False, torch.bfloat16)
+    mm_case("M=3 (200, 192) bf16 ragged", 3, 200, 192, 64, False,
+            torch.bfloat16)
+    mm_case("M=4 (333, 192) bf16 ragged", 4, 333, 192, 64, False,
+            torch.bfloat16)
     mm_case("M=7 (333, 192).T f32 ragged", 7, 333, 192, 64, True, torch.float32)
     mm_case(f"M=12 ({ff}, {d}).T bf16", 12, ff, d, 128, True, torch.bfloat16)
     for m in (DEC_MAX_M_T, DEC_MAX_M_T + 1):
@@ -549,11 +593,26 @@ def check_kernels(dev, gen, checks):
     attn_case("B=1 H=14/2 S=512 window=32 bf16", 1, 14, 2, 512, 512, 0, 32,
               torch.bfloat16)
 
-    def int4_case(what, n_blocks, block, dtype, d=2):
+    def int4_case(what, n_blocks, block, dtype, d=2, offset=0):
+        """quantize_int4 and dequantize_int4_sum bit for bit against their
+        plain versions; quantize_int4 must take the variant
+        ``expected_int4_path`` names. ``offset`` puts x at that element
+        offset into a larger buffer."""
         x = torch.randn((n_blocks, block), generator=gen, device=dev)
         x *= torch.rand((n_blocks, 1), generator=gen, device=dev) * 50
         x[n_blocks // 2] = 0.0
         x = x.to(dtype).reshape(-1)
+        if offset:
+            buf = torch.zeros(x.numel() + 16, dtype=dtype, device=dev)
+            buf[offset:offset + x.numel()] = x
+            x = buf[offset:offset + x.numel()]
+        aligned = x.data_ptr() % 16 == 0
+        took = INT4_PATHS[quantize_int4_path(block, dtype, aligned)]
+        want = expected_int4_path(block, aligned)
+        if took != want:
+            raise Failed(f"quantize_int4 {what}: took the {took} variant, not "
+                         f"{want}")
+        what = f"{what} {took}"
         qk, sk = ops.quantize_int4(x, block)
         qp, sp = ops.quantize_int4(x, block, impl="plain")
         if not (torch.equal(qk, qp) and torch.equal(sk.view(torch.int32),
@@ -572,6 +631,17 @@ def check_kernels(dev, gen, checks):
     int4_case("(36, 8) f32 ragged", 36, 8, torch.float32, d=4)
     int4_case("(34, 4) bf16 ragged", 34, 4, torch.bfloat16)
     int4_case("(38, 64) f32 ragged", 38, 64, torch.float32)
+    # every lane-group width and units a lane of the wide variant, nb ragged
+    # against a warp's and a CTA's run of blocks; x off the 16-byte grid,
+    # and a block of 12 units, a lane group that is not a power of two
+    # (both warp)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        for block in (8, 16, 64, 128, 256, 2048):
+            int4_case(f"(1038, {block}) {name} ragged", 1038, block, dtype)
+        int4_case(f"(1038, 128) {name} x at offset 1", 1038, 128, dtype,
+                  offset=1)
+        int4_case(f"(38, 96) {name} ragged", 38, 96, dtype)
 
     def mq_case(what, m, k, n, block, bits, dtype, path, pad=0):
         """One matmul_quant against its plain version on the same operands
@@ -1039,6 +1109,83 @@ def print_prefill_f32(pf):
           f"{PREFILL_BF16_RATIO}x plain)")
 
 
+def check_decode_step(s):
+    """One decode step of all slots after a prefill of the first requests'
+    prompts: every layer product of the step at M = slots. Each compute
+    dtype's prefill runs once, through the plain versions, and each step
+    starts from a copy of its caches (the attention caches one position
+    longer), so the step alone is held: through the kernels against the
+    plain versions in bf16 (max|d| <= PREFILL_TOL * max|ref|) and in f32
+    (PREFILL_F32_TOL), and the bf16 step through the kernels at most
+    PREFILL_BF16_RATIO times as far from the f32 plain step as the bf16
+    plain step is."""
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve.resident import ResidentLayout, ResidentServeEngine
+
+    layout, dev = s["layout"], s["device"]
+    slots = s["args"].slots
+    reqs = s["reqs"][:slots]
+    tokens = torch.stack([torch.as_tensor(r.prompt) for r in reqs]).long().to(dev)
+    tok = torch.as_tensor([r.out[0] for r in reqs]).long().to(dev)
+    res32 = {k: v if isinstance(v, dict) else v.float()
+             for k, v in s["residency"].items()}
+    shape = ShapeConfig("d", s["args"].prompt_len, slots, "decode")
+
+    def engine(impl, dt):
+        cfg = dataclasses.replace(layout.cfg, impl=impl, compute_dtype=dt)
+        return ResidentServeEngine(
+            s["model"], ResidentLayout(layout.specs, cfg, layout.res_axes),
+            shape)
+
+    def copied(caches):
+        return {kind: {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
+                       if n in ("k", "v") else t.clone() for n, t in c.items()}
+                if isinstance(c, dict) else c.clone()
+                for kind, c in caches.items()}
+
+    bf = layout.cfg.compute_dtype
+    out = {}
+    for dt in ("float32", bf):
+        res = res32 if dt == "float32" else s["residency"]
+        _, caches = engine("plain", dt).make_prefill()(res, {"tokens": tokens})
+        for impl in (None, "plain"):
+            out[impl or "kernel", dt], _ = engine(impl, dt).make_decode()(
+                res, copied(caches), {"token": tok})
+        del caches
+    err, scale = rel_err(out["kernel", bf], out["plain", bf])
+    if err > PREFILL_TOL * scale:
+        raise Failed(f"{bf} decode-step logits: err {err} > {PREFILL_TOL} * "
+                     f"{scale}")
+    ref32 = out["plain", "float32"]
+    err32, scale32 = rel_err(out["kernel", "float32"], ref32)
+    if err32 > PREFILL_F32_TOL * scale32:
+        raise Failed(f"f32 decode-step logits: err {err32} > "
+                     f"{PREFILL_F32_TOL} * {scale32}")
+    bf_kernel = rel_err(out["kernel", bf], ref32)[0]
+    bf_plain = rel_err(out["plain", bf], ref32)[0]
+    if bf_kernel > PREFILL_BF16_RATIO * bf_plain:
+        raise Failed(f"{bf} decode-step logits against the f32 plain ones: "
+                     f"kernels {bf_kernel} > {PREFILL_BF16_RATIO} x plain "
+                     f"{bf_plain}")
+    return dict(decode_logits_err=err, decode_logits_scale=scale,
+                decode_argmax_equal=bool(torch.equal(
+                    out["kernel", bf].argmax(-1), out["plain", bf].argmax(-1))),
+                decode_f32_logits_err=err32, decode_f32_logits_scale=scale32,
+                decode_bf16_kernel_vs_f32_plain=bf_kernel,
+                decode_bf16_plain_vs_f32_plain=bf_plain)
+
+
+def print_decode_step(ds):
+    print(f"  decode step logits max_abs_err {ds['decode_logits_err']:.3e} "
+          f"(max|ref| {ds['decode_logits_scale']:.3e}, tol {PREFILL_TOL}, "
+          f"argmax equal {ds['decode_argmax_equal']}); f32 "
+          f"{ds['decode_f32_logits_err']:.3e} (max|ref| "
+          f"{ds['decode_f32_logits_scale']:.3e}, tol {PREFILL_F32_TOL}); bf16 "
+          f"vs f32 plain: kernels {ds['decode_bf16_kernel_vs_f32_plain']:.3e}, "
+          f"plain {ds['decode_bf16_plain_vs_f32_plain']:.3e} (kernels at most "
+          f"{PREFILL_BF16_RATIO}x plain)")
+
+
 def decode_graph_ms(s):
     """Device time of the batcher's whole paged decode step (assemble, the
     layers, LM head, writeback) with every slot active, replayed as a CUDA
@@ -1051,6 +1198,38 @@ def decode_graph_ms(s):
     active = torch.ones((slots,), dtype=torch.bool, device=dev)
     return device_ms(lambda: cb._paged_step(s["residency"], table, tok, pos,
                                             active), reps=3)
+
+
+@contextlib.contextmanager
+def layers_on_simt():
+    """Inside: dequant_matmul's x @ W calls that the decode path takes go to
+    the SIMT kernel, as the layer products of a decode step ran before the
+    decode path took them (that kernel is unchanged since)."""
+    from repro_torch.kernels import dequant_matmul as dm
+
+    own = dm.dequant_matmul_path
+
+    def path(m, k, n, block, transpose, dtype):
+        p = own(m, k, n, block, transpose, dtype)
+        return dm.PATHS.index("simt") \
+            if not transpose and dm.PATHS[p] == "decode" else p
+
+    dm.dequant_matmul_path = path
+    try:
+        yield
+    finally:
+        dm.dequant_matmul_path = own
+
+
+def decode_graphs(s):
+    """The decode step as a CUDA graph (decode_graph_ms) with its layer
+    products on their own path and forced onto the SIMT kernel, in turns
+    (SIMT, own, own, SIMT): {"own": [ms, ms], "simt": [ms, ms]}."""
+    out = {"own": [], "simt": []}
+    for which in ("simt", "own", "own", "simt"):
+        with layers_on_simt() if which == "simt" else contextlib.nullcontext():
+            out[which].append(decode_graph_ms(s))
+    return out
 
 
 def w_xproj_timing(s):
@@ -1083,7 +1262,10 @@ def ssm_phase(gen, dev):
     s = serve_phase(SSM_SERVE_ARGS, SSM_SERVE_KERNELS)
     pf = check_prefill(s)
     pf.update(check_prefill_f32(s))
-    s["decode_step_graph_ms"] = decode_graph_ms(s)
+    pf.update(check_decode_step(s))
+    graphs = decode_graphs(s)
+    s["decode_step_graph_ms"] = statistics.mean(graphs["own"])
+    s["decode_step_graph_runs"] = graphs
     scan_rows = [k for k in pf["traced"]["kernels"]
                  if "selective_scan" in k["name"]]
     pf["traced_scan_ms"] = sum(k["ms"] for k in scan_rows)
@@ -1108,7 +1290,8 @@ def ssm_phase(gen, dev):
     record = {k: s[k] for k in ("args", "arch", "reqs", "launches", "counters",
                                 "setup_s", "run_s", "tokens", "steps",
                                 "decode_step_ms", "decode_steps_full",
-                                "decode_step_graph_ms", "memory",
+                                "decode_step_graph_ms",
+                                "decode_step_graph_runs", "memory",
                                 "peak_bytes")}
     del s
     gc.collect()
@@ -1472,19 +1655,19 @@ def timing_phase(s, gen):
     b, o = matmul_work(dec)
     dense = dense_weights(dec)
     took = [call_path(c) for c in dec]
-    if set(took[:-1]) != {"simt"} or took[-1] != "decode":
+    if set(took) != {"decode"}:
         raise Failed(f"decode step's dequant_matmul paths {set(took[:-1])} "
                      f"(layers), {took[-1]} (head)")
     out["dequant_matmul"] = dict(
-        work=f"one decode step: {len(dec)} calls at M={slots} (layers SIMT, "
-             "head decode path)",
+        work=f"one decode step: {len(dec)} calls at M={slots} (layers and "
+             "head on the decode path)",
         ms=device_ms(run_matmuls(dec), reps=5),
         plain_ms=device_ms(run_matmuls(dec, "plain"), reps=2, replays=2),
         library_ms=device_ms(run_dense(dec, dense), reps=5),
         library="torch.matmul by the dequantized bf16 weights, product only",
         bound=bound_ms(b, o, "bf16"))
-    # the same calls all on the SIMT kernel (the head as it ran before the
-    # decode path)
+    # the same calls all on the SIMT kernel (as they ran before the decode
+    # path)
     out["dequant_matmul_decode_simt"] = dict(
         work=f"one decode step: {len(dec)} calls at M={slots}, SIMT path forced",
         ms=device_ms(run_on_path(dec, PATHS.index("simt")), reps=5),
@@ -1546,8 +1729,10 @@ def timing_phase(s, gen):
     out["dequant_matmul_shapes"] = shapes
 
     # the whole decode step as a CUDA graph, beside the host-clock
-    # decode_step_ms
-    out["decode_step_graph_ms"] = decode_graph_ms(s)
+    # decode_step_ms, and with its layer products on the SIMT kernel
+    out["decode_step_graph_runs"] = decode_graphs(s)
+    out["decode_step_graph_ms"] = statistics.mean(
+        out["decode_step_graph_runs"]["own"])
 
     # flash_attention: one layer's prefill attention (B=1, 14 heads over 2,
     # S=128, D=64, causal, bf16); the library yardstick is PyTorch's SDPA
@@ -1609,14 +1794,18 @@ def timing_phase(s, gen):
 
 def rounding_flips(gen, dev):
     """Share of bf16 outputs that round away from the exact product (f64 on
-    the f32 weights, rounded once to bf16), for the kernel and for the plain
-    version (f32 cuBLAS), at falcon-mamba's w_in at M = 128 and qwen2's
-    w_down / w_up.T at M = 2,048: how close each path's f32 sums come to
-    exact before their one bf16 rounding."""
+    the f32 weights, rounded once to bf16), for the kernel on its own path,
+    on the SIMT kernel (forced) and for the plain version (f32 cuBLAS), at
+    falcon-mamba's w_in at M = 128 and 4, qwen2's w_down at M = 4 and
+    2,048 and its w_up.T at M = 2,048: how close each path's f32 sums come
+    to exact before their one bf16 rounding."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import (PATHS,
+                                                    dequant_matmul_flat_cuda)
 
     rows = []
     for k, n, m, tr in ((MAMBA_D, 2 * SCAN_D, 128, False),
+                        (MAMBA_D, 2 * SCAN_D, 4, False), (4864, 896, 4, False),
                         (4864, 896, TRAIN_M, False), (896, 4864, TRAIN_M, True)):
         w = torch.randn(k * n, generator=gen, device=dev) * 0.05
         q, sc = ops.quantize_int8(w, 128)
@@ -1634,10 +1823,15 @@ def rounding_flips(gen, dev):
                                    impl=impl)
             row["plain_flips" if impl else "kernel_flips"] = float(
                 (y != exact).double().mean())
+        y = dequant_matmul_flat_cuda(x, q[:k * n].view(k, n),
+                                     sc[:k * n // 128].view(k, n // 128), 128,
+                                     transpose=tr, path=PATHS.index("simt"))
+        row["simt_flips"] = float((y != exact).double().mean())
         rows.append(row)
         print(f"  dequant_matmul rounding M={m} ({k}, {n}){'.T' if tr else ''}: "
               f"outputs off the exact bf16 {row['kernel_flips']:.5f} "
-              f"({row['path']}), plain {row['plain_flips']:.5f}")
+              f"({row['path']}), SIMT {row['simt_flips']:.5f}, plain "
+              f"{row['plain_flips']:.5f}")
     return rows
 
 
@@ -1651,30 +1845,31 @@ def call_path(call) -> str:
 
 
 def path_threshold(layer, gen, dev):
-    """One layer's 7 products (x @ W and x @ W.T) at M = 4 ... 128 on each
-    of the three paths, forced: where each path stops winning. A path that
-    does not take one of the seven shapes (the decode path's x @ W.T past
-    DEC_TN_MAX_N) times the layer without it, and the row says which; one
-    that takes none of them (the decode path's x @ W) gets no time."""
+    """One layer's 7 products on each of the three paths, forced: x @ W at
+    M = 1 ... 16, 32, 64, 128 and x @ W.T at M = 4 ... 128: where each path
+    stops winning. A path that does not take one of the seven shapes (the
+    decode path's x @ W.T past DEC_TN_MAX_N) times the layer without it, and
+    the row says which; one that takes none of them gets no time."""
     from repro_torch.kernels.dequant_matmul import PATHS, dequant_matmul_takes
 
     rows = []
-    for m in (4, 8, 16, 32, 64, 128):
-        for tr in (False, True):
-            calls = [(torch.randn((m, kn[1] if tr else kn[0]), generator=gen,
-                                  device=dev).to(torch.bfloat16), q, sc, kn,
-                      block, tr) for _, q, sc, kn, block, _ in layer]
-            row = dict(M=m, transpose=tr, paths=[call_path(c) for c in calls])
-            for path, name in enumerate(PATHS):
-                takes = [dequant_matmul_takes(m, *c[3], c[4], tr, c[0].dtype,
-                                              path) for c in calls]
-                row[f"{name}_ms"] = device_ms(run_on_path(
-                    [c for c, t in zip(calls, takes) if t], path), reps=5) \
-                    if any(takes) else None
-                if not all(takes):
-                    row[f"{name}_skips"] = [list(c[3]) for c, t
-                                            in zip(calls, takes) if not t]
-            rows.append(row)
+    shapes = [(m, False) for m in (*range(1, 17), 32, 64, 128)] \
+        + [(m, True) for m in (4, 8, 16, 32, 64, 128)]
+    for m, tr in shapes:
+        calls = [(torch.randn((m, kn[1] if tr else kn[0]), generator=gen,
+                              device=dev).to(torch.bfloat16), q, sc, kn,
+                  block, tr) for _, q, sc, kn, block, _ in layer]
+        row = dict(M=m, transpose=tr, paths=[call_path(c) for c in calls])
+        for path, name in enumerate(PATHS):
+            takes = [dequant_matmul_takes(m, *c[3], c[4], tr, c[0].dtype,
+                                          path) for c in calls]
+            row[f"{name}_ms"] = device_ms(run_on_path(
+                [c for c, t in zip(calls, takes) if t], path), reps=5) \
+                if any(takes) else None
+            if not all(takes):
+                row[f"{name}_skips"] = [list(c[3]) for c, t
+                                        in zip(calls, takes) if not t]
+        rows.append(row)
     return rows
 
 
@@ -1740,12 +1935,16 @@ def train_timing(gen, dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.dequant_matmul import (
         PATHS, dequant_matmul_blocked_cuda, dequant_matmul_blocked_path)
+    from repro_torch.kernels.quant_int4 import INT4_PATHS, quantize_int4_path
 
     out = {}
     n, block = EMBED_N, 128
     g = (torch.randn((n,), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    variant = INT4_PATHS[quantize_int4_path(block, g.dtype,
+                                            g.data_ptr() % 16 == 0)]
     out["quantize_int4"] = dict(
-        work=f"embed grad stage 1: {n} bf16 elements, block {block}",
+        work=f"embed grad stage 1: {n} bf16 elements, block {block} "
+             f"({variant})",
         ms=device_ms(lambda: ops.quantize_int4(g, block), reps=5),
         plain_ms=device_ms(lambda: ops.quantize_int4(g, block, impl="plain"),
                            reps=2),
@@ -1951,10 +2150,12 @@ def main(argv=None) -> int:
     s = serve_phase(SERVE_ARGS, SERVE_KERNELS)
     pf = check_prefill(s)
     pf.update(check_prefill_f32(s))
+    pf.update(check_decode_step(s))
     print(f"  launches {s['launches']}; counters {s['counters']}; prefill "
           f"logits max_abs_err {pf['logits_err']:.3e} (max|ref| "
           f"{pf['logits_scale']:.3e}, argmax equal {pf['argmax_equal']})")
     print_prefill_f32(pf)
+    print_decode_step(pf)
 
     phase("ssm")
     m, mpf, scan_t, xproj_t = ssm_phase(gen, dev)
@@ -1962,9 +2163,12 @@ def main(argv=None) -> int:
           f"logits max_abs_err {mpf['logits_err']:.3e} (max|ref| "
           f"{mpf['logits_scale']:.3e}, argmax equal {mpf['argmax_equal']})")
     print_prefill_f32(mpf)
+    print_decode_step(mpf)
     print(f"  prefill_ms {mpf['prefill_ms']:.3f} decode_step_ms "
           f"{m['decode_step_ms']:.3f} decode_step_graph_ms "
-          f"{m['decode_step_graph_ms']:.3f} tok_s {m['tokens'] / m['run_s']:.3f} "
+          f"{m['decode_step_graph_ms']:.3f} (layers on SIMT and own path in "
+          f"turns: {m['decode_step_graph_runs']}) tok_s "
+          f"{m['tokens'] / m['run_s']:.3f} "
           f"setup_s {m['setup_s']:.1f} max_memory_allocated {m['peak_bytes']} "
           f"residency_bytes {m['memory']['wire_bytes']}")
     for seq, tm in scan_t.items():
@@ -2077,6 +2281,7 @@ def main(argv=None) -> int:
         max_len=s["args"].max_len, tokens=s["tokens"], steps=s["steps"],
         prefill_ms=pf["prefill_ms"], decode_step_ms=s["decode_step_ms"],
         decode_step_graph_ms=t["decode_step_graph_ms"],
+        decode_step_graph_runs=t["decode_step_graph_runs"],
         tok_s=s["tokens"] / s["run_s"], run_s=s["run_s"],
         setup_s=s["setup_s"], residency_bytes=s["memory"]["wire_bytes"],
         prefill_logits_max_abs_err=pf["logits_err"],
@@ -2085,6 +2290,7 @@ def main(argv=None) -> int:
         prefill_f32_logits_max_abs_ref=pf["f32_logits_scale"],
         prefill_bf16_kernel_vs_f32_plain=pf["bf16_kernel_vs_f32_plain"],
         prefill_bf16_plain_vs_f32_plain=pf["bf16_plain_vs_f32_plain"],
+        **{k: v for k, v in pf.items() if k.startswith("decode_")},
         traced_prefill_wall_ms=pf["traced"]["wall_ms"],
         traced_prefill_device_ms=pf["traced"]["device_ms"],
         traced_prefill_top_kernels=pf["traced"]["top"])
@@ -2094,6 +2300,7 @@ def main(argv=None) -> int:
         tokens=m["tokens"], steps=m["steps"], prefill_ms=mpf["prefill_ms"],
         decode_step_ms=m["decode_step_ms"],
         decode_step_graph_ms=m["decode_step_graph_ms"],
+        decode_step_graph_runs=m["decode_step_graph_runs"],
         tok_s=m["tokens"] / m["run_s"], run_s=m["run_s"], setup_s=m["setup_s"],
         residency_bytes=m["memory"]["wire_bytes"],
         dense_bytes=m["memory"]["dense_bytes"],
@@ -2105,6 +2312,7 @@ def main(argv=None) -> int:
         prefill_f32_logits_max_abs_ref=mpf["f32_logits_scale"],
         prefill_bf16_kernel_vs_f32_plain=mpf["bf16_kernel_vs_f32_plain"],
         prefill_bf16_plain_vs_f32_plain=mpf["bf16_plain_vs_f32_plain"],
+        **{k: v for k, v in mpf.items() if k.startswith("decode_")},
         traced_prefill_wall_ms=mpf["traced"]["wall_ms"],
         traced_prefill_device_ms=mpf["traced"]["device_ms"],
         traced_prefill_top_kernels=mpf["traced"]["top"],

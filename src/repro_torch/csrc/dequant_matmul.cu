@@ -10,15 +10,17 @@
 // Three paths, chosen by shape and dtype alone (dequant_matmul_path), in
 // this order (the crossovers measured on the card: PERF.md):
 //  * decode, for f32 or bf16 x @ W.T at M <= DEC_MAX_M_T = 16 (block % 16
-//    == 0, N <= 4,096): the LM heads of serving;
+//    == 0, N <= 4,096): the LM heads of serving; and for bf16 x @ W at
+//    M <= DEC_MAX_M = 8 (block % 64 == 0, K % 8 == 0): every decode-step
+//    layer product;
 //  * tensor cores (wgmma), for bf16 with block % 64 == 0, K % 8 == 0 (every
 //    bf16 row of x and out 16-byte aligned, as cp.async needs) and
-//    M >= TC_MIN_M = 5 for x @ W, M >= TC_MIN_M_T = 64 for x @ W.T: the
+//    M >= TC_MIN_M = 5 for x @ W (past the decode path's 8 in bf16),
+//    M >= TC_MIN_M_T = 64 for x @ W.T: the
 //    M = 128 prefills and the M = 2,048 training products;
-//  * SIMT f32 FMA for everything else: x @ W at M <= 4 (every decode-step
-//    layer product, where it beat both other paths on the card), f32 at
-//    larger M, bf16 x @ W.T at M = 17 ... 63, and shapes neither of the
-//    others takes.
+//  * SIMT f32 FMA for everything else: f32 x @ W at any M, f32 at larger
+//    M, bf16 x @ W.T at M = 17 ... 63, blocks that are not a multiple of
+//    64 (x @ W) or 16 (x @ W.T), and shapes neither of the others takes.
 //
 // Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16; weight, scales, x and out
 // each moved once): decode at M = 4, bytes: qwen2-0.5b 0.04-1.36 us a layer
@@ -40,6 +42,34 @@
 // reduces 4 rows at once (halving by lane bits 4 and 3, then an xor tree),
 // and a row's warps are added in warp order. Deterministic: every sum runs
 // in a fixed order.
+//
+// Decode path, x @ W (the decode step's layer products): also a stream of
+// int8 weight bytes, but along q's rows the scale changes every `block`
+// columns and down its columns every row, and the products at M = 4 were
+// bound by issue on the CUDA cores (an int8 -> f32 conversion, a multiply by
+// the scale and M FMAs a weight). Within a CTA's 64 output columns, one
+// quant block, the scale s[k, nb] depends on the contraction row k alone,
+// so it goes into x: xs[m, k] = x[m, k] * s[k, nb] in f32, M products a
+// row instead of N, split into hi = bf16(xs) and lo = bf16(xs - hi) (16
+// bits, each product within 2^-16 of the f32 one). q is exact in bf16 and
+// is widened without the conversion unit or a multiply (a byte permute
+// into an f32 2^23 + 128 + q, a subtract, the top half of two such f32 as a
+// bf16 pair). The product out.T = q.T @ xs.T runs on mma.sync.m16n8k16: A
+// is 16 output columns x 16 rows of q, B the hi and lo
+// of 4 rows of x (n = 8), so the tensor cores take the M FMAs and the
+// CUDA cores keep about three instructions a weight. A CTA takes 64
+// output columns and a run of K; each of its 4 warps takes every fourth
+// k16 slice of that run, loaded (8 bytes of q a row a lane, with the
+// rows' x and scales) straight into a ring of 3 slices in registers, so
+// each warp keeps 3 KB of q in flight with no shared memory and no
+// barrier, and an SM holds 4 CTAs. Each warp folds its mma chain into f32
+// every 4 slices. K is split for about two CTAs an SM, never past one wave
+// of CTAs (a second, partial wave costs as much as the first; on the card,
+// rings in shared memory, deeper rings and wider tiles all moved fewer
+// bytes); the
+// tile's K splits are one thread block cluster, whose sums are added in
+// split order through distributed shared memory in the same launch.
+// Deterministic: every sum runs in a fixed order, no atomics.
 //
 // Tensor-core path: 128 x 128 output tiles, two warpgroups of 64 x 128
 // (wgmma.m64n128k16, bf16 in, f32 accumulators in registers), contraction
@@ -89,7 +119,11 @@
 //    no atomics).
 //  * x @ W.T: the contraction runs along a contiguous q row, so one warp
 //    owns one output column k and reduces its lanes with shuffles.
+#include <cooperative_groups.h>
+
 #include "tensor_core.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -870,6 +904,245 @@ int launch_dec_rows(const void* x, const void* q, const void* s, void* out, int 
   return launch_dec_tn<T, DEC_TN_MAX_MT>(xt, qt, stt, ot, M, K, N, block, st);
 }
 
+// ---------------------------------------------------------------------------
+// decode path, x @ W (bf16, M <= DEC_MAX_M): mma.sync with the scale in x
+// ---------------------------------------------------------------------------
+
+// rows of x up to which the decode path takes a bf16 x @ W call: two row
+// tiles (the crossover measured on the card against the other paths:
+// PERF.md)
+constexpr int DEC_MAX_M = 8;
+constexpr int DNT_THREADS = 128;     // 4 warps
+constexpr int DNT_WARPS = DNT_THREADS / 32;
+constexpr int DNT_COLS = 64;         // output columns a CTA, under one scale a row (block % 64 == 0)
+constexpr int DNT_ROWS = 16 * DNT_WARPS;  // q rows of a split's step: one k16 slice a warp
+constexpr int DNT_DEPTH = 3;         // k16 slices a warp keeps in flight in registers
+constexpr int DNT_MIN_CTAS = 4;      // CTAs an SM holds (__launch_bounds__)
+constexpr int DNT_MT = 4;            // rows of x a CTA: hi and lo of 4 rows fill mma's n = 8
+constexpr int DNT_FOLD = 4;          // slices a warp's mma chain runs before its f32 fold
+constexpr int DNT_MAX_SPLIT = 8;     // K splits of a column tile: one portable cluster
+constexpr int DNT_MIN_STEPS = 2;     // steps of DNT_ROWS rows a split takes at least
+constexpr int DNT_TARGET = 264;      // CTAs a call aims at: two an SM
+
+// bf16 x @ W with block % 64 == 0 (64 columns share one scale a row) and
+// K % 8 == 0 (every bf16 row of x 16-byte aligned)
+bool dec_nt_takes(int K, int block, int dtype) {
+  return dtype == DT_BF16 && block % DNT_COLS == 0 && K % 8 == 0;
+}
+
+// K split of the decode x @ W: number of splits (a cluster) and rows (whole
+// steps of DNT_ROWS) a split. Enough splits for DNT_TARGET CTAs, but no
+// more than one wave of `capacity` CTAs holds (a second, partial wave
+// would double the call), each of at least DNT_MIN_STEPS steps
+void dnt_split(int M, int K, int N, long long capacity, int* splits, int* chunk) {
+  const long long natural =
+      (long long)((N + DNT_COLS - 1) / DNT_COLS) * ((M + DNT_MT - 1) / DNT_MT);
+  const int steps = (K + DNT_ROWS - 1) / DNT_ROWS;
+  long long sp = (DNT_TARGET + natural - 1) / natural;
+  if (sp > capacity / natural) sp = capacity / natural;
+  if (sp > DNT_MAX_SPLIT) sp = DNT_MAX_SPLIT;
+  if (sp > steps / DNT_MIN_STEPS) sp = steps / DNT_MIN_STEPS;
+  if (sp < 1) sp = 1;
+  const int per = (int)((steps + sp - 1) / sp);
+  *chunk = per * DNT_ROWS;
+  *splits = (steps + per - 1) / per;
+}
+
+// two rows' bytes I (xor 0x80) of one column -> a bf16 pair, exact: the f32
+// of a small integer ends in 16 zero bits, so its top half is its bf16
+template <int I>
+__device__ __forceinline__ uint32_t i8_pair_bf16(uint32_t row0, uint32_t row1) {
+  return __byte_perm(__float_as_uint(i8_to_f32<I>(row0)),
+                     __float_as_uint(i8_to_f32<I>(row1)), 0x7632);
+}
+
+// one k16 slice as a lane holds it: q rows k, k + 1, k + 8, k + 9 (k = 16 i
+// + 2t) at the tile's columns 8g ... 8g + 7, those rows' scales, and x at
+// rows (k, k + 1) and (k + 8, k + 9) of the lane's row g % 4 of x (bf16
+// pairs); rows past the split are 0
+struct DntSlice {
+  uint2 q[4];
+  float s[4];
+  uint32_t x[2];
+};
+
+// the A fragment of strip P (0 ... 3) of a slice: strip P's A row g is
+// column 8g + 2P, its row g + 8 column 8g + 2P + 1 (r: the slice's q, xor
+// 0x80)
+template <int P>
+__device__ __forceinline__ void dnt_strip(const uint2 (&r)[4], uint32_t (&a)[4]) {
+  constexpr int B = 2 * (P & 1);
+  const uint32_t w0 = (P < 2 ? r[0].x : r[0].y), w1 = (P < 2 ? r[1].x : r[1].y);
+  const uint32_t w8 = (P < 2 ? r[2].x : r[2].y), w9 = (P < 2 ? r[3].x : r[3].y);
+  a[0] = i8_pair_bf16<B>(w0, w1);
+  a[1] = i8_pair_bf16<B + 1>(w0, w1);
+  a[2] = i8_pair_bf16<B>(w8, w9);
+  a[3] = i8_pair_bf16<B + 1>(w8, w9);
+}
+
+// out (M, N) = x (M, K) @ dequant(q (K, N)), bf16 x and out; grid (column
+// tiles of 64, K splits, row tiles of 4), the K splits of a tile one
+// cluster. Computed as out.T = q.T @ xs.T on mma.m16n8k16: A is 16 output
+// columns x 16 rows of q, widened to bf16 (exact); B is 16 rows x 8: the
+// hi and lo bf16 terms of xs = x * s (f32) for the 4 rows of x. Warp w
+// takes k16 slices w, w + 4, ... of its split, loaded straight into a
+// ring of DNT_DEPTH slices in registers (no shared memory, no barrier), and
+// folds its chain into f32 every DNT_FOLD slices; hi and lo are added at
+// the end, then the warps in warp order, then the cluster's splits in
+// split order.
+__global__ void __launch_bounds__(DNT_THREADS, DNT_MIN_CTAS)
+dmm_dec_nt_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                  const float* __restrict__ s, __nv_bfloat16* __restrict__ out, int M,
+                  int K, int N, int block, int chunk) {
+  __shared__ float red[DNT_WARPS][DNT_MT * DNT_COLS];  // the warps' sums
+  __shared__ float part[DNT_MT * DNT_COLS];            // the CTA's sum
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * DNT_COLS, m0 = blockIdx.z * DNT_MT;
+  const int kbeg = blockIdx.y * chunk, kend = min(K, kbeg + chunk);
+  const int nsl = (kend - kbeg + 15) / 16;                   // the split's slices
+  const int mine = nsl > warp ? (nsl - warp + DNT_WARPS - 1) / DNT_WARPS : 0;
+  // this lane's B column: row g % 4 of the tile, its hi (g < 4) or lo term
+  const int mb = g & 3;
+  const bool lo_term = g >= 4, x_in = m0 + mb < M;
+  const int8_t* qc = q + n0 + 8 * g;
+  const float* sc = s + n0 / block;
+  const __nv_bfloat16* xr = x + (size_t)(x_in ? m0 + mb : 0) * K;
+  const int nblk = N / block;
+
+  auto fetch = [&](int i, DntSlice& f) {  // the warp's i-th slice
+    const int k = kbeg + (warp + DNT_WARPS * i) * 16 + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int kr = k + (r & 1) + 8 * (r >> 1);
+      const bool in = kr < kend;
+      f.q[r] = in ? __ldcs(reinterpret_cast<const uint2*>(qc + (size_t)kr * N))
+                  : make_uint2(0u, 0u);
+      f.s[r] = in ? __ldg(sc + (size_t)kr * nblk) : 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // K % 8 == 0: rows k + 8h and k + 8h + 1 are both in or out
+      const int kr = k + 8 * h;
+      f.x[h] = x_in && kr < kend ? __ldg(reinterpret_cast<const unsigned int*>(xr + kr)) : 0u;
+    }
+  };
+
+  float acc[4][4], chain[4][4];  // [strip][C register]
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[p][i] = chain[p][i] = 0.f;
+  DntSlice ring[DNT_DEPTH];
+#pragma unroll
+  for (int j = 0; j < DNT_DEPTH; ++j)
+    if (j < mine) fetch(j, ring[j]);
+
+  for (int i0 = 0; i0 < mine; i0 += DNT_DEPTH) {
+#pragma unroll
+    for (int j = 0; j < DNT_DEPTH; ++j) {
+      const int i = i0 + j;
+      if (i >= mine) break;
+      DntSlice& f = ring[j];
+      uint32_t b[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // xs at rows k + 8h, + 1 -> this lane's term
+        __nv_bfloat162 xb;
+        *reinterpret_cast<uint32_t*>(&xb) = f.x[h];
+        const float2 xv = __bfloat1622float2(xb);
+        const float v0 = xv.x * f.s[2 * h], v1 = xv.y * f.s[2 * h + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
+        b[h] = lo_term ? pack_bf16(v0 - __low2float(hi), v1 - __high2float(hi))
+                       : *reinterpret_cast<const uint32_t*>(&hi);
+      }
+      uint2 r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[e] = make_uint2(f.q[e].x ^ 0x80808080u, f.q[e].y ^ 0x80808080u);
+      if (i + DNT_DEPTH < mine) fetch(i + DNT_DEPTH, f);  // the slot is free: refill it
+      uint32_t a[4];
+      dnt_strip<0>(r, a);
+      mma_bf16(chain[0], a, b[0], b[1]);
+      dnt_strip<1>(r, a);
+      mma_bf16(chain[1], a, b[0], b[1]);
+      dnt_strip<2>(r, a);
+      mma_bf16(chain[2], a, b[0], b[1]);
+      dnt_strip<3>(r, a);
+      mma_bf16(chain[3], a, b[0], b[1]);
+      if ((i + 1) % DNT_FOLD == 0 || i + 1 == mine) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[p][e] += chain[p][e];
+            chain[p][e] = 0.f;
+          }
+      }
+    }
+  }
+
+  // C row g / g + 8 of strip P is column 8g + 2P / + 1; C column 2t + e is
+  // the hi (t < 2) or lo (t >= 2) term of row 2t + e (mod 4): lanes t and
+  // t ^ 2 hold the two terms of one output
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = acc[p][i] + __shfl_xor_sync(0xffffffffu, acc[p][i], 2);
+      if (t < 2) red[warp][(2 * t + (i & 1)) * DNT_COLS + 8 * g + 2 * p + (i >> 1)] = v;
+    }
+  __syncthreads();
+  for (int o = tid; o < DNT_MT * DNT_COLS; o += DNT_THREADS) {
+    float v = red[0][o];
+#pragma unroll
+    for (int w = 1; w < DNT_WARPS; ++w) v += red[w][o];
+    part[o] = v;
+  }
+  // the cluster's splits in split order: CTA `rank` writes every
+  // splits-th output
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  const int splits = (int)gridDim.y, rank = (int)blockIdx.y;
+  for (int o = rank + splits * tid; o < DNT_MT * DNT_COLS; o += splits * DNT_THREADS) {
+    float v = *cl.map_shared_rank(part + o, 0);
+    for (int i = 1; i < splits; ++i) v += *cl.map_shared_rank(part + o, i);
+    const int m = o / DNT_COLS;
+    if (m0 + m < M) out[(size_t)(m0 + m) * N + n0 + o % DNT_COLS] = __float2bfloat16_rn(v);
+  }
+  cl.sync();  // no CTA leaves while another reads its sums
+}
+
+// CTAs of the decode x @ W kernel the card holds at once
+long long dnt_capacity() {
+  static const long long n = [] {
+    int per_sm = 1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dmm_dec_nt_kernel, DNT_THREADS, 0);
+    return (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+  }();
+  return n;
+}
+
+int launch_dec_nt(const void* x, const void* q, const void* s, void* out, int M, int K,
+                  int N, int block, cudaStream_t st) {
+  int splits, chunk;
+  dnt_split(M, K, N, dnt_capacity(), &splits, &chunk);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((N + DNT_COLS - 1) / DNT_COLS), (unsigned)splits,
+                     (unsigned)((M + DNT_MT - 1) / DNT_MT));
+  cfg.blockDim = dim3(DNT_THREADS);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, dmm_dec_nt_kernel, (const __nv_bfloat16*)x, (const int8_t*)q,
+      (const float*)s, (__nv_bfloat16*)out, M, K, N, block, chunk);
+  if (rc != cudaSuccess) return (int)rc;
+  return launch_status();
+}
+
 }  // namespace
 
 // The path a call of this shape and dtype takes: 0 = SIMT, 1 = tensor cores,
@@ -877,6 +1150,7 @@ int launch_dec_rows(const void* x, const void* q, const void* s, void* out, int 
 extern "C" int dequant_matmul_path(int M, int K, int N, int block, int transpose,
                                    int dtype) {
   if (M <= DEC_MAX_M_T && dec_takes(N, block, transpose, dtype)) return PATH_DECODE;
+  if (!transpose && M <= DEC_MAX_M && dec_nt_takes(K, block, dtype)) return PATH_DECODE;
   return M >= (transpose ? TC_MIN_M_T : TC_MIN_M) && tc_takes(K, block, dtype) ? PATH_TC
                                                                                   : PATH_SIMT;
 }
@@ -886,13 +1160,14 @@ extern "C" int dequant_matmul_path(int M, int K, int N, int block, int transpose
 extern "C" int dequant_matmul_takes(int M, int K, int N, int block, int transpose, int dtype,
                                     int path) {
   if (M <= 0 || block <= 0 || block % 4 != 0 || N % block != 0) return 0;
-  if (path == PATH_DECODE) return dec_takes(N, block, transpose, dtype);
+  if (path == PATH_DECODE)
+    return transpose ? dec_takes(N, block, transpose, dtype) : dec_nt_takes(K, block, dtype);
   if (path == PATH_TC) return tc_takes(K, block, dtype);
   return path == PATH_SIMT && (dtype == DT_F32 || dtype == DT_BF16);
 }
 
 // f32 elements of scratch a call on ``path`` needs for its K-split partial
-// sums (0: none; the decode path does not split K)
+// sums (0: none; the decode path splits K inside a cluster)
 extern "C" long long dequant_matmul_workspace(int M, int K, int N, int transpose,
                                               int path) {
   if (transpose || M <= 0 || path == PATH_DECODE) return 0;
@@ -905,8 +1180,8 @@ extern "C" long long dequant_matmul_workspace(int M, int K, int N, int transpose
 }
 
 // One call on the given path; fails on a shape, dtype or alignment the path
-// does not take (the tensor cores want 16-byte aligned x and q, the decode
-// path a 16-byte aligned q)
+// does not take (the tensor-core and decode paths want 16-byte aligned x
+// and q)
 extern "C" int dequant_matmul_on_path(const void* x, const void* q, const void* s,
                                       void* out, void* work, int dtype, int M, int K,
                                       int N, int block, int transpose, int path,
@@ -915,8 +1190,12 @@ extern "C" int dequant_matmul_on_path(const void* x, const void* q, const void* 
   if (block <= 0 || block % 4 != 0 || N % block != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (path == PATH_DECODE) {
-    if (!dec_takes(N, block, transpose, dtype) || ((uintptr_t)x | (uintptr_t)q) % 16 != 0)
-      return (int)cudaErrorInvalidValue;
+    if (((uintptr_t)x | (uintptr_t)q) % 16 != 0) return (int)cudaErrorInvalidValue;
+    if (!transpose) {
+      if (!dec_nt_takes(K, block, dtype)) return (int)cudaErrorInvalidValue;
+      return launch_dec_nt(x, q, s, out, M, K, N, block, st);
+    }
+    if (!dec_takes(N, block, transpose, dtype)) return (int)cudaErrorInvalidValue;
     if (dtype == DT_F32)
       return launch_dec_rows<float>(x, q, s, out, M, K, N, block, st);
     return launch_dec_rows<__nv_bfloat16>(x, q, s, out, M, K, N, block, st);

@@ -22,10 +22,20 @@
 // bytes and writes 4 per element. A few f32 operations per element are far
 // below what the card issues for those bytes.
 //
-// Design: quantize gives one warp to each block (the TPU kernel's (8, bs)
-// VMEM tile becomes 8 warps of 32 lanes); each lane takes element pairs so it
-// writes whole bytes, the absmax is a warp-shuffle reduction and the second
-// pass over the block hits L1. The dequantize gives each thread 4 packed
+// Design: quantize reads each element once into registers. Its wide
+// variant gives each lane units of 8 elements (one 16-byte load in bf16,
+// two in f32) and each block a group of G = min(bs / 8, 32) lanes (a power
+// of two), bs / (8 G) units a lane (at most 8): the absmax is an xor
+// shuffle inside the group, the quotients come from the registers, and a
+// unit's 8 nibbles go out as one 32-bit store (a warp's stores are 128
+// contiguous bytes). G and the units a lane are template parameters (the
+// shuffles unrolled, the indices constant-folded), and each warp takes one
+// row of 32 / G blocks in a grid over all rows, with no loop. The warp
+// variant (a warp a block, lanes striding over element pairs, a second
+// pass from L1) takes every other block size (bs % 8 != 0, bs / 8 not a
+// power of two or 32 times one, bs > 2,048) and x off the 16-byte grid;
+// quantize_int4_path picks the variant from shape and alignment alone.
+// The dequantize gives each thread 4 packed
 // bytes (8 outputs: two float4 or one 16-byte bf16 store) when the block
 // allows it, else one byte; block sizes run from 4 to 16,384 and the scale
 // index is the byte index over bs / 2. The sum gives each thread 4 packed bytes (one
@@ -64,6 +74,105 @@ quantize_int4_kernel(const T* __restrict__ x, uint8_t* __restrict__ q,
     qb[p] = (uint8_t)(((int)lo + 8) | (((int)hi + 8) << 4));
   }
   if (lane == 0) s[b] = scale;
+}
+
+constexpr int Q4_THREADS = 256;
+constexpr int Q4_MAX_UNITS = 8;  // units of 8 elements a lane: bs <= 2,048
+enum { Q4_WARP = 0, Q4_WIDE = 1 };
+
+// element e of a unit of 8 as loaded: bf16 in one uint4, f32 in two
+__device__ __forceinline__ float unit_elem(const uint4 (&u)[1], int e) {
+  const uint32_t w = (&u[0].x)[e / 2];
+  return __uint_as_float(e % 2 ? w & 0xFFFF0000u : w << 16);
+}
+__device__ __forceinline__ float unit_elem(const uint4 (&u)[2], int e) {
+  return __uint_as_float((&u[e / 4].x)[e % 4]);
+}
+
+// the wide variant: blocks of bs = 8 * G * CPL elements, G = 1 << GLOG
+// lanes a block, CPL units of 8 a lane (lane l of a group takes units
+// i * G + l, so a warp's loads and stores at step i are contiguous); each
+// warp takes one row of 32 / G blocks
+template <typename T, int GLOG, int CPL>
+__global__ void __launch_bounds__(Q4_THREADS)
+quantize_int4_wide_kernel(const T* __restrict__ x, uint32_t* __restrict__ q,
+                          float* __restrict__ s, long long nb) {
+  constexpr int G = 1 << GLOG, WORDS = sizeof(T) / 2;  // 16-byte words a unit
+  const int lane = threadIdx.x % 32, sub = lane & (G - 1);
+  const long long b = ((long long)blockIdx.x * Q4_THREADS + threadIdx.x) / 32 * (32 / G) +
+                      (lane >> GLOG);
+  const long long unit0 = b * G * CPL + sub;
+  uint4 v[CPL][WORDS];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const uint4* p = reinterpret_cast<const uint4*>(x + (unit0 + i * G) * 8);
+#pragma unroll
+    for (int w = 0; w < WORDS; ++w) v[i][w] = b < nb ? __ldcs(p + w) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(unit_elem(v[i], e)));
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (b >= nb) return;
+  const float scale = amax == 0.f ? 1.f : amax * (1.0f / 7.0f);
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      // clamp(rint(x / scale), -7, 7) + 8 + 2^23: its low 4 bits are the nibble
+      const float c =
+          fminf(fmaxf(rintf(unit_elem(v[i], e) / scale), -7.f), 7.f) + 8388616.0f;
+      word |= (__float_as_uint(c) & 0xFu) << (4 * e);
+    }
+    q[unit0 + i * G] = word;
+  }
+  if (sub == 0) s[b] = scale;
+}
+
+// log2 of the wide variant's lanes a block and its units a lane, or false
+// when it does not take blocks of bs elements
+bool q4_wide_shape(int bs, int* glog, int* cpl) {
+  if (bs <= 0 || bs % 8 != 0) return false;
+  const int units = bs / 8;
+  const int g = units < 32 ? units : 32;
+  if ((g & (g - 1)) != 0 || units % g != 0) return false;
+  const int c = units / g;
+  if (c > Q4_MAX_UNITS || (c & (c - 1)) != 0) return false;
+  int lg = 0;
+  while ((1 << lg) < g) ++lg;
+  *glog = lg;
+  *cpl = c;
+  return true;
+}
+
+template <typename T, int GLOG, int CPL>
+int launch_q4_wide(const void* x, void* q, void* s, long long nb, cudaStream_t st) {
+  const long long rows = (nb + (32 >> GLOG) - 1) / (32 >> GLOG);  // one a warp
+  const long long blocks = (rows + Q4_THREADS / 32 - 1) / (Q4_THREADS / 32);
+  quantize_int4_wide_kernel<T, GLOG, CPL><<<(unsigned)blocks, Q4_THREADS, 0, st>>>(
+      (const T*)x, (uint32_t*)q, (float*)s, nb);
+  return launch_status();
+}
+
+template <typename T>
+int launch_q4_wide_shape(const void* x, void* q, void* s, long long nb, int glog, int cpl,
+                         cudaStream_t st) {
+  switch (glog < 5 ? glog : 4 + cpl) {  // 32 lanes: 4 + cpl (1, 2, 4, 8)
+    case 0: return launch_q4_wide<T, 0, 1>(x, q, s, nb, st);
+    case 1: return launch_q4_wide<T, 1, 1>(x, q, s, nb, st);
+    case 2: return launch_q4_wide<T, 2, 1>(x, q, s, nb, st);
+    case 3: return launch_q4_wide<T, 3, 1>(x, q, s, nb, st);
+    case 4: return launch_q4_wide<T, 4, 1>(x, q, s, nb, st);
+    case 5: return launch_q4_wide<T, 5, 1>(x, q, s, nb, st);
+    case 6: return launch_q4_wide<T, 5, 2>(x, q, s, nb, st);
+    case 8: return launch_q4_wide<T, 5, 4>(x, q, s, nb, st);
+    default: return launch_q4_wide<T, 5, 8>(x, q, s, nb, st);
+  }
 }
 
 __device__ __forceinline__ void unpack_add(uint32_t byte, float sc, bool first,
@@ -179,13 +288,30 @@ unsigned grid_for(long long items) {
 
 }  // namespace
 
-// x: (nb * bs,) f32 or bf16 -> q: (nb * bs / 2,) uint8, s: (nb,) f32
+// The quantize variant blocks of bs elements take: 0 = warp, 1 = wide
+// (x_aligned: x starts on the 16-byte grid)
+extern "C" int quantize_int4_path(int bs, int dtype, int x_aligned) {
+  int glog, cpl;
+  const bool typed = dtype == DT_F32 || dtype == DT_BF16;
+  return typed && x_aligned && q4_wide_shape(bs, &glog, &cpl) ? Q4_WIDE : Q4_WARP;
+}
+
+// x: (nb * bs,) f32 or bf16 -> q: (nb * bs / 2,) uint8, s: (nb,) f32, on
+// the variant quantize_int4_path names
 extern "C" int quantize_int4(const void* x, int dtype, void* q, void* s,
                              long long nb, int bs, void* stream) {
   if (nb <= 0) return 0;
   if (bs <= 0 || bs % 2 != 0) return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((nb + QUANT_WARPS - 1) / QUANT_WARPS);
   cudaStream_t st = (cudaStream_t)stream;
+  if (quantize_int4_path(bs, dtype, (uintptr_t)x % 16 == 0) == Q4_WIDE) {
+    int glog, cpl;
+    q4_wide_shape(bs, &glog, &cpl);
+    if ((uintptr_t)q % 4 != 0) return (int)cudaErrorInvalidValue;
+    return dtype == DT_F32
+               ? launch_q4_wide_shape<float>(x, q, s, nb, glog, cpl, st)
+               : launch_q4_wide_shape<__nv_bfloat16>(x, q, s, nb, glog, cpl, st);
+  }
+  const unsigned grid = (unsigned)((nb + QUANT_WARPS - 1) / QUANT_WARPS);
   if (dtype == DT_F32)
     quantize_int4_kernel<float><<<grid, QUANT_WARPS * 32, 0, st>>>(
         (const float*)x, (uint8_t*)q, (float*)s, nb, bs);

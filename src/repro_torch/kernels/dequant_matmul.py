@@ -15,11 +15,15 @@ The flat dequant-matmul has three paths, chosen by shape and dtype alone
 (``dequant_matmul_path``), in this order: decode, in f32 or bf16 for
 x @ W.T (the LM head) at M <= 16 with a block that is a multiple of 16 and
 N <= 4,096, which streams the weight through a cp.async ring in 16-byte
-copies on persistent CTAs and sums in f32 on the CUDA cores; tensor cores
-(wgmma) for bf16 with a block that is a multiple of 64, K % 8 == 0 (every
-bf16 row 16-byte aligned) and M >= 5 (x @ W) or M >= 64 (x @ W.T); and
-SIMT f32 FMA for the rest (x @ W at M <= 4, f32 at larger M, bf16 x @ W.T
-at M = 17 ... 63). The tensor cores take x @ W.T with exact
+copies on persistent CTAs and sums in f32 on the CUDA cores, and in bf16
+for x @ W (the decode step's layer products) at M <= 8 with a block that
+is a multiple of 64 and K % 8 == 0, which folds the scale into x (two bf16
+terms of x * s) and runs the exact int8 weight against it on mma.sync, the
+K splits of a column tile summed in one cluster; tensor cores (wgmma) for
+bf16 with a block that is a multiple of 64, K % 8 == 0 (every bf16 row
+16-byte aligned) and M >= 9 (x @ W) or M >= 64 (x @ W.T); and SIMT f32 FMA
+for the rest (f32 x @ W, f32 at larger M, bf16 x @ W.T at M = 17 ... 63,
+other blocks). The tensor cores take x @ W.T with exact
 products of bf16 x and the raw int8 q, scaled after each quant block, and
 x @ W with each f32 weight split into two bf16 terms (hi + lo, 16 bits). A
 q or x off the 16-byte grid (q off 4 bytes on the SIMT path) is copied to

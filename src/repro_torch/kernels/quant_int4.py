@@ -4,8 +4,12 @@ card (csrc/quant_int4.cu).
 Port of ``repro.kernels.quant_int4``'s ``quantize_int4_pallas`` (:46),
 ``dequantize_int4_pallas`` (:68) and ``dequantize_int4_sum_pallas`` (:105);
 the first and the last are the two halves of the INT4 all-to-all gradient
-reduce-scatter. The source note in csrc/quant_int4.cu gives the bound and
-the design; ``ref.quantize_int4_ref``, ``ref.dequantize_int4_ref`` and
+reduce-scatter. The quantize has two variants, chosen by block size, dtype
+and alignment alone (``quantize_int4_path``): "wide" (16-byte loads, a
+block in the registers of a lane group, 32-bit stores of 8 nibbles) for
+blocks of 8 ... 2,048 elements that are 8 times a power of two, on x
+aligned to 16 bytes; "warp" (a warp a block) for the rest. The source note
+in csrc/quant_int4.cu gives the bound and the design; ``ref.quantize_int4_ref``, ``ref.dequantize_int4_ref`` and
 ``ref.dequantize_int4_sum_ref`` are the plain versions. Callers go through ``kernels/ops.py``, which counts
 the launches.
 """
@@ -18,6 +22,7 @@ import torch
 from . import cuda
 
 SIGNATURES = {
+    "quantize_int4_path": (c_int, [c_int] * 3),
     "quantize_int4": (c_int, [c_void_p, c_int, c_void_p, c_void_p, c_longlong,
                               c_int, c_void_p]),
     "dequantize_int4_sum": (c_int, [c_void_p, c_void_p, c_void_p, c_int,
@@ -27,12 +32,23 @@ SIGNATURES = {
 }
 
 
+# csrc/quant_int4.cu: Q4_WARP, Q4_WIDE
+INT4_PATHS = ("warp", "wide")
+
+
 def _lib():
     return cuda.library("quant_int4", SIGNATURES)
 
 
+def quantize_int4_path(bs: int, dtype: torch.dtype, aligned: bool) -> int:
+    """Index into ``INT4_PATHS`` of the variant blocks of ``bs`` elements of
+    ``dtype`` take; ``aligned``: x starts on the 16-byte grid."""
+    return _lib().quantize_int4_path(bs, cuda.DTYPE_CODE[dtype], int(aligned))
+
+
 def quantize_int4_cuda(blocks: torch.Tensor):
-    """(nb, bs) f32 | bf16, bs even -> ((nb, bs // 2) uint8, (nb, 1) f32)."""
+    """(nb, bs) f32 | bf16, bs even -> ((nb, bs // 2) uint8, (nb, 1) f32),
+    on the variant ``quantize_int4_path`` names."""
     cuda.require(blocks, "blocks", (torch.float32, torch.bfloat16))
     nb, bs = blocks.shape
     if bs % 2:

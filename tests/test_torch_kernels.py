@@ -137,9 +137,11 @@ def test_flash_attention_gate_raises():
 
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-@pytest.mark.parametrize("block", [128, 8])
+@pytest.mark.parametrize("block", [128, 8, 16, 64, 256, 2048])
 def test_quantize_int4_bitwise(impl, dtype, block):
-    """Packed nibbles and scales bit for bit against the jitted reference."""
+    """Packed nibbles and scales bit for bit against the jitted reference,
+    at the block sizes of both of the kernel's variants (a lane group of 1
+    ... 32 lanes, 1 ... 8 units of 8 elements a lane)."""
     rng = np.random.default_rng(4)
     x = _blocks_input(rng, 24, block, dtype)
     qj, sj = jax.jit(lambda v: jops.quantize_int4(v, block, impl=impl))(x)
@@ -636,3 +638,93 @@ def test_dequant_matmul_decode_rounding(impl, m, block, k, n):
     assert yt.shape == yj.shape == (m, k)
     np.testing.assert_allclose(yt.numpy(), yj, rtol=0,
                                atol=1e-5 * float(np.abs(yj).max()))
+
+
+# The decode path's x @ W (csrc/dequant_matmul.cu, dmm_dec_nt_kernel):
+# 64-column CTAs whose 4 warps take every fourth k16 slice of the CTA's
+# run of K (warp w: rows 16 w ... 16 w + 15 of every 64), a warp's chain
+# folded into f32 every 4 of its slices, the K split into whole runs of 64
+# rows (at least 2) over a cluster of at most 8 CTAs, enough for 264 CTAs
+# and no more than one wave of the H100's 132 SMs x 4 CTAs holds.
+DNT_COLS, DNT_ROWS, DNT_WARPS, DNT_FOLD, DNT_MT = 64, 64, 4, 4, 4
+DNT_MAX_SPLIT, DNT_MIN_STEPS, DNT_TARGET, DNT_CAPACITY = 8, 2, 264, 132 * 4
+
+
+def _dnt_chunk(m, k, n):
+    """Rows of K a split takes (csrc's dnt_split)."""
+    natural = -(-n // DNT_COLS) * -(-m // DNT_MT)
+    steps = -(-k // DNT_ROWS)
+    splits = max(1, min(-(-DNT_TARGET // natural), DNT_CAPACITY // natural,
+                        DNT_MAX_SPLIT, steps // DNT_MIN_STEPS))
+    return -(-steps // splits) * DNT_ROWS
+
+
+def _decode_nt_dequant_matmul(x, q, s, block, terms=2):
+    """What csrc/dequant_matmul.cu's decode path computes for bf16 x @ W, in
+    f32 before its final cast: xs = x * s[k, n // block] in f32, split into
+    ``terms`` bf16 terms (hi = bf16(xs), lo = bf16(xs - hi)); for each K
+    split, each warp's rows (16 w ... 16 w + 15 of every 64) times the
+    exact q, each term on its own, in chains of DNT_FOLD of its slices
+    added in f32; the terms added, then the warps in warp order, then the splits in
+    split order. x (M, K) bf16, q (K, N) int8, s (K, N // block) f32."""
+    xf, qf = x.float(), q.float()
+    m, k = x.shape
+    n = q.shape[1]
+    parts, rest = [], xf[:, :, None] * s[None]     # (M, K, N // block)
+    for _ in range(terms):
+        term = rest.to(torch.bfloat16).float()
+        parts.append(term.repeat_interleave(block, dim=2))
+        rest = rest - term
+    chunk = _dnt_chunk(m, k, n)
+    out = None
+    for k0 in range(0, k, chunk):
+        kend = min(k, k0 + chunk)
+        cta = None
+        for w in range(DNT_WARPS):
+            accs = [torch.zeros((m, n)) for _ in parts]
+            for f0 in range(k0, kend, DNT_ROWS * DNT_FOLD):
+                r = torch.arange(f0, min(kend, f0 + DNT_ROWS * DNT_FOLD))
+                r = r[(r - k0) % DNT_ROWS // 16 == w]
+                for acc, part in zip(accs, parts):
+                    acc += torch.einsum("mrn,rn->mn", part[:, r], qf[r])
+            v = accs[0]
+            for acc in accs[1:]:
+                v = v + acc
+            cta = v if cta is None else cta + v
+        out = cta if out is None else out + cta
+    return out
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("k,n", [(520, 256), (2600, 128)])
+def test_dequant_matmul_decode_nt_rounding(impl, m, block, k, n):
+    """The decode path's x @ W against the oracle on bf16 x, compared in
+    f32, at M = 1 ... 4: K = 520 ends in a ragged slice (3 splits of 192
+    rows), K = 2,600 gives 7 splits of 384 rows (a fold inside a split).
+    Two bf16 terms keep 16 bits of each x * s, so each output is within
+    2^-16 * (|x| @ |w|) of the f32 product, plus 1e-5 of max|ref| for the
+    order of the f32 sums; one bf16 term lands measurably further off."""
+    rng = np.random.default_rng(19)
+    w = rng.standard_normal(k * n + 2 * block).astype(np.float32) * 0.1
+    q, s = jax.jit(lambda v: jops.quantize_int8(v, block, impl="jnp"))(w)
+    q, s = np.asarray(q), np.asarray(s)
+    x = np.asarray(jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16))
+    yj = np.asarray(jax.jit(lambda a, b, c: jops.dequant_matmul(
+        a, b, c, (k, n), block, transpose=False, dtype=jnp.float32,
+        impl=impl))(x, q, s))
+    q2 = _torch(q)[: k * n].view(k, n)
+    s2 = _torch(s)[: k * n // block].view(k, n // block)
+    xt = _torch(x)
+    y2 = _decode_nt_dequant_matmul(xt, q2, s2, block)
+    y1 = _decode_nt_dequant_matmul(xt, q2, s2, block, terms=1)
+    assert y2.shape == yj.shape == (m, n)
+    w_abs = (q2.float() * s2.repeat_interleave(block, 1)).abs()
+    bound = 2.0 ** -16 * (xt.float().abs() @ w_abs) \
+        + 1e-5 * float(np.abs(yj).max())
+    err2 = (y2 - _torch(yj)).abs()
+    err1 = (y1 - _torch(yj)).abs()
+    assert bool((err2 <= bound).all())
+    assert float(err1.max()) > 16 * float(err2.max())
+    assert not bool((err1 <= bound).all())
