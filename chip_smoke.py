@@ -108,8 +108,23 @@ either is missing or any phase fails. Phases, in order:
             bytes bound and its SFU floor (B*S*D*N exps over 132 SMs x 16 a
             clock x nvidia-smi's clocks.max.sm), and dequantize_int8 of one
             layer's w_xproj leaf of the residency (8192 x 288 -> bf16, the
-            call every layer makes); then its residency is freed before the
-            training ranks start.
+            call every layer makes); then its residency is freed.
+3c. neox  : the same for gpt-neox-20b at published width and depth (44
+            neox layers: parallel residual, LayerNorm, GELU MLP, 64 heads of
+            96; d_model 6,144, d_ff 24,576, vocab 50,432, untied head; INT8
+            residency of 21.2 GB built leaf by leaf) under SERVE_KERNELS:
+            the prefill (PREFILL_TOL), f32 and f32-ratio prefill checks and
+            the decode step's check, peak device memory, the decode graphs
+            in turns; the traced prefill must show 44 launches of the
+            tensor-core flash kernel. flash_attention at head dim 96 against
+            its plain version (the prefill's 64 heads at S = 128, a ragged
+            Sq of 100 with GQA 8/2 and a query offset, a window, f32; one
+            bf16 ulp / F32_TOL of max|ref|), its prefill-shape device time
+            in bf16 and f32 beside plain, SDPA and the bound; NeoX's six
+            layer products and its head at M = 4 (own path, SIMT forced,
+            bf16 cuBLAS, bound) and at M = 128 / 1, and one prefill's 265
+            products; then its residency is freed before the training ranks
+            start.
 4. train  : repro_torch.launch.train with --devices 4: qwen2-0.5b at full
             width and depth under zero_topo on the mesh (data, node, gcd) =
             (1, 2, 2), four ranks (processes) on this one card over gloo,
@@ -153,12 +168,11 @@ either is missing or any phase fails. Phases, in order:
             matmul_quant on one layer's seven dW shapes with bf16 operands
             (tensor cores, beside bf16 cuBLAS x.T @ g) and with f32 operands
             (SIMT, beside f32 cuBLAS), each also per shape.
-6. report : JSON lines (serve, serve_ssm, train, regimes, collectives,
-            kernels_extra with the extra timing rows and every
+6. report : JSON lines (serve, serve_ssm, serve_neox, train, regimes,
+            collectives, kernels_extra with the extra timing rows and every
             dequant_matmul shape's path, then the kernels line: all 11
             kernels with their launches on every path), the card's name and
-            power limit
-            (nvidia-smi), and last the line
+            power limit (nvidia-smi), and last the line
             {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -223,6 +237,10 @@ SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
 SSM_SERVE_ARGS = ["--arch", "falcon-mamba-7b"] + SERVE_ARGS[2:]
 SSM_SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
                      "selective_scan")
+# gpt-neox-20b runs the serving kernels of qwen2 (attention at head dim 96)
+NEOX_SERVE_ARGS = ["--arch", "gpt-neox-20b"] + SERVE_ARGS[2:]
+NEOX_H, NEOX_HD, NEOX_L = 64, 96, 44   # heads (all KV), head dim, layers
+NEOX_LEAVES = ("wq", "wk", "wv", "wo", "w_in", "w_out_ff")
 # each path is held to the kernels it runs, so a kernel that only another
 # path launches never fails it
 TRAIN_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
@@ -372,12 +390,31 @@ def expected_int4_path(block, aligned) -> str:
     return "warp"
 
 
+def attn_case(checks, gen, dev, what, b, h, hkv, sq, sk, q_offset, window,
+              dtype, hd):
+    """flash_attention (B, S, H, hd) through the kernel against its plain
+    version: bf16 within one bf16 ulp of max|ref|, f32 within F32_TOL."""
+    from repro_torch.models import layers
+
+    q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, sk, hkv, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, hkv, hd), generator=gen, device=dev).to(dtype)
+    ok = layers.flash_attention(q, k, v, causal=True, window=window,
+                                q_offset=q_offset)
+    op = layers.flash_attention(q, k, v, causal=True, window=window,
+                                q_offset=q_offset, impl="plain")
+    err, scale = rel_err(ok, op)
+    tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) * scale
+    if ok.shape != op.shape or err > tol:
+        raise Failed(f"flash_attention {what}: err {err} > {tol}")
+    add_check(checks, "flash_attention", what, err, f"{tol:.3e}")
+
+
 def check_kernels(dev, gen, checks):
     from repro_torch.kernels import ops
     from repro_torch.kernels.dequant_matmul import (PATHS, dequant_matmul_path,
                                                     matmul_quant_path)
     from repro_torch.kernels.quant_int4 import INT4_PATHS, quantize_int4_path
-    from repro_torch.models import layers
 
     def record(name, what, err, tol):
         add_check(checks, name, what, err, tol)
@@ -560,38 +597,28 @@ def check_kernels(dev, gen, checks):
             mm_case(f"M={m} ({d}, {n}){'.T' if tr else ''} bf16 q at offset 1",
                     m, d, n, 128, tr, torch.bfloat16, offset=1)
 
-    def attn_case(what, b, h, hkv, sq, sk, q_offset, window, dtype):
-        q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, sk, hkv, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, sk, hkv, hd), generator=gen, device=dev).to(dtype)
-        ok = layers.flash_attention(q, k, v, causal=True, window=window,
-                                    q_offset=q_offset)
-        op = layers.flash_attention(q, k, v, causal=True, window=window,
-                                    q_offset=q_offset, impl="plain")
-        err, scale = rel_err(ok, op)
-        tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) * scale
-        if ok.shape != op.shape or err > tol:
-            raise Failed(f"flash_attention {what}: err {err} > {tol}")
-        record("flash_attention", what, err, f"{tol:.3e}")
+    def attn(what, b, h, hkv, sq, sk, q_offset, window, dtype):
+        attn_case(checks, gen, dev, what, b, h, hkv, sq, sk, q_offset, window,
+                  dtype, 64)
 
-    attn_case("B=1 H=14/2 S=128 causal bf16 (prefill)", 1, 14, 2, 128, 128, 0,
-              0, torch.bfloat16)
-    attn_case("B=2 H=6/2 S=100 causal f32 ragged", 2, 6, 2, 100, 100, 0, 0,
-              torch.float32)
-    attn_case("B=1 H=4/1 Sq=64 Sk=128 q_offset=64 f32", 1, 4, 1, 64, 128, 64, 0,
-              torch.float32)
-    attn_case("B=1 H=14/2 S=256 window=32 bf16", 1, 14, 2, 256, 256, 0, 32,
-              torch.bfloat16)
+    attn("B=1 H=14/2 S=128 causal bf16 (prefill)", 1, 14, 2, 128, 128, 0, 0,
+         torch.bfloat16)
+    attn("B=2 H=6/2 S=100 causal f32 ragged", 2, 6, 2, 100, 100, 0, 0,
+         torch.float32)
+    attn("B=1 H=4/1 Sq=64 Sk=128 q_offset=64 f32", 1, 4, 1, 64, 128, 64, 0,
+         torch.float32)
+    attn("B=1 H=14/2 S=256 window=32 bf16", 1, 14, 2, 256, 256, 0, 32,
+         torch.bfloat16)
     # the tensor-core kernel: the training step's shape, ragged, a query
     # offset, and a window that skips key tiles on both sides
-    attn_case("B=2 H=14/2 S=1024 causal bf16 (training)", 2, 14, 2, 1024,
-              1024, 0, 0, torch.bfloat16)
-    attn_case("B=2 H=6/2 S=100 causal bf16 ragged", 2, 6, 2, 100, 100, 0, 0,
-              torch.bfloat16)
-    attn_case("B=1 H=4/1 Sq=64 Sk=128 q_offset=64 bf16", 1, 4, 1, 64, 128, 64,
-              0, torch.bfloat16)
-    attn_case("B=1 H=14/2 S=512 window=32 bf16", 1, 14, 2, 512, 512, 0, 32,
-              torch.bfloat16)
+    attn("B=2 H=14/2 S=1024 causal bf16 (training)", 2, 14, 2, 1024, 1024, 0,
+         0, torch.bfloat16)
+    attn("B=2 H=6/2 S=100 causal bf16 ragged", 2, 6, 2, 100, 100, 0, 0,
+         torch.bfloat16)
+    attn("B=1 H=4/1 Sq=64 Sk=128 q_offset=64 bf16", 1, 4, 1, 64, 128, 64, 0,
+         torch.bfloat16)
+    attn("B=1 H=14/2 S=512 window=32 bf16", 1, 14, 2, 512, 512, 0, 32,
+         torch.bfloat16)
 
     def int4_case(what, n_blocks, block, dtype, d=2, offset=0):
         """quantize_int4 and dequantize_int4_sum bit for bit against their
@@ -1299,6 +1326,131 @@ def ssm_phase(gen, dev):
     return record, pf, timing, xproj
 
 
+def neox_flash(gen, dev, checks, seq):
+    """flash_attention at GPT-NeoX's head width (96) against its plain
+    version: the prefill's shape (64 heads, S = seq, causal), a ragged Sq
+    of 100 with GQA 8 over 2 and a query offset, a window, and f32; then the
+    prefill shape's device time in bf16 (tensor cores) and f32 (CUDA
+    cores), each beside its plain version, SDPA and its bound."""
+    from repro_torch.kernels import ops
+
+    hd, h = NEOX_HD, NEOX_H
+    for what, b, hq, hkv, sq, sk, off, win, dt in (
+            (f"B=1 H={h}/{h} S={seq} causal bf16 D={hd} (NeoX prefill)", 1, h,
+             h, seq, seq, 0, 0, torch.bfloat16),
+            (f"B=2 H=8/2 Sq=100 Sk=256 q_offset=156 bf16 D={hd}", 2, 8, 2,
+             100, 256, 156, 0, torch.bfloat16),
+            (f"B=1 H=16/16 S=512 window=32 bf16 D={hd}", 1, 16, 16, 512, 512,
+             0, 32, torch.bfloat16),
+            (f"B=1 H={h}/{h} S={seq} causal f32 D={hd}", 1, h, h, seq, seq, 0,
+             0, torch.float32),
+            (f"B=2 H=6/2 S=100 causal f32 ragged D={hd}", 2, 6, 2, 100, 100, 0,
+             0, torch.float32)):
+        attn_case(checks, gen, dev, what, b, hq, hkv, sq, sk, off, win, dt, hd)
+    pairs = h * seq * (seq + 1) // 2
+    out = {}
+    for key, dt in (("flash_attention_d96", torch.bfloat16),
+                    ("flash_attention_f32_d96", torch.float32)):
+        q, k, v = (torch.randn((h, seq, hd), generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        size = torch.empty((), dtype=dt).element_size()
+        out[key] = dict(
+            work=f"NeoX prefill attention: {h} heads, S={seq}, D={hd}, "
+                 f"causal, {str(dt)[6:]}",
+            ms=device_ms(lambda: ops.flash_attention(q, k, v), reps=50),
+            plain_ms=device_ms(lambda: ops.flash_attention(q, k, v,
+                                                           impl="plain"),
+                               reps=50),
+            library_ms=device_ms(lambda: torch.nn.functional
+                                 .scaled_dot_product_attention(
+                                     q[None], k[None], v[None], is_causal=True),
+                                 reps=50),
+            bound=bound_ms(size * 4 * h * seq * hd, 4 * hd * pairs,
+                           "bf16" if dt == torch.bfloat16 else "f32"))
+    return out
+
+
+def neox_shapes(s, gen):
+    """NeoX's products, from layer 0 of the residency and its LM head, per
+    call: the six layer products and the head at the decode step's M =
+    slots (own path, SIMT forced, bf16 cuBLAS on the dequantized weight,
+    bound) and at the prefill's M = prompt_len, head M = 1 (own path, bf16
+    cuBLAS, bound); then one prefill's calls on the whole residency, beside
+    44 x layer 0's bf16 cuBLAS time plus the head's (the 41 GB of all the
+    dequantized weights do not fit beside the residency)."""
+    from repro_torch.kernels.dequant_matmul import PATHS
+
+    slots, plen = s["args"].slots, s["args"].prompt_len
+    rows = []
+    for step, m, m_head in (("neox decode", slots, slots),
+                            ("neox prefill", plen, 1)):
+        calls = matmul_calls(s, m, m_head, gen, n_layers=1)
+        for call, leaf in zip(calls, NEOX_LEAVES + ("lm_head",)):
+            x, _, _, (k, n), _, tr = call
+            dense = dense_weights([call])
+            b, o = matmul_work([call])
+            row = dict(step=step, leaf=leaf, M=x.shape[0], K=k, N=n,
+                       transpose=tr, path=call_path(call),
+                       ms_per_call=device_ms(run_matmuls([call]), reps=5),
+                       library_ms_per_call=device_ms(run_dense([call], dense),
+                                                     reps=5),
+                       bound_ms_per_call=bound_ms(b, o, "bf16")[0])
+            if step == "neox decode":
+                row["simt_ms_per_call"] = device_ms(
+                    run_on_path([call], PATHS.index("simt")), reps=5)
+            rows.append(row)
+            del dense
+    lib = {r["leaf"]: r["library_ms_per_call"] for r in rows
+           if r["step"] == "neox prefill"}
+    pre = matmul_calls(s, plen, 1, gen)
+    b, o = matmul_work(pre)
+    prefill = dict(
+        work=f"one NeoX prefill: {len(pre)} calls at M={plen} (head M=1)",
+        ms=device_ms(run_matmuls(pre), reps=2), plain_ms=None,
+        library_ms=NEOX_L * sum(lib[leaf] for leaf in NEOX_LEAVES)
+        + lib["lm_head"],
+        library=f"bf16 cuBLAS per call on layer 0's dequantized weights x "
+                f"{NEOX_L}, plus the head's",
+        bound=bound_ms(b, o, "bf16"))
+    return rows, prefill
+
+
+def neox_phase(gen, dev, checks):
+    """gpt-neox-20b served at published width and depth, its prefill and
+    decode step held against the plain versions, flash_attention at head
+    dim 96 held and timed, its products timed by shape. Returns the serve
+    record, the prefill checks and the timings; the residency is freed."""
+    s = serve_phase(NEOX_SERVE_ARGS, SERVE_KERNELS)
+    pf = check_prefill(s)
+    pf.update(check_prefill_f32(s))
+    pf.update(check_decode_step(s))
+    # the traced prefill: every layer's attention on the tensor-core kernel
+    flash_rows = [k for k in pf["traced"]["kernels"]
+                  if "flash_attention_tc_kernel" in k["name"]]
+    pf["traced_flash_ms"] = sum(k["ms"] for k in flash_rows)
+    pf["traced_flash_calls"] = sum(k["calls"] for k in flash_rows)
+    pf["traced_flash_names"] = sorted({k["name"] for k in flash_rows})
+    if pf["traced_flash_calls"] != NEOX_L:
+        raise Failed(f"traced NeoX prefill: {pf['traced_flash_calls']} "
+                     f"tensor-core flash_attention launches, not {NEOX_L}")
+    graphs = decode_graphs(s)
+    s["decode_step_graph_ms"] = statistics.mean(graphs["own"])
+    s["decode_step_graph_runs"] = graphs
+    timing = neox_flash(gen, dev, checks, s["args"].prompt_len)
+    timing["shapes"], timing["dequant_matmul_prefill_neox"] = neox_shapes(s,
+                                                                         gen)
+    record = {k: s[k] for k in ("args", "arch", "reqs", "launches", "counters",
+                                "setup_s", "run_s", "tokens", "steps",
+                                "decode_step_ms", "decode_steps_full",
+                                "decode_step_graph_ms",
+                                "decode_step_graph_runs", "memory",
+                                "peak_bytes")}
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, pf, timing
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the training step
 # ---------------------------------------------------------------------------
@@ -1534,26 +1686,31 @@ def collectives_phase() -> list[dict]:
 # phase 5: timing at the serving and training shapes
 # ---------------------------------------------------------------------------
 
-def matmul_calls(s, m_layers: int, m_head: int, gen):
+def matmul_calls(s, m_layers: int, m_head: int, gen, n_layers=None):
     """The dequant_matmul calls of one serving step on the residency's own
-    weights: 24 layers x 7 projections at M=m_layers, the tied LM head at
-    M=m_head. Returns [(x, q, s, (k, n), block, transpose)]."""
+    weights: each of the first ``n_layers`` layers' (default: all) INT8
+    projections in leaf order (qwen2's 7, NeoX's 6) at M=m_layers, then the
+    LM head (the tied embedding or lm_head, x @ W.T) at M=m_head. Returns
+    [(x, q, s, (k, n), block, transpose)]."""
     from repro_torch.core.linear import _w_kn
 
-    layout, res, dev = s["layout"], s["residency"], s["device"]
+    layout, res, dev, arch = s["layout"], s["residency"], s["device"], s["arch"]
+    kind = arch.pattern[0]
+    names = [n for n in layout.specs
+             if n.startswith(kind + ".") and layout.mode(n) == "wire"]
     calls = []
-    for i in range(s["arch"].n_layers):
-        for leaf in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-            name = f"attn.{leaf}"
+    for i in range(arch.n_layers if n_layers is None else n_layers):
+        for name in names:
             k, n = _w_kn(layout.specs[name])
             x = torch.randn((m_layers, k), generator=gen, device=dev)
             calls.append((x.to(torch.bfloat16), res[name]["q"][i],
                           res[name]["s"][i], (k, n),
                           layout.leaf_cfg[name].quant_block, False))
-    k, n = _w_kn(layout.specs["embed"])
+    head = "embed" if arch.tie_embeddings else "lm_head"
+    k, n = _w_kn(layout.specs[head])
     x = torch.randn((m_head, n), generator=gen, device=dev).to(torch.bfloat16)
-    calls.append((x, res["embed"]["q"], res["embed"]["s"], (k, n),
-                  layout.leaf_cfg["embed"].quant_block, True))
+    calls.append((x, res[head]["q"], res[head]["s"], (k, n),
+                  layout.leaf_cfg[head].quant_block, True))
     return calls
 
 
@@ -1700,11 +1857,15 @@ def timing_phase(s, gen):
     out["dequant_matmul_threshold"] = path_threshold(dec[:7], gen, dev)
     pre = matmul_calls(s, plen, 1, gen)
     b, o = matmul_work(pre)
+    dense = dense_weights(pre)
     out["dequant_matmul_prefill"] = dict(
         work=f"one prefill: {len(pre)} calls at M={plen} (head M=1)",
         ms=device_ms(run_matmuls(pre), reps=3),
         plain_ms=device_ms(run_matmuls(pre, "plain"), reps=1, replays=2),
+        library_ms=device_ms(run_dense(pre, dense), reps=3),
+        library="torch.matmul by the dequantized bf16 weights, product only",
         bound=bound_ms(b, o, "bf16"))
+    del dense
     shapes = []
     for label, calls in (("decode", dec), ("prefill", pre)):
         for per, reps in [(calls[j:-1:7], 3) for j in range(7)] \
@@ -2182,6 +2343,37 @@ def main(argv=None) -> int:
           f"plain {xproj_t['plain_ms']:.5f} ms, bound "
           f"{xproj_t['bound'][0]:.5f} ms")
 
+    phase("neox")
+    nx, npf, nx_t = neox_phase(gen, dev, checks)
+    print(f"  launches {nx['launches']}; counters {nx['counters']}; prefill "
+          f"logits max_abs_err {npf['logits_err']:.3e} (max|ref| "
+          f"{npf['logits_scale']:.3e}, argmax equal {npf['argmax_equal']})")
+    print_prefill_f32(npf)
+    print_decode_step(npf)
+    print(f"  prefill_ms {npf['prefill_ms']:.3f} decode_step_ms "
+          f"{nx['decode_step_ms']:.3f} decode_step_graph_ms "
+          f"{nx['decode_step_graph_ms']:.3f} (layers on SIMT and own path in "
+          f"turns: {nx['decode_step_graph_runs']}) tok_s "
+          f"{nx['tokens'] / nx['run_s']:.3f} "
+          f"setup_s {nx['setup_s']:.1f} max_memory_allocated {nx['peak_bytes']} "
+          f"residency_bytes {nx['memory']['wire_bytes']}")
+    print(f"  traced prefill: {npf['traced_flash_calls']} flash_attention "
+          f"{npf['traced_flash_ms']:.4f} ms of "
+          f"{npf['traced']['device_ms']:.3f} ms device time "
+          f"({npf['traced_flash_names']})")
+    for key in ("flash_attention_d96", "flash_attention_f32_d96",
+                "dequant_matmul_prefill_neox"):
+        tm = nx_t[key]
+        print(f"  {key} ({tm['work']}): {tm['ms']:.5f} ms, plain "
+              f"{tm['plain_ms']} ms, library {tm['library_ms']:.5f} ms, bound "
+              f"{tm['bound'][0]:.5f} ms ({tm['bound'][1]})")
+    for r in nx_t["shapes"]:
+        print(f"  {r['step']} {r['leaf']} M={r['M']} ({r['K']}, {r['N']})"
+              f"{'.T' if r['transpose'] else ''} {r['path']}: "
+              f"{r['ms_per_call']:.5f} ms, SIMT {r.get('simt_ms_per_call')}, "
+              f"bf16 cuBLAS {r['library_ms_per_call']:.5f}, bound "
+              f"{r['bound_ms_per_call']:.5f}")
+
     phase("train")
     tr = train_phase()
     for label, run in (("kernels", tr["kernel"]), ("plain", tr["plain"])):
@@ -2230,6 +2422,8 @@ def main(argv=None) -> int:
     plen = m["args"].prompt_len
     t["selective_scan"] = scan_t[plen]
     t["dequantize_int8_w_xproj"] = xproj_t
+    t.update({k: v for k, v in nx_t.items() if k != "shapes"})
+    t["dequant_matmul_shapes"] += nx_t["shapes"]
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2237,6 +2431,7 @@ def main(argv=None) -> int:
         bms, by = tm["bound"]
         by_path = dict(serve=s["launches"][name],
                        serve_ssm=m["launches"][name],
+                       serve_neox=nx["launches"][name],
                        train=tr["launches"][name],
                        collectives=cl_launches[name],
                        regimes=sum(rg["launches"][name] for rg in regimes),
@@ -2260,7 +2455,8 @@ def main(argv=None) -> int:
                     "dequant_matmul_prefill", "dequant_matmul_decode_simt",
                     "dequant_matmul_blocked_simt", "flash_attention_train",
                     "flash_attention_f32", "matmul_quant_simt",
-                    "dequantize_int8_w_xproj")}
+                    "dequantize_int8_w_xproj", "flash_attention_d96",
+                    "flash_attention_f32_d96", "dequant_matmul_prefill_neox")}
     blk = t["dequant_matmul_blocked"]
     kernels_extra.update(
         dequant_matmul_blocked_bounds=dict(
@@ -2322,6 +2518,30 @@ def main(argv=None) -> int:
                              bound_ms=tm["bound"][0], bound_by=tm["bound"][1],
                              sfu_floor_ms=tm["sfu_floor_ms"])
               for seq, tm in scan_t.items()})
+    neox_line = dict(
+        arch=nx["arch"].name, requests=len(nx["reqs"]), slots=nx["args"].slots,
+        prompt_len=nx["args"].prompt_len, gen=nx["args"].gen,
+        max_len=nx["args"].max_len, tokens=nx["tokens"], steps=nx["steps"],
+        prefill_ms=npf["prefill_ms"], decode_step_ms=nx["decode_step_ms"],
+        decode_step_graph_ms=nx["decode_step_graph_ms"],
+        decode_step_graph_runs=nx["decode_step_graph_runs"],
+        tok_s=nx["tokens"] / nx["run_s"], run_s=nx["run_s"],
+        setup_s=nx["setup_s"], residency_bytes=nx["memory"]["wire_bytes"],
+        dense_bytes=nx["memory"]["dense_bytes"],
+        max_memory_allocated=nx["peak_bytes"], launches=nx["launches"],
+        prefill_logits_max_abs_err=npf["logits_err"],
+        prefill_logits_max_abs_ref=npf["logits_scale"],
+        prefill_argmax_equal=npf["argmax_equal"],
+        prefill_f32_logits_max_abs_err=npf["f32_logits_err"],
+        prefill_f32_logits_max_abs_ref=npf["f32_logits_scale"],
+        prefill_bf16_kernel_vs_f32_plain=npf["bf16_kernel_vs_f32_plain"],
+        prefill_bf16_plain_vs_f32_plain=npf["bf16_plain_vs_f32_plain"],
+        **{k: v for k, v in npf.items() if k.startswith("decode_")},
+        traced_prefill_wall_ms=npf["traced"]["wall_ms"],
+        traced_prefill_device_ms=npf["traced"]["device_ms"],
+        traced_prefill_top_kernels=npf["traced"]["top"],
+        traced_prefill_flash_ms=npf["traced_flash_ms"],
+        traced_prefill_flash_calls=npf["traced_flash_calls"])
     k0 = tr["kernel"][0]
     # the first step pays for the kernels' first use, the last is traced
     timed = slice(1, PROFILE_STEP)
@@ -2383,13 +2603,15 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(dict(
             card=card, phases=phases, kernels=kernels,
             kernels_extra=kernels_extra,
-            serve=serve_line, serve_ssm=ssm_line, train=train_line,
+            serve=serve_line, serve_ssm=ssm_line, serve_neox=neox_line,
+            train=train_line,
             regimes=regimes_line, collectives=collectives_line,
             collective_ranks=cl,
             regime_ranks=[rg["ranks"] for rg in regimes],
             train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
             checks=checks, timing={k: v for k, v in t.items()},
             launches=s["launches"], launches_ssm=m["launches"],
+            launches_neox=nx["launches"],
             build=kcuda.BUILD_LOG,
             torch=torch.__version__, cuda=torch.version.cuda),
             indent=1, default=str))
@@ -2397,6 +2619,7 @@ def main(argv=None) -> int:
     phase("report")
     print("serve " + json.dumps(serve_line))
     print("serve_ssm " + json.dumps(ssm_line))
+    print("serve_neox " + json.dumps(neox_line))
     print("train " + json.dumps(train_line))
     print("regimes " + json.dumps(regimes_line))
     print("collectives " + json.dumps(collectives_line))

@@ -2,38 +2,45 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas (:92).
 // q (BH, Sq, D); k, v (BH / n_rep, Sk, D) -> o (BH, Sq, D) in the dtype of q;
-// D = 64. Query row i sits at absolute position q_offset + i, key j at j;
-// causal keeps j <= q_pos, window > 0 keeps q_pos - j < window. As in the
-// TPU kernel: the softmax scale is folded into q before the dot, masked
-// scores are NEG_INF = -1e30 (not -inf), keys past Sk weigh exactly 0, the
-// output is acc / max(l, 1e-30), and KV tiles that the mask empties for the
-// whole query tile are skipped. GQA reads KV head bh / n_rep instead of
-// materialising the repeat, which gives the same numbers.
+// D = 64 (qwen2) or 96 (GPT-NeoX), each a template instance. Query row i
+// sits at absolute position q_offset + i, key j at j; causal keeps j <=
+// q_pos, window > 0 keeps q_pos - j < window. As in the TPU kernel: the
+// softmax scale is 1/sqrt(D), masked scores are NEG_INF = -1e30 (not -inf),
+// keys past Sk weigh exactly 0, the output is acc / max(l, 1e-30), and KV
+// tiles that the mask empties for the whole query tile are skipped. GQA
+// reads KV head bh / n_rep instead of materialising the repeat, which gives
+// the same numbers.
 //
 // Bound on the H100 (q, k, v, o moved once; 4*D flops per unmasked (query,
-// key) pair at 989 TFLOP/s bf16): serving's prefill (14 heads over 2, S =
-// 128, causal) 0.16 us (bytes); the training step's forward (B = 2 x 14
-// heads over 2, S = 1,024, causal) 3.8 us (operations). At both the kernel
-// is far from its bound: the prefill's 28 CTAs are a latency problem.
+// key) pair at 989 TFLOP/s bf16): qwen2's prefill (14 heads over 2, S =
+// 128, D = 64, causal) 0.16 us (bytes); NeoX's prefill (64 heads, S = 128,
+// D = 96) 1.9 us (bytes); the training step's forward (B = 2 x 14 heads
+// over 2, S = 1,024, causal) 3.8 us (operations). The prefills' few CTAs
+// (28, 128) make them a latency problem.
 //
 // Two kernels, by dtype:
 //  * bf16 (serving and training): tensor cores in the FlashAttention-2
-//    shape. A CTA of 4 warps takes 64 query rows, 16 a warp, with the Q
-//    fragment in registers (q * 1/8 is exact in bf16, so the fold is the
-//    reference's). K and V tiles of 64 keys are double-buffered in shared
-//    memory by cp.async. S = Q K^T and O += P V run on mma.sync.m16n8k16
-//    with f32 accumulation, V through ldmatrix.trans. The running max and
-//    sum stay in registers on the S fragments (f32, expf). P is rounded to
-//    bf16 for the P V product (the reference keeps it in f32): an error of
-//    at most 2^-8 of max|v| per output, within the card check's one bf16 ulp
-//    of max|ref|. Query tiles run heaviest (latest) first.
-//  * f32 (the port's first design, PR 11; no path runs attention in f32,
-//    the card checks do): one block of 64 threads per (batch*head, 64-row
-//    query tile), one query row per thread with its scaled q row and f32
-//    accumulator in registers. K and V tiles of 64 keys are staged in
-//    shared memory as f32 and read by every thread at the same address
-//    (broadcast, no bank conflicts); the running max / sum update once per
-//    16 keys.
+//    shape. A CTA of 4 warps takes 64 query rows, 16 a warp, with the exact
+//    bf16 Q fragment in registers. K and V tiles of 64 keys are
+//    double-buffered in dynamic shared memory by cp.async (66,560 bytes at
+//    D = 96: over the 48 KB of static arrays). S = Q K^T and O += P V run
+//    on mma.sync.m16n8k16 with f32 accumulation, V through ldmatrix.trans.
+//    The scale multiplies the f32 scores: the reference folds it into f32
+//    q, and the two differ by f32 rounding (1/sqrt(96) is no power of two,
+//    so rounding q * scale to bf16 would put 2^-9 on every logit; at D = 64
+//    the two orders give the same bits). The running max and sum stay in
+//    registers on the S fragments (f32, expf). P is rounded to bf16 for the
+//    P V product (the reference keeps it in f32): an error of at most 2^-8
+//    of max|v| per output, within the card check's one bf16 ulp of
+//    max|ref|. Query tiles run heaviest (latest) first.
+//  * f32 (the port's first design; no path runs attention in f32, the card
+//    checks do): one block of 64 threads per (batch*head, 64-row query
+//    tile), one query row per thread with its scaled q row and f32
+//    accumulator in registers (at D = 96 more than the register file
+//    holds: they spill). K and V tiles of 64 keys are staged in shared
+//    memory as f32 (48 KB at D = 96) and read by every thread at the same
+//    address (broadcast, no bank conflicts); the running max / sum update
+//    once per 16 keys.
 #include "tensor_core.cuh"
 
 namespace {
@@ -144,18 +151,34 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int TC_WARPS = 4;
 constexpr int TQ = 16 * TC_WARPS;  // query rows per CTA
 constexpr int TK = 64;             // keys per shared-memory tile
-constexpr int HD = 64;             // head dim
-constexpr int RS = HD + 8;         // smem row (bf16): 144 bytes, ldmatrix without conflicts
 
+// a shared-memory row of HD bf16 plus 16 bytes: 144 bytes at 64, 208 at 96;
+// either way the 8 rows of an ldmatrix land on 8 distinct 16-byte bank
+// groups (row * RS * 2 mod 128 takes 8 values), so no conflicts
+template <int HD>
+__host__ __device__ constexpr int tc_row() { return HD + 8; }
+
+// qs[TQ][RS], ks[2][TK][RS], vs[2][TK][RS]
+template <int HD>
+__host__ __device__ constexpr int tc_smem_bytes() {
+  return (TQ + 4 * TK) * tc_row<HD>() * 2;
+}
+
+template <int HD>
 __global__ void __launch_bounds__(TC_WARPS * 32)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o, int Sq, int Sk, int n_rep,
                           int causal, int window, int q_offset, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[TQ][RS];
-  __shared__ __align__(16) __nv_bfloat16 ks[2][TK][RS];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][TK][RS];
+  constexpr int RS = tc_row<HD>();
+  constexpr int CH = HD / 8;  // 16-byte chunks a row
+  static_assert(HD % 16 == 0 && TQ * CH % (TC_WARPS * 32) == 0 &&
+                TK * CH % (TC_WARPS * 32) == 0, "head dim");
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto qs = reinterpret_cast<__nv_bfloat16 (*)[RS]>(smem);
+  auto ks = reinterpret_cast<__nv_bfloat16 (*)[TK][RS]>(smem + TQ * RS * 2);
+  auto vs = reinterpret_cast<__nv_bfloat16 (*)[TK][RS]>(smem + (TQ + 2 * TK) * RS * 2);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y;
@@ -181,8 +204,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   auto load_kv = [&](int j, int buf) {
 #pragma unroll
-    for (int h = 0; h < TK * HD / 8 / (TC_WARPS * 32); ++h) {
-      const int i = tid + h * TC_WARPS * 32, r = i / 8, c = (i % 8) * 8;
+    for (int h = 0; h < TK * CH / (TC_WARPS * 32); ++h) {
+      const int i = tid + h * TC_WARPS * 32, r = i / CH, c = (i % CH) * 8;
       const int key = j * TK + r;
       const bool in = key < Sk;
       cp_async16(&ks[buf][r][c], in ? kb + (size_t)key * HD + c : kb, in);
@@ -190,8 +213,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 #pragma unroll
-  for (int h = 0; h < TQ * HD / 8 / (TC_WARPS * 32); ++h) {
-    const int i = tid + h * TC_WARPS * 32, r = i / 8, c = (i % 8) * 8;
+  for (int h = 0; h < TQ * CH / (TC_WARPS * 32); ++h) {
+    const int i = tid + h * TC_WARPS * 32, r = i / CH, c = (i % CH) * 8;
     const bool in = q0 + r < Sq;
     cp_async16(&qs[r][c], in ? qb + (size_t)(q0 + r) * HD + c : qb, in);
   }
@@ -206,7 +229,6 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
   const float minus_inf = -__int_as_float(0x7f800000);
-  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
 
   for (int j = j_lo; j < j_hi; ++j) {
     const int buf = (j - j_lo) & 1;
@@ -216,17 +238,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     if (j == j_lo) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk)
         ldsm_x4(qf[kk], &qs[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&qf[kk][e]);
-          h = __hmul2(h, scale2);  // scale = 2^-3: exact
-          qf[kk][e] = *reinterpret_cast<uint32_t*>(&h);
-        }
-      }
     }
-    // S = (q * scale) K^T: 16 rows x 64 keys a warp
+    // S = (q K^T) * scale: 16 rows x 64 keys a warp
     float sc[TK / 8][4];
 #pragma unroll
     for (int n = 0; n < TK / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
@@ -250,7 +265,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         bool keep = true;
         if (causal) keep = keep && qp >= kp;
         if (window) keep = keep && qp - kp < window;
-        sc[n][e] = kp < Sk ? (keep ? sc[n][e] : NEG_INF) : minus_inf;
+        sc[n][e] = kp < Sk ? (keep ? sc[n][e] * scale : NEG_INF) : minus_inf;
         mx[e / 2] = fmaxf(mx[e / 2], sc[n][e]);
       }
     float corr[2];
@@ -314,6 +329,27 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// raises the instance's dynamic shared-memory limit on its first launch
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int BH,
+              int Sq, int Sk, int n_rep, int causal, int window, int q_offset,
+              float scale, cudaStream_t st) {
+  constexpr int bytes = tc_smem_bytes<HD>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        flash_attention_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (rc != cudaSuccess) return (int)rc;
+    attr_set = true;
+  }
+  dim3 grid((unsigned)((Sq + TQ - 1) / TQ), (unsigned)BH);
+  flash_attention_tc_kernel<HD><<<grid, TC_WARPS * 32, bytes, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, Sq, Sk, n_rep, causal, window, q_offset, scale);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -321,20 +357,27 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int causal, int window, int q_offset, float scale,
                                void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
-  if (D != 64 || n_rep <= 0 || BH % n_rep != 0) return (int)cudaErrorInvalidValue;
+  if ((D != 64 && D != 96) || n_rep <= 0 || BH % n_rep != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DT_F32) {
     dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)BH);
-    flash_attention_kernel<float, 64><<<grid, BQ, 0, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk, n_rep,
-        causal, window, q_offset, scale);
+    if (D == 64)
+      flash_attention_kernel<float, 64><<<grid, BQ, 0, st>>>(
+          (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
+          n_rep, causal, window, q_offset, scale);
+    else
+      flash_attention_kernel<float, 96><<<grid, BQ, 0, st>>>(
+          (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
+          n_rep, causal, window, q_offset, scale);
   } else if (dtype == DT_BF16) {
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)((Sq + TQ - 1) / TQ), (unsigned)BH);
-    flash_attention_tc_kernel<<<grid, TC_WARPS * 32, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (__nv_bfloat16*)o, Sq, Sk, n_rep, causal, window, q_offset, scale);
+    const int rc = D == 64 ? launch_tc<64>(q, k, v, o, BH, Sq, Sk, n_rep, causal,
+                                           window, q_offset, scale, st)
+                           : launch_tc<96>(q, k, v, o, BH, Sq, Sk, n_rep, causal,
+                                           window, q_offset, scale, st);
+    if (rc != 0) return rc;
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,18 +1,20 @@
-"""Shared model layers: RMSNorm, RoPE, attention, decode attention, chunked
-cross-entropy.
+"""Shared model layers: RMSNorm, LayerNorm, the tanh GELU, RoPE, attention,
+decode attention, chunked cross-entropy.
 
-Port of ``repro.models.layers`` for the dense ``attn`` block. Full-sequence
-attention (training and prefill) goes through the kernel dispatch
-(``ops.flash_attention``, differentiable) behind the reference's
-``ops.attention_fusable`` gate; a shape the gate rejects raises, since the
-reference's chunked fallback is not ported. Decode attention
-(``flash_decode``) is plain PyTorch, as it is plain jnp in the reference.
+Port of ``repro.models.layers`` for the dense ``attn`` and ``neox``
+blocks. Full-sequence attention (training and prefill) goes through the
+kernel dispatch (``ops.flash_attention``, differentiable) behind the
+reference's ``ops.attention_fusable`` gate; a shape the gate rejects
+raises, since the reference's chunked fallback is not ported. Decode
+attention (``flash_decode``) is plain PyTorch, as it is plain jnp in the
+reference.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
@@ -25,6 +27,20 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """f32 mean and population variance (two passes, as ``jnp.var``)."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default form: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def rope_freqs(positions, dim: int, theta: float):

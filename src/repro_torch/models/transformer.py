@@ -1,10 +1,12 @@
 """Decoder LM: leaf specs, the training loss, prefill and single-token
 decode.
 
-Port of ``repro.models.transformer`` for two block kinds: ``attn``
-(attention + GLU MLP, pre-norm RMSNorm, RoPE, optional QKV bias) and
-``mamba`` (the Mamba-1 mixer of models/ssm.py with no FFN), with a tied or
-separate LM head. Every weight access goes through a parameter view: the
+Port of ``repro.models.transformer`` for three block kinds: ``attn``
+(attention + GLU MLP, pre-norm RMSNorm, RoPE, optional QKV bias), ``neox``
+(GPT-NeoX: attention and a GELU MLP side by side on the block's input,
+``x + attn(ln1(x)) + mlp(ln2(x))``, LayerNorm with biases, full-width RoPE)
+and ``mamba`` (the Mamba-1 mixer of models/ssm.py with no FFN), with a tied
+or separate LM head. Every weight access goes through a parameter view: the
 training engine's ``core.engine.ParamView`` (ZeRO gathers with custom
 backwards) or serving's ``serve.resident.ResidentView`` (the INT8
 residency). ``v.mm`` runs the fused dequant-matmul, ``v.get`` returns a
@@ -67,22 +69,29 @@ def kind_meta(kind: str, cfg: ArchConfig) -> KindMeta:
 
 
 def _ported(kind: str, cfg: ArchConfig) -> KindMeta:
-    """The block kinds the port runs: attention + GLU MLP, or the mamba
-    mixer with no FFN; sequential residual, RMSNorm. Anything else raises
-    instead of running wrong."""
+    """The block kinds the port runs: attention + GLU MLP with a sequential
+    residual and RMSNorm; attention + GELU MLP with the parallel residual
+    and LayerNorm (GPT-NeoX); the mamba mixer with no FFN and RMSNorm.
+    Anything else raises instead of running wrong."""
     m = kind_meta(kind, cfg)
-    block = (m.mixer, m.ffn) == ("mamba", "none") or (
-        (m.mixer, m.ffn) == ("attn", "mlp") and cfg.act == "silu_glu")
-    if (not block or m.cross or m.parallel or m.window or cfg.norm != "rms"
-            or cfg.embed_scale or cfg.n_patches or cfg.enc_layers):
+    attn_mlp = (m.mixer, m.ffn) == ("attn", "mlp")
+    block = ((m.mixer, m.ffn) == ("mamba", "none") and cfg.norm == "rms") \
+        or (attn_mlp and not m.parallel and cfg.norm == "rms"
+            and cfg.act == "silu_glu") \
+        or (attn_mlp and m.parallel and cfg.norm == "ln" and cfg.act == "gelu")
+    if (not block or m.cross or m.window or cfg.embed_scale or cfg.n_patches
+            or cfg.enc_layers):
         raise NotImplementedError(
             f"{cfg.name}: block kind {kind!r} ({m}, norm={cfg.norm}, "
             f"act={cfg.act}) is not ported yet")
     return m
 
 
-def _norm_specs(name: str, d: int) -> dict[str, LeafSpec]:
-    return {name: LeafSpec(name, (d,), PLAIN, init="ones")}
+def _norm_specs(name: str, d: int, cfg: ArchConfig) -> dict[str, LeafSpec]:
+    out = {name: LeafSpec(name, (d,), PLAIN, init="ones")}
+    if cfg.norm == "ln":
+        out[name + "_b"] = LeafSpec(name + "_b", (d,), PLAIN, init="zeros")
+    return out
 
 
 def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
@@ -90,7 +99,7 @@ def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
     m = _ported(kind, cfg)
     d, h, kv, hd, ff = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hdim, cfg.d_ff
     s: dict[str, LeafSpec] = {}
-    s.update(_norm_specs("ln1", d))
+    s.update(_norm_specs("ln1", d, cfg))
     if m.mixer == "mamba":
         c = cfg.ssm
         din, dtr = cfg.d_inner, cfg.dt_rank
@@ -110,10 +119,18 @@ def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
     if cfg.qkv_bias:
         for b, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
             s[b] = LeafSpec(b, (width,), PLAIN, init="zeros")
-    s.update(_norm_specs("ln2", d))
-    for name, shape in (("w_gate", (d, ff)), ("w_up", (d, ff)),
-                        ("w_down", (ff, d))):
-        s[name] = LeafSpec(name, shape, MATMUL)
+    s.update(_norm_specs("ln2", d, cfg))
+    if cfg.act == "silu_glu":
+        for name, shape in (("w_gate", (d, ff)), ("w_up", (d, ff)),
+                            ("w_down", (ff, d))):
+            s[name] = LeafSpec(name, shape, MATMUL)
+        return s
+    # the GELU MLP; the reference gives it biases under LayerNorm, the only
+    # norm _ported admits it with
+    s["w_in"] = LeafSpec("w_in", (d, ff), MATMUL)
+    s["w_out_ff"] = LeafSpec("w_out_ff", (ff, d), MATMUL)
+    s["b_in"] = LeafSpec("b_in", (ff,), PLAIN, init="zeros")
+    s["b_out"] = LeafSpec("b_out", (d,), PLAIN, init="zeros")
     return s
 
 
@@ -128,7 +145,9 @@ class DecCtx:
     pos: Any                            # scalar or per-row (B,) write position
 
 
-def _norm(v, p, name, x):
+def _norm(v, p, name, x, cfg: ArchConfig):
+    if cfg.norm == "ln":
+        return L.layer_norm(x, v.get(p + name), v.get(p + name + "_b"))
     return L.rms_norm(x, v.get(p + name))
 
 
@@ -171,23 +190,36 @@ def _attn_decode(v, p, cfg, m: KindMeta, x, cache, dc: DecCtx):
     return out, {"k": ck, "v": cv}
 
 
-def _ffn(v, p, x):
-    h = _norm(v, p, "ln2", x)
-    return v.mm(p + "w_down", F.silu(v.mm(p + "w_gate", h)) * v.mm(p + "w_up", h))
+def _ffn(v, p, cfg: ArchConfig, x):
+    h = _norm(v, p, "ln2", x, cfg)
+    if cfg.act == "silu_glu":
+        return v.mm(p + "w_down",
+                    F.silu(v.mm(p + "w_gate", h)) * v.mm(p + "w_up", h))
+    z = v.mm(p + "w_in", h) + v.get(p + "b_in")
+    return v.mm(p + "w_out_ff", L.gelu(z)) + v.get(p + "b_out")
+
+
+def _residual(v, p, cfg: ArchConfig, m: KindMeta, x, o):
+    """The block's output from its input x and its mixer's output o: the
+    parallel residual (x + o) + ffn(x), both norms on the block's input,
+    or the sequential x + o, then + ffn(x + o) where the block has one."""
+    if m.parallel:
+        return x + o + _ffn(v, p, cfg, x)
+    x = x + o
+    return x if m.ffn == "none" else x + _ffn(v, p, cfg, x)
 
 
 def block_fwd(kind: str, v, cfg: ArchConfig, x, ctx: Ctx):
     """Returns (x, cache_entry | None)."""
     m = _ported(kind, cfg)
     p = kind + "."
-    h = _norm(v, p, "ln1", x)
+    h = _norm(v, p, "ln1", x, cfg)
     if m.mixer == "mamba":
         o, (h_last, conv_tail) = mamba_mixer(v, p, cfg, h)
         cache = {"h": h_last, "conv": conv_tail} if ctx.want_cache else None
     else:
         o, cache = _attn_fwd(v, p, cfg, m, h, ctx)
-    x = x + o
-    return (x if m.ffn == "none" else x + _ffn(v, p, x)), cache
+    return _residual(v, p, cfg, m, x, o), cache
 
 
 def block_decode(kind: str, v, cfg: ArchConfig, x, cache, dc: DecCtx):
@@ -195,7 +227,7 @@ def block_decode(kind: str, v, cfg: ArchConfig, x, cache, dc: DecCtx):
     (x, new_cache)."""
     m = _ported(kind, cfg)
     p = kind + "."
-    h = _norm(v, p, "ln1", x)
+    h = _norm(v, p, "ln1", x, cfg)
     if m.mixer == "mamba":
         o, (h_new, new_tail) = mamba_decode(v, p, cfg, h,
                                             (cache["h"], cache["conv"]))
@@ -204,8 +236,7 @@ def block_decode(kind: str, v, cfg: ArchConfig, x, cache, dc: DecCtx):
         new_cache = cache
     else:
         o, new_cache = _attn_decode(v, p, cfg, m, h, cache, dc)
-    x = x + o
-    return (x if m.ffn == "none" else x + _ffn(v, p, x)), new_cache
+    return _residual(v, p, cfg, m, x, o), new_cache
 
 
 class LM:
@@ -221,7 +252,7 @@ class LM:
             "embed": LeafSpec("embed", (cfg.vocab, cfg.d_model), MATMUL,
                               init_scale=0.02),
         }
-        out.update(_norm_specs("final_norm", cfg.d_model))
+        out.update(_norm_specs("final_norm", cfg.d_model, cfg))
         if not cfg.tie_embeddings:
             out["lm_head"] = LeafSpec("lm_head", (cfg.vocab, cfg.d_model),
                                       MATMUL, init_scale=0.02)
@@ -266,7 +297,7 @@ class LM:
                               h, use_reentrant=False)
 
         x = view.loop_layers(body, x, list(self._layers()))
-        x = _norm(view, "", "final_norm", x)
+        x = _norm(view, "", "final_norm", x, self.cfg)
         return L.chunked_cross_entropy(
             x, self._head_weight(view), labels,
             torch.ones(labels.shape, dtype=torch.float32, device=x.device))
@@ -283,7 +314,7 @@ class LM:
         for kind, i in self._layers():
             x, cache = block_fwd(kind, view.sub(i), self.cfg, x, ctx)
             per_kind[kind].append(cache)
-        x = _norm(view, "", "final_norm", x)
+        x = _norm(view, "", "final_norm", x, self.cfg)
         logits = self._head_logits(view, x[:, -1:])
         caches: dict[str, Any] = {
             k: {n: torch.stack([c[n] for c in lst]) for n in lst[0]}
@@ -304,7 +335,7 @@ class LM:
         for kind, i in self._layers():
             cl = {n: t[i] for n, t in caches[kind].items()}
             x, _ = block_decode(kind, view.sub(i), self.cfg, x, cl, dc)
-        x = _norm(view, "", "final_norm", x)
+        x = _norm(view, "", "final_norm", x, self.cfg)
         logits = self._head_logits(view, x)
         p = torch.as_tensor(pos, device=x.device)
         caches["pos"] = (p.max() if p.ndim else p).to(torch.int32) + 1

@@ -6,6 +6,8 @@ runs as its own tests run it: the jitted jnp oracle, and the Pallas kernel
 in interpret mode. Wire payloads (INT8 q and f32 scales) must match bit for
 bit; float outputs match within a tolerance stated per test.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -455,15 +457,16 @@ def test_matmul_quant_tensor_core_rounding(impl, block, bits):
 
 
 def _tc_attention(q, k, v, causal, window, q_offset):
-    """csrc/flash_attention.cu's bf16 kernel in plain torch: q * 2^-3 in
-    bf16 (exact), key tiles of 64 with an online softmax in f32 (masked
-    scores NEG_INF, keys past Sk never reached), P rounded to bf16 for the
-    P V product, the output acc / max(l, 1e-30) in f32 before its bf16
-    cast. q (BH, Sq, 64), k, v (BH, Sk, 64) bf16."""
+    """csrc/flash_attention.cu's bf16 kernel in plain torch: the f32 scores
+    of the exact bf16 q and k times 1/sqrt(D), key tiles of 64 with an
+    online softmax in f32 (masked scores NEG_INF, keys past Sk never
+    reached), P rounded to bf16 for the P V product, the output acc /
+    max(l, 1e-30) in f32 before its bf16 cast. q (BH, Sq, D), k, v (BH, Sk,
+    D) bf16, D = 64 or 96."""
     bh, sq, d = q.shape
     sk = k.shape[1]
-    qs = (q * 0.125).float()
-    kf, vf = k.float(), v.float()
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf = q.float(), k.float(), v.float()
     q_pos = q_offset + torch.arange(sq)[:, None]
     m_r = torch.full((bh, sq, 1), -1e30)
     l_r = torch.zeros((bh, sq, 1))
@@ -475,7 +478,8 @@ def _tc_attention(q, k, v, causal, window, q_offset):
             keep &= q_pos >= kp
         if window:
             keep &= q_pos - kp < window
-        sc = torch.where(keep, qs @ kf[:, t0:t0 + 64].transpose(1, 2), -1e30)
+        sc = torch.where(keep, (qf @ kf[:, t0:t0 + 64].transpose(1, 2)) * scale,
+                         -1e30)
         m_new = torch.maximum(m_r, sc.amax(-1, keepdim=True))
         corr = torch.exp(m_r - m_new)
         p = torch.exp(sc - m_new)
@@ -496,9 +500,14 @@ def test_flash_attention_tensor_core_rounding(impl, sq, sk, q_offset, window):
     """Against the oracle on bf16 inputs, compared in f32 (the oracle fed the
     same values as f32, which bf16 holds exactly). Rounding P to bf16 moves
     each weight by at most 2^-8 of itself, so each output by at most 2^-8 of
-    max|v| (the weights sum to 1); the order of the f32 sums adds 1e-5."""
+    max|v| (the weights sum to 1); the order of the f32 sums adds 1e-5, and
+    the scale taken on the f32 scores instead of on f32 q a few f32 ulps."""
+    _hold_tc_attention(impl, sq, sk, q_offset, window, 64)
+
+
+def _hold_tc_attention(impl, sq, sk, q_offset, window, d):
     rng = np.random.default_rng(12)
-    bh, d = 6, 64
+    bh = 6
 
     def bf16(shape):
         return np.asarray(jnp.asarray(rng.standard_normal(shape),
@@ -512,6 +521,21 @@ def test_flash_attention_tensor_core_rounding(impl, sq, sk, q_offset, window):
                        True, window, q_offset)
     np.testing.assert_allclose(ot.numpy(), oj, rtol=0,
                                atol=2.0 ** -8 * float(np.abs(v).max()) + 1e-5)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (128, 128, 0, 0),     # NeoX's prefill square: two key tiles, causal
+    (100, 100, 0, 0),     # ragged
+    (64, 128, 64, 0),     # a query offset
+    (128, 128, 0, 32),    # a window
+])
+def test_flash_attention_tensor_core_rounding_d96(impl, sq, sk, q_offset,
+                                                  window):
+    """The same at GPT-NeoX's head width, D = 96, where 1/sqrt(D) is no
+    power of two: the kernel keeps the exact bf16 q and scales the f32
+    scores, within the same tolerance of the reference's f32 fold."""
+    _hold_tc_attention(impl, sq, sk, q_offset, window, 96)
 
 
 def _fma(a, b, c):
