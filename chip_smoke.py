@@ -68,7 +68,12 @@ either is missing or any phase fails. Phases, in order:
             ... 63 or past N = 4,096 on the SIMT path; q as a view at byte
             offset 1 of a larger buffer on each path; flash_attention in bf16 (the tensor-core kernel) at the training shape, ragged,
             with a query offset and with a window; all within one bf16 ulp
-            of max|ref|.
+            of max|ref|. flash_attention at head dim 128 (gpt-neox-10b's
+            prefill, 40 heads at S = 128, in bf16 and f32; a ragged Sq with
+            GQA and a query offset; a window; f32 ragged) and at the NeoX
+            training step's forward (2 rows of 1,024, D = 96 with 64 heads
+            and D = 128 with 40, in bf16 and f32), within one bf16 ulp /
+            F32_TOL of max|ref|; head dim 80 must raise.
 2b. ops    : two ops-level paths, each with the counters zeroed before and
             read after: benchmarks/quant_error.py's experiment (2^16
             heavy-tailed values, INT8 and INT4 round trips at blocks 64 ...
@@ -123,8 +128,18 @@ either is missing or any phase fails. Phases, in order:
             in bf16 and f32 beside plain, SDPA and the bound; NeoX's six
             layer products and its head at M = 4 (own path, SIMT forced,
             bf16 cuBLAS, bound) and at M = 128 / 1, and one prefill's 265
-            products; then its residency is freed before the training ranks
-            start.
+            products; then its residency is freed.
+3d. neox10b: the same for gpt-neox-10b at published width and depth (32
+            neox layers, d_model 5,120, 40 heads of 128, d_ff 20,480, vocab
+            50,432; INT8 residency of 10.9 GB) under SERVE_KERNELS: the
+            prefill, f32 and f32-ratio prefill checks, the decode step's
+            check, peak device memory, the decode graphs in turns; the
+            traced prefill must show 32 launches of the tensor-core flash
+            kernel at head dim 128; its prefill attention timed in bf16 and
+            f32 beside plain, SDPA and the bound; then its residency is
+            freed before the training ranks start. Every serving phase
+            fails if any attention call fell back to the chunked plain path
+            (ops.dispatch_counters), at these fusable shapes.
 4. train  : repro_torch.launch.train with --devices 4: qwen2-0.5b at full
             width and depth under zero_topo on the mesh (data, node, gcd) =
             (1, 2, 2), four ranks (processes) on this one card over gloo,
@@ -138,6 +153,15 @@ either is missing or any phase fails. Phases, in order:
             TRAIN_GNORM_RTOL). Every rank's traced step must show the
             tensor-core matmul_quant kernel as many times as a step launches
             matmul_quant, and the SIMT one never.
+4d. train_neox: gpt-neox-20b at published width (d_model 6,144, 64
+            heads of 96, d_ff 24,576, vocab 50,432, untied head, LayerNorm
+            biases) and NEOX_TRAIN_L layers, the train phase's mesh, batch
+            and sequence, 3 steps (the last traced), and again with
+            --kernel-impl plain, held as the train phase is held; the
+            traced step must also show flash_attention_tc_kernel<96> as often
+            as a step launches flash_attention. Prints step_s, tok/s, each
+            rank's peak memory and their sum beside the card's, the phase's
+            seconds. No training rank may record an attention fallback.
 4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
             quantized reduce-scatter at bits 4 and 8 over W, E and all four
             ranks on an embedding-sized f32 shard each; every kernel of
@@ -157,9 +181,10 @@ either is missing or any phase fails. Phases, in order:
             all on the SIMT kernel (forced: the head as before its decode path), one
             layer's 7 products at the training M in each orientation beside
             bf16 cuBLAS, one prefill's 169 calls, each decode / prefill shape
-            with its path (decode shapes also on SIMT and beside bf16
-            cuBLAS), falcon-mamba's three M = 128 shapes and its four decode
-            shapes at M = 4, and all three paths forced at M = 1 ... 16, 32,
+            with its path (decode shapes also on SIMT, through the plain
+            version and beside bf16 cuBLAS), falcon-mamba's three M = 128
+            shapes and its four decode shapes at M = 4, and all three
+            paths forced at M = 1 ... 16, 32,
             64, 128 (x @ W) and M = 4 ... 128 (x @ W.T) (the threshold
             rows); the qwen2 decode step as a CUDA graph with its layer
             products on their own path and on SIMT, in turns; dequant_matmul_blocked at w_up on its path
@@ -167,11 +192,15 @@ either is missing or any phase fails. Phases, in order:
             beside SDPA and in f32 at the prefill shape beside f32 SDPA;
             matmul_quant on one layer's seven dW shapes with bf16 operands
             (tensor cores, beside bf16 cuBLAS x.T @ g) and with f32 operands
-            (SIMT, beside f32 cuBLAS), each also per shape.
-6. report : JSON lines (serve, serve_ssm, serve_neox, train, regimes,
-            collectives, kernels_extra with the extra timing rows and every
-            dequant_matmul shape's path, then the kernels line: all 11
-            kernels with their launches on every path), the card's name and
+            (SIMT, beside f32 cuBLAS), each also per shape; flash_attention
+            at the NeoX training shapes (D = 96 and 128) beside SDPA; NeoX's
+            training products at M = 2,048 (forward and dX on 8a, dW on 9a)
+            per shape beside bf16 cuBLAS.
+6. report : JSON lines (serve, serve_ssm, serve_neox, serve_neox10b, train,
+            train_neox, regimes, collectives, kernels_extra with the extra
+            timing rows and every dequant_matmul shape's path, then the
+            kernels line: all 11 kernels with their launches on every
+            path), the card's name and
             power limit (nvidia-smi), and last the line
             {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -241,6 +270,24 @@ SSM_SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
 NEOX_SERVE_ARGS = ["--arch", "gpt-neox-20b"] + SERVE_ARGS[2:]
 NEOX_H, NEOX_HD, NEOX_L = 64, 96, 44   # heads (all KV), head dim, layers
 NEOX_LEAVES = ("wq", "wk", "wv", "wo", "w_in", "w_out_ff")
+# gpt-neox-10b, the paper's second size: the same traffic, head dim 128
+NEOX10B_SERVE_ARGS = ["--arch", "gpt-neox-10b"] + SERVE_ARGS[2:]
+NEOX10B_H, NEOX10B_HD, NEOX10B_L = 40, 128, 32
+# gpt-neox-20b trained at published width and a cut depth on the qwen2
+# train phase's mesh, batch and sequence, 3 steps (the last traced). Each
+# layer holds 453 M parameters and embed + head 620 M; NEOX_TRAIN_L is
+# chosen from the ranks' max_memory_allocated summed (the phase prints it
+# beside the card's memory): at 2 layers (1.53 G parameters) a rank held
+# 17.97 GiB in the optimizer update of the second step and the four ran
+# the 79.18 GiB card out of memory
+NEOX_TRAIN_L = 1
+NEOX_TRAIN_ARGS = ["--arch", "gpt-neox-20b"] + TRAIN_ARGS[2:]
+NEOX_TRAIN_ARGS[NEOX_TRAIN_ARGS.index("--steps") + 1] = "3"
+NEOX_PROFILE_STEP = 2
+NEOX_D, NEOX_FF = 6144, 24576
+# (K, N) of one NeoX layer's six products (wq wk wv wo w_in w_out_ff)
+NEOX_LAYER_KN = ((NEOX_D, NEOX_D),) * 4 + ((NEOX_D, NEOX_FF),
+                                           (NEOX_FF, NEOX_D))
 # each path is held to the kernels it runs, so a kernel that only another
 # path launches never fails it
 TRAIN_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
@@ -619,6 +666,37 @@ def check_kernels(dev, gen, checks):
          torch.bfloat16)
     attn("B=1 H=14/2 S=512 window=32 bf16", 1, 14, 2, 512, 512, 0, 32,
          torch.bfloat16)
+    # head dim 128 (gpt-neox-10b): its prefill's 40 heads at S = 128 in
+    # both dtypes, a ragged Sq with GQA and a query offset, a window, f32
+    # ragged; then the NeoX training step's forward (2 rows of 1,024 a
+    # rank) at D = 96 (gpt-neox-20b's 64 heads) and 128 (gpt-neox-10b's 40)
+    hd, h = NEOX10B_HD, NEOX10B_H
+    for what, b, hq, hkv, sq, sk, off, win, dt in (
+            (f"B=1 H={h}/{h} S=128 causal bf16 D={hd} (NeoX-10B prefill)", 1,
+             h, h, 128, 128, 0, 0, torch.bfloat16),
+            (f"B=1 H={h}/{h} S=128 causal f32 D={hd} (NeoX-10B prefill)", 1,
+             h, h, 128, 128, 0, 0, torch.float32),
+            (f"B=2 H=8/2 Sq=100 Sk=256 q_offset=156 bf16 D={hd}", 2, 8, 2,
+             100, 256, 156, 0, torch.bfloat16),
+            (f"B=1 H=16/16 S=512 window=32 bf16 D={hd}", 1, 16, 16, 512, 512,
+             0, 32, torch.bfloat16),
+            (f"B=2 H=6/2 S=100 causal f32 ragged D={hd}", 2, 6, 2, 100, 100,
+             0, 0, torch.float32)):
+        attn_case(checks, gen, dev, what, b, hq, hkv, sq, sk, off, win, dt, hd)
+    for hd, h in ((NEOX_HD, NEOX_H), (NEOX10B_HD, NEOX10B_H)):
+        for dt in (torch.bfloat16, torch.float32):
+            attn_case(checks, gen, dev, f"B=2 H={h}/{h} S=1024 causal "
+                      f"{str(dt)[6:]} D={hd} (NeoX training)", 2, h, h, 1024,
+                      1024, 0, 0, dt, hd)
+    # any other head dim raises, in both dtypes
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    for dt in (torch.bfloat16, torch.float32):
+        odd = torch.zeros((2, 16, 80), dtype=dt, device=dev)
+        try:
+            flash_attention_cuda(odd, odd, odd)
+        except ValueError:
+            continue
+        raise Failed(f"flash_attention ran at head dim 80 ({dt})")
 
     def int4_case(what, n_blocks, block, dtype, d=2, offset=0):
         """quantize_int4 and dequantize_int4_sum bit for bit against their
@@ -999,6 +1077,20 @@ class Collect:
         self.records.append(record)
 
 
+def no_fallback(where: str, counts: dict) -> None:
+    """Every attention call of a path at fusable shapes reaches the kernel
+    dispatch: a recorded model-level fallback fails the run."""
+    if counts:
+        raise Failed(f"{where}: attention fell back to the chunked plain "
+                     f"path: {counts}")
+
+
+SERVE_RECORD = ("args", "arch", "reqs", "launches", "counters", "setup_s",
+                "run_s", "tokens", "steps", "decode_step_ms",
+                "decode_steps_full", "decode_step_graph_ms",
+                "decode_step_graph_runs", "memory", "peak_bytes")
+
+
 def serve_phase(argv, kernels):
     """Serve ``argv``'s traffic from its seeded residency; every kernel of
     ``kernels`` must launch in the run (the counters are zeroed just before
@@ -1010,6 +1102,7 @@ def serve_phase(argv, kernels):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
+    ops.reset_dispatch_counters()
     t0 = time.perf_counter()
     device, arch, model, layout, residency = serve.setup(args)
     torch.cuda.synchronize()
@@ -1314,16 +1407,38 @@ def ssm_phase(gen, dev):
             * 1e3)
         del args
     xproj = w_xproj_timing(s)
-    record = {k: s[k] for k in ("args", "arch", "reqs", "launches", "counters",
-                                "setup_s", "run_s", "tokens", "steps",
-                                "decode_step_ms", "decode_steps_full",
-                                "decode_step_graph_ms",
-                                "decode_step_graph_runs", "memory",
-                                "peak_bytes")}
+    no_fallback(s["arch"].name, ops.dispatch_counters())
+    record = {k: s[k] for k in SERVE_RECORD}
     del s
     gc.collect()
     torch.cuda.empty_cache()
     return record, pf, timing, xproj
+
+
+def flash_timing(gen, dev, b, h, seq, hd, dtype, what):
+    """flash_attention at (B, H, S, hd), causal, all heads KV: device time
+    of the kernel, its plain version and SDPA, and the bound."""
+    from repro_torch.kernels import ops
+
+    q, k, v = (torch.randn((b * h, seq, hd), generator=gen, device=dev)
+               .to(dtype) for _ in range(3))
+    size = torch.empty((), dtype=dtype).element_size()
+    pairs = b * h * seq * (seq + 1) // 2
+    reps = max(2, 50 * 128 // seq)
+    out = dict(
+        work=f"{what}: B={b} x {h} heads, S={seq}, D={hd}, causal, "
+             f"{str(dtype)[6:]}",
+        ms=device_ms(lambda: ops.flash_attention(q, k, v), reps=reps),
+        plain_ms=device_ms(lambda: ops.flash_attention(q, k, v, impl="plain"),
+                           reps=reps if seq <= 128 else 2),
+        library_ms=device_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 *(t.view(b, h, seq, hd) for t in (q, k, v)),
+                                 is_causal=True), reps=reps),
+        bound=bound_ms(size * 4 * b * h * seq * hd, 4 * hd * pairs,
+                       "bf16" if dtype == torch.bfloat16 else "f32"))
+    del q, k, v
+    return out
 
 
 def neox_flash(gen, dev, checks, seq):
@@ -1332,8 +1447,6 @@ def neox_flash(gen, dev, checks, seq):
     of 100 with GQA 8 over 2 and a query offset, a window, and f32; then the
     prefill shape's device time in bf16 (tensor cores) and f32 (CUDA
     cores), each beside its plain version, SDPA and its bound."""
-    from repro_torch.kernels import ops
-
     hd, h = NEOX_HD, NEOX_H
     for what, b, hq, hkv, sq, sk, off, win, dt in (
             (f"B=1 H={h}/{h} S={seq} causal bf16 D={hd} (NeoX prefill)", 1, h,
@@ -1347,27 +1460,10 @@ def neox_flash(gen, dev, checks, seq):
             (f"B=2 H=6/2 S=100 causal f32 ragged D={hd}", 2, 6, 2, 100, 100, 0,
              0, torch.float32)):
         attn_case(checks, gen, dev, what, b, hq, hkv, sq, sk, off, win, dt, hd)
-    pairs = h * seq * (seq + 1) // 2
-    out = {}
-    for key, dt in (("flash_attention_d96", torch.bfloat16),
-                    ("flash_attention_f32_d96", torch.float32)):
-        q, k, v = (torch.randn((h, seq, hd), generator=gen, device=dev).to(dt)
-                   for _ in range(3))
-        size = torch.empty((), dtype=dt).element_size()
-        out[key] = dict(
-            work=f"NeoX prefill attention: {h} heads, S={seq}, D={hd}, "
-                 f"causal, {str(dt)[6:]}",
-            ms=device_ms(lambda: ops.flash_attention(q, k, v), reps=50),
-            plain_ms=device_ms(lambda: ops.flash_attention(q, k, v,
-                                                           impl="plain"),
-                               reps=50),
-            library_ms=device_ms(lambda: torch.nn.functional
-                                 .scaled_dot_product_attention(
-                                     q[None], k[None], v[None], is_causal=True),
-                                 reps=50),
-            bound=bound_ms(size * 4 * h * seq * hd, 4 * hd * pairs,
-                           "bf16" if dt == torch.bfloat16 else "f32"))
-    return out
+    return {key: flash_timing(gen, dev, 1, h, seq, hd, dt,
+                              "NeoX prefill attention")
+            for key, dt in (("flash_attention_d96", torch.bfloat16),
+                            ("flash_attention_f32_d96", torch.float32))}
 
 
 def neox_shapes(s, gen):
@@ -1415,36 +1511,64 @@ def neox_shapes(s, gen):
     return rows, prefill
 
 
+def neox_serve(argv, n_layers: int, hd: int):
+    """A NeoX model served at published width and depth under SERVE_KERNELS,
+    its prefill (against plain, f32, and the bf16 / f32 ratio) and decode
+    step held against the plain versions, the traced prefill's tensor-core
+    flash launches held to one a layer at head dim ``hd``, the decode graphs
+    in turns. Returns (the serve state, the prefill checks)."""
+    from repro_torch.kernels import ops
+
+    s = serve_phase(argv, SERVE_KERNELS)
+    pf = check_prefill(s)
+    pf.update(check_prefill_f32(s))
+    pf.update(check_decode_step(s))
+    no_fallback(s["arch"].name, ops.dispatch_counters())
+    # the traced prefill: every layer's attention on the tensor-core kernel
+    flash_rows = [k for k in pf["traced"]["kernels"]
+                  if f"flash_attention_tc_kernel<{hd}>" in k["name"]]
+    pf["traced_flash_ms"] = sum(k["ms"] for k in flash_rows)
+    pf["traced_flash_calls"] = sum(k["calls"] for k in flash_rows)
+    pf["traced_flash_names"] = sorted({k["name"] for k in flash_rows})
+    if pf["traced_flash_calls"] != n_layers:
+        raise Failed(f"traced {s['arch'].name} prefill: "
+                     f"{pf['traced_flash_calls']} launches of "
+                     f"flash_attention_tc_kernel<{hd}>, not {n_layers}")
+    graphs = decode_graphs(s)
+    s["decode_step_graph_ms"] = statistics.mean(graphs["own"])
+    s["decode_step_graph_runs"] = graphs
+    return s, pf
+
+
 def neox_phase(gen, dev, checks):
     """gpt-neox-20b served at published width and depth, its prefill and
     decode step held against the plain versions, flash_attention at head
     dim 96 held and timed, its products timed by shape. Returns the serve
     record, the prefill checks and the timings; the residency is freed."""
-    s = serve_phase(NEOX_SERVE_ARGS, SERVE_KERNELS)
-    pf = check_prefill(s)
-    pf.update(check_prefill_f32(s))
-    pf.update(check_decode_step(s))
-    # the traced prefill: every layer's attention on the tensor-core kernel
-    flash_rows = [k for k in pf["traced"]["kernels"]
-                  if "flash_attention_tc_kernel" in k["name"]]
-    pf["traced_flash_ms"] = sum(k["ms"] for k in flash_rows)
-    pf["traced_flash_calls"] = sum(k["calls"] for k in flash_rows)
-    pf["traced_flash_names"] = sorted({k["name"] for k in flash_rows})
-    if pf["traced_flash_calls"] != NEOX_L:
-        raise Failed(f"traced NeoX prefill: {pf['traced_flash_calls']} "
-                     f"tensor-core flash_attention launches, not {NEOX_L}")
-    graphs = decode_graphs(s)
-    s["decode_step_graph_ms"] = statistics.mean(graphs["own"])
-    s["decode_step_graph_runs"] = graphs
+    s, pf = neox_serve(NEOX_SERVE_ARGS, NEOX_L, NEOX_HD)
     timing = neox_flash(gen, dev, checks, s["args"].prompt_len)
     timing["shapes"], timing["dequant_matmul_prefill_neox"] = neox_shapes(s,
                                                                          gen)
-    record = {k: s[k] for k in ("args", "arch", "reqs", "launches", "counters",
-                                "setup_s", "run_s", "tokens", "steps",
-                                "decode_step_ms", "decode_steps_full",
-                                "decode_step_graph_ms",
-                                "decode_step_graph_runs", "memory",
-                                "peak_bytes")}
+    record = {k: s[k] for k in SERVE_RECORD}
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, pf, timing
+
+
+def neox10b_phase(gen, dev):
+    """gpt-neox-10b served at published width and all 32 layers (40 heads
+    of 128), held as neox_phase holds gpt-neox-20b, with 32 launches of the
+    tensor-core flash kernel at head dim 128 in the traced prefill; then
+    its prefill attention timed in bf16 and f32. Returns the serve record,
+    the prefill checks and the timings; the residency is freed."""
+    s, pf = neox_serve(NEOX10B_SERVE_ARGS, NEOX10B_L, NEOX10B_HD)
+    seq = s["args"].prompt_len
+    timing = {key: flash_timing(gen, dev, 1, NEOX10B_H, seq, NEOX10B_HD, dt,
+                                "NeoX-10B prefill attention")
+              for key, dt in (("flash_attention_d128", torch.bfloat16),
+                              ("flash_attention_f32_d128", torch.float32))}
+    record = {k: s[k] for k in SERVE_RECORD}
     del s
     gc.collect()
     torch.cuda.empty_cache()
@@ -1455,24 +1579,22 @@ def neox_phase(gen, dev, checks):
 # phase 4: the training step
 # ---------------------------------------------------------------------------
 
-def train_phase():
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train
-
-    ap = train.build_parser()
-    t0 = time.perf_counter()
-    kern = train.run(ap.parse_args(TRAIN_ARGS + ["--profile-step",
-                                                 str(PROFILE_STEP)]))
-    t_kern = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    plain = train.run(ap.parse_args(TRAIN_ARGS + ["--kernel-impl", "plain"]))
-    t_plain = time.perf_counter() - t0
-    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+def hold_train_runs(kern, plain, steps: int, label: str) -> dict:
+    """A training run through the kernels against the same run through the
+    plain versions: every kernel of TRAIN_KERNELS launched on every rank
+    and none in the plain run, no attention fallback, the traced step's
+    fused dW all on the tensor-core matmul_quant kernel (as many as a step
+    launches, none on SIMT), the same finite global loss and grad norm on
+    every rank, and the kernel run's within TRAIN_LOSS_RTOL /
+    TRAIN_GNORM_RTOL of the plain one's. Returns the relative differences
+    and the traced matmul_quant calls by rank."""
     for r in kern:
         missing = [k for k in TRAIN_KERNELS if r["launches"][k] == 0]
         if missing:
-            raise Failed(f"rank {r['rank']}: kernels not launched on the "
-                         f"training path: {missing}")
+            raise Failed(f"{label} rank {r['rank']}: kernels not launched on "
+                         f"the training path: {missing}")
+    for r in kern + plain:
+        no_fallback(f"{label} rank {r['rank']}", r["fallbacks"])
     # the traced step ran every fused dW on the tensor-core kernel (its bf16
     # operands), none on the SIMT one
     mq_traced = []
@@ -1487,34 +1609,108 @@ def train_phase():
                                             ["kernels"] if "matmul_quant_"
                                             in row["name"])))
         if calls["tc"] != per_step or calls["simt"]:
-            raise Failed(f"rank {r['rank']}: traced matmul_quant calls {calls}, "
-                         f"{per_step} launches a step")
+            raise Failed(f"{label} rank {r['rank']}: traced matmul_quant "
+                         f"calls {calls}, {per_step} launches a step")
     for r in plain:
         if any(r["launches"].values()):
-            raise Failed(f"rank {r['rank']}: kernels launched in the plain run")
+            raise Failed(f"{label} rank {r['rank']}: kernels launched in the "
+                         "plain run")
     for run in (kern, plain):
         for r in run:
             vals = r["losses"] + r["grad_norms"]
             if len(r["losses"]) != steps or \
                     not all(math.isfinite(v) for v in vals):
-                raise Failed(f"rank {r['rank']}: losses {r['losses']}, grad "
-                             f"norms {r['grad_norms']}")
+                raise Failed(f"{label} rank {r['rank']}: losses "
+                             f"{r['losses']}, grad norms {r['grad_norms']}")
             if (r["losses"], r["grad_norms"]) != (run[0]["losses"],
                                                   run[0]["grad_norms"]):
-                raise Failed("ranks disagree on the global loss or grad norm")
+                raise Failed(f"{label}: ranks disagree on the global loss or "
+                             "grad norm")
     k0, p0 = kern[0], plain[0]
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(k0["losses"], p0["losses"])]
     gn_rel = [abs(a - b) / abs(b)
               for a, b in zip(k0["grad_norms"], p0["grad_norms"])]
     if max(loss_rel) > TRAIN_LOSS_RTOL or max(gn_rel) > TRAIN_GNORM_RTOL:
-        raise Failed(f"kernel vs plain training: loss rel {loss_rel}, grad "
-                     f"norm rel {gn_rel}")
+        raise Failed(f"{label} kernel vs plain training: loss rel {loss_rel}, "
+                     f"grad norm rel {gn_rel}")
+    return dict(loss_rel=loss_rel, grad_norm_rel=gn_rel,
+                matmul_quant_traced=mq_traced)
+
+
+def train_phase():
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ap = train.build_parser()
+    t0 = time.perf_counter()
+    kern = train.run(ap.parse_args(TRAIN_ARGS + ["--profile-step",
+                                                 str(PROFILE_STEP)]))
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = train.run(ap.parse_args(TRAIN_ARGS + ["--kernel-impl", "plain"]))
+    t_plain = time.perf_counter() - t0
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    held = hold_train_runs(kern, plain, steps, "qwen2-0.5b")
     launches = {k: sum(r["launches"][k] for r in kern) for k in ops.KERNELS}
     return dict(kernel=kern, plain=plain, steps=steps, launches=launches,
                 per_rank_step_launches={k: kern[0]["launches"][k] / steps
                                         for k in ops.KERNELS},
-                loss_rel=loss_rel, grad_norm_rel=gn_rel, run_s=t_kern,
-                plain_run_s=t_plain, matmul_quant_traced=mq_traced)
+                run_s=t_kern, plain_run_s=t_plain, **held)
+
+
+def neox_train_arch():
+    """gpt-neox-20b at published width and NEOX_TRAIN_L layers."""
+    from repro_torch.models.registry import get_arch
+
+    return dataclasses.replace(get_arch("gpt-neox-20b"),
+                               n_layers=NEOX_TRAIN_L,
+                               block_pattern=("neox",) * NEOX_TRAIN_L)
+
+
+def neox_train_phase():
+    """gpt-neox-20b at published width and depth NEOX_TRAIN_L, the qwen2
+    train phase's mesh and batch, 3 steps (the last traced), through the
+    kernels and again through the plain versions (hold_train_runs); the
+    traced step must also show the tensor-core flash kernel at head dim 96
+    as often as a step launches flash_attention, on every rank."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ap = train.build_parser()
+    arch = neox_train_arch()
+    t0 = time.perf_counter()
+    kern = train.run(ap.parse_args(NEOX_TRAIN_ARGS + [
+        "--profile-step", str(NEOX_PROFILE_STEP)]), arch)
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = train.run(ap.parse_args(NEOX_TRAIN_ARGS + ["--kernel-impl",
+                                                       "plain"]), arch)
+    t_plain = time.perf_counter() - t0
+    steps = int(NEOX_TRAIN_ARGS[NEOX_TRAIN_ARGS.index("--steps") + 1])
+    held = hold_train_runs(kern, plain, steps, "gpt-neox-20b")
+    flash_traced = []
+    for r in kern:
+        per_step = r["launches"]["flash_attention"] / steps
+        rows = [row for row in r["profile"]["kernels"]
+                if "flash_attention_tc_kernel<" in row["name"]]
+        calls = sum(row["calls"] for row in rows)
+        flash_traced.append(dict(rank=r["rank"], launches_per_step=per_step,
+                                 traced_calls=calls,
+                                 traced_ms=sum(row["ms"] for row in rows),
+                                 names=sorted({row["name"] for row in rows})))
+        if calls != per_step or any(f"<{NEOX_HD}>" not in row["name"]
+                                    for row in rows):
+            raise Failed(f"gpt-neox-20b rank {r['rank']}: traced tensor-core "
+                         f"flash calls {calls} ({flash_traced[-1]['names']}), "
+                         f"{per_step} launches a step")
+    launches = {k: sum(r["launches"][k] for r in kern) for k in ops.KERNELS}
+    total = torch.cuda.get_device_properties(0).total_memory
+    peak = sum(r["peak_bytes"] for r in kern)
+    return dict(kernel=kern, plain=plain, steps=steps, launches=launches,
+                arch=arch, per_rank_step_launches={
+                    k: kern[0]["launches"][k] / steps for k in ops.KERNELS},
+                run_s=t_kern, plain_run_s=t_plain, flash_traced=flash_traced,
+                peak_bytes_sum=peak, card_bytes=total, **held)
 
 
 def regime_phase(tr, flags):
@@ -1536,6 +1732,7 @@ def regime_phase(tr, flags):
         if missing:
             raise Failed(f"rank {r['rank']}: kernels not launched on the "
                          f"{' '.join(flags)} path: {missing}")
+        no_fallback(f"{' '.join(flags)} rank {r['rank']}", r["fallbacks"])
         if (r["losses"], r["grad_norms"]) != (runs[0]["losses"],
                                               runs[0]["grad_norms"]):
             raise Failed("ranks disagree on the global loss or grad norm")
@@ -1883,6 +2080,8 @@ def timing_phase(s, gen):
                     run_dense(per, dense), reps=reps) / len(per)
                 row["simt_ms_per_call"] = device_ms(
                     run_on_path(per, PATHS.index("simt")), reps=reps) / len(per)
+                row["plain_ms_per_call"] = device_ms(
+                    run_matmuls(per, "plain"), reps=1, replays=2) / len(per)
                 del dense
             shapes.append(row)
     shapes += falcon_prefill_shapes(gen, dev)
@@ -2063,7 +2262,8 @@ def falcon_decode_shapes(gen, dev, slots):
     """falcon-mamba-7b's four decode products at M = slots on seeded
     weights, per call: w_in, w_dt, w_out (x @ W, SIMT) and the tied LM head
     (x @ W.T, decode), each on its own path, on the SIMT kernel (forced),
-    bf16 cuBLAS on the dequantized weight, and the bound."""
+    bf16 cuBLAS on the dequantized weight, the plain version, and the
+    bound."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.dequant_matmul import PATHS
 
@@ -2085,6 +2285,8 @@ def falcon_decode_shapes(gen, dev, slots):
                              run_on_path([call], PATHS.index("simt")), reps=reps),
                          library_ms_per_call=device_ms(
                              run_dense([call], dense), reps=reps),
+                         plain_ms_per_call=device_ms(
+                             run_matmuls([call], "plain"), reps=1, replays=2),
                          bound_ms_per_call=bound_ms(b, o, "bf16")[0]))
         del q, sc, dense, call
     return rows
@@ -2194,6 +2396,59 @@ def train_timing(gen, dev):
     return out
 
 
+def neox_train_shapes(gen, dev):
+    """gpt-neox-20b's training products at one rank's M = TRAIN_M, bf16,
+    block 128, per distinct (K, N) of a layer: the forward x @ W and dX = g
+    @ W.T on 8a and the fused dW (matmul_quant, bits 4) on 9a, each beside
+    bf16 cuBLAS on the dequantized weight (x.T @ g for dW, no quantize
+    epilogue) and its bound; then one layer's six of each summed."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dequant_matmul import (PATHS, dequant_matmul_path,
+                                                    matmul_quant_path)
+
+    block, m = 128, TRAIN_M
+    rows = []
+    for k, n in dict.fromkeys(NEOX_LAYER_KN):
+        w = torch.randn((k * n,), generator=gen, device=dev) / math.sqrt(k)
+        q, sc = ops.quantize_int8(w, block)
+        del w
+        dense = ref.dequant_w_flat_ref(q.view(k, n), sc.view(k, n // block),
+                                       block).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        g = (torch.randn((m, n), generator=gen, device=dev) * 1e-2) \
+            .to(torch.bfloat16)
+        w_bytes = k * n + 4 * k * n / block
+        for what, fn, lib, n_bytes, path in (
+                ("fwd", lambda: ops.dequant_matmul(x, q, sc, (k, n), block),
+                 lambda: x @ dense, w_bytes + 2 * m * (k + n),
+                 PATHS[dequant_matmul_path(m, k, n, block, False,
+                                           torch.bfloat16)]),
+                ("dX", lambda: ops.dequant_matmul(g, q, sc, (k, n), block,
+                                                  transpose=True),
+                 lambda: g @ dense.T, w_bytes + 2 * m * (k + n),
+                 PATHS[dequant_matmul_path(m, k, n, block, True,
+                                           torch.bfloat16)]),
+                ("dW", lambda: ops.matmul_quant(x, g, block, bits=4),
+                 lambda: x.T @ g, 2 * m * (k + n) + k * n / 2
+                 + 4 * k * n / block,
+                 PATHS[matmul_quant_path(m, k, n, block, torch.bfloat16)])):
+            if path != "tensor_core":
+                raise Failed(f"NeoX training {what} ({k}, {n}): took the "
+                             f"{path} path")
+            rows.append(dict(product=what, M=m, K=k, N=n, path=path,
+                             ms=device_ms(fn, reps=5),
+                             cublas_ms=device_ms(lib, reps=5),
+                             bound_ms=bound_ms(n_bytes, 2 * m * k * n,
+                                               "bf16")[0]))
+        del q, sc, dense, x, g
+    per_layer = {}
+    for what in ("fwd", "dX", "dW"):
+        mine = {(r["K"], r["N"]): r for r in rows if r["product"] == what}
+        per_layer[what] = {key: sum(mine[kn][key] for kn in NEOX_LAYER_KN)
+                           for key in ("ms", "cublas_ms", "bound_ms")}
+    return dict(per_shape=rows, per_layer=per_layer)
+
+
 def mq_timing(gen, dev, dtype, path, block):
     """One layer's seven matmul_quant calls at M = TRAIN_M, bits 4, operands
     in ``dtype`` (each call must take ``path``): kernel, plain version,
@@ -2242,6 +2497,73 @@ def mq_timing(gen, dev, dtype, path, block):
         library_ms=device_ms(cublas, reps=3),
         library=f"x.T @ g (cuBLAS {op_type}, no quantize epilogue)",
         bound=bound_ms(n_bytes, n_ops, op_type), per_shape=per)
+
+
+def print_neox(nx, npf):
+    print(f"  launches {nx['launches']}; counters {nx['counters']}; prefill "
+          f"logits max_abs_err {npf['logits_err']:.3e} (max|ref| "
+          f"{npf['logits_scale']:.3e}, argmax equal {npf['argmax_equal']})")
+    print_prefill_f32(npf)
+    print_decode_step(npf)
+    print(f"  prefill_ms {npf['prefill_ms']:.3f} decode_step_ms "
+          f"{nx['decode_step_ms']:.3f} decode_step_graph_ms "
+          f"{nx['decode_step_graph_ms']:.3f} (layers on SIMT and own path in "
+          f"turns: {nx['decode_step_graph_runs']}) tok_s "
+          f"{nx['tokens'] / nx['run_s']:.3f} "
+          f"setup_s {nx['setup_s']:.1f} max_memory_allocated {nx['peak_bytes']} "
+          f"residency_bytes {nx['memory']['wire_bytes']}")
+    print(f"  traced prefill: {npf['traced_flash_calls']} flash_attention "
+          f"{npf['traced_flash_ms']:.4f} ms of "
+          f"{npf['traced']['device_ms']:.3f} ms device time "
+          f"({npf['traced_flash_names']})")
+
+
+def print_timing(key, tm):
+    lib = tm["library_ms"]
+    print(f"  {key} ({tm['work']}): {tm['ms']:.5f} ms, plain "
+          f"{tm['plain_ms']} ms, library "
+          f"{'none' if lib is None else f'{lib:.5f}'} ms, bound "
+          f"{tm['bound'][0]:.5f} ms ({tm['bound'][1]})")
+
+
+def print_train(tr):
+    for label, run in (("kernels", tr["kernel"]), ("plain", tr["plain"])):
+        for r in run:
+            print(f"  {label} rank {r['rank']}: loss {r['losses']} grad_norm "
+                  f"{r['grad_norms']} step_s {r['step_times']} tok/s "
+                  f"{r['tokens_per_s']} peak_bytes {r['peak_bytes']} "
+                  f"launches {r['launches']} payload_bytes {r['payload_bytes']}")
+    print(f"  kernel vs plain: loss rel {tr['loss_rel']}, grad norm rel "
+          f"{tr['grad_norm_rel']}")
+    print(f"  traced step, matmul_quant by path: {tr['matmul_quant_traced']}")
+
+
+def serve_neox_line(nx, npf) -> dict:
+    """A served NeoX model's JSON line."""
+    return dict(
+        arch=nx["arch"].name, requests=len(nx["reqs"]), slots=nx["args"].slots,
+        prompt_len=nx["args"].prompt_len, gen=nx["args"].gen,
+        max_len=nx["args"].max_len, tokens=nx["tokens"], steps=nx["steps"],
+        prefill_ms=npf["prefill_ms"], decode_step_ms=nx["decode_step_ms"],
+        decode_step_graph_ms=nx["decode_step_graph_ms"],
+        decode_step_graph_runs=nx["decode_step_graph_runs"],
+        tok_s=nx["tokens"] / nx["run_s"], run_s=nx["run_s"],
+        setup_s=nx["setup_s"], residency_bytes=nx["memory"]["wire_bytes"],
+        dense_bytes=nx["memory"]["dense_bytes"],
+        max_memory_allocated=nx["peak_bytes"], launches=nx["launches"],
+        prefill_logits_max_abs_err=npf["logits_err"],
+        prefill_logits_max_abs_ref=npf["logits_scale"],
+        prefill_argmax_equal=npf["argmax_equal"],
+        prefill_f32_logits_max_abs_err=npf["f32_logits_err"],
+        prefill_f32_logits_max_abs_ref=npf["f32_logits_scale"],
+        prefill_bf16_kernel_vs_f32_plain=npf["bf16_kernel_vs_f32_plain"],
+        prefill_bf16_plain_vs_f32_plain=npf["bf16_plain_vs_f32_plain"],
+        **{k: v for k, v in npf.items() if k.startswith("decode_")},
+        traced_prefill_wall_ms=npf["traced"]["wall_ms"],
+        traced_prefill_device_ms=npf["traced"]["device_ms"],
+        traced_prefill_top_kernels=npf["traced"]["top"],
+        traced_prefill_flash_ms=npf["traced_flash_ms"],
+        traced_prefill_flash_calls=npf["traced_flash_calls"])
 
 
 def sm_clock_mhz() -> float:
@@ -2312,6 +2634,7 @@ def main(argv=None) -> int:
     pf = check_prefill(s)
     pf.update(check_prefill_f32(s))
     pf.update(check_decode_step(s))
+    no_fallback(s["arch"].name, ops.dispatch_counters())
     print(f"  launches {s['launches']}; counters {s['counters']}; prefill "
           f"logits max_abs_err {pf['logits_err']:.3e} (max|ref| "
           f"{pf['logits_scale']:.3e}, argmax equal {pf['argmax_equal']})")
@@ -2345,28 +2668,10 @@ def main(argv=None) -> int:
 
     phase("neox")
     nx, npf, nx_t = neox_phase(gen, dev, checks)
-    print(f"  launches {nx['launches']}; counters {nx['counters']}; prefill "
-          f"logits max_abs_err {npf['logits_err']:.3e} (max|ref| "
-          f"{npf['logits_scale']:.3e}, argmax equal {npf['argmax_equal']})")
-    print_prefill_f32(npf)
-    print_decode_step(npf)
-    print(f"  prefill_ms {npf['prefill_ms']:.3f} decode_step_ms "
-          f"{nx['decode_step_ms']:.3f} decode_step_graph_ms "
-          f"{nx['decode_step_graph_ms']:.3f} (layers on SIMT and own path in "
-          f"turns: {nx['decode_step_graph_runs']}) tok_s "
-          f"{nx['tokens'] / nx['run_s']:.3f} "
-          f"setup_s {nx['setup_s']:.1f} max_memory_allocated {nx['peak_bytes']} "
-          f"residency_bytes {nx['memory']['wire_bytes']}")
-    print(f"  traced prefill: {npf['traced_flash_calls']} flash_attention "
-          f"{npf['traced_flash_ms']:.4f} ms of "
-          f"{npf['traced']['device_ms']:.3f} ms device time "
-          f"({npf['traced_flash_names']})")
+    print_neox(nx, npf)
     for key in ("flash_attention_d96", "flash_attention_f32_d96",
                 "dequant_matmul_prefill_neox"):
-        tm = nx_t[key]
-        print(f"  {key} ({tm['work']}): {tm['ms']:.5f} ms, plain "
-              f"{tm['plain_ms']} ms, library {tm['library_ms']:.5f} ms, bound "
-              f"{tm['bound'][0]:.5f} ms ({tm['bound'][1]})")
+        print_timing(key, nx_t[key])
     for r in nx_t["shapes"]:
         print(f"  {r['step']} {r['leaf']} M={r['M']} ({r['K']}, {r['N']})"
               f"{'.T' if r['transpose'] else ''} {r['path']}: "
@@ -2374,17 +2679,27 @@ def main(argv=None) -> int:
               f"bf16 cuBLAS {r['library_ms_per_call']:.5f}, bound "
               f"{r['bound_ms_per_call']:.5f}")
 
+    phase("neox10b")
+    x10, x10pf, x10_t = neox10b_phase(gen, dev)
+    print_neox(x10, x10pf)
+    for key, tm in x10_t.items():
+        print_timing(key, tm)
+
     phase("train")
     tr = train_phase()
-    for label, run in (("kernels", tr["kernel"]), ("plain", tr["plain"])):
-        for r in run:
-            print(f"  {label} rank {r['rank']}: loss {r['losses']} grad_norm "
-                  f"{r['grad_norms']} step_s {r['step_times']} tok/s "
-                  f"{r['tokens_per_s']} peak_bytes {r['peak_bytes']} "
-                  f"launches {r['launches']} payload_bytes {r['payload_bytes']}")
-    print(f"  kernel vs plain: loss rel {tr['loss_rel']}, grad norm rel "
-          f"{tr['grad_norm_rel']}")
-    print(f"  traced step, matmul_quant by path: {tr['matmul_quant_traced']}")
+    print_train(tr)
+
+    phase("train_neox")
+    t_phase = time.perf_counter()
+    tn = neox_train_phase()
+    tn["phase_s"] = time.perf_counter() - t_phase
+    print_train(tn)
+    print(f"  traced step, tensor-core flash by rank: {tn['flash_traced']}")
+    spare = (tn["card_bytes"] - tn["peak_bytes_sum"]) / 2 ** 30
+    print(f"  {tn['arch'].name} at {tn['arch'].n_layers} layers: "
+          f"max_memory_allocated summed over the ranks {tn['peak_bytes_sum']} "
+          f"of {tn['card_bytes']} bytes ({spare:.2f} GiB to spare); phase "
+          f"{tn['phase_s']:.1f} s")
 
     phase("collectives")
     cl = collectives_phase()
@@ -2424,6 +2739,22 @@ def main(argv=None) -> int:
     t["dequantize_int8_w_xproj"] = xproj_t
     t.update({k: v for k, v in nx_t.items() if k != "shapes"})
     t["dequant_matmul_shapes"] += nx_t["shapes"]
+    t.update(x10_t)
+    # the NeoX training step's attention forward (2 rows of 1,024 a rank) at
+    # both models' head widths, and its products on 8a / 9a
+    for key, h, hd in (("flash_attention_train_d96", NEOX_H, NEOX_HD),
+                       ("flash_attention_train_d128", NEOX10B_H, NEOX10B_HD)):
+        t[key] = flash_timing(gen, dev, TRAIN_M // 1024, h, 1024, hd,
+                              torch.bfloat16, "NeoX training attention")
+    nts = neox_train_shapes(gen, dev)
+    for key in ("flash_attention_d128", "flash_attention_f32_d128",
+                "flash_attention_train_d96", "flash_attention_train_d128"):
+        print_timing(key, t[key])
+    for r in nts["per_shape"]:
+        print(f"  NeoX training {r['product']} M={r['M']} ({r['K']}, "
+              f"{r['N']}) {r['path']}: {r['ms']:.5f} ms, bf16 cuBLAS "
+              f"{r['cublas_ms']:.5f}, bound {r['bound_ms']:.5f}")
+    print(f"  NeoX training, one layer's six: {nts['per_layer']}")
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -2432,7 +2763,9 @@ def main(argv=None) -> int:
         by_path = dict(serve=s["launches"][name],
                        serve_ssm=m["launches"][name],
                        serve_neox=nx["launches"][name],
+                       serve_neox10b=x10["launches"][name],
                        train=tr["launches"][name],
+                       train_neox=tn["launches"][name],
                        collectives=cl_launches[name],
                        regimes=sum(rg["launches"][name] for rg in regimes),
                        quant_error=qe_launches[name],
@@ -2441,6 +2774,8 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             launches_per_train_step_per_rank=tr["per_rank_step_launches"][name],
+            launches_per_neox_train_step_per_rank=tn[
+                "per_rank_step_launches"][name],
             max_abs_err=max(c["max_abs_err"] for c in checks[name]),
             tolerance=[c["tolerance"] for c in checks[name]],
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bms, bound_by=by,
@@ -2456,7 +2791,10 @@ def main(argv=None) -> int:
                     "dequant_matmul_blocked_simt", "flash_attention_train",
                     "flash_attention_f32", "matmul_quant_simt",
                     "dequantize_int8_w_xproj", "flash_attention_d96",
-                    "flash_attention_f32_d96", "dequant_matmul_prefill_neox")}
+                    "flash_attention_f32_d96", "dequant_matmul_prefill_neox",
+                    "flash_attention_d128", "flash_attention_f32_d128",
+                    "flash_attention_train_d96",
+                    "flash_attention_train_d128")}
     blk = t["dequant_matmul_blocked"]
     kernels_extra.update(
         dequant_matmul_blocked_bounds=dict(
@@ -2464,6 +2802,7 @@ def main(argv=None) -> int:
             bf16_split_ms=blk["bound_bf16_split"][0],
             bytes_ms=blk["bound_bytes"][0]),
         dequant_matmul_rounding=flips,
+        neox_train_products=nts,
         dequant_matmul_threshold=t["dequant_matmul_threshold"],
         dequant_matmul_shapes=t["dequant_matmul_shapes"],
         matmul_quant_per_shape=t["matmul_quant"]["per_shape"],
@@ -2518,30 +2857,8 @@ def main(argv=None) -> int:
                              bound_ms=tm["bound"][0], bound_by=tm["bound"][1],
                              sfu_floor_ms=tm["sfu_floor_ms"])
               for seq, tm in scan_t.items()})
-    neox_line = dict(
-        arch=nx["arch"].name, requests=len(nx["reqs"]), slots=nx["args"].slots,
-        prompt_len=nx["args"].prompt_len, gen=nx["args"].gen,
-        max_len=nx["args"].max_len, tokens=nx["tokens"], steps=nx["steps"],
-        prefill_ms=npf["prefill_ms"], decode_step_ms=nx["decode_step_ms"],
-        decode_step_graph_ms=nx["decode_step_graph_ms"],
-        decode_step_graph_runs=nx["decode_step_graph_runs"],
-        tok_s=nx["tokens"] / nx["run_s"], run_s=nx["run_s"],
-        setup_s=nx["setup_s"], residency_bytes=nx["memory"]["wire_bytes"],
-        dense_bytes=nx["memory"]["dense_bytes"],
-        max_memory_allocated=nx["peak_bytes"], launches=nx["launches"],
-        prefill_logits_max_abs_err=npf["logits_err"],
-        prefill_logits_max_abs_ref=npf["logits_scale"],
-        prefill_argmax_equal=npf["argmax_equal"],
-        prefill_f32_logits_max_abs_err=npf["f32_logits_err"],
-        prefill_f32_logits_max_abs_ref=npf["f32_logits_scale"],
-        prefill_bf16_kernel_vs_f32_plain=npf["bf16_kernel_vs_f32_plain"],
-        prefill_bf16_plain_vs_f32_plain=npf["bf16_plain_vs_f32_plain"],
-        **{k: v for k, v in npf.items() if k.startswith("decode_")},
-        traced_prefill_wall_ms=npf["traced"]["wall_ms"],
-        traced_prefill_device_ms=npf["traced"]["device_ms"],
-        traced_prefill_top_kernels=npf["traced"]["top"],
-        traced_prefill_flash_ms=npf["traced_flash_ms"],
-        traced_prefill_flash_calls=npf["traced_flash_calls"])
+    neox_line = serve_neox_line(nx, npf)
+    neox10b_line = serve_neox_line(x10, x10pf)
     k0 = tr["kernel"][0]
     # the first step pays for the kernels' first use, the last is traced
     timed = slice(1, PROFILE_STEP)
@@ -2568,6 +2885,34 @@ def main(argv=None) -> int:
         traced_step_matmul_quant=tr["matmul_quant_traced"],
         state_bytes_per_rank=k0["memory"], run_s=tr["run_s"],
         plain_run_s=tr["plain_run_s"])
+    n0 = tn["kernel"][0]
+    train_neox_line = dict(
+        arch=tn["arch"].name, n_layers=tn["arch"].n_layers,
+        d_model=tn["arch"].d_model, n_heads=tn["arch"].n_heads,
+        head_dim=tn["arch"].hdim, d_ff=tn["arch"].d_ff,
+        vocab=tn["arch"].vocab, scheme="zero_topo", mesh=[1, 2, 2], ranks=4,
+        global_batch=8, seq=1024, steps=tn["steps"], losses=n0["losses"],
+        grad_norms=n0["grad_norms"], plain_losses=tn["plain"][0]["losses"],
+        plain_grad_norms=tn["plain"][0]["grad_norms"],
+        loss_rel=tn["loss_rel"], grad_norm_rel=tn["grad_norm_rel"],
+        # step 0 pays for first use, the last is traced: step 1 is the timed one
+        step_s=n0["step_times"], step_s_timed=n0["step_times"][1],
+        tok_s_timed=n0["tokens_per_s"][1],
+        plain_step_s=tn["plain"][0]["step_times"],
+        peak_bytes_per_rank=[r["peak_bytes"] for r in tn["kernel"]],
+        peak_bytes_sum=tn["peak_bytes_sum"], card_bytes=tn["card_bytes"],
+        payload_bytes_per_step_per_rank={
+            op: b / tn["steps"] for op, b in n0["payload_bytes"].items()},
+        phase_s_per_step=[{k: v / tn["steps"] for k, v in r["phase_s"].items()}
+                          for r in tn["kernel"]],
+        traced_step_wall_ms=[r["profile"]["wall_ms"] for r in tn["kernel"]],
+        traced_step_device_ms=[r["profile"]["device_ms"] for r in tn["kernel"]],
+        traced_step_top_kernels_rank0=n0["profile"]["top"],
+        traced_step_matmul_quant=tn["matmul_quant_traced"],
+        traced_step_flash=tn["flash_traced"],
+        launches_per_step_per_rank=tn["per_rank_step_launches"],
+        state_bytes_per_rank=n0["memory"], run_s=tn["run_s"],
+        plain_run_s=tn["plain_run_s"], phase_s=tn["phase_s"])
     regimes_line = dict(
         steps=REGIME_STEPS, seed_losses=k0["losses"][:REGIME_STEPS],
         seed_grad_norms=k0["grad_norms"][:REGIME_STEPS],
@@ -2604,14 +2949,16 @@ def main(argv=None) -> int:
             card=card, phases=phases, kernels=kernels,
             kernels_extra=kernels_extra,
             serve=serve_line, serve_ssm=ssm_line, serve_neox=neox_line,
-            train=train_line,
+            serve_neox10b=neox10b_line, train=train_line,
+            train_neox=train_neox_line,
             regimes=regimes_line, collectives=collectives_line,
             collective_ranks=cl,
             regime_ranks=[rg["ranks"] for rg in regimes],
             train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
+            train_neox_ranks=tn["kernel"], train_neox_plain_ranks=tn["plain"],
             checks=checks, timing={k: v for k, v in t.items()},
             launches=s["launches"], launches_ssm=m["launches"],
-            launches_neox=nx["launches"],
+            launches_neox=nx["launches"], launches_neox10b=x10["launches"],
             build=kcuda.BUILD_LOG,
             torch=torch.__version__, cuda=torch.version.cuda),
             indent=1, default=str))
@@ -2620,7 +2967,9 @@ def main(argv=None) -> int:
     print("serve " + json.dumps(serve_line))
     print("serve_ssm " + json.dumps(ssm_line))
     print("serve_neox " + json.dumps(neox_line))
+    print("serve_neox10b " + json.dumps(neox10b_line))
     print("train " + json.dumps(train_line))
+    print("train_neox " + json.dumps(train_neox_line))
     print("regimes " + json.dumps(regimes_line))
     print("collectives " + json.dumps(collectives_line))
     print("kernels_extra " + json.dumps(kernels_extra))

@@ -2,7 +2,8 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas (:92).
 // q (BH, Sq, D); k, v (BH / n_rep, Sk, D) -> o (BH, Sq, D) in the dtype of q;
-// D = 64 (qwen2) or 96 (GPT-NeoX), each a template instance. Query row i
+// D = 64 (qwen2), 96 (GPT-NeoX-20B) or 128 (GPT-NeoX-10B), each a template
+// instance; any other D returns cudaErrorInvalidValue. Query row i
 // sits at absolute position q_offset + i, key j at j; causal keeps j <=
 // q_pos, window > 0 keeps q_pos - j < window. As in the TPU kernel: the
 // softmax scale is 1/sqrt(D), masked scores are NEG_INF = -1e30 (not -inf),
@@ -13,41 +14,54 @@
 //
 // Bound on the H100 (q, k, v, o moved once; 4*D flops per unmasked (query,
 // key) pair at 989 TFLOP/s bf16): qwen2's prefill (14 heads over 2, S =
-// 128, D = 64, causal) 0.16 us (bytes); NeoX's prefill (64 heads, S = 128,
-// D = 96) 1.9 us (bytes); the training step's forward (B = 2 x 14 heads
-// over 2, S = 1,024, causal) 3.8 us (operations). The prefills' few CTAs
-// (28, 128) make them a latency problem.
+// 128, D = 64, causal) 0.16 us (bytes); NeoX-20B's prefill (64 heads, S =
+// 128, D = 96) 1.9 us (bytes); NeoX-10B's (40 heads, D = 128) 1.6 us
+// (bytes); qwen2's training step's forward (B = 2 x 14 heads over 2, S =
+// 1,024, causal) 3.8 us (operations); NeoX's (B = 2, S = 1,024) 30 us at
+// 64 heads of 96 and 25 us at 40 of 128 (bytes; 26 and 22 us of
+// operations). The prefills' few CTAs (28, 128, 80) make them a latency
+// problem.
 //
 // Two kernels, by dtype:
 //  * bf16 (serving and training): tensor cores in the FlashAttention-2
 //    shape. A CTA of 4 warps takes 64 query rows, 16 a warp, with the exact
 //    bf16 Q fragment in registers. K and V tiles of 64 keys are
-//    double-buffered in dynamic shared memory by cp.async (66,560 bytes at
-//    D = 96: over the 48 KB of static arrays). S = Q K^T and O += P V run
+//    double-buffered in dynamic shared memory by cp.async ((64 + 4 x 64)
+//    rows of D + 8 bf16: 66,560 bytes at D = 96, 87,040 at D = 128, over
+//    the 48 KB of static arrays). S = Q K^T and O += P V run
 //    on mma.sync.m16n8k16 with f32 accumulation, V through ldmatrix.trans.
 //    The scale multiplies the f32 scores: the reference folds it into f32
-//    q, and the two differ by f32 rounding (1/sqrt(96) is no power of two,
+//    q, and the two differ by f32 rounding (1/sqrt(96) and 1/sqrt(128) are
+//    no powers of two,
 //    so rounding q * scale to bf16 would put 2^-9 on every logit; at D = 64
 //    the two orders give the same bits). The running max and sum stay in
 //    registers on the S fragments (f32, expf). P is rounded to bf16 for the
 //    P V product (the reference keeps it in f32): an error of at most 2^-8
 //    of max|v| per output, within the card check's one bf16 ulp of
-//    max|ref|. Query tiles run heaviest (latest) first.
+//    max|ref|. Query tiles run heaviest (latest) first. Registers (ptxas,
+//    sm_90a): 160 at D = 64, 168 at 96, 234 at 128, no spill at any; at
+//    128 the O accumulator alone is 64 f32 a lane and the Q fragment 32.
 //  * f32 (the port's first design; no path runs attention in f32, the card
 //    checks do): one block of 64 threads per (batch*head, 64-row query
 //    tile), one query row per thread with its scaled q row and f32
-//    accumulator in registers (at D = 96 more than the register file
-//    holds: they spill). K and V tiles of 64 keys are staged in shared
-//    memory as f32 (48 KB at D = 96) and read by every thread at the same
-//    address (broadcast, no bank conflicts); the running max / sum update
-//    once per 16 keys.
+//    accumulator in registers (at D = 96 and 128 more than the register
+//    file holds: they spill). K and V tiles of 64 keys (32 at D = 128) are
+//    staged in shared memory as f32 (48 KB at D = 96, 32 KB at 128) and
+//    read by every thread at the same address (broadcast, no bank
+//    conflicts); the running max / sum update once per 16 keys. ptxas:
+//    225 registers and no spill at D = 64; 255 and 272 / 312 bytes of spill
+//    stores / loads at 96; 255 and 632 / 860 at 128.
 #include "tensor_core.cuh"
 
 namespace {
 
 constexpr int BQ = 64;    // query rows per block, one per thread
-constexpr int BK = 64;    // keys per shared-memory tile
 constexpr int SUB = 16;   // keys per online-softmax update
+
+// keys per shared-memory tile: two f32 tiles of BK x D stay within the 48 KB
+// of static shared memory (48 KB at D = 96, 32 KB at D = 128)
+template <int D>
+__host__ __device__ constexpr int f32_keys() { return D > 96 ? 32 : 64; }
 constexpr float NEG_INF = -1e30f;
 
 template <typename T, int D>
@@ -55,6 +69,8 @@ __global__ void __launch_bounds__(BQ)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                        int n_rep, int causal, int window, int q_offset, float scale) {
+  constexpr int BK = f32_keys<D>();
+  static_assert(BK % SUB == 0 && 2 * BK * D * 4 <= 48 * 1024, "f32 tiles");
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
   const int bh = blockIdx.y;
@@ -152,9 +168,9 @@ constexpr int TC_WARPS = 4;
 constexpr int TQ = 16 * TC_WARPS;  // query rows per CTA
 constexpr int TK = 64;             // keys per shared-memory tile
 
-// a shared-memory row of HD bf16 plus 16 bytes: 144 bytes at 64, 208 at 96;
-// either way the 8 rows of an ldmatrix land on 8 distinct 16-byte bank
-// groups (row * RS * 2 mod 128 takes 8 values), so no conflicts
+// a shared-memory row of HD bf16 plus 16 bytes: 144 bytes at 64, 208 at 96,
+// 272 at 128; each way the 8 rows of an ldmatrix land on 8 distinct 16-byte
+// bank groups (row * RS * 2 mod 128 takes 8 values), so no conflicts
 template <int HD>
 __host__ __device__ constexpr int tc_row() { return HD + 8; }
 
@@ -350,6 +366,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int BH,
   return 0;
 }
 
+template <int D>
+void launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
+                int Sq, int Sk, int n_rep, int causal, int window, int q_offset,
+                float scale, cudaStream_t st) {
+  dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)BH);
+  flash_attention_kernel<float, D><<<grid, BQ, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
+      n_rep, causal, window, q_offset, scale);
+}
+
 }  // namespace
 
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -357,26 +383,32 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int causal, int window, int q_offset, float scale,
                                void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
-  if ((D != 64 && D != 96) || n_rep <= 0 || BH % n_rep != 0)
+  if ((D != 64 && D != 96 && D != 128) || n_rep <= 0 || BH % n_rep != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DT_F32) {
-    dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)BH);
     if (D == 64)
-      flash_attention_kernel<float, 64><<<grid, BQ, 0, st>>>(
-          (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
-          n_rep, causal, window, q_offset, scale);
+      launch_f32<64>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, q_offset,
+                     scale, st);
+    else if (D == 96)
+      launch_f32<96>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, q_offset,
+                     scale, st);
     else
-      flash_attention_kernel<float, 96><<<grid, BQ, 0, st>>>(
-          (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
-          n_rep, causal, window, q_offset, scale);
+      launch_f32<128>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, q_offset,
+                      scale, st);
   } else if (dtype == DT_BF16) {
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    const int rc = D == 64 ? launch_tc<64>(q, k, v, o, BH, Sq, Sk, n_rep, causal,
-                                           window, q_offset, scale, st)
-                           : launch_tc<96>(q, k, v, o, BH, Sq, Sk, n_rep, causal,
-                                           window, q_offset, scale, st);
+    int rc;
+    if (D == 64)
+      rc = launch_tc<64>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, q_offset,
+                         scale, st);
+    else if (D == 96)
+      rc = launch_tc<96>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, q_offset,
+                         scale, st);
+    else
+      rc = launch_tc<128>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window,
+                          q_offset, scale, st);
     if (rc != 0) return rc;
   } else {
     return (int)cudaErrorInvalidValue;

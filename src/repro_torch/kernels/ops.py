@@ -13,12 +13,23 @@ how chip_smoke.py computes the reference the kernels are held against.
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels (``reset_launches`` / ``launches``).
 
+``record_fallback`` counts the model-level fallbacks: a call shape that a
+gate (``attention_fusable``) keeps off a kernel and that the model runs
+through its chunked plain path instead (models/layers.py), keyed
+``<kernel>/fallback/<reason>`` with one warning per (kernel, reason), as
+the reference's ``ops.py:58-86``. The reference counts at trace time, once
+per traced call site; the port runs eagerly and counts every call
+(``dispatch_counters`` / ``reset_dispatch_counters``).
+
 Attention and the selective scan are differentiable as in the reference
 (``ops.py:390-423``, :453-463): each forward is the kernel (the plain version
 on the CPU) and each backward is autograd through the plain version at the
 saved inputs.
 """
 from __future__ import annotations
+
+import collections
+import warnings
 
 import torch
 
@@ -46,6 +57,31 @@ def reset_launches() -> None:
 
 def launches() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+_DISPATCH_COUNTS: collections.Counter = collections.Counter()
+_WARNED_FALLBACKS: set = set()
+
+
+def record_fallback(kernel: str, reason: str) -> None:
+    _DISPATCH_COUNTS[f"{kernel}/fallback/{reason}"] += 1
+    key = (kernel, reason)
+    if key not in _WARNED_FALLBACKS:
+        _WARNED_FALLBACKS.add(key)
+        warnings.warn(
+            f"repro_torch.kernels.ops: {kernel} fell back to the chunked "
+            f"plain path (reason: {reason}); the kernel will not be used for "
+            "this call shape. Warned once per reason.", stacklevel=3)
+
+
+def dispatch_counters() -> dict[str, int]:
+    """Fallback counts, keyed ``kernel/fallback/reason``."""
+    return dict(_DISPATCH_COUNTS)
+
+
+def reset_dispatch_counters() -> None:
+    _DISPATCH_COUNTS.clear()
+    _WARNED_FALLBACKS.clear()
 
 
 def _kernel(t: torch.Tensor, impl: str | None) -> bool:

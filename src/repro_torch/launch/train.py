@@ -107,10 +107,11 @@ def mesh_shape(args) -> tuple[int, ...]:
     return (n // 4, 2, 2)
 
 
-def train_rank(rank: int, world: int, args) -> dict:
+def train_rank(rank: int, world: int, args, arch=None) -> dict:
     """One rank's run. Returns its per-step metrics, its kernel launches
     and collective payload bytes over the steps, and its peak device
-    memory."""
+    memory. ``arch`` (an ArchConfig) stands in for ``get_arch(args.arch)``
+    when given (e.g. a published width at a cut depth)."""
     import torch
 
     from ..convert import from_jax_state, load_global_state
@@ -132,7 +133,8 @@ def train_rank(rank: int, world: int, args) -> dict:
         torch.set_num_threads(1)
     log0 = print if rank == 0 else (lambda *a, **k: None)
 
-    arch = get_arch(args.arch)
+    if arch is None:
+        arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
     model = build_model(arch)
@@ -161,11 +163,13 @@ def train_rank(rank: int, world: int, args) -> dict:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     ops.reset_launches()
+    ops.reset_dispatch_counters()
     col.reset_counters()
     eng.phase_s.clear()
     tr.run(state, args.steps, print_fn=log0,
            profile_step=args.profile_step if args.profile_step >= 0 else None)
     launches, payload = ops.launches(), dict(col.PAYLOAD)
+    fallbacks = ops.dispatch_counters()
     log = tr.log
     log0(f"final loss: {log.losses[-1]}")
     if rank == 0 and args.log_json:
@@ -174,6 +178,7 @@ def train_rank(rank: int, world: int, args) -> dict:
                 grad_norms=log.grad_norms, lrs=log.lrs,
                 step_times=log.step_times, tokens=log.tokens,
                 tokens_per_s=log.tokens_per_s, launches=launches,
+                fallbacks=fallbacks,
                 payload_bytes=payload, collective_s=dict(col.SECONDS),
                 phase_s=dict(eng.phase_s), profile=log.meta.get("profile"),
                 memory=eng.memory_report(),
@@ -188,11 +193,11 @@ def _init_group(rank: int, world: int, args, init_method: str) -> None:
                             timeout=timedelta(seconds=args.timeout))
 
 
-def _worker(rank: int, world: int, port: int, args, queue) -> None:
+def _worker(rank: int, world: int, port: int, args, arch, queue) -> None:
     import torch.distributed as dist
     try:
         _init_group(rank, world, args, f"tcp://127.0.0.1:{port}")
-        queue.put((rank, train_rank(rank, world, args), None))
+        queue.put((rank, train_rank(rank, world, args, arch), None))
     except Exception:
         # the parent raises with this traceback and stops the other ranks
         queue.put((rank, None, traceback.format_exc()))
@@ -207,13 +212,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run(args) -> list[dict]:
-    """Train; returns every local rank's ``train_rank`` result by rank."""
+def run(args, arch=None) -> list[dict]:
+    """Train; returns every local rank's ``train_rank`` result by rank.
+    ``arch``: an ArchConfig to train in place of ``get_arch(args.arch)``."""
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         _init_group(rank, world, args, "env://")
         try:
-            return [train_rank(rank, world, args)]
+            return [train_rank(rank, world, args, arch)]
         finally:
             import torch.distributed as dist
             dist.destroy_process_group()
@@ -222,12 +228,12 @@ def run(args) -> list[dict]:
     from ..device import resolve
     resolve(args.device)      # no card for --device cuda: raise here, once
     if n == 1:
-        return [train_rank(0, 1, args)]
+        return [train_rank(0, 1, args, arch)]
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_worker, args=(r, n, port, args, queue))
+    procs = [ctx.Process(target=_worker, args=(r, n, port, args, arch, queue))
              for r in range(n)]
     for p in procs:
         p.start()

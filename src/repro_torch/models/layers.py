@@ -4,10 +4,13 @@ decode attention, chunked cross-entropy.
 Port of ``repro.models.layers`` for the dense ``attn`` and ``neox``
 blocks. Full-sequence attention (training and prefill) goes through the
 kernel dispatch (``ops.flash_attention``, differentiable) behind the
-reference's ``ops.attention_fusable`` gate; a shape the gate rejects
-raises, since the reference's chunked fallback is not ported. Decode
-attention (``flash_decode``) is plain PyTorch, as it is plain jnp in the
-reference.
+reference's ``ops.attention_fusable`` gate; a shape the gate rejects (a
+sequence under 8, or over 128 and not a multiple of 128; a value width
+other than the key width) is recorded (``ops.record_fallback``, warned
+once) and runs the reference's chunked attention in plain PyTorch: an f32
+online softmax over KV chunks, each query chunk recomputed in the
+backward. Decode attention (``flash_decode``) is plain PyTorch, as it is
+plain jnp in the reference.
 """
 from __future__ import annotations
 
@@ -60,22 +63,92 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def _repeat_kv(k, n_rep: int):
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d) \
+        .reshape(b, s, h * n_rep, d)
+
+
+def _attend_q_chunk(qb, kc, vc, qp, kp, causal: bool, window: int,
+                    scale: float, out_dtype):
+    """One query chunk against every KV chunk: the reference's ``q_body``.
+    qb (B, H, C, D); kc, vc (nk, B, H, Ck, D); qp (C,), kp (nk, Ck) global
+    positions. Returns (B, H, C, Dv) at ``out_dtype``."""
+    b, h, c, _ = qb.shape
+    dv = vc.shape[-1]
+    acc = torch.zeros((b, h, c, dv), dtype=torch.float32, device=qb.device)
+    m = torch.full((b, h, c), NEG_INF, dtype=torch.float32, device=qb.device)
+    denom = torch.zeros((b, h, c), dtype=torch.float32, device=qb.device)
+    q32 = qb.float()
+    for j in range(kc.shape[0]):
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, kc[j].float()) * scale
+        mask = torch.ones((c, kp.shape[1]), dtype=torch.bool, device=qb.device)
+        if causal:
+            mask &= qp[:, None] >= kp[j][None, :]
+        if window:
+            mask &= qp[:, None] - kp[j][None, :] < window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        denom = denom * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                   vc[j].float())
+        m = m_new
+    return (acc / torch.clamp(denom[..., None], min=1e-30)).to(out_dtype)
+
+
+def _chunked_attention(q, k, v, *, causal: bool, window: int, q_chunk: int,
+                       kv_chunk: int, q_offset: int, softmax_scale):
+    """The reference's fallback (``layers.py:118-166``): GQA expanded, the
+    sequences cut into ``_best_chunk`` chunks, an f32 online softmax over
+    the KV chunks for each query chunk, which the backward recomputes
+    (``jax.checkpoint`` of the scan body there, ``torch.utils.checkpoint``
+    here)."""
+    b, sq, h, d = q.shape
+    _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    q_chunk = _best_chunk(sq, q_chunk)
+    kv_chunk = _best_chunk(sk, kv_chunk)
+    nq, nk = sq // q_chunk, sk // kv_chunk
+    qc = q.reshape(b, nq, q_chunk, h, d).permute(1, 0, 3, 2, 4)
+    kc = k.reshape(b, nk, kv_chunk, h, d).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(b, nk, kv_chunk, h, dv).permute(1, 0, 3, 2, 4)
+    q_pos = q_offset + torch.arange(sq, device=q.device).reshape(nq, q_chunk)
+    k_pos = torch.arange(sk, device=q.device).reshape(nk, kv_chunk)
+    outs = [checkpoint(_attend_q_chunk, qc[i], kc, vc, q_pos[i], k_pos, causal,
+                       window, scale, q.dtype, use_reentrant=False)
+            for i in range(nq)]
+    # nq x (B, H, C, Dv) -> (B, S, H, Dv)
+    return torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, sq, h, dv)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_chunk: int = 512, kv_chunk: int = 1024,
                     q_offset: int = 0, softmax_scale: float | None = None,
                     impl: str | None = None):
-    """q (B,Sq,H,D); k,v (B,Sk,Hkv,D). Returns (B,Sq,H,D).
+    """q (B,Sq,H,D); k,v (B,Sk,Hkv,D). Returns (B,Sq,H,Dv).
 
     ``window`` > 0: sliding-window causal attention; ``q_offset``: global
-    position of q[0] relative to k[0]. Heads fold into the leading dim and
-    query head h reads KV head h // (H / Hkv) (the GQA fold)."""
+    position of q[0] relative to k[0]. A fusable shape goes to the kernel
+    dispatch with heads folded into the leading dim (query head h reads KV
+    head h // (H / Hkv), the GQA fold); any other is recorded as a fallback
+    and runs the chunked plain path (``q_chunk``, ``kv_chunk``)."""
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
     fusable, reason = ops.attention_fusable(
         sq, sk, d, v.shape[-1], softmax_scale=softmax_scale, q_offset=q_offset)
     if not fusable:
-        raise NotImplementedError(
-            f"attention shape q {tuple(q.shape)} k {tuple(k.shape)} is not "
-            f"fusable ({reason}); the chunked fallback is not ported")
+        ops.record_fallback("attention", reason)
+        return _chunked_attention(q, k, v, causal=causal, window=window,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                  q_offset=q_offset,
+                                  softmax_scale=softmax_scale)
     qt = q.transpose(1, 2).reshape(b * h, sq, d)
     kt = k.transpose(1, 2).reshape(b * hkv, sk, d)
     vt = v.transpose(1, 2).reshape(b * hkv, sk, d)

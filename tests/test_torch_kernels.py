@@ -128,13 +128,67 @@ def test_flash_attention_gqa(impl, sq, sk, q_offset, window):
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-5)
 
 
-def test_flash_attention_gate_raises():
-    """A shape the reference's gate sends to its chunked fallback raises in
-    the port (the fallback is not ported), never runs something else."""
-    q = torch.zeros((1, 100, 2, 64))
-    k = torch.zeros((1, 300, 2, 64))
-    with pytest.raises(NotImplementedError, match="seq_unaligned"):
-        layers.flash_attention(q, k, k)
+def test_flash_attention_gate_raises(monkeypatch):
+    """A shape the reference's gate rejects never reaches the kernel
+    dispatch: it is recorded under the reference's key and reason and runs
+    the chunked plain path, within 1e-5 of the reference's."""
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((1, 100, 2, 64)).astype(np.float32)
+    k = rng.standard_normal((1, 300, 2, 64)).astype(np.float32)
+
+    def no_kernel(*a, **kw):
+        raise AssertionError("ops.flash_attention called for a rejected shape")
+
+    monkeypatch.setattr(ops, "flash_attention", no_kernel)
+    jops.reset_dispatch_counters()
+    ops.reset_dispatch_counters()
+    with pytest.warns(UserWarning, match="seq_unaligned"):
+        ot = layers.flash_attention(_torch(q), _torch(k), _torch(k))
+    oj = jlayers.flash_attention(q, k, k)
+    want = {"attention/fallback/seq_unaligned": 1}
+    assert ops.dispatch_counters() == want
+    assert {n: c for n, c in jops.dispatch_counters().items()
+            if "/fallback/" in n} == want
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("sq,sk,h,hkv,q_offset,window,q_chunk,kv_chunk", [
+    (4, 4, 4, 2, 0, 0, 512, 1024),       # a 4-token prompt: one chunk
+    (200, 200, 4, 2, 0, 0, 64, 64),      # 200 = 4 x 50 chunks each way
+    (12, 200, 2, 2, 188, 0, 512, 64),    # the last 12 queries of 200
+    (200, 200, 2, 1, 0, 48, 40, 100),    # a window over chunks
+], ids=["prompt4", "chunked200", "q_offset", "window"])
+def test_chunked_attention_matches_reference(sq, sk, h, hkv, q_offset, window,
+                                             q_chunk, kv_chunk):
+    """The chunked fallback against the reference's, forward and the
+    gradients of q, k, v through its per-chunk recompute, in f32 within
+    1e-5 of max|ref| (the same math, dots and exps rounded in another
+    order)."""
+    rng = np.random.default_rng(sq + sk + window)
+    b, d = 2, 32
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+    g = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    kw = dict(causal=True, window=window, q_offset=q_offset, q_chunk=q_chunk,
+              kv_chunk=kv_chunk)
+    assert not ops.attention_fusable(sq, sk, d, d)[0]
+
+    def jf(a, b_, c):
+        return jnp.sum(jlayers.flash_attention(a, b_, c, **kw) * g)
+
+    oj = np.asarray(jlayers.flash_attention(q, k, v, **kw))
+    gj = jax.grad(jf, argnums=(0, 1, 2))(q, k, v)
+    args = [_torch(a).requires_grad_() for a in (q, k, v)]
+    ot = layers.flash_attention(*args, **kw)
+    (ot * _torch(g)).sum().backward()
+    assert ot.shape == oj.shape
+    np.testing.assert_allclose(ot.detach().numpy(), oj, rtol=0,
+                               atol=1e-5 * float(np.abs(oj).max()))
+    for t, want in zip(args, gj):
+        want = np.asarray(want)
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=0,
+                                   atol=1e-5 * float(np.abs(want).max()))
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -462,7 +516,7 @@ def _tc_attention(q, k, v, causal, window, q_offset):
     online softmax in f32 (masked scores NEG_INF, keys past Sk never
     reached), P rounded to bf16 for the P V product, the output acc /
     max(l, 1e-30) in f32 before its bf16 cast. q (BH, Sq, D), k, v (BH, Sk,
-    D) bf16, D = 64 or 96."""
+    D) bf16, D = 64, 96 or 128."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -536,6 +590,21 @@ def test_flash_attention_tensor_core_rounding_d96(impl, sq, sk, q_offset,
     power of two: the kernel keeps the exact bf16 q and scales the f32
     scores, within the same tolerance of the reference's f32 fold."""
     _hold_tc_attention(impl, sq, sk, q_offset, window, 96)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (128, 128, 0, 0),     # GPT-NeoX-10B's prefill square: two key tiles
+    (100, 100, 0, 0),     # ragged
+    (64, 128, 64, 0),     # a query offset
+    (128, 128, 0, 32),    # a window
+])
+def test_flash_attention_tensor_core_rounding_d128(impl, sq, sk, q_offset,
+                                                   window):
+    """The same at GPT-NeoX-10B's head width, D = 128 (16 k16 slices of q a
+    warp, 16 n8 tiles of the accumulator): 1/sqrt(128) is no power of two
+    either, and the tolerance is the D = 96 test's."""
+    _hold_tc_attention(impl, sq, sk, q_offset, window, 128)
 
 
 def _fma(a, b, c):

@@ -2,15 +2,17 @@
 
 The reference is set up as its serving tests set it up: zero_topo,
 quant_block=64, compute_dtype float32 on the one-device (1, 1, 1) mesh, on
-two reductions of gpt-neox-20b: ``reduced()`` (d_model 256, 4 heads of 64,
-d_ff 512, 2 ``neox`` layers, vocab 512) and the same at d_model 384 with 4
-heads of 96 (d_ff 768), the published head width. Its primaries go across
-through ``convert.from_jax_primaries``. Tolerances:
+three reductions: gpt-neox-20b's ``reduced()`` (d_model 256, 4 heads of 64,
+d_ff 512, 2 ``neox`` layers, vocab 512), the same at d_model 384 with 4
+heads of 96 (d_ff 768), 20B's published head width, and gpt-neox-10b's
+at d_model 512 with 4 heads of 128 (d_ff 1,024), 10B's published head
+width. Its primaries go across through ``convert.from_jax_primaries``.
+Tolerances:
 
 - LayerNorm and the tanh GELU: 1e-6 (the same f32 ops; XLA and torch may
   round tanh and rsqrt in another last bit).
-- attention at D = 96: 1e-5 against the reference's Pallas kernel in
-  interpret mode (dots and exps rounded in another order).
+- attention at D = 96 and 128: 1e-5 against the reference's Pallas kernel
+  in interpret mode (dots and exps rounded in another order).
 - the residency: bit for bit (q, scales and the PLAIN leaves).
 - prefill and teacher-forced decode logits and the prefill's K/V caches:
   rtol = atol = 1e-4, as the qwen2 slice is held (the matmuls sum in
@@ -18,7 +20,6 @@ through ``convert.from_jax_primaries``. Tolerances:
   (rtol 2**-7) and atol 1e-4 (see test_decode_teacher_forced).
 - the continuous batcher: the same greedy tokens and counters.
 """
-import dataclasses
 import functools
 
 import numpy as np
@@ -55,26 +56,22 @@ from repro_torch.models.transformer import LM
 from repro_torch.serve.resident import (ResidentLayout, ResidentServeEngine,
                                         build_resident)
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, ServeSLO
+from test_torch_train import reduced_arch
 
 ARCH = "gpt-neox-20b"
 TOL = dict(rtol=1e-4, atol=1e-4)
 AX = ("data", "node", "gcd")
-HEADS = ["hd64", "hd96"]
+HEADS = ["hd64", "hd96", "hd128"]
+# each head width's reduction (test_torch_train.reduced_arch)
+REDUCTIONS = {"hd64": ARCH, "hd96": ARCH + "@hd96",
+              "hd128": "gpt-neox-10b@hd128"}
 
 
-def _reduce(cfg, heads: str):
-    """``reduced()`` (4 heads of 64), or d_model 384 over 4 heads of 96."""
-    if heads == "hd64":
-        return cfg.reduced()
-    return dataclasses.replace(cfg.reduced(d_model=384), n_heads=4,
-                               n_kv_heads=4)
-
-
-@functools.lru_cache(maxsize=2)
+@functools.lru_cache(maxsize=3)
 def _pair(heads: str):
     """(reference setup, port setup) sharing one set of weights."""
     mesh = make_test_mesh(shape=(1, 1, 1), axes=AX)
-    jarch = _reduce(jget(ARCH), heads)
+    jarch = reduced_arch(jget, REDUCTIONS[heads])
     jmodel = jbuild(jarch)
     jcfg = scheme_config("zero_topo", mesh, quant_block=64,
                          compute_dtype="float32")
@@ -84,7 +81,7 @@ def _pair(heads: str):
     ref = dict(mesh=mesh, arch=jarch, model=jmodel, eng=eng, state=state,
                res=jres)
 
-    arch = _reduce(get_arch(ARCH), heads)
+    arch = reduced_arch(get_arch, REDUCTIONS[heads])
     assert arch.hdim == jarch.hdim == int(heads[2:])
     model = build_model(arch)
     layout = ResidentLayout(model.leaf_specs(), single_device_config(
@@ -123,20 +120,19 @@ def test_layer_norm_and_gelu(d):
     assert np.abs(erf - np.asarray(jax.nn.gelu(x))).max() > 1e-4
 
 
-@pytest.mark.parametrize("sq,sk,q_offset,window,tiles", [
+FLASH_CASES = [
     (128, 128, 0, 0, None),     # the prefill's causal square, full extents
     (128, 128, 0, 0, 64),       # the same over 2 x 2 tiles of 64
     (64, 128, 64, 0, None),     # a query offset (the second half)
     (128, 128, 0, 32, 64),      # a window over tiles
-], ids=["causal", "causal-tiled", "q_offset", "window-tiled"])
-def test_flash_attention_d96(sq, sk, q_offset, window, tiles):
-    """The port's attention at NeoX's head width (its plain version on the
-    CPU) against the reference's Pallas kernel in interpret mode: at full
-    extents (the reference's own test configuration) and over 64 x 64 tiles
-    (its online softmax across key tiles), within 1e-5."""
-    assert 96 in HEAD_DIMS
+]
+FLASH_IDS = ["causal", "causal-tiled", "q_offset", "window-tiled"]
+
+
+def _hold_flash(d, sq, sk, q_offset, window, tiles):
+    assert d in HEAD_DIMS
     rng = np.random.default_rng(sq + q_offset + window)
-    bh, d = 6, 96
+    bh = 6
     q = rng.standard_normal((bh, sq, d)).astype(np.float32)
     k = rng.standard_normal((bh, sk, d)).astype(np.float32)
     v = rng.standard_normal((bh, sk, d)).astype(np.float32)
@@ -152,6 +148,23 @@ def test_flash_attention_d96(sq, sk, q_offset, window, tiles):
                              causal=True, window=window, q_offset=q_offset)
     assert ot.shape == (bh, sq, d)
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("sq,sk,q_offset,window,tiles", FLASH_CASES,
+                         ids=FLASH_IDS)
+def test_flash_attention_d96(sq, sk, q_offset, window, tiles):
+    """The port's attention at NeoX's head width (its plain version on the
+    CPU) against the reference's Pallas kernel in interpret mode: at full
+    extents (the reference's own test configuration) and over 64 x 64 tiles
+    (its online softmax across key tiles), within 1e-5."""
+    _hold_flash(96, sq, sk, q_offset, window, tiles)
+
+
+@pytest.mark.parametrize("sq,sk,q_offset,window,tiles", FLASH_CASES,
+                         ids=FLASH_IDS)
+def test_flash_attention_d128(sq, sk, q_offset, window, tiles):
+    """The same at gpt-neox-10b's head width, 128."""
+    _hold_flash(128, sq, sk, q_offset, window, tiles)
 
 
 # ---------------------------------------------------------------------------

@@ -41,13 +41,41 @@ import torch
 AX = ("data", "node", "gcd")
 RUN = dict(seq=32, batch=4, steps=3, lr=1e-3, quant_block=64)
 LOSS_RTOL, GNORM_RTOL = 3e-5, 2e-4
+ARCH = "qwen2-0.5b"
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's in-process runs on one thread, as its ranks run: the
+    reduced models gain nothing from more, and beside the other test
+    workers more threads only contend (modules that import it share it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def reduced_arch(get, arch: str = ARCH):
+    """The reduction ``arch`` names, through ``get`` (the reference's or the
+    port's ``get_arch``): "<name>" is the arch's ``reduced()``; "<name>@hd<D>"
+    the same at d_model 4 D over 4 heads of D (all KV heads), the published
+    head width of a model whose ``reduced()`` keeps 64."""
+    import dataclasses
+    name, _, hd = arch.partition("@hd")
+    if not hd:
+        return get(name).reduced()
+    d = int(hd)
+    return dataclasses.replace(get(name).reduced(d_model=4 * d), n_heads=4,
+                               n_kv_heads=4)
 
 
 def reference_run(mesh, out_dir: Path, n_microbatch: int = 1,
                   scheme: str = "zero_topo", batch: int = RUN["batch"],
-                  **over) -> dict:
-    """Train the reference; save its initial global state and metrics.
-    ``over`` overrides the scheme config (e.g. ``stream_grads=True``)."""
+                  arch: str = ARCH, seq: int = RUN["seq"],
+                  final_leaves: tuple[str, ...] = (), **over) -> dict:
+    """Train the reference; save its initial global state and metrics, and
+    the final fp32 masters of ``final_leaves`` (``final.npz``). ``over``
+    overrides the scheme config (e.g. ``stream_grads=True``)."""
     import jax
 
     from repro.core.engine import TrainHparams, ZeroEngine
@@ -57,7 +85,7 @@ def reference_run(mesh, out_dir: Path, n_microbatch: int = 1,
     from repro.train.trainer import Trainer
     from repro_torch.convert import save_global_state
 
-    model = build_model(get_arch("qwen2-0.5b").reduced())
+    model = build_model(reduced_arch(get_arch, arch))
     cfg = scheme_config(scheme, mesh, quant_block=RUN["quant_block"],
                         compute_dtype="float32", **over)
     hp = TrainHparams(lr=RUN["lr"], total_steps=RUN["steps"],
@@ -69,26 +97,31 @@ def reference_run(mesh, out_dir: Path, n_microbatch: int = 1,
         k: (np.asarray(state[k]) if k == "step" else
             {n: np.asarray(a) for n, a in state[k].items()})
         for k in ("primaries", "master", "opt_m", "opt_v", "step")})
-    tr = Trainer(model, eng, mesh,
-                 ShapeConfig("t", RUN["seq"], batch, "train"))
-    tr.run(state, RUN["steps"], log_every=0)
+    tr = Trainer(model, eng, mesh, ShapeConfig("t", seq, batch, "train"))
+    state = tr.run(state, RUN["steps"], log_every=0)
+    if final_leaves:
+        np.savez(out_dir / "final.npz", **{
+            n: np.asarray(state["master"][n]) for n in final_leaves})
     out = dict(losses=tr.log.losses, grad_norms=tr.log.grad_norms)
     (out_dir / "metrics.json").write_text(json.dumps(out))
     return out
 
 
 def port_run(out_dir: Path, shape: tuple[int, int, int],
-             n_microbatch: int = 1, scheme: str = "zero_topo") -> list[dict]:
+             n_microbatch: int = 1, scheme: str = "zero_topo",
+             arch: str = ARCH, seq: int = RUN["seq"]) -> list[dict]:
     from repro_torch.launch import train
+    from repro_torch.models.registry import get_arch
     args = train.build_parser().parse_args([
+        "--arch", arch.partition("@")[0],
         "--scheme", scheme, "--microbatches", str(n_microbatch),
         "--mesh-shape", ",".join(map(str, shape)),
-        "--device", "cpu", "--reduced", "--devices", str(np.prod(shape)),
+        "--device", "cpu", "--devices", str(np.prod(shape)),
         "--steps", str(RUN["steps"]), "--batch", str(RUN["batch"]),
-        "--seq", str(RUN["seq"]), "--lr", str(RUN["lr"]),
+        "--seq", str(seq), "--lr", str(RUN["lr"]),
         "--quant-block", str(RUN["quant_block"]), "--compute-dtype", "float32",
         "--init-npz", str(out_dir / "state.npz"), "--timeout", "120"])
-    return train.run(args)
+    return train.run(args, reduced_arch(get_arch, arch))
 
 
 def _check(ref: dict, port: dict):
@@ -143,19 +176,27 @@ def test_train_step_one_device(mesh1, tmp_path, n_microbatch):
     _check(ref, port)
 
 
+def four_rank_run(tmp_path, shape, scheme: str = "zero_topo",
+                  arch: str = ARCH) -> tuple[dict, list[dict]]:
+    """The reference on 4 host devices in a subprocess (this file under
+    ``__main__``), then the port on 4 gloo ranks from its initial state:
+    (reference metrics, the port's rank results)."""
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, __file__, str(tmp_path),
+                          ",".join(map(str, shape)), scheme, arch], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    ref = json.loads((tmp_path / "metrics.json").read_text())
+    return ref, port_run(tmp_path, shape, scheme=scheme, arch=arch)
+
+
 @pytest.mark.parametrize("shape,scheme", [
     ((1, 2, 2), "zero_topo"), ((2, 1, 2), "zero_topo"), ((1, 2, 2), "zeropp"),
     ((1, 2, 2), "zero3")])
 def test_train_step_four_ranks(tmp_path, shape, scheme):
     """4 gloo ranks against the reference on 4 host devices."""
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu")
-    res = subprocess.run([sys.executable, __file__, str(tmp_path),
-                          ",".join(map(str, shape)), scheme], env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stdout + res.stderr
-    ref = json.loads((tmp_path / "metrics.json").read_text())
-    ports = port_run(tmp_path, shape, scheme=scheme)
+    ref, ports = four_rank_run(tmp_path, shape, scheme)
     assert [p["rank"] for p in ports] == [0, 1, 2, 3]
     for p in ports:   # the metrics are global: every rank reports the same
         assert p["losses"] == ports[0]["losses"]
@@ -229,4 +270,4 @@ if __name__ == "__main__":
     from repro.launch.mesh import make_test_mesh
     shape = tuple(int(v) for v in sys.argv[2].split(","))
     reference_run(make_test_mesh(shape=shape, axes=AX), Path(sys.argv[1]),
-                  scheme=sys.argv[3])
+                  scheme=sys.argv[3], arch=sys.argv[4])
