@@ -73,7 +73,12 @@ either is missing or any phase fails. Phases, in order:
             GQA and a query offset; a window; f32 ragged) and at the NeoX
             training step's forward (2 rows of 1,024, D = 96 with 64 heads
             and D = 128 with 40, in bf16 and f32), within one bf16 ulp /
-            F32_TOL of max|ref|; head dim 80 must raise.
+            F32_TOL of max|ref|; head dim 80 must raise. flash_attention
+            at head dim 256 (gemma3-1b's prefill, 4 heads over 1 at S =
+            640, with its window of 512 and causal; a ragged Sq of 100 with
+            GQA 8/2 and a query offset; a window of 32 that skips key tiles
+            on both sides; f32 at gemma's local shape and ragged), within
+            the same tolerances.
 2b. ops    : two ops-level paths, each with the counters zeroed before and
             read after: benchmarks/quant_error.py's experiment (2^16
             heavy-tailed values, INT8 and INT4 round trips at blocks 64 ...
@@ -137,7 +142,22 @@ either is missing or any phase fails. Phases, in order:
             traced prefill must show 32 launches of the tensor-core flash
             kernel at head dim 128; its prefill attention timed in bf16 and
             f32 beside plain, SDPA and the bound; then its residency is
-            freed before the training ranks start. Every serving phase
+            freed.
+3e. gemma : the same for gemma3-1b at published width and depth (26
+            layers, 5:1 local (sliding window 512, ring caches) to global,
+            d_model 1,152, 4 heads of 256 over 1 KV head, GELU-GLU d_ff
+            6,912, tied vocab 262,144, embed_scale; INT8 residency of 1.03
+            GB) under SERVE_KERNELS with prompts of 640, past the window
+            (the rings wrap in prefill and in decode): the prefill, f32
+            and f32-ratio prefill checks, the decode step's check (its ring
+            writes and ring_decode), peak device memory, the decode graphs
+            in turns; the traced prefill must show 26 launches of the
+            tensor-core flash kernel at head dim 256; each of its seven
+            layer products and its tied head at M = 4 and 640 (head M = 1)
+            on the path expected_path names, timed beside bf16 cuBLAS and
+            the bound; its prefill attention (global, local, f32) timed
+            beside plain, SDPA and the bound; then its residency is freed
+            before the training ranks start. Every serving phase
             fails if any attention call fell back to the chunked plain path
             (ops.dispatch_counters), at these fusable shapes.
 4. train  : repro_torch.launch.train with --devices 4: qwen2-0.5b at full
@@ -196,8 +216,9 @@ either is missing or any phase fails. Phases, in order:
             at the NeoX training shapes (D = 96 and 128) beside SDPA; NeoX's
             training products at M = 2,048 (forward and dX on 8a, dW on 9a)
             per shape beside bf16 cuBLAS.
-6. report : JSON lines (serve, serve_ssm, serve_neox, serve_neox10b, train,
-            train_neox, regimes, collectives, kernels_extra with the extra
+6. report : JSON lines (serve, serve_ssm, serve_neox, serve_neox10b,
+            serve_gemma, train, train_neox, regimes, collectives,
+            kernels_extra with the extra
             timing rows and every dequant_matmul shape's path, then the
             kernels line: all 11 kernels with their launches on every
             path), the card's name and
@@ -273,6 +294,15 @@ NEOX_LEAVES = ("wq", "wk", "wv", "wo", "w_in", "w_out_ff")
 # gpt-neox-10b, the paper's second size: the same traffic, head dim 128
 NEOX10B_SERVE_ARGS = ["--arch", "gpt-neox-10b"] + SERVE_ARGS[2:]
 NEOX10B_H, NEOX10B_HD, NEOX10B_L = 40, 128, 32
+# gemma3-1b at published width and depth: a prompt of 640 (5 x 128) past the
+# sliding window of 512, so the 22 local layers' flash calls skip key tiles
+# and their rings wrap in prefill and again in decode (positions 640-671)
+GEMMA_SERVE_ARGS = ["--arch", "gemma3-1b", "--requests", "8", "--slots", "4",
+                    "--prompt-len", "640", "--gen", "32", "--max-len", "768",
+                    "--seed", "0"]
+# query heads, KV heads, head dim, layers, window
+GEMMA_H, GEMMA_HKV, GEMMA_HD, GEMMA_L, GEMMA_W = 4, 1, 256, 26, 512
+GEMMA_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 # gpt-neox-20b trained at published width and a cut depth on the qwen2
 # train phase's mesh, batch and sequence, 3 steps (the last traced). Each
 # layer holds 453 M parameters and embed + head 620 M; NEOX_TRAIN_L is
@@ -688,6 +718,24 @@ def check_kernels(dev, gen, checks):
             attn_case(checks, gen, dev, f"B=2 H={h}/{h} S=1024 causal "
                       f"{str(dt)[6:]} D={hd} (NeoX training)", 2, h, h, 1024,
                       1024, 0, 0, dt, hd)
+    # head dim 256 (gemma3-1b): its prefill's GQA 4/1 at S = 640, local
+    # (window 512) and global (causal), a ragged Sq with a query offset, a
+    # window that skips key tiles on both sides, and f32
+    hd, h, hkv, w = GEMMA_HD, GEMMA_H, GEMMA_HKV, GEMMA_W
+    for what, b, hq, nkv, sq, sk, off, win, dt in (
+            (f"B=1 H={h}/{hkv} S=640 window={w} bf16 D={hd} (gemma local)", 1,
+             h, hkv, 640, 640, 0, w, torch.bfloat16),
+            (f"B=1 H={h}/{hkv} S=640 causal bf16 D={hd} (gemma global)", 1, h,
+             hkv, 640, 640, 0, 0, torch.bfloat16),
+            (f"B=2 H=8/2 Sq=100 Sk=256 q_offset=156 bf16 D={hd}", 2, 8, 2,
+             100, 256, 156, 0, torch.bfloat16),
+            (f"B=1 H=4/1 S=512 window=32 bf16 D={hd}", 1, 4, 1, 512, 512, 0,
+             32, torch.bfloat16),
+            (f"B=1 H={h}/{hkv} S=640 window={w} f32 D={hd} (gemma local)", 1,
+             h, hkv, 640, 640, 0, w, torch.float32),
+            (f"B=2 H=6/2 S=100 causal f32 ragged D={hd}", 2, 6, 2, 100, 100,
+             0, 0, torch.float32)):
+        attn_case(checks, gen, dev, what, b, hq, nkv, sq, sk, off, win, dt, hd)
     # any other head dim raises, in both dtypes
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     for dt in (torch.bfloat16, torch.float32):
@@ -1233,13 +1281,15 @@ def check_decode_step(s):
     """One decode step of all slots after a prefill of the first requests'
     prompts: every layer product of the step at M = slots. Each compute
     dtype's prefill runs once, through the plain versions, and each step
-    starts from a copy of its caches (the attention caches one position
-    longer), so the step alone is held: through the kernels against the
+    starts from a copy of its caches (the full-attention caches one position
+    longer, the sliding-window rings as they are), so the step alone is
+    held: through the kernels against the
     plain versions in bf16 (max|d| <= PREFILL_TOL * max|ref|) and in f32
     (PREFILL_F32_TOL), and the bf16 step through the kernels at most
     PREFILL_BF16_RATIO times as far from the f32 plain step as the bf16
     plain step is."""
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import kind_meta
     from repro_torch.serve.resident import ResidentLayout, ResidentServeEngine
 
     layout, dev = s["layout"], s["device"]
@@ -1258,8 +1308,11 @@ def check_decode_step(s):
             shape)
 
     def copied(caches):
+        # a sliding window's ring keeps its W slots; the step writes one
         return {kind: {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
-                       if n in ("k", "v") else t.clone() for n, t in c.items()}
+                       if n in ("k", "v")
+                       and not kind_meta(kind, s["arch"]).window
+                       else t.clone() for n, t in c.items()}
                 if isinstance(c, dict) else c.clone()
                 for kind, c in caches.items()}
 
@@ -1415,29 +1468,44 @@ def ssm_phase(gen, dev):
     return record, pf, timing, xproj
 
 
-def flash_timing(gen, dev, b, h, seq, hd, dtype, what):
-    """flash_attention at (B, H, S, hd), causal, all heads KV: device time
-    of the kernel, its plain version and SDPA, and the bound."""
+def flash_timing(gen, dev, b, h, seq, hd, dtype, what, hkv=None, window=0):
+    """flash_attention at (B, H, S, hd) over ``hkv`` KV heads (default: all
+    H), causal, within ``window`` where it is > 0: device time of the
+    kernel, its plain version and SDPA (K and V repeated to H heads
+    beforehand; the window as a boolean mask), and the bound (q, k, v, o
+    moved once; 4 hd operations an unmasked (query, key) pair)."""
     from repro_torch.kernels import ops
 
-    q, k, v = (torch.randn((b * h, seq, hd), generator=gen, device=dev)
-               .to(dtype) for _ in range(3))
+    hkv = hkv or h
+    q = torch.randn((b * h, seq, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b * hkv, seq, hd), generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
     size = torch.empty((), dtype=dtype).element_size()
-    pairs = b * h * seq * (seq + 1) // 2
+    keys = [min(i + 1, window or seq) for i in range(seq)]
+    pairs = b * h * sum(keys)
     reps = max(2, 50 * 128 // seq)
+    kx, vx = (t.view(b, hkv, seq, hd).repeat_interleave(h // hkv, dim=1)
+              for t in (k, v))
+    mask = None
+    if window:
+        i = torch.arange(seq, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
     out = dict(
-        work=f"{what}: B={b} x {h} heads, S={seq}, D={hd}, causal, "
-             f"{str(dtype)[6:]}",
-        ms=device_ms(lambda: ops.flash_attention(q, k, v), reps=reps),
-        plain_ms=device_ms(lambda: ops.flash_attention(q, k, v, impl="plain"),
-                           reps=reps if seq <= 128 else 2),
+        work=f"{what}: B={b} x {h} heads over {hkv}, S={seq}, D={hd}, causal"
+             f"{f', window {window}' if window else ''}, {str(dtype)[6:]}",
+        ms=device_ms(lambda: ops.flash_attention(q, k, v, window=window),
+                     reps=reps),
+        plain_ms=device_ms(lambda: ops.flash_attention(
+            q, k, v, window=window, impl="plain"),
+            reps=reps if seq <= 128 else 2),
         library_ms=device_ms(lambda: torch.nn.functional
                              .scaled_dot_product_attention(
-                                 *(t.view(b, h, seq, hd) for t in (q, k, v)),
-                                 is_causal=True), reps=reps),
-        bound=bound_ms(size * 4 * b * h * seq * hd, 4 * hd * pairs,
+                                 q.view(b, h, seq, hd), kx, vx,
+                                 attn_mask=mask, is_causal=mask is None),
+                             reps=reps),
+        bound=bound_ms(size * 2 * b * (h + hkv) * seq * hd, 4 * hd * pairs,
                        "bf16" if dtype == torch.bfloat16 else "f32"))
-    del q, k, v
+    del q, k, v, kx, vx
     return out
 
 
@@ -1511,12 +1579,13 @@ def neox_shapes(s, gen):
     return rows, prefill
 
 
-def neox_serve(argv, n_layers: int, hd: int):
-    """A NeoX model served at published width and depth under SERVE_KERNELS,
-    its prefill (against plain, f32, and the bf16 / f32 ratio) and decode
-    step held against the plain versions, the traced prefill's tensor-core
-    flash launches held to one a layer at head dim ``hd``, the decode graphs
-    in turns. Returns (the serve state, the prefill checks)."""
+def attn_serve(argv, n_layers: int, hd: int):
+    """An attention model served at published width and depth under
+    SERVE_KERNELS, its prefill (against plain, f32, and the bf16 / f32
+    ratio) and decode step held against the plain versions, the traced
+    prefill's tensor-core flash launches held to one a layer at head dim
+    ``hd``, the decode graphs in turns. Returns (the serve state, the
+    prefill checks)."""
     from repro_torch.kernels import ops
 
     s = serve_phase(argv, SERVE_KERNELS)
@@ -1545,7 +1614,7 @@ def neox_phase(gen, dev, checks):
     decode step held against the plain versions, flash_attention at head
     dim 96 held and timed, its products timed by shape. Returns the serve
     record, the prefill checks and the timings; the residency is freed."""
-    s, pf = neox_serve(NEOX_SERVE_ARGS, NEOX_L, NEOX_HD)
+    s, pf = attn_serve(NEOX_SERVE_ARGS, NEOX_L, NEOX_HD)
     timing = neox_flash(gen, dev, checks, s["args"].prompt_len)
     timing["shapes"], timing["dequant_matmul_prefill_neox"] = neox_shapes(s,
                                                                          gen)
@@ -1562,12 +1631,68 @@ def neox10b_phase(gen, dev):
     tensor-core flash kernel at head dim 128 in the traced prefill; then
     its prefill attention timed in bf16 and f32. Returns the serve record,
     the prefill checks and the timings; the residency is freed."""
-    s, pf = neox_serve(NEOX10B_SERVE_ARGS, NEOX10B_L, NEOX10B_HD)
+    s, pf = attn_serve(NEOX10B_SERVE_ARGS, NEOX10B_L, NEOX10B_HD)
     seq = s["args"].prompt_len
     timing = {key: flash_timing(gen, dev, 1, NEOX10B_H, seq, NEOX10B_HD, dt,
                                 "NeoX-10B prefill attention")
               for key, dt in (("flash_attention_d128", torch.bfloat16),
                               ("flash_attention_f32_d128", torch.float32))}
+    record = {k: s[k] for k in SERVE_RECORD}
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, pf, timing
+
+
+def gemma_shapes(s, gen):
+    """gemma3-1b's products, from layer 0 of its local stack and its tied
+    head, per call: the seven layer products and the head at the decode
+    step's M = slots and at the prefill's M = prompt_len (head M = 1), each
+    held to the path expected_path names (a call on another path fails the
+    run), with its time, bf16 cuBLAS on the dequantized weight and the
+    bound."""
+    slots, plen = s["args"].slots, s["args"].prompt_len
+    rows = []
+    for step, m, m_head in (("gemma decode", slots, slots),
+                            ("gemma prefill", plen, 1)):
+        calls = matmul_calls(s, m, m_head, gen, n_layers=1)
+        for call, leaf in zip(calls, GEMMA_LEAVES + ("embed",)):
+            x, _, _, (k, n), block, tr = call
+            path = call_path(call)
+            want = expected_path(x.shape[0], k, n, block, tr, x.dtype)
+            if path != want:
+                raise Failed(f"{step} {leaf} M={x.shape[0]} ({k}, {n}): path "
+                             f"{path}, expected {want}")
+            dense = dense_weights([call])
+            b, o = matmul_work([call])
+            rows.append(dict(
+                step=step, leaf=leaf, M=x.shape[0], K=k, N=n, transpose=tr,
+                path=path, ms_per_call=device_ms(run_matmuls([call]), reps=5),
+                library_ms_per_call=device_ms(run_dense([call], dense),
+                                              reps=5),
+                bound_ms_per_call=bound_ms(b, o, "bf16")[0]))
+            del dense
+    return rows
+
+
+def gemma_phase(gen, dev):
+    """gemma3-1b served at published width and depth (26 layers, 22 of them
+    sliding-window with ring caches), held as neox_phase holds
+    gpt-neox-20b, with 26 launches of the tensor-core flash kernel at head
+    dim 256 in the traced prefill; its products' paths held and timed, its
+    prefill attention timed (global and local, bf16 and f32). Returns the
+    serve record, the prefill checks and the timings; the residency is
+    freed."""
+    s, pf = attn_serve(GEMMA_SERVE_ARGS, GEMMA_L, GEMMA_HD)
+    seq = s["args"].prompt_len
+    timing = {"shapes": gemma_shapes(s, gen)}
+    for key, dt, win in (("flash_attention_d256", torch.bfloat16, 0),
+                         ("flash_attention_d256_window", torch.bfloat16,
+                          GEMMA_W),
+                         ("flash_attention_f32_d256", torch.float32, 0)):
+        timing[key] = flash_timing(gen, dev, 1, GEMMA_H, seq, GEMMA_HD, dt,
+                                   "gemma prefill attention", hkv=GEMMA_HKV,
+                                   window=win)
     record = {k: s[k] for k in SERVE_RECORD}
     del s
     gc.collect()
@@ -2499,7 +2624,7 @@ def mq_timing(gen, dev, dtype, path, block):
         bound=bound_ms(n_bytes, n_ops, op_type), per_shape=per)
 
 
-def print_neox(nx, npf):
+def print_attn(nx, npf):
     print(f"  launches {nx['launches']}; counters {nx['counters']}; prefill "
           f"logits max_abs_err {npf['logits_err']:.3e} (max|ref| "
           f"{npf['logits_scale']:.3e}, argmax equal {npf['argmax_equal']})")
@@ -2538,8 +2663,8 @@ def print_train(tr):
     print(f"  traced step, matmul_quant by path: {tr['matmul_quant_traced']}")
 
 
-def serve_neox_line(nx, npf) -> dict:
-    """A served NeoX model's JSON line."""
+def serve_attn_line(nx, npf) -> dict:
+    """A served attention model's JSON line (NeoX, gemma)."""
     return dict(
         arch=nx["arch"].name, requests=len(nx["reqs"]), slots=nx["args"].slots,
         prompt_len=nx["args"].prompt_len, gen=nx["args"].gen,
@@ -2668,7 +2793,7 @@ def main(argv=None) -> int:
 
     phase("neox")
     nx, npf, nx_t = neox_phase(gen, dev, checks)
-    print_neox(nx, npf)
+    print_attn(nx, npf)
     for key in ("flash_attention_d96", "flash_attention_f32_d96",
                 "dequant_matmul_prefill_neox"):
         print_timing(key, nx_t[key])
@@ -2681,9 +2806,22 @@ def main(argv=None) -> int:
 
     phase("neox10b")
     x10, x10pf, x10_t = neox10b_phase(gen, dev)
-    print_neox(x10, x10pf)
+    print_attn(x10, x10pf)
     for key, tm in x10_t.items():
         print_timing(key, tm)
+
+    phase("gemma")
+    gm, gpf, gm_t = gemma_phase(gen, dev)
+    print_attn(gm, gpf)
+    for key, tm in gm_t.items():
+        if key != "shapes":
+            print_timing(key, tm)
+    for r in gm_t["shapes"]:
+        print(f"  {r['step']} {r['leaf']} M={r['M']} ({r['K']}, {r['N']})"
+              f"{'.T' if r['transpose'] else ''} {r['path']}: "
+              f"{r['ms_per_call']:.5f} ms, bf16 cuBLAS "
+              f"{r['library_ms_per_call']:.5f}, bound "
+              f"{r['bound_ms_per_call']:.5f}")
 
     phase("train")
     tr = train_phase()
@@ -2738,8 +2876,9 @@ def main(argv=None) -> int:
     t["selective_scan"] = scan_t[plen]
     t["dequantize_int8_w_xproj"] = xproj_t
     t.update({k: v for k, v in nx_t.items() if k != "shapes"})
-    t["dequant_matmul_shapes"] += nx_t["shapes"]
+    t["dequant_matmul_shapes"] += nx_t["shapes"] + gm_t["shapes"]
     t.update(x10_t)
+    t.update({k: v for k, v in gm_t.items() if k != "shapes"})
     # the NeoX training step's attention forward (2 rows of 1,024 a rank) at
     # both models' head widths, and its products on 8a / 9a
     for key, h, hd in (("flash_attention_train_d96", NEOX_H, NEOX_HD),
@@ -2764,6 +2903,7 @@ def main(argv=None) -> int:
                        serve_ssm=m["launches"][name],
                        serve_neox=nx["launches"][name],
                        serve_neox10b=x10["launches"][name],
+                       serve_gemma=gm["launches"][name],
                        train=tr["launches"][name],
                        train_neox=tn["launches"][name],
                        collectives=cl_launches[name],
@@ -2794,7 +2934,9 @@ def main(argv=None) -> int:
                     "flash_attention_f32_d96", "dequant_matmul_prefill_neox",
                     "flash_attention_d128", "flash_attention_f32_d128",
                     "flash_attention_train_d96",
-                    "flash_attention_train_d128")}
+                    "flash_attention_train_d128", "flash_attention_d256",
+                    "flash_attention_d256_window",
+                    "flash_attention_f32_d256")}
     blk = t["dequant_matmul_blocked"]
     kernels_extra.update(
         dequant_matmul_blocked_bounds=dict(
@@ -2857,8 +2999,9 @@ def main(argv=None) -> int:
                              bound_ms=tm["bound"][0], bound_by=tm["bound"][1],
                              sfu_floor_ms=tm["sfu_floor_ms"])
               for seq, tm in scan_t.items()})
-    neox_line = serve_neox_line(nx, npf)
-    neox10b_line = serve_neox_line(x10, x10pf)
+    neox_line = serve_attn_line(nx, npf)
+    neox10b_line = serve_attn_line(x10, x10pf)
+    gemma_line = serve_attn_line(gm, gpf)
     k0 = tr["kernel"][0]
     # the first step pays for the kernels' first use, the last is traced
     timed = slice(1, PROFILE_STEP)
@@ -2949,7 +3092,8 @@ def main(argv=None) -> int:
             card=card, phases=phases, kernels=kernels,
             kernels_extra=kernels_extra,
             serve=serve_line, serve_ssm=ssm_line, serve_neox=neox_line,
-            serve_neox10b=neox10b_line, train=train_line,
+            serve_neox10b=neox10b_line, serve_gemma=gemma_line,
+            train=train_line,
             train_neox=train_neox_line,
             regimes=regimes_line, collectives=collectives_line,
             collective_ranks=cl,
@@ -2959,6 +3103,7 @@ def main(argv=None) -> int:
             checks=checks, timing={k: v for k, v in t.items()},
             launches=s["launches"], launches_ssm=m["launches"],
             launches_neox=nx["launches"], launches_neox10b=x10["launches"],
+            launches_gemma=gm["launches"],
             build=kcuda.BUILD_LOG,
             torch=torch.__version__, cuda=torch.version.cuda),
             indent=1, default=str))
@@ -2968,6 +3113,7 @@ def main(argv=None) -> int:
     print("serve_ssm " + json.dumps(ssm_line))
     print("serve_neox " + json.dumps(neox_line))
     print("serve_neox10b " + json.dumps(neox10b_line))
+    print("serve_gemma " + json.dumps(gemma_line))
     print("train " + json.dumps(train_line))
     print("train_neox " + json.dumps(train_neox_line))
     print("regimes " + json.dumps(regimes_line))

@@ -2,15 +2,15 @@
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas (:92).
 // q (BH, Sq, D); k, v (BH / n_rep, Sk, D) -> o (BH, Sq, D) in the dtype of q;
-// D = 64 (qwen2), 96 (GPT-NeoX-20B) or 128 (GPT-NeoX-10B), each a template
-// instance; any other D returns cudaErrorInvalidValue. Query row i
-// sits at absolute position q_offset + i, key j at j; causal keeps j <=
-// q_pos, window > 0 keeps q_pos - j < window. As in the TPU kernel: the
-// softmax scale is 1/sqrt(D), masked scores are NEG_INF = -1e30 (not -inf),
-// keys past Sk weigh exactly 0, the output is acc / max(l, 1e-30), and KV
-// tiles that the mask empties for the whole query tile are skipped. GQA
-// reads KV head bh / n_rep instead of materialising the repeat, which gives
-// the same numbers.
+// D = 64 (qwen2), 96 (GPT-NeoX-20B), 128 (GPT-NeoX-10B) or 256 (gemma3-1b),
+// each a template instance; any other D returns cudaErrorInvalidValue.
+// Query row i sits at absolute position q_offset + i, key j at j; causal
+// keeps j <= q_pos, window > 0 keeps q_pos - j < window. As in the TPU
+// kernel: the softmax scale is 1/sqrt(D), masked scores are NEG_INF = -1e30
+// (not -inf), keys past Sk weigh exactly 0, the output is acc / max(l,
+// 1e-30), and KV tiles that the mask empties for the whole query tile are
+// skipped. GQA reads KV head bh / n_rep instead of materialising the
+// repeat, which gives the same numbers.
 //
 // Bound on the H100 (q, k, v, o moved once; 4*D flops per unmasked (query,
 // key) pair at 989 TFLOP/s bf16): qwen2's prefill (14 heads over 2, S =
@@ -19,16 +19,19 @@
 // (bytes); qwen2's training step's forward (B = 2 x 14 heads over 2, S =
 // 1,024, causal) 3.8 us (operations); NeoX's (B = 2, S = 1,024) 30 us at
 // 64 heads of 96 and 25 us at 40 of 128 (bytes; 26 and 22 us of
-// operations). The prefills' few CTAs (28, 128, 80) make them a latency
-// problem.
+// operations); gemma3-1b's prefill (4 heads over 1, S = 640, D = 256,
+// causal, window 512 on 22 of its 26 layers) 1.0 us (bytes: q and o 2.6 MB,
+// k and v 0.66 MB). The prefills' few CTAs (28, 128, 80, 40) make them a
+// latency problem.
 //
 // Two kernels, by dtype:
 //  * bf16 (serving and training): tensor cores in the FlashAttention-2
 //    shape. A CTA of 4 warps takes 64 query rows, 16 a warp, with the exact
-//    bf16 Q fragment in registers. K and V tiles of 64 keys are
-//    double-buffered in dynamic shared memory by cp.async ((64 + 4 x 64)
-//    rows of D + 8 bf16: 66,560 bytes at D = 96, 87,040 at D = 128, over
-//    the 48 KB of static arrays). S = Q K^T and O += P V run
+//    bf16 Q fragment in registers up to D = 128. K and V tiles of TK keys
+//    (tc_keys: 64, and 32 at D = 256) are double-buffered in dynamic shared
+//    memory by cp.async ((64 + 4 TK) rows of D + 8 bf16: 66,560 bytes at
+//    D = 96, 87,040 at D = 128, 101,376 at D = 256, over the 48 KB of
+//    static arrays). S = Q K^T and O += P V run
 //    on mma.sync.m16n8k16 with f32 accumulation, V through ldmatrix.trans.
 //    The scale multiplies the f32 scores: the reference folds it into f32
 //    q, and the two differ by f32 rounding (1/sqrt(96) and 1/sqrt(128) are
@@ -41,6 +44,12 @@
 //    max|ref|. Query tiles run heaviest (latest) first. Registers (ptxas,
 //    sm_90a): 160 at D = 64, 168 at 96, 234 at 128, no spill at any; at
 //    128 the O accumulator alone is 64 f32 a lane and the Q fragment 32.
+//    At D = 256 the accumulator is 128 f32 a lane and the Q fragment would
+//    add 64: so there Q stays in shared memory and each k16 slice is read
+//    with ldmatrix inside the S loop (16 more ldmatrix a warp per key
+//    tile), and the key tile is 32, which halves the S fragment (16 f32
+//    a lane). ptxas at D = 256: 252 registers, no spill; with 64-key tiles
+//    the instance spills, and it ran slower on the card.
 //  * f32 (the port's first design; no path runs attention in f32, the card
 //    checks do): one block of 64 threads per (batch*head, 64-row query
 //    tile), one query row per thread with its scaled q row and f32
@@ -50,7 +59,10 @@
 //    read by every thread at the same address (broadcast, no bank
 //    conflicts); the running max / sum update once per 16 keys. ptxas:
 //    225 registers and no spill at D = 64; 255 and 272 / 312 bytes of spill
-//    stores / loads at 96; 255 and 632 / 860 at 128.
+//    stores / loads at 96; 255 and 632 / 860 at 128; at 256 16-key tiles
+//    (32 KB), 255 registers and 7,468 / 10,112 bytes of spill stores /
+//    loads: this path is for the checks and is far slower than its plain
+//    version at 256 (PERF.md).
 #include "tensor_core.cuh"
 
 namespace {
@@ -59,9 +71,9 @@ constexpr int BQ = 64;    // query rows per block, one per thread
 constexpr int SUB = 16;   // keys per online-softmax update
 
 // keys per shared-memory tile: two f32 tiles of BK x D stay within the 48 KB
-// of static shared memory (48 KB at D = 96, 32 KB at D = 128)
+// of static shared memory (48 KB at D = 96, 32 KB at D = 128 and 256)
 template <int D>
-__host__ __device__ constexpr int f32_keys() { return D > 96 ? 32 : 64; }
+__host__ __device__ constexpr int f32_keys() { return D > 128 ? 16 : D > 96 ? 32 : 64; }
 constexpr float NEG_INF = -1e30f;
 
 template <typename T, int D>
@@ -166,18 +178,23 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 constexpr int TC_WARPS = 4;
 constexpr int TQ = 16 * TC_WARPS;  // query rows per CTA
-constexpr int TK = 64;             // keys per shared-memory tile
+
+// keys per shared-memory tile: 64, and 32 at D = 256, where the S fragment
+// of 64 keys (32 f32 a lane) beside the 128 of the O accumulator spills
+template <int HD>
+__host__ __device__ constexpr int tc_keys() { return HD > 128 ? 32 : 64; }
 
 // a shared-memory row of HD bf16 plus 16 bytes: 144 bytes at 64, 208 at 96,
-// 272 at 128; each way the 8 rows of an ldmatrix land on 8 distinct 16-byte
-// bank groups (row * RS * 2 mod 128 takes 8 values), so no conflicts
+// 272 at 128, 528 at 256; each way the 8 rows of an ldmatrix land on 8
+// distinct 16-byte bank groups (row * RS * 2 mod 128 takes 8 values), so no
+// conflicts
 template <int HD>
 __host__ __device__ constexpr int tc_row() { return HD + 8; }
 
 // qs[TQ][RS], ks[2][TK][RS], vs[2][TK][RS]
 template <int HD>
 __host__ __device__ constexpr int tc_smem_bytes() {
-  return (TQ + 4 * TK) * tc_row<HD>() * 2;
+  return (TQ + 4 * tc_keys<HD>()) * tc_row<HD>() * 2;
 }
 
 template <int HD>
@@ -188,6 +205,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           __nv_bfloat16* __restrict__ o, int Sq, int Sk, int n_rep,
                           int causal, int window, int q_offset, float scale) {
   constexpr int RS = tc_row<HD>();
+  constexpr int TK = tc_keys<HD>();
+  // the Q fragment stays in registers for the whole key loop (HD / 4 a
+  // lane) up to D = 128; at 256 it is read from shared memory for each tile
+  constexpr bool QREG = HD <= 128;
   constexpr int CH = HD / 8;  // 16-byte chunks a row
   static_assert(HD % 16 == 0 && TQ * CH % (TC_WARPS * 32) == 0 &&
                 TK * CH % (TC_WARPS * 32) == 0, "head dim");
@@ -239,7 +260,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int row0 = q_offset + q0 + warp * 16 + g;  // absolute positions of
   const int row1 = row0 + 8;                       // this thread's two rows
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[QREG ? HD / 16 : 1][4];
   float acc[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -252,24 +273,28 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // tile j has landed; every warp is done with tile j - 1
     if (j + 1 < j_hi) load_kv(j + 1, buf ^ 1);
     cp_async_commit();
-    if (j == j_lo) {
+    if (QREG && j == j_lo) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < (QREG ? HD / 16 : 1); ++kk)
         ldsm_x4(qf[kk], &qs[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
     }
-    // S = (q K^T) * scale: 16 rows x 64 keys a warp
+    // S = (q K^T) * scale: 16 rows x TK keys a warp
     float sc[TK / 8][4];
 #pragma unroll
     for (int n = 0; n < TK / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      if constexpr (!QREG)
+        ldsm_x4(qf[0], &qs[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+      const uint32_t(&qa)[4] = qf[QREG ? kk : 0];
 #pragma unroll
       for (int np = 0; np < TK / 16; ++np) {
         uint32_t b[4];
         ldsm_x4(b, &ks[buf][np * 16 + (lane / 16) * 8 + lane % 8][kk * 16 + ((lane / 8) % 2) * 8]);
-        mma_bf16(sc[2 * np], qf[kk], b[0], b[1]);
-        mma_bf16(sc[2 * np + 1], qf[kk], b[2], b[3]);
+        mma_bf16(sc[2 * np], qa, b[0], b[1]);
+        mma_bf16(sc[2 * np + 1], qa, b[2], b[3]);
       }
+    }
     // mask, then the online softmax of each of the thread's two rows
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -383,7 +408,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int causal, int window, int q_offset, float scale,
                                void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
-  if ((D != 64 && D != 96 && D != 128) || n_rep <= 0 || BH % n_rep != 0)
+  if ((D != 64 && D != 96 && D != 128 && D != 256) || n_rep <= 0 || BH % n_rep != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DT_F32) {
@@ -393,8 +418,11 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     else if (D == 96)
       launch_f32<96>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, q_offset,
                      scale, st);
-    else
+    else if (D == 128)
       launch_f32<128>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, q_offset,
+                      scale, st);
+    else
+      launch_f32<256>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, q_offset,
                       scale, st);
   } else if (dtype == DT_BF16) {
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
@@ -406,8 +434,11 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
     else if (D == 96)
       rc = launch_tc<96>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window, q_offset,
                          scale, st);
-    else
+    else if (D == 128)
       rc = launch_tc<128>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window,
+                          q_offset, scale, st);
+    else
+      rc = launch_tc<256>(q, k, v, o, BH, Sq, Sk, n_rep, causal, window,
                           q_offset, scale, st);
     if (rc != 0) return rc;
   } else {

@@ -2,10 +2,11 @@
 
 Port of ``repro.kernels.flash_attention.flash_attention_pallas`` (:92),
 forward only, at the head widths of ``HEAD_DIMS`` (qwen2's 64,
-GPT-NeoX-20B's 96, GPT-NeoX-10B's 128; any other raises). bf16 runs a
-tensor-core kernel (FlashAttention-2 tiles, the softmax scale on the f32
-scores, P rounded to bf16 for the P V product), f32 a CUDA-core kernel
-with one thread a query row. The source
+GPT-NeoX-20B's 96, GPT-NeoX-10B's 128, gemma3-1b's 256; any other raises).
+bf16 runs a tensor-core kernel (FlashAttention-2 tiles, the softmax scale
+on the f32 scores, P rounded to bf16 for the P V product; at 256 Q read
+from shared memory for each key tile and tiles of 32 keys), f32 a
+CUDA-core kernel with one thread a query row. The source
 note in csrc/flash_attention.cu gives the bounds and the designs;
 ``ref.flash_attention_ref`` is the plain version.
 Callers go through ``kernels/ops.py``, which counts the launches.
@@ -24,7 +25,7 @@ SIGNATURES = {
                                 c_int, c_int, c_int, c_int, c_int, c_int, c_int,
                                 c_int, c_float, c_void_p]),
 }
-HEAD_DIMS = (64, 96, 128)   # the head widths the kernel is compiled for
+HEAD_DIMS = (64, 96, 128, 256)   # the head widths the kernel is compiled for
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

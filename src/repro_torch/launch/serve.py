@@ -10,6 +10,8 @@ unless ``--reduced`` is given (meant for the CPU).
         --requests 8 --slots 4 --prompt-len 128 --max-len 256 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --requests 8 --slots 4 --prompt-len 128 --max-len 256 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --requests 8 --slots 4 --prompt-len 640 --max-len 768 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 """
 from __future__ import annotations

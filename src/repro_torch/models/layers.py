@@ -9,8 +9,9 @@ sequence under 8, or over 128 and not a multiple of 128; a value width
 other than the key width) is recorded (``ops.record_fallback``, warned
 once) and runs the reference's chunked attention in plain PyTorch: an f32
 online softmax over KV chunks, each query chunk recomputed in the
-backward. Decode attention (``flash_decode``) is plain PyTorch, as it is
-plain jnp in the reference.
+backward. Decode attention (``flash_decode``, and ``ring_decode`` over a
+sliding window's ring) is plain PyTorch, as it is plain jnp in the
+reference.
 """
 from __future__ import annotations
 
@@ -184,6 +185,42 @@ def flash_decode(q, k_loc, v_loc, pos, softmax_scale: float | None = None):
     den = p.sum(dim=-1)
     out = num / torch.clamp(den[..., None], min=1e-30)
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def ring_decode(q, k_ring, v_ring, pos, window: int,
+                softmax_scale: float | None = None):
+    """Decode over a sliding-window ring cache (B, W, Hkv, D) whose slot
+    pos % W was just written. ``pos`` may be per-row (B,). Slot i holds the
+    largest position p <= pos with p % W == i; it is attended when p >= 0
+    and p > pos - window."""
+    b, h, d = q.shape
+    _, w, hkv, _ = k_ring.shape
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    n_rep = h // hkv
+    slot = torch.arange(w, device=q.device)
+    pos_b = _row_positions(pos, b, q.device)[:, None]
+    gpos = pos_b - (pos_b - slot[None, :]) % w
+    valid = (gpos >= 0) & (gpos > pos_b - window)         # (B, W)
+    qg = q.reshape(b, hkv, n_rep, d).float()
+    s = torch.einsum("bgrd,bsgd->bgrs", qg, k_ring.float()) * scale
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrs,bsgd->bgrd", p, v_ring.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def ring_cache_write(ring, new, pos):
+    """Write ``new`` (B, 1, Hkv, D) at slot pos % W of ``ring`` (B, W, Hkv,
+    D), IN PLACE, and return the ring. ``pos`` is a scalar or per-row (B,)
+    tensor: row r writes its own slot, so no row touches another's ring, and
+    the write reads no position on the host (a CUDA graph can hold it). The
+    reference writes one scalar slot for every row
+    (``lax.dynamic_update_slice_in_dim``), which is the same at a shared
+    position."""
+    b, w = ring.shape[:2]
+    slot = _row_positions(pos, b, ring.device) % w
+    ring[torch.arange(b, device=ring.device), slot] = new[:, 0].to(ring.dtype)
+    return ring
 
 
 def sharded_cache_write(cache_loc, new, pos):

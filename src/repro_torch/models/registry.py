@@ -2,8 +2,9 @@
 
 The torch-side half of ``repro.models.registry``: ``register``/``get_arch``
 and the per-kind cache shapes serving allocates. KV caches are bf16 whatever
-the compute dtype, as in the reference; a mamba layer's scan state and conv
-tail are f32 and O(1) per row (not sequence-indexed, so never paged).
+the compute dtype, as in the reference; a sliding-window layer's ring holds
+its window's W positions, and a mamba layer's scan state and conv tail are
+f32: both are O(1) per row (not sequence-indexed, so never paged).
 """
 from __future__ import annotations
 
@@ -63,12 +64,14 @@ class ModelDef:
                 out[kind] = {"h": ((count,) + h_shape, h_dt, False),
                              "conv": ((count,) + c_shape, c_dt, False)}
                 continue
-            if m.mixer != "attn" or m.window:
+            if m.mixer != "attn":
                 raise NotImplementedError(
-                    f"{kind}: only full-attention and mamba caches are ported")
-            out[kind] = {
-                "k": ((count, b, s, kv, hd), torch.bfloat16, True),
-                "v": ((count, b, s, kv, hd), torch.bfloat16, True)}
+                    f"{kind}: only attention and mamba caches are ported")
+            # a ring is always the window long (slot = pos % W)
+            length, seq_indexed = (m.window, False) if m.window else (s, True)
+            shape = (count, b, length, kv, hd)
+            out[kind] = {"k": (shape, torch.bfloat16, seq_indexed),
+                         "v": (shape, torch.bfloat16, seq_indexed)}
         return out
 
 

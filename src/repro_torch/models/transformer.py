@@ -1,28 +1,34 @@
 """Decoder LM: leaf specs, the training loss, prefill and single-token
 decode.
 
-Port of ``repro.models.transformer`` for three block kinds: ``attn``
-(attention + GLU MLP, pre-norm RMSNorm, RoPE, optional QKV bias), ``neox``
-(GPT-NeoX: attention and a GELU MLP side by side on the block's input,
-``x + attn(ln1(x)) + mlp(ln2(x))``, LayerNorm with biases, full-width RoPE)
-and ``mamba`` (the Mamba-1 mixer of models/ssm.py with no FFN), with a tied
-or separate LM head. Every weight access goes through a parameter view: the
-training engine's ``core.engine.ParamView`` (ZeRO gathers with custom
-backwards) or serving's ``serve.resident.ResidentView`` (the INT8
-residency). ``v.mm`` runs the fused dequant-matmul, ``v.get`` returns a
-dense leaf. The reference's ``lax.scan`` over stacked layers becomes a
-Python loop over ``view.sub(i)``; in the loss each layer is recomputed in
-the backward (``torch.utils.checkpoint``), as the reference remats its
-scan body.
+Port of ``repro.models.transformer`` for these block kinds: ``attn``,
+``attn_local`` and ``attn_global`` (attention + GLU MLP, SiLU or tanh GELU,
+pre-norm RMSNorm, RoPE, optional QKV bias; a sliding window where the kind
+has one, gemma3's 5:1 local/global pattern), ``neox`` (GPT-NeoX: attention
+and a GELU MLP side by side on the block's input, ``x + attn(ln1(x)) +
+mlp(ln2(x))``, LayerNorm with biases, full-width RoPE) and ``mamba`` (the
+Mamba-1 mixer of models/ssm.py with no FFN), with a tied or separate LM
+head, and gemma's ``embed_scale``. Every weight access goes through a
+parameter view: the training engine's ``core.engine.ParamView`` (ZeRO
+gathers with custom backwards) or serving's ``serve.resident.ResidentView``
+(the INT8 residency). ``v.mm`` runs the fused dequant-matmul, ``v.get``
+returns a dense leaf. The reference's ``lax.scan`` over stacked layers
+becomes a Python loop over ``view.sub(i)``; in the loss each layer is
+recomputed in the backward (``torch.utils.checkpoint``), as the reference
+remats its scan body.
 
 Caches: prefill returns K/V at compute dtype (prefill attends over the
 un-rounded values); the serving pool stores them as bf16, and decode writes
 the new K/V into the bf16 cache *before* attending over it, as the
-reference does. A mamba layer's caches are its f32 scan state ``h`` and
-conv tail; decode writes both back into the layer's cache in place.
+reference does. A sliding-window layer keeps a ring of its last W
+positions, position p at slot p % W (``_to_ring``); decode writes each
+row's slot in place, then attends over the ring (``layers.ring_decode``).
+A mamba layer's caches are its f32 scan state ``h`` and conv tail; decode
+writes both back into the layer's cache in place.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -69,18 +75,18 @@ def kind_meta(kind: str, cfg: ArchConfig) -> KindMeta:
 
 
 def _ported(kind: str, cfg: ArchConfig) -> KindMeta:
-    """The block kinds the port runs: attention + GLU MLP with a sequential
-    residual and RMSNorm; attention + GELU MLP with the parallel residual
-    and LayerNorm (GPT-NeoX); the mamba mixer with no FFN and RMSNorm.
-    Anything else raises instead of running wrong."""
+    """The block kinds the port runs: attention (full or sliding-window) +
+    GLU MLP (SiLU or GELU) with a sequential residual and RMSNorm; attention
+    + GELU MLP with the parallel residual and LayerNorm (GPT-NeoX); the
+    mamba mixer with no FFN and RMSNorm. Anything else raises instead of
+    running wrong."""
     m = kind_meta(kind, cfg)
     attn_mlp = (m.mixer, m.ffn) == ("attn", "mlp")
     block = ((m.mixer, m.ffn) == ("mamba", "none") and cfg.norm == "rms") \
         or (attn_mlp and not m.parallel and cfg.norm == "rms"
-            and cfg.act == "silu_glu") \
+            and cfg.act in ("silu_glu", "gelu_glu")) \
         or (attn_mlp and m.parallel and cfg.norm == "ln" and cfg.act == "gelu")
-    if (not block or m.cross or m.window or cfg.embed_scale or cfg.n_patches
-            or cfg.enc_layers):
+    if not block or m.cross or cfg.n_patches or cfg.enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: block kind {kind!r} ({m}, norm={cfg.norm}, "
             f"act={cfg.act}) is not ported yet")
@@ -120,7 +126,7 @@ def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
         for b, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
             s[b] = LeafSpec(b, (width,), PLAIN, init="zeros")
     s.update(_norm_specs("ln2", d, cfg))
-    if cfg.act == "silu_glu":
+    if cfg.act.endswith("_glu"):
         for name, shape in (("w_gate", (d, ff)), ("w_up", (d, ff)),
                             ("w_down", (ff, d))):
             s[name] = LeafSpec(name, shape, MATMUL)
@@ -169,13 +175,28 @@ def _qkv(v, p, cfg, x, positions, m: KindMeta):
     return q, k, val
 
 
+def _to_ring(k, window: int):
+    """(B, S, kv, hd) -> ring (B, W, kv, hd) holding position p at slot
+    p % W: the last W positions, or all S zero-padded to W when S < W."""
+    b, s, kv, hd = k.shape
+    if s < window:
+        return torch.cat([k, k.new_zeros((b, window - s, kv, hd))], dim=1)
+    ring = k.new_zeros((b, window, kv, hd))
+    ring[:, torch.arange(s - window, s, device=k.device) % window] = \
+        k[:, s - window:]
+    return ring
+
+
 def _attn_fwd(v, p, cfg, m: KindMeta, x, ctx: Ctx):
     b, s, _ = x.shape
     q, k, val = _qkv(v, p, cfg, x, ctx.positions, m)
     o = L.flash_attention(q, k, val, causal=m.causal, window=m.window,
                           impl=v.impl)
     out = v.mm(p + "wo", o.reshape(b, s, cfg.n_heads * cfg.hdim))
-    cache = {"k": k, "v": val} if ctx.want_cache else None
+    cache = None
+    if ctx.want_cache:
+        cache = {"k": _to_ring(k, m.window), "v": _to_ring(val, m.window)} \
+            if m.window else {"k": k, "v": val}
     return out, cache
 
 
@@ -183,18 +204,24 @@ def _attn_decode(v, p, cfg, m: KindMeta, x, cache, dc: DecCtx):
     b = x.shape[0]
     posv = L._row_positions(dc.pos, b, x.device)[:, None]      # (B, 1)
     q, k, val = _qkv(v, p, cfg, x, posv, m)
-    ck = L.sharded_cache_write(cache["k"], k, dc.pos)
-    cv = L.sharded_cache_write(cache["v"], val, dc.pos)
-    o = L.flash_decode(q[:, 0], ck, cv, dc.pos)
+    if m.window:
+        ck = L.ring_cache_write(cache["k"], k, dc.pos)
+        cv = L.ring_cache_write(cache["v"], val, dc.pos)
+        o = L.ring_decode(q[:, 0], ck, cv, dc.pos, m.window)
+    else:
+        ck = L.sharded_cache_write(cache["k"], k, dc.pos)
+        cv = L.sharded_cache_write(cache["v"], val, dc.pos)
+        o = L.flash_decode(q[:, 0], ck, cv, dc.pos)
     out = v.mm(p + "wo", o.reshape(b, 1, cfg.n_heads * cfg.hdim))
     return out, {"k": ck, "v": cv}
 
 
 def _ffn(v, p, cfg: ArchConfig, x):
     h = _norm(v, p, "ln2", x, cfg)
-    if cfg.act == "silu_glu":
+    if cfg.act.endswith("_glu"):
+        act = F.silu if cfg.act.startswith("silu") else L.gelu
         return v.mm(p + "w_down",
-                    F.silu(v.mm(p + "w_gate", h)) * v.mm(p + "w_up", h))
+                    act(v.mm(p + "w_gate", h)) * v.mm(p + "w_up", h))
     z = v.mm(p + "w_in", h) + v.get(p + "b_in")
     return v.mm(p + "w_out_ff", L.gelu(z)) + v.get(p + "b_out")
 
@@ -271,7 +298,15 @@ class LM:
             idx[kind] += 1
 
     def _embed(self, view, tokens):
-        return view.embed_lookup("embed", tokens)
+        """The embedding rows, times sqrt(d_model) where the config says so
+        (gemma). The reference multiplies by a weak-typed Python float,
+        which JAX rounds to x's dtype first: 34.0 for d_model 1,152 in
+        bf16, not 33.94 rounded after the product as torch would."""
+        x = view.embed_lookup("embed", tokens)
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model),
+                                 dtype=x.dtype).item()
+        return x
 
     def _head_logits(self, view, x_last):
         name = "embed" if self.cfg.tie_embeddings else "lm_head"
@@ -305,7 +340,8 @@ class LM:
     def prefill(self, view, batch):
         """batch: {"tokens": (B, S)}. Returns (last-position logits (B, V)
         f32, caches {kind: {"k", "v": (L, B, S, Hkv, D)} for attention,
-        {"h": (L, B, din, N), "conv": (L, B, K-1, din)} for mamba, "pos": S})."""
+        (L, B, W, Hkv, D) rings for sliding-window attention, {"h": (L, B,
+        din, N), "conv": (L, B, K-1, din)} for mamba, "pos": S})."""
         x = self._embed(view, batch["tokens"])
         s_total = x.shape[1]
         ctx = Ctx(positions=torch.arange(s_total, device=x.device),

@@ -7,7 +7,11 @@ lazily as positions advance, so ``n_pages < n_slots * blocks_per_slot``
 oversubscribes KV memory (the batcher preempts when the free list runs
 dry). Page ``n_pages`` is a write sink: inactive slots and unallocated table
 entries point at it, and decode never reads it unmasked (``kpos <= pos``
-per row), so its contents are arithmetic-neutral.
+per row), so its contents are arithmetic-neutral. Entries that are not
+sequence-indexed (a mamba layer's state, a sliding-window layer's ring)
+stay dense per slot, ``(L, n_slots, ...)``: admission writes the slot's
+whole row (a ring zero-padded by prefill when the prompt is shorter than
+the window), and decode updates them in place, each row only its own.
 
 The dense decode view is one gather per entry (``assemble``); the decode
 step's single written position per row goes back with one scatter

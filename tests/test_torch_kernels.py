@@ -512,11 +512,11 @@ def test_matmul_quant_tensor_core_rounding(impl, block, bits):
 
 def _tc_attention(q, k, v, causal, window, q_offset):
     """csrc/flash_attention.cu's bf16 kernel in plain torch: the f32 scores
-    of the exact bf16 q and k times 1/sqrt(D), key tiles of 64 with an
-    online softmax in f32 (masked scores NEG_INF, keys past Sk never
-    reached), P rounded to bf16 for the P V product, the output acc /
+    of the exact bf16 q and k times 1/sqrt(D), key tiles of 64 (32 at D =
+    256) with an online softmax in f32 (masked scores NEG_INF, keys past Sk
+    never reached), P rounded to bf16 for the P V product, the output acc /
     max(l, 1e-30) in f32 before its bf16 cast. q (BH, Sq, D), k, v (BH, Sk,
-    D) bf16, D = 64, 96 or 128."""
+    D) bf16, D = 64, 96, 128 or 256."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -525,20 +525,21 @@ def _tc_attention(q, k, v, causal, window, q_offset):
     m_r = torch.full((bh, sq, 1), -1e30)
     l_r = torch.zeros((bh, sq, 1))
     acc = torch.zeros((bh, sq, d))
-    for t0 in range(0, sk, 64):
-        kp = torch.arange(t0, min(sk, t0 + 64))[None, :]
+    tk = 32 if d > 128 else 64      # csrc/flash_attention.cu's tc_keys
+    for t0 in range(0, sk, tk):
+        kp = torch.arange(t0, min(sk, t0 + tk))[None, :]
         keep = torch.ones((sq, kp.shape[1]), dtype=torch.bool)
         if causal:
             keep &= q_pos >= kp
         if window:
             keep &= q_pos - kp < window
-        sc = torch.where(keep, (qf @ kf[:, t0:t0 + 64].transpose(1, 2)) * scale,
+        sc = torch.where(keep, (qf @ kf[:, t0:t0 + tk].transpose(1, 2)) * scale,
                          -1e30)
         m_new = torch.maximum(m_r, sc.amax(-1, keepdim=True))
         corr = torch.exp(m_r - m_new)
         p = torch.exp(sc - m_new)
         l_r = l_r * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, t0:t0 + 64]
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, t0:t0 + tk]
         m_r = m_new
     return acc / l_r.clamp_min(1e-30)
 
@@ -605,6 +606,22 @@ def test_flash_attention_tensor_core_rounding_d128(impl, sq, sk, q_offset,
     warp, 16 n8 tiles of the accumulator): 1/sqrt(128) is no power of two
     either, and the tolerance is the D = 96 test's."""
     _hold_tc_attention(impl, sq, sk, q_offset, window, 128)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("sq,sk,q_offset,window", [
+    (128, 128, 0, 0),     # four key tiles of 32, causal
+    (100, 100, 0, 0),     # ragged
+    (64, 128, 64, 0),     # a query offset
+    (128, 128, 0, 32),    # a window
+])
+def test_flash_attention_tensor_core_rounding_d256(impl, sq, sk, q_offset,
+                                                   window):
+    """The same at gemma3-1b's head width, D = 256, on the kernel's key
+    tiles of 32 (Q read from shared memory for each tile gives the same
+    fragments as Q kept in registers): 1/sqrt(256) is a power of two, and
+    the tolerance is the D = 96 test's."""
+    _hold_tc_attention(impl, sq, sk, q_offset, window, 256)
 
 
 def _fma(a, b, c):

@@ -167,6 +167,13 @@ def test_flash_attention_d128(sq, sk, q_offset, window, tiles):
     _hold_flash(128, sq, sk, q_offset, window, tiles)
 
 
+@pytest.mark.parametrize("sq,sk,q_offset,window,tiles", FLASH_CASES,
+                         ids=FLASH_IDS)
+def test_flash_attention_d256(sq, sk, q_offset, window, tiles):
+    """The same at gemma3-1b's head width, 256."""
+    _hold_flash(256, sq, sk, q_offset, window, tiles)
+
+
 # ---------------------------------------------------------------------------
 # the block kinds the port refuses
 # ---------------------------------------------------------------------------
@@ -184,8 +191,8 @@ def _small(**kw):
     _small(block_pattern=("neox",) * 2, norm="rms", act="gelu"),
     _small(block_pattern=("neox",) * 2, norm="ln", act="silu_glu"),
     _small(norm="ln", act="gelu"),
-    _small(sliding_window=16),
-], ids=["moe", "mla", "neox-rms", "neox-glu", "attn-ln-gelu", "window"])
+    _small(family="vlm", n_patches=4),
+], ids=["moe", "mla", "neox-rms", "neox-glu", "attn-ln-gelu", "patches"])
 def test_unported_kinds_raise(cfg):
     with pytest.raises(NotImplementedError, match="not ported"):
         LM(cfg).leaf_specs()
