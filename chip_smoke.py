@@ -56,17 +56,23 @@ either is missing or any phase fails. Phases, in order:
             bf16 outputs off the exact product, kernel, SIMT kernel and
             plain version, at five shapes (two at the decode M). Its three
             paths: each case must take the path its shape names
-            (dequant_matmul_path, held to expected_path): both LM heads
-            (qwen2's and falcon-mamba's, M = 1 and 4), f32, and x @ W.T at
-            M = 12 and 16 and block 32, and every decode-step layer product
+            (dequant_matmul_path, held to expected_path): both tied LM
+            heads (qwen2's and falcon-mamba's, M = 1 and 4), f32, and x @
+            W.T at M = 12 and 16 and block 32, NeoX's untied heads
+            (gpt-neox-20b's (50,432 x 6,144).T and 10B's (50,432 x
+            5,120).T at M = 1 and 4) and bf16 x @ W.T past N = 4,096 (N =
+            4,112 at block 16, 8,192, K = 333 ragged, M = 16) on the wide
+            kernel of the decode path, and every decode-step layer product
             (bf16 x @ W at M = 1 and 4, qwen2's and falcon-mamba's, M = 8,
             K ragged against the 64-row step) on the decode path; bf16 at
             M = 2,048 in both orientations at qwen2's four shapes, each side
             of the thresholds, ragged tiles (block 64, M = 130 and 2,047, K =
             72 and 328) on the tensor cores; f32 at M = 128, K = 333 (rows
-            off the 16-byte grid), x @ W at block 32 and x @ W.T at M = 17
-            ... 63 or past N = 4,096 on the SIMT path; q as a view at byte
-            offset 1 of a larger buffer on each path; flash_attention in bf16 (the tensor-core kernel) at the training shape, ragged,
+            off the 16-byte grid), x @ W at block 32, x @ W.T at M = 17
+            ... 63 and f32 x @ W.T past N = 4,096 on the SIMT path; q as a
+            view at byte offset 1 of a larger buffer on each path;
+            flash_attention in bf16 (the tensor-core kernel) at the
+            training shape, ragged,
             with a query offset and with a window; all within one bf16 ulp
             of max|ref|. flash_attention at head dim 128 (gpt-neox-10b's
             prefill, 40 heads at S = 128, in bf16 and f32; a ragged Sq with
@@ -126,13 +132,15 @@ either is missing or any phase fails. Phases, in order:
             the prefill (PREFILL_TOL), f32 and f32-ratio prefill checks and
             the decode step's check, peak device memory, the decode graphs
             in turns; the traced prefill must show 44 launches of the
-            tensor-core flash kernel. flash_attention at head dim 96 against
+            tensor-core flash kernel and its head (M = 1) on the decode
+            path's wide kernel. flash_attention at head dim 96 against
             its plain version (the prefill's 64 heads at S = 128, a ragged
             Sq of 100 with GQA 8/2 and a query offset, a window, f32; one
             bf16 ulp / F32_TOL of max|ref|), its prefill-shape device time
             in bf16 and f32 beside plain, SDPA and the bound; NeoX's six
-            layer products and its head at M = 4 (own path, SIMT forced,
-            bf16 cuBLAS, bound) and at M = 128 / 1, and one prefill's 265
+            layer products at M = 4 (own path, SIMT forced, bf16 cuBLAS,
+            bound) and M = 128, its head at M = 4 and 1 on the decode
+            path's wide kernel (the same four times), and one prefill's 265
             products; then its residency is freed.
 3d. neox10b: the same for gpt-neox-10b at published width and depth (32
             neox layers, d_model 5,120, 40 heads of 128, d_ff 20,480, vocab
@@ -140,8 +148,11 @@ either is missing or any phase fails. Phases, in order:
             prefill, f32 and f32-ratio prefill checks, the decode step's
             check, peak device memory, the decode graphs in turns; the
             traced prefill must show 32 launches of the tensor-core flash
-            kernel at head dim 128; its prefill attention timed in bf16 and
-            f32 beside plain, SDPA and the bound; then its residency is
+            kernel at head dim 128 and its head on the decode path's wide
+            kernel; its prefill attention timed in bf16 and f32 beside
+            plain, SDPA and the bound; its head at M = 4 and 1 on its own
+            path, on SIMT (forced) and with bf16 cuBLAS beside the bytes
+            bound; then its residency is
             freed.
 3e. gemma : the same for gemma3-1b at published width and depth (26
             layers, 5:1 local (sliding window 512, ring caches) to global,
@@ -315,6 +326,8 @@ NEOX_TRAIN_ARGS = ["--arch", "gpt-neox-20b"] + TRAIN_ARGS[2:]
 NEOX_TRAIN_ARGS[NEOX_TRAIN_ARGS.index("--steps") + 1] = "3"
 NEOX_PROFILE_STEP = 2
 NEOX_D, NEOX_FF = 6144, 24576
+# the untied LM heads' rows (vocab) and widths: gpt-neox-20b, gpt-neox-10b
+NEOX_V, NEOX10B_D = 50_432, 5120
 # (K, N) of one NeoX layer's six products (wq wk wv wo w_in w_out_ff)
 NEOX_LAYER_KN = ((NEOX_D, NEOX_D),) * 4 + ((NEOX_D, NEOX_FF),
                                            (NEOX_FF, NEOX_D))
@@ -361,6 +374,15 @@ KERNEL_INFO = {
     "dequant_matmul_blocked": ("src/repro_torch/csrc/dequant_matmul_blocked.cu",
                                "src/repro/kernels/dequant_matmul.py:39"),
 }
+# the flat dequant-matmul's paths (PERF.md's rows 8a-8e) and their kernels
+# (csrc/dequant_matmul.cu), named in the kernels line
+DMM_PATHS = {
+    "8a": "tensor_core: dmm_tc_tn_kernel, dmm_tc_nt_kernel",
+    "8b": "decode, x @ W.T up to N = 4,096: dmm_dec_tn_kernel",
+    "8c": "simt: dmm_nt_kernel, dmm_tn_kernel",
+    "8d": "decode, bf16 x @ W: dmm_dec_nt_kernel",
+    "8e": "decode, bf16 x @ W.T past N = 4,096: dmm_dec_tn_wide_kernel",
+}
 # (K, N) of one layer's seven dW products (wq wk wv wo w_gate w_up w_down)
 LAYER_KN = ((896, 896), (896, 128), (896, 128), (896, 896), (896, 4864),
             (896, 4864), (4864, 896))
@@ -372,8 +394,8 @@ TRAIN_M = 2048                      # tokens per rank: 8 x 1024 over 4 ranks
 TC_MIN_M, TC_MIN_M_T = 5, 64
 # rows up to which the decode path takes an x @ W.T call
 # (csrc/dequant_matmul.cu's DEC_MAX_M_T; chosen by the timing phase's
-# dequant_matmul_threshold rows), and the largest row it takes (one 16-byte
-# chunk a thread)
+# dequant_matmul_threshold rows), and the largest row its f32 kernel takes
+# (one 16-byte chunk a thread); bf16 rows past it take the wide kernel
 DEC_MAX_M_T, DEC_TN_MAX_N = 16, 4096
 # rows up to which the decode path takes a bf16 x @ W call
 # (csrc/dequant_matmul.cu's DEC_MAX_M; chosen by the same rows)
@@ -441,11 +463,12 @@ def add_check(checks, name, what, err, tol):
 def expected_path(m, k, n, block, transpose, dtype) -> str:
     """The flat dequant-matmul's path by the rule csrc/dequant_matmul.cu
     documents: decode for x @ W.T at M <= DEC_MAX_M_T with block % 16 == 0
-    and N <= DEC_TN_MAX_N and for bf16 x @ W at M <= DEC_MAX_M with block %
-    64 == 0 and K % 8 == 0, then the tensor cores for bf16 (block % 64 == 0,
-    K % 8 == 0, M >= TC_MIN_M / TC_MIN_M_T), else SIMT."""
+    (f32 or bf16 up to N = DEC_TN_MAX_N, bf16 past it) and for bf16 x @ W at
+    M <= DEC_MAX_M with block % 64 == 0 and K % 8 == 0, then the tensor
+    cores for bf16 (block % 64 == 0, K % 8 == 0, M >= TC_MIN_M /
+    TC_MIN_M_T), else SIMT."""
     if transpose and m <= DEC_MAX_M_T and block % 16 == 0 \
-            and n <= DEC_TN_MAX_N:
+            and (n <= DEC_TN_MAX_N or dtype == torch.bfloat16):
         return "decode"
     if not transpose and m <= DEC_MAX_M and dtype == torch.bfloat16 \
             and block % 64 == 0 and k % 8 == 0:
@@ -622,10 +645,28 @@ def check_kernels(dev, gen, checks):
     for m in (1, 4):
         mm_case(f"M={m} ({MAMBA_V}, {MAMBA_D}).T bf16 (falcon-mamba LM head)",
                 m, MAMBA_V, MAMBA_D, 128, True, torch.bfloat16)
+    # the decode path's wide kernel (bf16 x @ W.T past DEC_TN_MAX_N):
+    # NeoX's untied heads at M = 1 and 4; the first row past the old limit
+    # (N = 4,112 at block 16: a last stage of one k16 slice), N = 8,192,
+    # block 48 (blocks across stages, a last stage of 2 slices), block 256
+    # (a block over two stages), K ragged against the 16-row tile, M = 8, 9
+    # (x in two n8 tiles) and 16, and the first M past it and f32 (SIMT)
+    bf = torch.bfloat16
+    for dm, arch in ((NEOX_D, "gpt-neox-20b"), (NEOX10B_D, "gpt-neox-10b")):
+        for m in (1, 4):
+            mm_case(f"M={m} ({NEOX_V}, {dm}).T bf16 ({arch} LM head)", m,
+                    NEOX_V, dm, 128, True, bf)
+    mm_case("M=4 (1000, 4112).T bf16 block 16", 4, 1000, 4112, 16, True, bf)
+    mm_case("M=4 (2000, 8192).T bf16", 4, 2000, 8192, 128, True, bf)
+    mm_case("M=4 (500, 4128).T bf16 block 48", 4, 500, 4128, 48, True, bf)
+    mm_case("M=2 (500, 4608).T bf16 block 256", 2, 500, 4608, 256, True, bf)
+    mm_case("M=3 (333, 6144).T bf16 ragged", 3, 333, 6144, 128, True, bf)
+    for m in (8, 9, DEC_MAX_M_T, DEC_MAX_M_T + 1):
+        mm_case(f"M={m} (1000, 6144).T bf16", m, 1000, 6144, 128, True, bf)
+    mm_case("M=4 (1000, 6144).T f32", 4, 1000, 6144, 128, True, torch.float32)
     # the decode path (x @ W.T): f32 and ragged K (a last stage cut short),
     # three row tiles (M = 12), the last decode M and the first past it (bf16
-    # and f32), block 32 (x @ W: SIMT), and past DEC_TN_MAX_N (SIMT, the
-    # threshold cases below); x @ W at M = 3, f32, ragged: SIMT
+    # and f32), block 32 (x @ W: SIMT); x @ W at M = 3, f32, ragged: SIMT
     mm_case("M=3 (200, 192) f32 ragged", 3, 200, 192, 64, False, torch.float32)
     # the decode path's x @ W: the last decode M and the first past it, K
     # ragged against its 64-row step (block 64, three column tiles), and K
@@ -1534,36 +1575,57 @@ def neox_flash(gen, dev, checks, seq):
                             ("flash_attention_f32_d96", torch.float32))}
 
 
-def neox_shapes(s, gen):
-    """NeoX's products, from layer 0 of the residency and its LM head, per
-    call: the six layer products and the head at the decode step's M =
-    slots (own path, SIMT forced, bf16 cuBLAS on the dequantized weight,
-    bound) and at the prefill's M = prompt_len, head M = 1 (own path, bf16
-    cuBLAS, bound); then one prefill's calls on the whole residency, beside
-    44 x layer 0's bf16 cuBLAS time plus the head's (the 41 GB of all the
-    dequantized weights do not fit beside the residency)."""
+def shape_row(step, leaf, call, simt: bool) -> dict:
+    """One dequant_matmul call of a served model, per call: its path, its
+    device ms there, bf16 cuBLAS on the dequantized weight and the bound;
+    with ``simt`` also on the SIMT kernel (forced), and for the LM head
+    also the plain version."""
     from repro_torch.kernels.dequant_matmul import PATHS
 
+    x, _, _, (k, n), _, tr = call
+    dense = dense_weights([call])
+    b, o = matmul_work([call])
+    row = dict(step=step, leaf=leaf, M=x.shape[0], K=k, N=n, transpose=tr,
+               path=call_path(call),
+               ms_per_call=device_ms(run_matmuls([call]), reps=5),
+               library_ms_per_call=device_ms(run_dense([call], dense), reps=5),
+               bound_ms_per_call=bound_ms(b, o, "bf16")[0])
+    if simt:
+        row["simt_ms_per_call"] = device_ms(
+            run_on_path([call], PATHS.index("simt")), reps=5)
+    if leaf == "lm_head":
+        row["plain_ms_per_call"] = device_ms(run_matmuls([call], "plain"),
+                                             reps=1, replays=2)
+    if leaf == "lm_head" and n > DEC_TN_MAX_N and row["path"] != "decode":
+        raise Failed(f"{step} head ({k}, {n}).T at M={x.shape[0]}: "
+                     f"{row['path']} path, not decode")
+    return row
+
+
+def head_shapes(s, gen, label):
+    """A served model's untied LM head at the decode step's M = slots and the
+    prefill's M = 1 (shape_row, SIMT too)."""
+    return [shape_row(f"{label} {step}", "lm_head",
+                      matmul_calls(s, 1, m, gen, n_layers=0)[0], True)
+            for step, m in (("decode", s["args"].slots), ("prefill", 1))]
+
+
+def neox_shapes(s, gen):
+    """NeoX's products, from layer 0 of the residency and its LM head, per
+    call (shape_row): the six layer products and the head at the decode
+    step's M = slots (SIMT too) and at the prefill's M = prompt_len, head
+    M = 1 (the head SIMT too); then one prefill's calls on the whole
+    residency, beside 44 x layer 0's bf16 cuBLAS time plus the head's (the
+    41 GB of all the dequantized weights do not fit beside the
+    residency)."""
     slots, plen = s["args"].slots, s["args"].prompt_len
     rows = []
     for step, m, m_head in (("neox decode", slots, slots),
                             ("neox prefill", plen, 1)):
         calls = matmul_calls(s, m, m_head, gen, n_layers=1)
         for call, leaf in zip(calls, NEOX_LEAVES + ("lm_head",)):
-            x, _, _, (k, n), _, tr = call
-            dense = dense_weights([call])
-            b, o = matmul_work([call])
-            row = dict(step=step, leaf=leaf, M=x.shape[0], K=k, N=n,
-                       transpose=tr, path=call_path(call),
-                       ms_per_call=device_ms(run_matmuls([call]), reps=5),
-                       library_ms_per_call=device_ms(run_dense([call], dense),
-                                                     reps=5),
-                       bound_ms_per_call=bound_ms(b, o, "bf16")[0])
-            if step == "neox decode":
-                row["simt_ms_per_call"] = device_ms(
-                    run_on_path([call], PATHS.index("simt")), reps=5)
-            rows.append(row)
-            del dense
+            rows.append(shape_row(step, leaf, call, step == "neox decode"
+                                  or leaf == "lm_head"))
     lib = {r["leaf"]: r["library_ms_per_call"] for r in rows
            if r["step"] == "neox prefill"}
     pre = matmul_calls(s, plen, 1, gen)
@@ -1603,6 +1665,17 @@ def attn_serve(argv, n_layers: int, hd: int):
         raise Failed(f"traced {s['arch'].name} prefill: "
                      f"{pf['traced_flash_calls']} launches of "
                      f"flash_attention_tc_kernel<{hd}>, not {n_layers}")
+    # the head (x @ W.T at M = 1, N = d_model) on the decode path's wide
+    # kernel where its rows are wider than DEC_TN_MAX_N
+    wide = [k for k in pf["traced"]["kernels"]
+            if "dmm_dec_tn_wide_kernel" in k["name"]]
+    pf["traced_head_wide_calls"] = sum(k["calls"] for k in wide)
+    pf["traced_head_wide_ms"] = sum(k["ms"] for k in wide)
+    want = int(s["arch"].d_model > DEC_TN_MAX_N)
+    if pf["traced_head_wide_calls"] != want:
+        raise Failed(f"traced {s['arch'].name} prefill: "
+                     f"{pf['traced_head_wide_calls']} launches of "
+                     f"dmm_dec_tn_wide_kernel, not {want}")
     graphs = decode_graphs(s)
     s["decode_step_graph_ms"] = statistics.mean(graphs["own"])
     s["decode_step_graph_runs"] = graphs
@@ -1629,7 +1702,8 @@ def neox10b_phase(gen, dev):
     """gpt-neox-10b served at published width and all 32 layers (40 heads
     of 128), held as neox_phase holds gpt-neox-20b, with 32 launches of the
     tensor-core flash kernel at head dim 128 in the traced prefill; then
-    its prefill attention timed in bf16 and f32. Returns the serve record,
+    its prefill attention timed in bf16 and f32 and its head by shape
+    (head_shapes). Returns the serve record,
     the prefill checks and the timings; the residency is freed."""
     s, pf = attn_serve(NEOX10B_SERVE_ARGS, NEOX10B_L, NEOX10B_HD)
     seq = s["args"].prompt_len
@@ -1637,6 +1711,7 @@ def neox10b_phase(gen, dev):
                                 "NeoX-10B prefill attention")
               for key, dt in (("flash_attention_d128", torch.bfloat16),
                               ("flash_attention_f32_d128", torch.float32))}
+    timing["shapes"] = head_shapes(s, gen, "neox10b")
     record = {k: s[k] for k in SERVE_RECORD}
     del s
     gc.collect()
@@ -2640,7 +2715,22 @@ def print_attn(nx, npf):
     print(f"  traced prefill: {npf['traced_flash_calls']} flash_attention "
           f"{npf['traced_flash_ms']:.4f} ms of "
           f"{npf['traced']['device_ms']:.3f} ms device time "
-          f"({npf['traced_flash_names']})")
+          f"({npf['traced_flash_names']}); the head on the wide decode "
+          f"kernel: {npf['traced_head_wide_calls']} calls "
+          f"{npf['traced_head_wide_ms']:.4f} ms")
+
+
+def print_shapes(rows):
+    for r in rows:
+        extra = "".join(f", {label} {r[key]:.5f}" for key, label in (
+            ("simt_ms_per_call", "SIMT"), ("plain_ms_per_call", "plain"))
+            if key in r)
+        print(f"  {r['step']} {r['leaf']} M={r['M']} ({r['K']}, {r['N']})"
+              f"{'.T' if r['transpose'] else ''} {r['path']}: "
+              f"{r['ms_per_call']:.5f} ms{extra}, bf16 cuBLAS "
+              f"{r['library_ms_per_call']:.5f}, bound "
+              f"{r['bound_ms_per_call']:.5f} "
+              f"({r['bound_ms_per_call'] / r['ms_per_call']:.0%} of it)")
 
 
 def print_timing(key, tm):
@@ -2688,7 +2778,9 @@ def serve_attn_line(nx, npf) -> dict:
         traced_prefill_device_ms=npf["traced"]["device_ms"],
         traced_prefill_top_kernels=npf["traced"]["top"],
         traced_prefill_flash_ms=npf["traced_flash_ms"],
-        traced_prefill_flash_calls=npf["traced_flash_calls"])
+        traced_prefill_flash_calls=npf["traced_flash_calls"],
+        traced_prefill_head_wide_ms=npf["traced_head_wide_ms"],
+        traced_prefill_head_wide_calls=npf["traced_head_wide_calls"])
 
 
 def sm_clock_mhz() -> float:
@@ -2797,18 +2889,15 @@ def main(argv=None) -> int:
     for key in ("flash_attention_d96", "flash_attention_f32_d96",
                 "dequant_matmul_prefill_neox"):
         print_timing(key, nx_t[key])
-    for r in nx_t["shapes"]:
-        print(f"  {r['step']} {r['leaf']} M={r['M']} ({r['K']}, {r['N']})"
-              f"{'.T' if r['transpose'] else ''} {r['path']}: "
-              f"{r['ms_per_call']:.5f} ms, SIMT {r.get('simt_ms_per_call')}, "
-              f"bf16 cuBLAS {r['library_ms_per_call']:.5f}, bound "
-              f"{r['bound_ms_per_call']:.5f}")
+    print_shapes(nx_t["shapes"])
 
     phase("neox10b")
     x10, x10pf, x10_t = neox10b_phase(gen, dev)
     print_attn(x10, x10pf)
     for key, tm in x10_t.items():
-        print_timing(key, tm)
+        if key != "shapes":
+            print_timing(key, tm)
+    print_shapes(x10_t["shapes"])
 
     phase("gemma")
     gm, gpf, gm_t = gemma_phase(gen, dev)
@@ -2816,12 +2905,7 @@ def main(argv=None) -> int:
     for key, tm in gm_t.items():
         if key != "shapes":
             print_timing(key, tm)
-    for r in gm_t["shapes"]:
-        print(f"  {r['step']} {r['leaf']} M={r['M']} ({r['K']}, {r['N']})"
-              f"{'.T' if r['transpose'] else ''} {r['path']}: "
-              f"{r['ms_per_call']:.5f} ms, bf16 cuBLAS "
-              f"{r['library_ms_per_call']:.5f}, bound "
-              f"{r['bound_ms_per_call']:.5f}")
+    print_shapes(gm_t["shapes"])
 
     phase("train")
     tr = train_phase()
@@ -2876,8 +2960,9 @@ def main(argv=None) -> int:
     t["selective_scan"] = scan_t[plen]
     t["dequantize_int8_w_xproj"] = xproj_t
     t.update({k: v for k, v in nx_t.items() if k != "shapes"})
-    t["dequant_matmul_shapes"] += nx_t["shapes"] + gm_t["shapes"]
-    t.update(x10_t)
+    t["dequant_matmul_shapes"] += nx_t["shapes"] + x10_t["shapes"] \
+        + gm_t["shapes"]
+    t.update({k: v for k, v in x10_t.items() if k != "shapes"})
     t.update({k: v for k, v in gm_t.items() if k != "shapes"})
     # the NeoX training step's attention forward (2 rows of 1,024 a rank) at
     # both models' head widths, and its products on 8a / 9a
@@ -2919,7 +3004,11 @@ def main(argv=None) -> int:
             max_abs_err=max(c["max_abs_err"] for c in checks[name]),
             tolerance=[c["tolerance"] for c in checks[name]],
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bms, bound_by=by,
-            library_ms=tm["library_ms"], work=tm["work"]))
+            library_ms=tm["library_ms"], work=tm["work"],
+            **(dict(paths=DMM_PATHS, neox_heads=[
+                r for r in t["dequant_matmul_shapes"]
+                if r.get("leaf") == "lm_head" and r["N"] > DEC_TN_MAX_N])
+               if name == "dequant_matmul" else {})))
     dq4 = t["dequantize_int4"]["per_dtype"]["bfloat16"]
     kernels_extra = {
         key: dict(work=t[key]["work"], ms=t[key]["ms"],

@@ -47,6 +47,7 @@ from typing import Callable
 
 import torch
 
+from ..device import resolve
 from ..optim.adamw import adamw_update, cosine_lr
 from . import collectives as col
 from . import schedule as sched
@@ -174,10 +175,11 @@ class ParamView:
 
 class ZeroEngine:
     """Sharded state and the train step of one model under one scheme, on
-    this rank of ``mesh``."""
+    this rank of ``mesh``, on the card unless ``device="cpu"`` is asked for
+    (``device.resolve``: no card raises)."""
 
     def __init__(self, specs: dict[str, LeafSpec], cfg: ZeroConfig, mesh,
-                 hp: TrainHparams | None = None, device="cpu"):
+                 hp: TrainHparams | None = None, device=None):
         if hp is not None:
             over = {k: v for k, v in (("overlap", hp.overlap),
                                       ("stream_grads", hp.stream_grads))
@@ -192,7 +194,7 @@ class ZeroEngine:
         self.cfg = cfg
         self.mesh = mesh
         self.hp = hp or TrainHparams()
-        self.device = torch.device(device)
+        self.device = resolve("cuda" if device is None else device)
         self.leaf_cfg = {n: cfg.for_leaf(s.logical_size)
                          for n, s in self.specs.items()}
         self._pad = {n: padded_flat_size(s.logical_size, cfg)

@@ -9,8 +9,10 @@
 //
 // Three paths, chosen by shape and dtype alone (dequant_matmul_path), in
 // this order (the crossovers measured on the card: PERF.md):
-//  * decode, for f32 or bf16 x @ W.T at M <= DEC_MAX_M_T = 16 (block % 16
-//    == 0, N <= 4,096): the LM heads of serving; and for bf16 x @ W at
+//  * decode, for x @ W.T at M <= DEC_MAX_M_T = 16 with block % 16 == 0:
+//    f32 or bf16 rows of N <= 4,096 (dmm_dec_tn_kernel) and bf16 rows past
+//    4,096 (dmm_dec_tn_wide_kernel): the LM heads of serving, NeoX's
+//    untied heads (N = 6,144 and 5,120) among them; and for bf16 x @ W at
 //    M <= DEC_MAX_M = 8 (block % 64 == 0, K % 8 == 0): every decode-step
 //    layer product;
 //  * tensor cores (wgmma), for bf16 with block % 64 == 0, K % 8 == 0 (every
@@ -19,8 +21,9 @@
 //    M >= TC_MIN_M_T = 64 for x @ W.T: the
 //    M = 128 prefills and the M = 2,048 training products;
 //  * SIMT f32 FMA for everything else: f32 x @ W at any M, f32 at larger
-//    M, bf16 x @ W.T at M = 17 ... 63, blocks that are not a multiple of
-//    64 (x @ W) or 16 (x @ W.T), and shapes neither of the others takes.
+//    M, f32 x @ W.T past N = 4,096, bf16 x @ W.T at M = 17 ... 63, blocks
+//    that are not a multiple of 64 (x @ W) or 16 (x @ W.T), and shapes
+//    neither of the others takes.
 //
 // Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16; weight, scales, x and out
 // each moved once): decode at M = 4, bytes: qwen2-0.5b 0.04-1.36 us a layer
@@ -31,7 +34,7 @@
 // within 1.3x of them); the training step at M = 2,048, 0.47-18.1 us a call
 // (operations: one layer's 7 products 61 GFLOP, 0.0617 ms).
 //
-// Decode path (x @ W.T, the LM head): at small M the call is a stream of
+// Decode path (x @ W.T, the LM head, N <= 4,096): at small M the call is a stream of
 // int8 weight bytes, each read once. Persistent CTAs walk runs of
 // consecutive q rows, one contiguous 16-byte cp.async copy (.cg, not kept in
 // L1) a stage of a 3-deep ring in shared memory that all threads fill, so
@@ -42,6 +45,41 @@
 // reduces 4 rows at once (halving by lane bits 4 and 3, then an xor tree),
 // and a row's warps are added in warp order. Deterministic: every sum runs
 // in a fixed order.
+//
+// Decode path, x @ W.T past N = 4,096 (NeoX's untied heads: gpt-neox-20b's
+// (50,432 x 6,144).T, 309.9 MB of q and 9.68 MB of scales, bound 0.0955 ms
+// by bytes; gpt-neox-10b's (50,432 x 5,120).T, 258.2 + 8.07 MB, 0.0796
+// ms): the kernel above keeps a thread's 16 columns of x in registers
+// (16 x MT f32), and a second chunk a thread does not fit its register
+// budget; its SIMT-FMA form also spends about 6 instructions a weight byte
+// at M = 4 (the widening and M FMAs), near the SM's issue rate at HBM's
+// byte rate. This kernel runs the products on mma.sync.m16n8k16 instead: A
+// is 16 q rows x a k16 slice widened to bf16 exactly (i8x4_to_bf16x4: a
+// byte permute and a subtract in f32 a byte, a pack a pair), B the
+// slice of 8 (16) rows of x, bf16 as the decode step gives it, so every
+// product is exact and the tensor cores take the M multiply-adds. A warp
+// owns row tiles of 16 q rows and walks each whole row, so no sum crosses
+// warps or CTAs; the tiles are dealt to the grid's warps in turn, with the
+// grid cut to the fewest CTAs of one wave that give every warp the same
+// number of tiles (50,432 rows: 3,152 tiles, 2 a warp on 394 CTAs of 4
+// warps, about 3 an SM). Each warp streams its rows through its own
+// 2-stage ring in shared memory (a stage: 16 rows x 256 columns of q, 4
+// KB, their scales, and x's 256 columns), 16-byte cp.async copies (.cg),
+// with no CTA barrier; ldmatrix hands each lane its 4 bytes of a slice
+// row, rows 272 bytes apart so its 8 rows fall on distinct banks. The mma
+// chain sums one quant block (8 slices at block 128) in f32, which is then
+// scaled by s[k, b] and added to the row's f32 sum (fmaf), in block order,
+// as the tensor-core x @ W.T below folds its blocks. Deterministic: fixed
+// order, no atomics. Registers (ptxas): 80 (M <= 8) and 118 (M <= 16), no
+// spill; shared memory 61 KB a CTA at M = 4 (3 CTAs an SM).
+// The places in the rows and blocks advance by counters: integer divisions
+// by the runtime block and row widths in the loop made the first form of
+// this kernel no faster than cuBLAS (PERF.md, row 8e). A cheaper-looking
+// widening (two logic ops, a byte permute and one bf16x2 subtract a pair)
+// took 2-7 % longer on the card (probes/dmm_wide.py). A cp.async ring
+// beats the register ring of the x @ W path here because a slice's 16
+// columns of a row are 4 bytes a lane: loaded from global memory straight
+// into fragments they would be 4-byte loads, a quarter sector each.
 //
 // Decode path, x @ W (the decode step's layer products): also a stream of
 // int8 weight bytes, but along q's rows the scale changes every `block`
@@ -702,11 +740,13 @@ size_t dec_tn_smem(int N, int block) {
          (size_t)DEC_WARPS * DEC_TN_ROWS * DEC_TN_MAX_MT * 4;
 }
 
-// x @ W.T with block % 16 == 0 (a 16-byte chunk of a q row under one
-// scale) and N <= 4,096 (one chunk a thread)
+// x @ W.T with block % 16 == 0 (a 16-byte chunk of a q row, or a k16
+// slice, under one scale): f32 or bf16 up to N = 4,096 (dmm_dec_tn_kernel,
+// one chunk a thread), bf16 past it (dmm_dec_tn_wide_kernel)
 bool dec_takes(int N, int block, int transpose, int dtype) {
-  if (dtype != DT_F32 && dtype != DT_BF16) return false;
-  return transpose && block % 16 == 0 && N <= DEC_TN_MAX_N;
+  if (!transpose || block % 16 != 0) return false;
+  if (N > DEC_TN_MAX_N) return dtype == DT_BF16;
+  return dtype == DT_F32 || dtype == DT_BF16;
 }
 
 int sm_count() {
@@ -902,6 +942,206 @@ int launch_dec_rows(const void* x, const void* q, const void* s, void* out, int 
   if (M <= 1) return launch_dec_tn<T, 1>(xt, qt, stt, ot, M, K, N, block, st);
   if (M <= 2) return launch_dec_tn<T, 2>(xt, qt, stt, ot, M, K, N, block, st);
   return launch_dec_tn<T, DEC_TN_MAX_MT>(xt, qt, stt, ot, M, K, N, block, st);
+}
+
+// ---------------------------------------------------------------------------
+// decode path, x @ W.T past DEC_TN_MAX_N (bf16): mma.sync on the exact q
+// ---------------------------------------------------------------------------
+
+constexpr int DW_THREADS = 128;          // 4 warps, each on its own row tiles
+constexpr int DW_WARPS = DW_THREADS / 32;
+constexpr int DW_ROWS = 16;              // q rows of a warp's row tile: mma's m
+constexpr int DW_COLS = 256;             // q columns of a stage: 16 k16 slices
+constexpr int DW_SLICES = DW_COLS / 16;
+constexpr int DW_PITCH = DW_COLS + 16;   // bytes of a staged q row: ldmatrix's 8 rows on distinct banks
+constexpr int DW_SC = DW_SLICES + 1;     // scales of a staged q row: the blocks its columns touch
+constexpr int DW_XPITCH = 2 * DW_COLS + 32;  // bytes of a staged x row: 4 rows' B loads on distinct banks
+constexpr int DW_STAGES = 2;             // a warp's cp.async ring: one stage in flight
+constexpr int DW_MIN_CTAS = 4;           // CTAs an SM holds (__launch_bounds__)
+constexpr int DW_QS_BYTES = DW_ROWS * (DW_PITCH + 4 * DW_SC);  // q and scales of a stage
+
+// bytes of a CTA's rings with xr rows of x in each stage
+size_t dw_smem(int xr) {
+  return (size_t)DW_WARPS * DW_STAGES * (DW_QS_BYTES + (size_t)xr * DW_XPITCH);
+}
+
+// out (M, K) = x (M, N) @ dequant(q (K, N)).T, bf16 x and out, N % 16 == 0,
+// block % 16 == 0; grid (CTAs, row tiles of 8 NT rows of x), xr = min(M, 8
+// NT) rows of x staged. Computed as out.T = q @ x.T on mma.m16n8k16: A is
+// 16 q rows (output columns k) x one k16 slice of a q row, widened to bf16
+// (exact), B the same slice of NT x 8 rows of x. Within a slice the
+// columns run in the order each lane loads them, for A and B alike: lane
+// t's A columns 2t, 2t + 1, 2t + 8, 2t + 9 are q columns 4t ... 4t + 3 (one
+// 32-bit word of a row, as ldmatrix hands it out), its B rows x's columns
+// 4t ... 4t + 3 (one 8-byte load). Each warp takes whole row tiles of 16 q
+// rows, the tiles dealt to the grid's warps in turn, and walks each row in
+// stages of 256 columns (q, their scales and x's columns) through its own
+// cp.async ring in shared memory, with no CTA barrier. The exact products
+// of a quant block's slices sum in the mma chain (f32), which is then
+// scaled by s[k, b] and added to the row's f32 sum, in block order.
+template <int NT>
+__global__ void __launch_bounds__(DW_THREADS, DW_MIN_CTAS)
+dmm_dec_tn_wide_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                       const float* __restrict__ s, __nv_bfloat16* __restrict__ out, int M,
+                       int K, int N, int block, int xr) {
+  extern __shared__ __align__(16) unsigned char dw_smem_raw[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int stage_bytes = DW_QS_BYTES + xr * DW_XPITCH;
+  unsigned char* ring = dw_smem_raw + (size_t)warp * DW_STAGES * stage_bytes;
+  const int tiles = (K + DW_ROWS - 1) / DW_ROWS;
+  const int nw = gridDim.x * DW_WARPS, gw = blockIdx.x * DW_WARPS + warp;
+  const int mine = gw < tiles ? (tiles - gw + nw - 1) / nw : 0;
+  const int gpr = (N + DW_COLS - 1) / DW_COLS;  // stages of a row tile
+  const int nst = mine * gpr;
+  const int nblk = N / block, bs = block / 16;  // slices of a quant block
+  const int m0 = blockIdx.y * 8 * NT;
+
+  // the next stage to fetch: the warp's row tile pr, stage pc of its row,
+  // the block pb that holds its first column and that block's end pe
+  int pr = 0, pc = 0, pb = 0, pe = block;
+  auto issue = [&](int slot) {
+    unsigned char* st = ring + slot * stage_bytes;
+    int8_t(*sq)[DW_PITCH] = reinterpret_cast<int8_t(*)[DW_PITCH]>(st);
+    float(*ss)[DW_SC] = reinterpret_cast<float(*)[DW_SC]>(st + DW_ROWS * DW_PITCH);
+    const int k0 = (gw + pr * nw) * DW_ROWS, c0 = pc * DW_COLS, c1 = min(N, c0 + DW_COLS);
+#pragma unroll
+    for (int h = 0; h < DW_ROWS * DW_SLICES / 32; ++h) {
+      const int ch = lane + 32 * h, r = ch / DW_SLICES, c = ch % DW_SLICES * 16;
+      const bool in = k0 + r < K && c0 + c < N;
+      cp_async16(&sq[r][c], in ? q + (size_t)(k0 + r) * N + c0 + c : q, in);
+    }
+    int nb = 1;  // the blocks the stage's columns touch
+    for (int e = pe; e < c1; e += block) ++nb;
+    for (int e = lane; e < DW_ROWS * nb; e += 32) {
+      const int r = e / nb, j = e % nb;
+      const bool in = k0 + r < K;
+      cp_async4(&ss[r][j], in ? s + (size_t)(k0 + r) * nblk + pb + j : s, in);
+    }
+    for (int e = lane; e < xr * (DW_COLS / 8); e += 32) {
+      const int m = e / (DW_COLS / 8), c = e % (DW_COLS / 8) * 8;
+      const bool in = m0 + m < M && c0 + c < N;
+      cp_async16(st + DW_QS_BYTES + m * DW_XPITCH + 2 * c,
+                 in ? x + (size_t)(m0 + m) * N + c0 + c : x, in);
+    }
+    if (++pc == gpr) {
+      pc = 0;
+      ++pr;
+      pb = 0;
+      pe = block;
+    } else {
+      for (; pe <= pc * DW_COLS; pe += block) ++pb;
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < DW_STAGES - 1; ++j) {
+    if (j < nst) issue(j);
+    cp_async_commit();
+  }
+  // the row this lane points ldmatrix at: matrices 0 and 1 are rows 0-7 and
+  // 8-15 of slice 2p, matrices 2 and 3 the same of slice 2p + 1
+  const int lr = lane % 8 + 8 * ((lane / 8) & 1), lsl = lane / 16;
+  float acc[NT][4], chain[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = chain[nt][e] = 0.f;
+  int cr = 0, cc = 0, fold = bs - 1;  // row tile, stage of the row, the slice that ends a block
+
+  for (int i = 0; i < nst; ++i) {
+    cp_async_wait<DW_STAGES - 2>();
+    __syncwarp();  // stage i has landed for every lane; stage i - 1's slot is free
+    if (i + DW_STAGES - 1 < nst) issue((i + DW_STAGES - 1) % DW_STAGES);
+    cp_async_commit();
+    const unsigned char* st = ring + i % DW_STAGES * stage_bytes;
+    const int8_t(*sq)[DW_PITCH] = reinterpret_cast<const int8_t(*)[DW_PITCH]>(st);
+    const float(*ss)[DW_SC] = reinterpret_cast<const float(*)[DW_SC]>(st + DW_ROWS * DW_PITCH);
+    const int c0 = cc * DW_COLS, nsl = min(DW_COLS, N - c0) / 16;
+    uint2 xb[NT][DW_SLICES];  // B of each slice: x's columns c0 + 16 sl + 4t ... + 3
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int m = 8 * nt + g;
+#pragma unroll
+      for (int sl = 0; sl < DW_SLICES; ++sl)
+        xb[nt][sl] = m < xr ? *reinterpret_cast<const uint2*>(st + DW_QS_BYTES + m * DW_XPITCH +
+                                                              32 * sl + 8 * t)
+                            : make_uint2(0u, 0u);
+    }
+    int slot = 0;  // the staged scales' block: the first is the one that holds c0
+#pragma unroll
+    for (int p = 0; p < DW_SLICES / 2; ++p) {
+      if (2 * p >= nsl) break;
+      uint32_t r[4];  // rows g and g + 8 of slices 2p and 2p + 1, bytes 4t ... 4t + 3
+      ldsm_x4(r, &sq[lr][16 * (2 * p + lsl)]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int sl = 2 * p + h;
+        if (sl >= nsl) break;
+        uint32_t a[4];  // a0, a2: row g's bytes 0-1, 2-3; a1, a3: row g + 8's
+        i8x4_to_bf16x4(r[2 * h], a[0], a[2]);
+        i8x4_to_bf16x4(r[2 * h + 1], a[1], a[3]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(chain[nt], a, xb[nt][sl].x, xb[nt][sl].y);
+        if (c0 / 16 + sl == fold) {  // the quant block ends: scale its sum and fold
+          const float sc[2] = {ss[g][slot], ss[g + 8][slot]};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {  // C rows g, g + 8 are q rows; columns x rows
+              acc[nt][e] = fmaf(chain[nt][e], sc[e >> 1], acc[nt][e]);
+              chain[nt][e] = 0.f;
+            }
+          ++slot;
+          fold += bs;
+        }
+      }
+    }
+    if (++cc == gpr) {  // the row tile ends (N % block == 0: its last block folded)
+      const int k = (gw + cr * nw) * DW_ROWS + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + 8 * nt + 2 * t + (e & 1), kk = k + 8 * (e >> 1);
+          if (m < M && kk < K) out[(size_t)m * K + kk] = __float2bfloat16_rn(acc[nt][e]);
+          acc[nt][e] = 0.f;
+        }
+      cc = 0;
+      ++cr;
+      fold = bs - 1;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Grid of the wide decode kernel: the row tiles' rounds a warp takes when
+// one wave of CTAs holds the call, then the fewest CTAs that take the
+// tiles in that many rounds (so every warp takes the same number of tiles,
+// but the last few warps)
+template <int NT>
+int launch_dec_tn_wide(const void* x, const void* q, const void* s, void* out, int M, int K,
+                       int N, int block, cudaStream_t st) {
+  const int xr = M < 8 * NT ? M : 8 * NT;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dmm_dec_tn_wide_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dw_smem(8 * NT));
+  if (attr != cudaSuccess) return (int)attr;
+  static long long cap[8 * NT + 1] = {};  // CTAs of one wave, by xr
+  if (cap[xr] == 0) {
+    int per_sm = 1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dmm_dec_tn_wide_kernel<NT>,
+                                                  DW_THREADS, dw_smem(xr));
+    cap[xr] = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long tiles = (K + DW_ROWS - 1) / DW_ROWS;
+  const long long ytiles = (M + 8 * NT - 1) / (8 * NT);
+  const long long rounds = (tiles * ytiles + cap[xr] * DW_WARPS - 1) / (cap[xr] * DW_WARPS);
+  const long long ctas = (tiles + rounds * DW_WARPS - 1) / (rounds * DW_WARPS);
+  dim3 grid((unsigned)ctas, (unsigned)ytiles);
+  dmm_dec_tn_wide_kernel<NT><<<grid, DW_THREADS, dw_smem(xr), st>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)q, (const float*)s, (__nv_bfloat16*)out, M, K,
+      N, block, xr);
+  return launch_status();
 }
 
 // ---------------------------------------------------------------------------
@@ -1196,6 +1436,9 @@ extern "C" int dequant_matmul_on_path(const void* x, const void* q, const void* 
       return launch_dec_nt(x, q, s, out, M, K, N, block, st);
     }
     if (!dec_takes(N, block, transpose, dtype)) return (int)cudaErrorInvalidValue;
+    if (N > DEC_TN_MAX_N)
+      return M <= 8 ? launch_dec_tn_wide<1>(x, q, s, out, M, K, N, block, st)
+                    : launch_dec_tn_wide<2>(x, q, s, out, M, K, N, block, st);
     if (dtype == DT_F32)
       return launch_dec_rows<float>(x, q, s, out, M, K, N, block, st);
     return launch_dec_rows<__nv_bfloat16>(x, q, s, out, M, K, N, block, st);

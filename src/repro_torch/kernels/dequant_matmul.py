@@ -12,18 +12,21 @@ Port of ``repro.kernels.dequant_matmul``:
   or packed INT4 wire format in the matmul's epilogue.
 
 The flat dequant-matmul has three paths, chosen by shape and dtype alone
-(``dequant_matmul_path``), in this order: decode, in f32 or bf16 for
-x @ W.T (the LM head) at M <= 16 with a block that is a multiple of 16 and
+(``dequant_matmul_path``), in this order: decode, for x @ W.T (the LM
+head) at M <= 16 with a block that is a multiple of 16, in f32 or bf16 for
 N <= 4,096, which streams the weight through a cp.async ring in 16-byte
 copies on persistent CTAs and sums in f32 on the CUDA cores, and in bf16
-for x @ W (the decode step's layer products) at M <= 8 with a block that
-is a multiple of 64 and K % 8 == 0, which folds the scale into x (two bf16
-terms of x * s) and runs the exact int8 weight against it on mma.sync, the
-K splits of a column tile summed in one cluster; tensor cores (wgmma) for
-bf16 with a block that is a multiple of 64, K % 8 == 0 (every bf16 row
-16-byte aligned) and M >= 9 (x @ W) or M >= 64 (x @ W.T); and SIMT f32 FMA
-for the rest (f32 x @ W, f32 at larger M, bf16 x @ W.T at M = 17 ... 63,
-other blocks). The tensor cores take x @ W.T with exact
+past N = 4,096 (NeoX's untied heads), where each warp streams whole rows
+of 16 q rows through its own cp.async ring and runs the exact int8 weight
+against x on mma.sync, a quant block at a time; and in bf16 for x @ W (the
+decode step's layer products) at M <= 8 with a block that is a multiple of
+64 and K % 8 == 0, which folds the scale into x (two bf16 terms of x * s)
+and runs the exact int8 weight against it on mma.sync, the K splits of a
+column tile summed in one cluster; tensor cores (wgmma) for bf16 with a
+block that is a multiple of 64, K % 8 == 0 (every bf16 row 16-byte
+aligned) and M >= 9 (x @ W) or M >= 64 (x @ W.T); and SIMT f32 FMA for
+the rest (f32 x @ W, f32 at larger M, f32 x @ W.T past N = 4,096, bf16
+x @ W.T at M = 17 ... 63, other blocks). The tensor cores take x @ W.T with exact
 products of bf16 x and the raw int8 q, scaled after each quant block, and
 x @ W with each f32 weight split into two bf16 terms (hi + lo, 16 bits). A
 q or x off the 16-byte grid (q off 4 bytes on the SIMT path) is copied to

@@ -750,6 +750,47 @@ def test_dequant_matmul_decode_rounding(impl, m, block, k, n):
                                atol=1e-5 * float(np.abs(yj).max()))
 
 
+def _decode_wide_dequant_matmul(x, q, s, block):
+    """What csrc/dequant_matmul.cu's decode path computes for bf16 x @ W.T
+    past N = 4,096 (dmm_dec_tn_wide_kernel), in f32 before its final cast:
+    the exact products of each quant block (bf16 x, int8 q) summed in f32
+    (the mma chain; its order inside a block is the tensor core's), times
+    s[k, b], added to the row's f32 sum in block order (fmaf)."""
+    xf, qf = x.float(), q.float()
+    acc = torch.zeros((x.shape[0], q.shape[0]))
+    for b in range(q.shape[1] // block):
+        c = slice(b * block, (b + 1) * block)
+        acc = _fma(xf[:, c] @ qf[:, c].T, s[None, :, b], acc)
+    return acc
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("k,n", [(72, 4224), (520, 6144)])
+def test_dequant_matmul_decode_wide_rounding(impl, m, block, k, n):
+    """The wide decode path's sum order (x @ W.T past N = 4,096) against the
+    oracle on bf16 x, compared in f32: N = 4,224 (the first width past
+    4,096 at block 128) and 6,144 (the gpt-neox-20b head's), K = 72 and 520
+    (a last row tile of 8 rows);
+    the products are exact and the sums f32, so only the order of the sums
+    differs (1e-5 of max|ref|)."""
+    rng = np.random.default_rng(23)
+    w = rng.standard_normal(k * n + 2 * block).astype(np.float32) * 0.1
+    q, s = jax.jit(lambda v: jops.quantize_int8(v, block, impl="jnp"))(w)
+    q, s = np.asarray(q), np.asarray(s)
+    x = np.asarray(jnp.asarray(rng.standard_normal((m, n)), jnp.bfloat16))
+    yj = np.asarray(jax.jit(lambda a, b, c: jops.dequant_matmul(
+        a, b, c, (k, n), block, transpose=True, dtype=jnp.float32,
+        impl=impl))(x, q, s))
+    q2 = _torch(q)[: k * n].view(k, n)
+    s2 = _torch(s)[: k * n // block].view(k, n // block)
+    yt = _decode_wide_dequant_matmul(_torch(x), q2, s2, block)
+    assert yt.shape == yj.shape == (m, k)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=0,
+                               atol=1e-5 * float(np.abs(yj).max()))
+
+
 # The decode path's x @ W (csrc/dequant_matmul.cu, dmm_dec_nt_kernel):
 # 64-column CTAs whose 4 warps take every fourth k16 slice of the CTA's
 # run of K (warp w: rows 16 w ... 16 w + 15 of every 64), a warp's chain

@@ -103,7 +103,7 @@ def _port_train(arch: str, state_npz, steps: int) -> dict:
                         compute_dtype="float32")
     hp = TrainHparams(lr=RUN["lr"], total_steps=RUN["steps"],
                       warmup_steps=max(RUN["steps"] // 20, 2))
-    eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp)
+    eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp, device="cpu")
     state = from_jax_state(load_global_state(state_npz), eng)
     tr = Trainer(model, eng, BatchSpec(RUN["batch"], RUN["seq"], a.vocab),
                  seed=0)
@@ -149,7 +149,8 @@ def test_convert_carries_neox_state(hd128_run):
     mesh = Mesh((1, 1, 1), TEST_AXES)
     eng = ZeroEngine(build_model(a).leaf_specs(),
                      scheme_config("zero_topo", mesh, quant_block=64,
-                                   compute_dtype="float32"), mesh)
+                                   compute_dtype="float32"), mesh,
+                     device="cpu")
     port = from_jax_state(load_global_state(hd128_run / "state.npz"), eng)
     names = NEOX_ONLY + ("neox.b_in", "neox.b_out")
     with np.load(hd128_run / "state.npz") as z:

@@ -72,3 +72,30 @@ def test_train_cli_on_cpu_prints_losses(capsys):
     assert len(steps) == 2 and all(" loss " in s and " gnorm " in s
                                    for s in steps)
     assert "final loss: " in out
+
+
+def _engine_args():
+    from repro_torch.launch.mesh import TEST_AXES, Mesh, scheme_config
+    from repro_torch.models.registry import build_model, get_arch
+
+    mesh = Mesh((1, 1, 1), TEST_AXES)
+    return (build_model(get_arch("qwen2-0.5b").reduced()).leaf_specs(),
+            scheme_config("zero_topo", mesh, quant_block=64), mesh)
+
+
+def test_engine_without_device_raises_here():
+    """``ZeroEngine`` without ``device`` asks for the card; on a host with
+    no card it raises instead of building its state on the CPU."""
+    from repro_torch.core.engine import ZeroEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the engine would build on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ZeroEngine(*_engine_args())
+
+
+def test_engine_on_cpu_when_asked():
+    from repro_torch.core.engine import ZeroEngine
+
+    eng = ZeroEngine(*_engine_args(), device="cpu")
+    assert eng.device == torch.device("cpu")

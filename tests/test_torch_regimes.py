@@ -155,7 +155,7 @@ def _train(rank: int, n_mb: int, overlap: bool, stream: bool, init: Path,
     hp = TrainHparams(lr=RUN["lr"], total_steps=RUN["steps"],
                       warmup_steps=max(RUN["steps"] // 20, 2),
                       n_microbatch=n_mb, overlap=overlap, stream_grads=stream)
-    eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp)
+    eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp, device="cpu")
     state = from_jax_state(load_global_state(init), eng) if init \
         else eng.init_state(0)
     col.reset_counters()

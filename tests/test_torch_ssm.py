@@ -286,7 +286,8 @@ def test_mamba_loss_grads_through_kernel_branch(monkeypatch):
     model = build_model(arch)
     mesh = Mesh((1, 1, 1), TEST_AXES)
     eng = ZeroEngine(model.leaf_specs(), scheme_config(
-        "zero_topo", mesh, quant_block=64, compute_dtype="float32"), mesh)
+        "zero_topo", mesh, quant_block=64, compute_dtype="float32"), mesh,
+        device="cpu")
     state = eng.init_state(0)
     batch = {k: torch.as_tensor(v) for k, v in SyntheticTokens(
         BatchSpec(2, 8, arch.vocab), seed=0).batch(0).items()}

@@ -155,7 +155,8 @@ def test_state_carries_across_bf16(mesh1, tmp_path):
     save_global_state(tmp_path / "s.npz", ref)
     mesh = Mesh((1, 1, 1), TEST_AXES)
     eng = ZeroEngine(build_model(get_arch("qwen2-0.5b").reduced()).leaf_specs(),
-                     scheme_config("zero_topo", mesh, quant_block=64), mesh)
+                     scheme_config("zero_topo", mesh, quant_block=64), mesh,
+                     device="cpu")
     port = from_jax_state(load_global_state(tmp_path / "s.npz"), eng)
     assert port["step"] == 0
     for key in ("primaries", "master", "opt_m", "opt_v"):
