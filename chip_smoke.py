@@ -37,7 +37,9 @@ either is missing or any phase fails. Phases, in order:
             decay lasts longest) and ragged (D off the kernel's channel tile,
             S off its chunk, D % 4 != 0); and its gradients (dt, x, b, c, a,
             h0 through both outputs, the kernel's forward against the plain
-            one) within the same tolerance.
+            one) within the same tolerance, also at a training rank's shape
+            (B = 2, S = 1,024, D = 8,192: the backward rematerialises four
+            256-step blocks).
             falcon-mamba-7b's shapes too: dequant_matmul at w_in, w_dt and
             w_out for M = 4 and 128 and its LM head at M = 1 and 4;
             dequantize_int8 of w_xproj; quantize_int8 and dequantize_int8
@@ -83,8 +85,9 @@ either is missing or any phase fails. Phases, in order:
             at head dim 256 (gemma3-1b's prefill, 4 heads over 1 at S =
             640, with its window of 512 and causal; a ragged Sq of 100 with
             GQA 8/2 and a query offset; a window of 32 that skips key tiles
-            on both sides; f32 at gemma's local shape and ragged), within
-            the same tolerances.
+            on both sides; f32 at gemma's local shape and ragged; its
+            training step's forward, 2 rows of 1,024, with the window of
+            512 and causal), within the same tolerances.
 2b. ops    : two ops-level paths, each with the counters zeroed before and
             read after: benchmarks/quant_error.py's experiment (2^16
             heavy-tailed values, INT8 and INT4 round trips at blocks 64 ...
@@ -193,6 +196,23 @@ either is missing or any phase fails. Phases, in order:
             as a step launches flash_attention. Prints step_s, tok/s, each
             rank's peak memory and their sum beside the card's, the phase's
             seconds. No training rank may record an attention fallback.
+4e. train_ssm: first one mamba layer's plain scan backward at a training
+            rank's shape (B = 2, S = 1,024, D = 8,192) on the free card,
+            blocked in 256 steps as the step runs it and unblocked: host
+            seconds, peak memory, the six gradients within F32_TOL of each
+            other. Then falcon-mamba-7b at published width (d_model 4,096,
+            d_inner 8,192, d_state 16, dt_rank 256, vocab 65,024, tied)
+            and SSM_TRAIN_L layers, held as train_neox is under
+            SSM_TRAIN_KERNELS (the scan in place of flash); the traced step
+            must show selective_scan_kernel as often as a step launches
+            selective_scan.
+4f. train_gemma: gemma3-1b at published width (d_model 1,152, 4 heads of
+            256 over 1, GELU-GLU d_ff 6,912, tied vocab 262,144, window
+            512) and GEMMA_TRAIN_L layers (its pattern cut to two 5:1
+            periods: 10 local, 2 global), held as train_neox is; the traced
+            step must show flash_attention_tc_kernel<256> as often as a
+            step launches flash_attention. Both print what train_neox
+            prints, and no training rank may record an attention fallback.
 4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
             quantized reduce-scatter at bits 4 and 8 over W, E and all four
             ranks on an embedding-sized f32 shard each; every kernel of
@@ -226,9 +246,13 @@ either is missing or any phase fails. Phases, in order:
             (SIMT, beside f32 cuBLAS), each also per shape; flash_attention
             at the NeoX training shapes (D = 96 and 128) beside SDPA; NeoX's
             training products at M = 2,048 (forward and dX on 8a, dW on 9a)
-            per shape beside bf16 cuBLAS.
+            per shape beside bf16 cuBLAS; flash_attention at gemma3-1b's
+            training shape (D = 256, 2 rows x 4/1 heads, S = 1,024, window
+            512 and causal) and the scan at falcon-mamba-7b's (B = 2, S =
+            1,024) beside the plain versions, SDPA and the bounds.
 6. report : JSON lines (serve, serve_ssm, serve_neox, serve_neox10b,
-            serve_gemma, train, train_neox, regimes, collectives,
+            serve_gemma, train, train_neox, train_ssm, train_gemma,
+            regimes, collectives,
             kernels_extra with the extra
             timing rows and every dequant_matmul shape's path, then the
             kernels line: all 11 kernels with their launches on every
@@ -239,6 +263,7 @@ either is missing or any phase fails. Phases, in order:
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -336,6 +361,17 @@ NEOX_LAYER_KN = ((NEOX_D, NEOX_D),) * 4 + ((NEOX_D, NEOX_FF),
 TRAIN_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
                  "flash_attention", "quantize_int4", "dequantize_int4_sum",
                  "matmul_quant")
+# falcon-mamba-7b and gemma3-1b trained at published width and a cut depth,
+# as gpt-neox-20b is (the train phase's mesh, batch and sequence, 3 steps,
+# the last traced): falcon-mamba at 2 of its 64 mamba layers (266 M embed +
+# 2 x 105 M), gemma3-1b at 12 of its 26 layers, two of its 5:1 local /
+# global periods (302 M embed + 12 x 26.85 M)
+SSM_TRAIN_L, GEMMA_TRAIN_L = 2, 12
+SSM_TRAIN_ARGS = ["--arch", "falcon-mamba-7b"] + NEOX_TRAIN_ARGS[2:]
+GEMMA_TRAIN_ARGS = ["--arch", "gemma3-1b"] + NEOX_TRAIN_ARGS[2:]
+# the mamba block runs the scan where an attention block runs flash
+SSM_TRAIN_KERNELS = tuple("selective_scan" if k == "flash_attention" else k
+                          for k in TRAIN_KERNELS)
 # the reference's own tolerance between dequant_matmul_pallas and its
 # oracle (tests/test_kernels.py): the f32 sums run in another order
 BLOCKED_RTOL, BLOCKED_ATOL = 2e-5, 5e-4
@@ -387,6 +423,7 @@ DMM_PATHS = {
 LAYER_KN = ((896, 896), (896, 128), (896, 128), (896, 896), (896, 4864),
             (896, 4864), (4864, 896))
 TRAIN_M = 2048                      # tokens per rank: 8 x 1024 over 4 ranks
+SCAN_TRAIN_B = TRAIN_M // 1024      # a rank's rows of 1,024 in training
 # bf16 rows from which dequant_matmul takes the tensor cores, x @ W and
 # x @ W.T (chosen by the timing phase's dequant_matmul_threshold rows;
 # csrc/dequant_matmul.cu's TC_MIN_M, TC_MIN_M_T): the checks hold the path
@@ -768,6 +805,10 @@ def check_kernels(dev, gen, checks):
              h, hkv, 640, 640, 0, w, torch.bfloat16),
             (f"B=1 H={h}/{hkv} S=640 causal bf16 D={hd} (gemma global)", 1, h,
              hkv, 640, 640, 0, 0, torch.bfloat16),
+            (f"B=2 H={h}/{hkv} S=1024 window={w} bf16 D={hd} (gemma training "
+             f"local)", 2, h, hkv, 1024, 1024, 0, w, torch.bfloat16),
+            (f"B=2 H={h}/{hkv} S=1024 causal bf16 D={hd} (gemma training "
+             f"global)", 2, h, hkv, 1024, 1024, 0, 0, torch.bfloat16),
             (f"B=2 H=8/2 Sq=100 Sk=256 q_offset=156 bf16 D={hd}", 2, 8, 2,
              100, 256, 156, 0, torch.bfloat16),
             (f"B=1 H=4/1 S=512 window=32 bf16 D={hd}", 1, 4, 1, 512, 512, 0,
@@ -963,6 +1004,10 @@ def check_kernels(dev, gen, checks):
             record("selective_scan", f"{what} {name}", err, f"{tol:.3e}")
 
     scan_grad_case("grads B=2 S=64 D=256", 2, 64, 256)
+    # a training rank's shape (falcon-mamba-7b, 2 rows of 1,024): the
+    # backward rematerialises four 256-step blocks
+    scan_grad_case(f"grads B={SCAN_TRAIN_B} S=1024 D={SCAN_D} (training)",
+                   SCAN_TRAIN_B, 1024, SCAN_D)
 
 
 def blocked_quant(w: torch.Tensor, bk: int):
@@ -1485,21 +1530,8 @@ def ssm_phase(gen, dev):
     pf["traced_scan_ms"] = sum(k["ms"] for k in scan_rows)
     pf["traced_scan_calls"] = sum(k["calls"] for k in scan_rows)
     plen = s["args"].prompt_len
-    clock_hz = sm_clock_mhz() * 1e6
-    timing = {}
-    for seq in (plen, 2048):
-        args = scan_inputs(gen, dev, 1, seq, SCAN_D)
-        n_bytes, n_ops = scan_work(1, seq, SCAN_D)
-        timing[seq] = dict(
-            work=f"one layer's prefill scan: B=1, S={seq}, D={SCAN_D}, "
-                 f"N={SCAN_N}, f32",
-            ms=device_ms(lambda: ops.selective_scan(*args), reps=20),
-            plain_ms=device_ms(lambda: ops.selective_scan(*args, impl="plain"),
-                               reps=1, replays=2),
-            library_ms=None, bound=bound_ms(n_bytes, n_ops, "f32"),
-            sfu_floor_ms=seq * SCAN_D * SCAN_N / (SMS * SFU_PER_SM * clock_hz)
-            * 1e3)
-        del args
+    timing = {seq: scan_timing(gen, dev, 1, seq, "one layer's prefill scan")
+              for seq in (plen, 2048)}
     xproj = w_xproj_timing(s)
     no_fallback(s["arch"].name, ops.dispatch_counters())
     record = {k: s[k] for k in SERVE_RECORD}
@@ -1507,6 +1539,28 @@ def ssm_phase(gen, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return record, pf, timing, xproj
+
+
+def scan_timing(gen, dev, b, seq, what) -> dict:
+    """The scan's forward at (B, S, D = 8,192, N = 16): device time of the
+    kernel and of its plain version beside its bytes bound and its SFU
+    floor (B*S*D*N exps over SMS * SFU_PER_SM a clock at
+    clocks.max.sm)."""
+    from repro_torch.kernels import ops
+
+    args = scan_inputs(gen, dev, b, seq, SCAN_D)
+    n_bytes, n_ops = scan_work(b, seq, SCAN_D)
+    clock_hz = sm_clock_mhz() * 1e6
+    out = dict(
+        work=f"{what}: B={b}, S={seq}, D={SCAN_D}, N={SCAN_N}, f32",
+        ms=device_ms(lambda: ops.selective_scan(*args), reps=20),
+        plain_ms=device_ms(lambda: ops.selective_scan(*args, impl="plain"),
+                           reps=1, replays=2),
+        library_ms=None, bound=bound_ms(n_bytes, n_ops, "f32"),
+        sfu_floor_ms=b * seq * SCAN_D * SCAN_N / (SMS * SFU_PER_SM * clock_hz)
+        * 1e3)
+    del args
+    return out
 
 
 def flash_timing(gen, dev, b, h, seq, hd, dtype, what, hkv=None, window=0):
@@ -1779,9 +1833,11 @@ def gemma_phase(gen, dev):
 # phase 4: the training step
 # ---------------------------------------------------------------------------
 
-def hold_train_runs(kern, plain, steps: int, label: str) -> dict:
+def hold_train_runs(kern, plain, steps: int, label: str,
+                    kernels=TRAIN_KERNELS) -> dict:
     """A training run through the kernels against the same run through the
-    plain versions: every kernel of TRAIN_KERNELS launched on every rank
+    plain versions: every kernel of ``kernels`` (the path's own: TRAIN_KERNELS
+    or SSM_TRAIN_KERNELS) launched on every rank
     and none in the plain run, no attention fallback, the traced step's
     fused dW all on the tensor-core matmul_quant kernel (as many as a step
     launches, none on SIMT), the same finite global loss and grad norm on
@@ -1789,7 +1845,7 @@ def hold_train_runs(kern, plain, steps: int, label: str) -> dict:
     TRAIN_GNORM_RTOL of the plain one's. Returns the relative differences
     and the traced matmul_quant calls by rank."""
     for r in kern:
-        missing = [k for k in TRAIN_KERNELS if r["launches"][k] == 0]
+        missing = [k for k in kernels if r["launches"][k] == 0]
         if missing:
             raise Failed(f"{label} rank {r['rank']}: kernels not launched on "
                          f"the training path: {missing}")
@@ -1858,59 +1914,103 @@ def train_phase():
                 run_s=t_kern, plain_run_s=t_plain, **held)
 
 
-def neox_train_arch():
-    """gpt-neox-20b at published width and NEOX_TRAIN_L layers."""
+def cut_train_arch(name: str, n_layers: int):
+    """``name`` at published width and its first ``n_layers`` layers (its
+    own block pattern, cut)."""
     from repro_torch.models.registry import get_arch
 
-    return dataclasses.replace(get_arch("gpt-neox-20b"),
-                               n_layers=NEOX_TRAIN_L,
-                               block_pattern=("neox",) * NEOX_TRAIN_L)
+    a = get_arch(name)
+    return dataclasses.replace(a, n_layers=n_layers,
+                               block_pattern=a.pattern[:n_layers])
 
 
-def neox_train_phase():
-    """gpt-neox-20b at published width and depth NEOX_TRAIN_L, the qwen2
-    train phase's mesh and batch, 3 steps (the last traced), through the
-    kernels and again through the plain versions (hold_train_runs); the
-    traced step must also show the tensor-core flash kernel at head dim 96
-    as often as a step launches flash_attention, on every rank."""
+def neox_train_arch():
+    """gpt-neox-20b at published width and NEOX_TRAIN_L layers."""
+    return cut_train_arch("gpt-neox-20b", NEOX_TRAIN_L)
+
+
+def cut_train_phase(argv, arch, kernels, traced, profile_step: int):
+    """``arch`` (published width, a cut depth) trained with ``argv`` on the
+    train phase's mesh and batch, the step ``profile_step`` traced, through
+    the kernels and again through the plain versions (hold_train_runs on
+    ``kernels``). ``traced`` = (counter, name, instance): on every rank the
+    traced step must show the device kernels whose names hold ``name`` as
+    often as a step launches ``counter``, each name holding ``instance``.
+    Also reports each rank's peak memory summed beside the card's and the
+    traced step's kernel calls."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
     ap = train.build_parser()
-    arch = neox_train_arch()
+    t_phase = time.perf_counter()
+    kern = train.run(ap.parse_args(argv + ["--profile-step",
+                                           str(profile_step)]), arch)
+    t_kern = time.perf_counter() - t_phase
     t0 = time.perf_counter()
-    kern = train.run(ap.parse_args(NEOX_TRAIN_ARGS + [
-        "--profile-step", str(NEOX_PROFILE_STEP)]), arch)
-    t_kern = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    plain = train.run(ap.parse_args(NEOX_TRAIN_ARGS + ["--kernel-impl",
-                                                       "plain"]), arch)
+    plain = train.run(ap.parse_args(argv + ["--kernel-impl", "plain"]), arch)
     t_plain = time.perf_counter() - t0
-    steps = int(NEOX_TRAIN_ARGS[NEOX_TRAIN_ARGS.index("--steps") + 1])
-    held = hold_train_runs(kern, plain, steps, "gpt-neox-20b")
-    flash_traced = []
+    steps = int(argv[argv.index("--steps") + 1])
+    held = hold_train_runs(kern, plain, steps, arch.name, kernels)
+    counter, name, instance = traced
+    rows_traced = []
     for r in kern:
-        per_step = r["launches"]["flash_attention"] / steps
-        rows = [row for row in r["profile"]["kernels"]
-                if "flash_attention_tc_kernel<" in row["name"]]
+        per_step = r["launches"][counter] / steps
+        rows = [row for row in r["profile"]["kernels"] if name in row["name"]]
         calls = sum(row["calls"] for row in rows)
-        flash_traced.append(dict(rank=r["rank"], launches_per_step=per_step,
-                                 traced_calls=calls,
-                                 traced_ms=sum(row["ms"] for row in rows),
-                                 names=sorted({row["name"] for row in rows})))
-        if calls != per_step or any(f"<{NEOX_HD}>" not in row["name"]
+        rows_traced.append(dict(rank=r["rank"], launches_per_step=per_step,
+                                traced_calls=calls,
+                                traced_ms=sum(row["ms"] for row in rows),
+                                names=sorted({row["name"] for row in rows})))
+        if calls != per_step or any(instance not in row["name"]
                                     for row in rows):
-            raise Failed(f"gpt-neox-20b rank {r['rank']}: traced tensor-core "
-                         f"flash calls {calls} ({flash_traced[-1]['names']}), "
-                         f"{per_step} launches a step")
+            raise Failed(f"{arch.name} rank {r['rank']}: traced {name} calls "
+                         f"{calls} ({rows_traced[-1]['names']}), {per_step} "
+                         f"{counter} launches a step")
     launches = {k: sum(r["launches"][k] for r in kern) for k in ops.KERNELS}
-    total = torch.cuda.get_device_properties(0).total_memory
-    peak = sum(r["peak_bytes"] for r in kern)
     return dict(kernel=kern, plain=plain, steps=steps, launches=launches,
                 arch=arch, per_rank_step_launches={
                     k: kern[0]["launches"][k] / steps for k in ops.KERNELS},
-                run_s=t_kern, plain_run_s=t_plain, flash_traced=flash_traced,
-                peak_bytes_sum=peak, card_bytes=total, **held)
+                run_s=t_kern, plain_run_s=t_plain, traced=rows_traced,
+                traced_kernel_calls=[sum(row["calls"] for row in
+                                         r["profile"]["kernels"])
+                                     for r in kern],
+                peak_bytes_sum=sum(r["peak_bytes"] for r in kern),
+                card_bytes=torch.cuda.get_device_properties(0).total_memory,
+                phase_s=time.perf_counter() - t_phase, **held)
+
+
+def neox_train_phase():
+    """gpt-neox-20b at published width and depth NEOX_TRAIN_L, 3 steps
+    (the last traced); the traced step must also show the tensor-core flash
+    kernel at head dim 96 as often as a step launches flash_attention."""
+    return cut_train_phase(NEOX_TRAIN_ARGS, neox_train_arch(), TRAIN_KERNELS,
+                           ("flash_attention", "flash_attention_tc_kernel<",
+                            f"<{NEOX_HD}>"), NEOX_PROFILE_STEP)
+
+
+def ssm_train_phase():
+    """falcon-mamba-7b at published width and SSM_TRAIN_L layers, 3 steps
+    (the last traced), under SSM_TRAIN_KERNELS; the traced step must show
+    the scan kernel as often as a step launches selective_scan."""
+    return cut_train_phase(SSM_TRAIN_ARGS,
+                           cut_train_arch("falcon-mamba-7b", SSM_TRAIN_L),
+                           SSM_TRAIN_KERNELS, ("selective_scan",
+                                               "selective_scan_kernel",
+                                               "selective_scan_kernel"),
+                           NEOX_PROFILE_STEP)
+
+
+def gemma_train_phase():
+    """gemma3-1b at published width and GEMMA_TRAIN_L layers (10 local with
+    the window of 512, 2 global), 3 steps (the last traced); the traced
+    step must show the tensor-core flash kernel at head dim 256 as often as
+    a step launches flash_attention."""
+    return cut_train_phase(GEMMA_TRAIN_ARGS,
+                           cut_train_arch("gemma3-1b", GEMMA_TRAIN_L),
+                           TRAIN_KERNELS, ("flash_attention",
+                                           "flash_attention_tc_kernel<",
+                                           f"<{GEMMA_HD}>"),
+                           NEOX_PROFILE_STEP)
 
 
 def regime_phase(tr, flags):
@@ -2741,6 +2841,53 @@ def print_timing(key, tm):
           f"{tm['bound'][0]:.5f} ms ({tm['bound'][1]})")
 
 
+def print_cut_train(tc, what: str):
+    """A cut-depth training phase's ranks, its traced kernel by rank and
+    the ranks' summed peak memory beside the card's."""
+    print_train(tc)
+    print(f"  traced step, {what} by rank: {tc['traced']}; device kernel "
+          f"calls by rank: {tc['traced_kernel_calls']}")
+    spare = (tc["card_bytes"] - tc["peak_bytes_sum"]) / 2 ** 30
+    print(f"  {tc['arch'].name} at {tc['arch'].n_layers} layers: "
+          f"max_memory_allocated summed over the ranks {tc['peak_bytes_sum']} "
+          f"of {tc['card_bytes']} bytes ({spare:.2f} GiB to spare); phase "
+          f"{tc['phase_s']:.1f} s")
+
+
+def cut_train_line(tc, traced_key: str, **extra) -> dict:
+    """A cut-depth training phase's JSON line (train_neox, train_ssm,
+    train_gemma): step 0 pays for first use and the last is traced, so
+    step 1 is the timed one."""
+    a, n0 = tc["arch"], tc["kernel"][0]
+    return dict(
+        arch=a.name, n_layers=a.n_layers, pattern=dict(collections.Counter(
+            a.pattern)), d_model=a.d_model, n_heads=a.n_heads,
+        head_dim=a.hdim, d_ff=a.d_ff, vocab=a.vocab, **extra,
+        scheme="zero_topo", mesh=[1, 2, 2], ranks=4,
+        global_batch=8, seq=1024, steps=tc["steps"], losses=n0["losses"],
+        grad_norms=n0["grad_norms"], plain_losses=tc["plain"][0]["losses"],
+        plain_grad_norms=tc["plain"][0]["grad_norms"],
+        loss_rel=tc["loss_rel"], grad_norm_rel=tc["grad_norm_rel"],
+        step_s=n0["step_times"], step_s_timed=n0["step_times"][1],
+        tok_s_timed=n0["tokens_per_s"][1],
+        plain_step_s=tc["plain"][0]["step_times"],
+        peak_bytes_per_rank=[r["peak_bytes"] for r in tc["kernel"]],
+        peak_bytes_sum=tc["peak_bytes_sum"], card_bytes=tc["card_bytes"],
+        payload_bytes_per_step_per_rank={
+            op: b / tc["steps"] for op, b in n0["payload_bytes"].items()},
+        phase_s_per_step=[{k: v / tc["steps"] for k, v in r["phase_s"].items()}
+                          for r in tc["kernel"]],
+        traced_step_wall_ms=[r["profile"]["wall_ms"] for r in tc["kernel"]],
+        traced_step_device_ms=[r["profile"]["device_ms"] for r in tc["kernel"]],
+        traced_step_kernel_calls=tc["traced_kernel_calls"],
+        traced_step_top_kernels_rank0=n0["profile"]["top"],
+        traced_step_matmul_quant=tc["matmul_quant_traced"],
+        **{f"traced_step_{traced_key}": tc["traced"]},
+        launches_per_step_per_rank=tc["per_rank_step_launches"],
+        state_bytes_per_rank=n0["memory"], run_s=tc["run_s"],
+        plain_run_s=tc["plain_run_s"], phase_s=tc["phase_s"])
+
+
 def print_train(tr):
     for label, run in (("kernels", tr["kernel"]), ("plain", tr["plain"])):
         for r in run:
@@ -2912,16 +3059,16 @@ def main(argv=None) -> int:
     print_train(tr)
 
     phase("train_neox")
-    t_phase = time.perf_counter()
     tn = neox_train_phase()
-    tn["phase_s"] = time.perf_counter() - t_phase
-    print_train(tn)
-    print(f"  traced step, tensor-core flash by rank: {tn['flash_traced']}")
-    spare = (tn["card_bytes"] - tn["peak_bytes_sum"]) / 2 ** 30
-    print(f"  {tn['arch'].name} at {tn['arch'].n_layers} layers: "
-          f"max_memory_allocated summed over the ranks {tn['peak_bytes_sum']} "
-          f"of {tn['card_bytes']} bytes ({spare:.2f} GiB to spare); phase "
-          f"{tn['phase_s']:.1f} s")
+    print_cut_train(tn, "tensor-core flash")
+
+    phase("train_ssm")
+    tsm = ssm_train_phase()
+    print_cut_train(tsm, "selective_scan")
+
+    phase("train_gemma")
+    tgm = gemma_train_phase()
+    print_cut_train(tgm, "tensor-core flash")
 
     phase("collectives")
     cl = collectives_phase()
@@ -2970,9 +3117,21 @@ def main(argv=None) -> int:
                        ("flash_attention_train_d128", NEOX10B_H, NEOX10B_HD)):
         t[key] = flash_timing(gen, dev, TRAIN_M // 1024, h, 1024, hd,
                               torch.bfloat16, "NeoX training attention")
+    # gemma3-1b's training attention (2 rows of 1,024 a rank, 4 heads of 256
+    # over 1, local and global) and falcon-mamba-7b's training scan
+    for key, window in (("flash_attention_train_d256_window", GEMMA_W),
+                        ("flash_attention_train_d256", 0)):
+        t[key] = flash_timing(gen, dev, TRAIN_M // 1024, GEMMA_H, 1024,
+                              GEMMA_HD, torch.bfloat16,
+                              "gemma training attention", hkv=GEMMA_HKV,
+                              window=window)
+    t["selective_scan_train"] = scan_timing(
+        gen, dev, SCAN_TRAIN_B, 1024, "one layer's training scan, a rank")
     nts = neox_train_shapes(gen, dev)
     for key in ("flash_attention_d128", "flash_attention_f32_d128",
-                "flash_attention_train_d96", "flash_attention_train_d128"):
+                "flash_attention_train_d96", "flash_attention_train_d128",
+                "flash_attention_train_d256",
+                "flash_attention_train_d256_window", "selective_scan_train"):
         print_timing(key, t[key])
     for r in nts["per_shape"]:
         print(f"  NeoX training {r['product']} M={r['M']} ({r['K']}, "
@@ -2991,6 +3150,8 @@ def main(argv=None) -> int:
                        serve_gemma=gm["launches"][name],
                        train=tr["launches"][name],
                        train_neox=tn["launches"][name],
+                       train_ssm=tsm["launches"][name],
+                       train_gemma=tgm["launches"][name],
                        collectives=cl_launches[name],
                        regimes=sum(rg["launches"][name] for rg in regimes),
                        quant_error=qe_launches[name],
@@ -3000,6 +3161,10 @@ def main(argv=None) -> int:
             launches=sum(by_path.values()), launches_by_path=by_path,
             launches_per_train_step_per_rank=tr["per_rank_step_launches"][name],
             launches_per_neox_train_step_per_rank=tn[
+                "per_rank_step_launches"][name],
+            launches_per_ssm_train_step_per_rank=tsm[
+                "per_rank_step_launches"][name],
+            launches_per_gemma_train_step_per_rank=tgm[
                 "per_rank_step_launches"][name],
             max_abs_err=max(c["max_abs_err"] for c in checks[name]),
             tolerance=[c["tolerance"] for c in checks[name]],
@@ -3025,7 +3190,9 @@ def main(argv=None) -> int:
                     "flash_attention_train_d96",
                     "flash_attention_train_d128", "flash_attention_d256",
                     "flash_attention_d256_window",
-                    "flash_attention_f32_d256")}
+                    "flash_attention_f32_d256", "flash_attention_train_d256",
+                    "flash_attention_train_d256_window",
+                    "selective_scan_train")}
     blk = t["dequant_matmul_blocked"]
     kernels_extra.update(
         dequant_matmul_blocked_bounds=dict(
@@ -3117,34 +3284,13 @@ def main(argv=None) -> int:
         traced_step_matmul_quant=tr["matmul_quant_traced"],
         state_bytes_per_rank=k0["memory"], run_s=tr["run_s"],
         plain_run_s=tr["plain_run_s"])
-    n0 = tn["kernel"][0]
-    train_neox_line = dict(
-        arch=tn["arch"].name, n_layers=tn["arch"].n_layers,
-        d_model=tn["arch"].d_model, n_heads=tn["arch"].n_heads,
-        head_dim=tn["arch"].hdim, d_ff=tn["arch"].d_ff,
-        vocab=tn["arch"].vocab, scheme="zero_topo", mesh=[1, 2, 2], ranks=4,
-        global_batch=8, seq=1024, steps=tn["steps"], losses=n0["losses"],
-        grad_norms=n0["grad_norms"], plain_losses=tn["plain"][0]["losses"],
-        plain_grad_norms=tn["plain"][0]["grad_norms"],
-        loss_rel=tn["loss_rel"], grad_norm_rel=tn["grad_norm_rel"],
-        # step 0 pays for first use, the last is traced: step 1 is the timed one
-        step_s=n0["step_times"], step_s_timed=n0["step_times"][1],
-        tok_s_timed=n0["tokens_per_s"][1],
-        plain_step_s=tn["plain"][0]["step_times"],
-        peak_bytes_per_rank=[r["peak_bytes"] for r in tn["kernel"]],
-        peak_bytes_sum=tn["peak_bytes_sum"], card_bytes=tn["card_bytes"],
-        payload_bytes_per_step_per_rank={
-            op: b / tn["steps"] for op, b in n0["payload_bytes"].items()},
-        phase_s_per_step=[{k: v / tn["steps"] for k, v in r["phase_s"].items()}
-                          for r in tn["kernel"]],
-        traced_step_wall_ms=[r["profile"]["wall_ms"] for r in tn["kernel"]],
-        traced_step_device_ms=[r["profile"]["device_ms"] for r in tn["kernel"]],
-        traced_step_top_kernels_rank0=n0["profile"]["top"],
-        traced_step_matmul_quant=tn["matmul_quant_traced"],
-        traced_step_flash=tn["flash_traced"],
-        launches_per_step_per_rank=tn["per_rank_step_launches"],
-        state_bytes_per_rank=n0["memory"], run_s=tn["run_s"],
-        plain_run_s=tn["plain_run_s"], phase_s=tn["phase_s"])
+    train_neox_line = cut_train_line(tn, "flash")
+    sm_arch = tsm["arch"]
+    train_ssm_line = cut_train_line(
+        tsm, "scan", d_inner=sm_arch.d_inner, d_state=sm_arch.ssm.d_state,
+        dt_rank=sm_arch.dt_rank)
+    train_gemma_line = cut_train_line(
+        tgm, "flash", window=tgm["arch"].sliding_window)
     regimes_line = dict(
         steps=REGIME_STEPS, seed_losses=k0["losses"][:REGIME_STEPS],
         seed_grad_norms=k0["grad_norms"][:REGIME_STEPS],
@@ -3183,12 +3329,16 @@ def main(argv=None) -> int:
             serve=serve_line, serve_ssm=ssm_line, serve_neox=neox_line,
             serve_neox10b=neox10b_line, serve_gemma=gemma_line,
             train=train_line,
-            train_neox=train_neox_line,
+            train_neox=train_neox_line, train_ssm=train_ssm_line,
+            train_gemma=train_gemma_line,
             regimes=regimes_line, collectives=collectives_line,
             collective_ranks=cl,
             regime_ranks=[rg["ranks"] for rg in regimes],
             train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
             train_neox_ranks=tn["kernel"], train_neox_plain_ranks=tn["plain"],
+            train_ssm_ranks=tsm["kernel"], train_ssm_plain_ranks=tsm["plain"],
+            train_gemma_ranks=tgm["kernel"],
+            train_gemma_plain_ranks=tgm["plain"],
             checks=checks, timing={k: v for k, v in t.items()},
             launches=s["launches"], launches_ssm=m["launches"],
             launches_neox=nx["launches"], launches_neox10b=x10["launches"],
@@ -3205,6 +3355,8 @@ def main(argv=None) -> int:
     print("serve_gemma " + json.dumps(gemma_line))
     print("train " + json.dumps(train_line))
     print("train_neox " + json.dumps(train_neox_line))
+    print("train_ssm " + json.dumps(train_ssm_line))
+    print("train_gemma " + json.dumps(train_gemma_line))
     print("regimes " + json.dumps(regimes_line))
     print("collectives " + json.dumps(collectives_line))
     print("kernels_extra " + json.dumps(kernels_extra))

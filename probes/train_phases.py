@@ -1,0 +1,315 @@
+#!/usr/bin/env python3
+"""Card probe of the cut-depth training phases of chip_smoke.py that run
+falcon-mamba-7b and gemma3-1b, and of what their readings rest on, without
+the rest of the smoke run.
+
+    python3 probes/train_phases.py [--phase PHASE ...] [--out FILE]
+
+Needs one CUDA card and nvcc. Phases (all by default):
+
+- ``ssm``, ``gemma``: ``chip_smoke.ssm_train_phase`` (falcon-mamba-7b at
+  published width and 2 layers on four ranks sharing the card) and
+  ``chip_smoke.gemma_train_phase`` (gemma3-1b at 12 layers), each held
+  against the plain versions as chip_smoke.py holds them, after
+  ``chip_smoke.check_kernels``; prints each phase's JSON line
+  (``train_ssm``, ``train_gemma``).
+- ``timing``: flash at gemma's training shape, the scan at falcon-mamba's.
+- ``scan_backward``: one mamba layer's plain scan backward at a training
+  rank's shape, blocked in 256 steps (what the step runs) and unblocked
+  (the graph of every step alive at once): host seconds, peak memory.
+- ``ssm_ablation``: the ``ssm`` phase's run (untraced) through the kernels,
+  through the plain versions, and through the kernels with one of the
+  scan, the dequant-matmul and matmul_quant turned plain; each run's loss
+  and grad norm a step beside the plain run's.
+- ``trace_events``: qwen2-0.5b (24 layers) and gpt-neox-20b (1 layer) on
+  the train phases' mesh and batch for 3 steps, the last traced, once
+  recording the card's events alone (what ``train.trainer`` records) and
+  once the host's too; the traced device ms of each run, kernel by kernel.
+
+With ``--out``, writes every phase's result to that JSON file.
+"""
+import argparse
+import gc
+import json
+import queue as queue_mod
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+PHASES = ("ssm", "gemma", "timing", "scan_backward", "ssm_ablation",
+          "trace_events")
+# the ops functions turned plain, one at a time, in ``ssm_ablation``
+ABLATED = ("selective_scan", "dequant_matmul", "matmul_quant")
+
+
+def scan_backward_probe(c, gen, dev) -> dict:
+    """One mamba layer's scan backward at a training rank's shape (B = 2
+    rows of 1,024, D = 8,192, N = 16) through the plain version: host
+    seconds and the peak memory above what was allocated before, blocked in
+    256 steps (``ref.selective_scan_ref_vjp``) and unblocked; the two
+    gradients held within chip_smoke's F32_TOL of max|grad|."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    inputs = c.scan_inputs(gen, dev, c.SCAN_TRAIN_B, 1024, c.SCAN_D, False,
+                           3.0)
+    gy = torch.randn((c.SCAN_TRAIN_B, 1024, c.SCAN_D), generator=gen,
+                     device=dev)
+    gh = torch.randn((c.SCAN_TRAIN_B, c.SCAN_D, c.SCAN_N), generator=gen,
+                     device=dev)
+
+    def unblocked():
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        y, h = ref.selective_scan_ref(*leaves)
+        return torch.autograd.grad((y, h), leaves, (gy, gh))
+
+    out, grads = {}, {}
+    for key, fn in (("blocked", lambda: ref.selective_scan_ref_vjp(
+            *inputs, gy, gh)), ("unblocked", unblocked)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grads[key] = fn()
+        torch.cuda.synchronize()
+        out[key] = dict(host_s=time.perf_counter() - t0,
+                        peak_bytes=torch.cuda.max_memory_allocated() - base)
+    for name, a, b in zip(("dt", "x", "b", "c", "a", "h0"),
+                          grads["blocked"], grads["unblocked"]):
+        err, scale = c.rel_err(a, b)
+        out[f"d {name} blocked vs unblocked"] = err / scale
+        if err > c.F32_TOL * scale:
+            raise c.Failed(f"scan backward d {name}: blocked vs unblocked "
+                           f"err {err} > {c.F32_TOL * scale}")
+    del inputs, gy, gh, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _forced_plain(fn):
+    def plain(*args, **kwargs):
+        kwargs["impl"] = "plain"
+        return fn(*args, **kwargs)
+    return plain
+
+
+def _worker(rank, world, port, args, arch, queue, plain, host_events):
+    """``launch.train``'s rank, with the ops of ``plain`` turned plain and,
+    with ``host_events``, the traced step recording the host's events too."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.train import trainer
+
+    for name in plain:
+        setattr(ops, name, _forced_plain(getattr(ops, name)))
+    if host_events:
+        act = torch.profiler.ProfilerActivity
+        trainer._profiler = lambda device: torch.profiler.profile(
+            activities=[act.CPU, act.CUDA])
+    train._worker(rank, world, port, args, arch, queue)
+
+
+def run_ranks(argv, arch, plain=(), host_events=False) -> list[dict]:
+    """``launch.train.run`` of ``argv`` on its local ranks through
+    ``_worker``: each rank's result, by rank."""
+    import multiprocessing as mp
+
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(argv)
+    n = args.devices
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    store = train.rendezvous(n, args.timeout)
+    procs = [ctx.Process(target=_worker, args=(r, n, store.port, args, arch,
+                                               queue, tuple(plain),
+                                               host_events))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    deadline = time.monotonic() + args.timeout
+    try:
+        while len(results) < n and not errors:
+            try:
+                rank, res, err = queue.get(timeout=5)
+            except queue_mod.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs) or \
+                        time.monotonic() > deadline:
+                    errors.append("a rank died or timed out")
+                continue
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+            else:
+                results[rank] = res
+    finally:
+        for p in procs:
+            if errors:
+                p.terminate()
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [results[r] for r in range(n)]
+
+
+def ssm_ablation(c) -> dict:
+    """falcon-mamba-7b as ``ssm_train_phase`` runs it, untraced, through
+    every kernel, through none, and with each of ABLATED plain: every
+    run's per-step loss and grad norm and their relative gaps to the
+    plain run's, with the runs' ranks agreeing."""
+    arch = c.cut_train_arch("falcon-mamba-7b", c.SSM_TRAIN_L)
+    runs = {"kernels": (c.SSM_TRAIN_ARGS, ())}
+    runs.update({f"{name} plain": (c.SSM_TRAIN_ARGS, (name,))
+                 for name in ABLATED})
+    runs["plain"] = (c.SSM_TRAIN_ARGS + ["--kernel-impl", "plain"], ())
+    out = {}
+    for key, (argv, plain) in runs.items():
+        t0 = time.perf_counter()
+        ranks = run_ranks(argv, arch, plain)
+        r0 = ranks[0]
+        if any((r["losses"], r["grad_norms"]) != (r0["losses"],
+                                                   r0["grad_norms"])
+               for r in ranks):
+            raise c.Failed(f"ssm_ablation {key}: ranks disagree")
+        out[key] = dict(losses=r0["losses"], grad_norms=r0["grad_norms"],
+                        lrs=r0["lrs"], launches_per_rank=r0["launches"],
+                        run_s=time.perf_counter() - t0)
+        print(f"  ssm_ablation {key}: {out[key]}", flush=True)
+    base = out["plain"]
+    for key, res in out.items():
+        res["loss_rel_vs_plain"] = [abs(a - b) / abs(b) for a, b in
+                                    zip(res["losses"], base["losses"])]
+        res["grad_norm_rel_vs_plain"] = [abs(a - b) / abs(b) for a, b in
+                                         zip(res["grad_norms"],
+                                             base["grad_norms"])]
+    return out
+
+
+def trace_events(c) -> dict:
+    """qwen2-0.5b (24 layers) and gpt-neox-20b (1 layer), 3 steps, step 2
+    traced recording the card's events alone and then the host's too:
+    each run's traced device ms by rank, its step times, and rank 0's
+    device time by kernel name in both runs (the names whose ms differ
+    most first)."""
+    out = {}
+    for label, argv, arch in (
+            ("qwen2-0.5b", ["--arch", "qwen2-0.5b"] + c.NEOX_TRAIN_ARGS[2:],
+             None),
+            ("gpt-neox-20b", c.NEOX_TRAIN_ARGS, c.neox_train_arch())):
+        argv = argv + ["--profile-step", str(c.NEOX_PROFILE_STEP)]
+        runs = {}
+        for key, host in (("card", False), ("card+host", True)):
+            t0 = time.perf_counter()
+            ranks = run_ranks(argv, arch, host_events=host)
+            runs[key] = dict(
+                device_ms=[r["profile"]["device_ms"] for r in ranks],
+                wall_ms=[r["profile"]["wall_ms"] for r in ranks],
+                step_s=[r["step_times"] for r in ranks],
+                losses=ranks[0]["losses"],
+                kernel_calls=[sum(k["calls"] for k in r["profile"]["kernels"])
+                              for r in ranks],
+                kernels={k["name"]: (k["ms"], k["calls"])
+                         for k in ranks[0]["profile"]["kernels"]},
+                run_s=time.perf_counter() - t0)
+        a, b = runs["card"]["kernels"], runs["card+host"]["kernels"]
+        rows = [dict(name=n[:100], card_ms=a.get(n, (0.0, 0))[0],
+                     card_host_ms=b.get(n, (0.0, 0))[0],
+                     card_calls=a.get(n, (0.0, 0))[1],
+                     card_host_calls=b.get(n, (0.0, 0))[1])
+                for n in set(a) | set(b)]
+        rows.sort(key=lambda r: -abs(r["card_host_ms"] - r["card_ms"]))
+        for run in runs.values():
+            del run["kernels"]
+        out[label] = dict(runs=runs, by_kernel_rank0=rows[:25],
+                          names_only_card=len(set(a) - set(b)),
+                          names_only_card_host=len(set(b) - set(a)))
+        print(f"  trace_events {label}: "
+              f"{ {k: v['device_ms'] for k, v in runs.items()} }; rank 0 by "
+              f"kernel, largest gaps: {rows[:8]}", flush=True)
+    return out
+
+
+def main():
+    import torch
+
+    import chip_smoke as c
+    from repro_torch.kernels import cuda as kcuda
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phase", nargs="*", default=list(PHASES),
+                    choices=PHASES)
+    ap.add_argument("--out", default="",
+                    help="also write every phase's result to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("train_phases: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    print(f"device: {c.nvidia_smi()}", flush=True)
+    kcuda.build_all()
+    out = {"device": c.nvidia_smi()}
+
+    def save():
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(out, default=str, indent=1))
+
+    if "ssm" in args.phase or "gemma" in args.phase:
+        c.check_kernels(dev, gen, {})
+        # the checks' blocks stay in this process's allocator cache
+        # otherwise, beside the ranks' own (gemma's four hold 52 GB of 80)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "scan_backward" in args.phase:
+        out["scan_backward"] = scan_backward_probe(c, gen, dev)
+        print(f"scan_backward {json.dumps(out['scan_backward'])}", flush=True)
+    if "ssm" in args.phase:
+        tsm = c.ssm_train_phase()
+        c.print_cut_train(tsm, "selective_scan")
+        out["train_ssm"] = c.cut_train_line(tsm, "scan")
+        print("train_ssm " + json.dumps(out["train_ssm"]), flush=True)
+    if "gemma" in args.phase:
+        tgm = c.gemma_train_phase()
+        c.print_cut_train(tgm, "tensor-core flash")
+        out["train_gemma"] = c.cut_train_line(tgm, "flash")
+        print("train_gemma " + json.dumps(out["train_gemma"]), flush=True)
+    save()
+    if "ssm_ablation" in args.phase:
+        out["ssm_ablation"] = ssm_ablation(c)
+        save()
+    if "trace_events" in args.phase:
+        out["trace_events"] = trace_events(c)
+        save()
+    if "timing" in args.phase:
+        timing = {key: c.flash_timing(gen, dev, c.SCAN_TRAIN_B, c.GEMMA_H,
+                                      1024, c.GEMMA_HD, torch.bfloat16,
+                                      "gemma training attention",
+                                      hkv=c.GEMMA_HKV, window=window)
+                  for key, window in (("flash_attention_train_d256_window",
+                                       c.GEMMA_W),
+                                      ("flash_attention_train_d256", 0))}
+        timing["selective_scan_train"] = c.scan_timing(
+            gen, dev, c.SCAN_TRAIN_B, 1024,
+            "one layer's training scan, a rank")
+        for key, tm in timing.items():
+            c.print_timing(key, tm)
+        out["timing"] = timing
+        save()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -362,12 +362,11 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gh):
-        args = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            y, h = ref.selective_scan_ref(*args)
-        grads = torch.autograd.grad((y, h), args, (gy, gh), allow_unused=True)
-        return tuple(None if g is None else g.to(dtype)
-                     for g, dtype in zip(grads, ctx.dtypes)) + (None,)
+        # 256-step blocks rematerialised, as the reference's oracle: one
+        # block's graph alive at a time, not the whole sequence's
+        grads = ref.selective_scan_ref_vjp(*ctx.saved_tensors, gy, gh)
+        return tuple(g.to(dtype) for g, dtype in zip(grads, ctx.dtypes)) \
+            + (None,)
 
 
 def selective_scan(dt, x, b, c, a, h0, *, impl: str | None = None):

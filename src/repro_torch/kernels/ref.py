@@ -188,3 +188,43 @@ def selective_scan_ref(dt, x, b, c, a, h0):
         h = da * h + dbx
         y[:, t] = (h * c[:, t, None, :]).sum(-1)
     return y, h
+
+
+SCAN_BWD_BLOCK = 256    # time steps a block, as the reference's oracle
+
+
+def selective_scan_ref_vjp(dt, x, b, c, a, h0, gy, gh):
+    """Autograd through ``selective_scan_ref`` for the cotangents gy of y
+    and gh of h_last, one block of SCAN_BWD_BLOCK time steps at a time, as
+    the reference's oracle rematerialises its 256-step blocks
+    (``jax.checkpoint(_scan_block)``): a forward without a graph gives each
+    block's start state, then each block is run again under autograd from
+    its start state, last block first, carrying dh backwards. Only one
+    block's graph is alive at a time; the per-step ops are those of the
+    plain version, so the blocks' forward values are its values. The last
+    block may be short.
+
+    Returns (d dt, d x, d b, d c, d a, d h0), all f32."""
+    dt, x, b, c, a, h0 = (t.detach().float() for t in (dt, x, b, c, a, h0))
+    starts = range(0, dt.shape[1], SCAN_BWD_BLOCK)
+    with torch.no_grad():
+        h_starts, h = [], h0
+        for t0 in starts:
+            h_starts.append(h)
+            _, h = selective_scan_ref(*(t[:, t0:t0 + SCAN_BWD_BLOCK]
+                                        for t in (dt, x, b, c)), a, h)
+    grads = [torch.zeros_like(t) for t in (dt, x, b, c)]
+    da = torch.zeros_like(a)
+    dh = gh.float()
+    for t0, hs in zip(reversed(starts), reversed(h_starts)):
+        sl = slice(t0, t0 + SCAN_BWD_BLOCK)
+        leaves = [t[:, sl].clone().requires_grad_() for t in (dt, x, b, c)]
+        leaves += [a.clone().requires_grad_(), hs.clone().requires_grad_()]
+        with torch.enable_grad():
+            yb, hb = selective_scan_ref(*leaves)
+        *got, d_a, dh = torch.autograd.grad((yb, hb), leaves,
+                                            (gy[:, sl].float(), dh))
+        for g, d in zip(grads, got):
+            g[:, sl] = d
+        da += d_a
+    return (*grads, da, dh)

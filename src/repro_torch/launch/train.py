@@ -28,7 +28,6 @@ from __future__ import annotations
 import argparse
 import os
 import queue as queue_mod
-import socket
 import time
 import traceback
 from datetime import timedelta
@@ -186,17 +185,38 @@ def train_rank(rank: int, world: int, args, arch=None) -> dict:
                 if device.type == "cuda" else None)
 
 
-def _init_group(rank: int, world: int, args, init_method: str) -> None:
+def rendezvous(world: int, timeout_s: float):
+    """The rendezvous store of ``world`` local ranks: a TCPStore server on
+    a port the OS picks as it binds, held by the launching process until
+    its ranks are done, so no other process can take the port between its
+    choice and the ranks' meeting (``.port`` is what ``init_group``
+    takes)."""
     import torch.distributed as dist
-    dist.init_process_group("gloo", init_method=init_method, rank=rank,
-                            world_size=world,
-                            timeout=timedelta(seconds=args.timeout))
+    return dist.TCPStore("127.0.0.1", 0, world_size=world, is_master=True,
+                         wait_for_workers=False,
+                         timeout=timedelta(seconds=timeout_s))
+
+
+def init_group(rank: int, world: int, timeout_s: float,
+               port: int | None = None) -> None:
+    """Join the gloo group: through the ``rendezvous`` store on ``port``,
+    or, with no port, through torchrun's environment."""
+    import torch.distributed as dist
+    timeout = timedelta(seconds=timeout_s)
+    if port is None:
+        dist.init_process_group("gloo", init_method="env://", rank=rank,
+                                world_size=world, timeout=timeout)
+        return
+    store = dist.TCPStore("127.0.0.1", port, world_size=world,
+                          is_master=False, timeout=timeout)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world, timeout=timeout)
 
 
 def _worker(rank: int, world: int, port: int, args, arch, queue) -> None:
     import torch.distributed as dist
     try:
-        _init_group(rank, world, args, f"tcp://127.0.0.1:{port}")
+        init_group(rank, world, args.timeout, port)
         queue.put((rank, train_rank(rank, world, args, arch), None))
     except Exception:
         # the parent raises with this traceback and stops the other ranks
@@ -206,18 +226,12 @@ def _worker(rank: int, world: int, port: int, args, arch, queue) -> None:
             dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run(args, arch=None) -> list[dict]:
     """Train; returns every local rank's ``train_rank`` result by rank.
     ``arch``: an ArchConfig to train in place of ``get_arch(args.arch)``."""
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-        _init_group(rank, world, args, "env://")
+        init_group(rank, world, args.timeout)
         try:
             return [train_rank(rank, world, args, arch)]
         finally:
@@ -232,8 +246,9 @@ def run(args, arch=None) -> list[dict]:
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_worker, args=(r, n, port, args, arch, queue))
+    store = rendezvous(n, args.timeout)
+    procs = [ctx.Process(target=_worker,
+                         args=(r, n, store.port, args, arch, queue))
              for r in range(n)]
     for p in procs:
         p.start()

@@ -106,10 +106,15 @@ class Trainer:
 
 
 def _profiler(device: torch.device):
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=acts)
+    # on a card, the device's events alone: with the host's recorded too,
+    # the collectives' record_function spans (gloo:all_gather, ...) also
+    # land on the device timeline as annotations, which _device_summary
+    # would sum with the kernels they overlap; and the trace takes far
+    # longer to summarise (a falcon-mamba step launches some 115 k kernels
+    # a rank)
+    act = torch.profiler.ProfilerActivity
+    return torch.profiler.profile(
+        activities=[act.CUDA if device.type == "cuda" else act.CPU])
 
 
 def _device_summary(prof, step: int, wall_s: float, top: int = 12) -> dict:

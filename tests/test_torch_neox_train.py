@@ -38,22 +38,18 @@ from repro.models.registry import build_model as jbuild, get_arch as jget
 from repro.serve.resident import ResidentServeEngine as JEngine
 from repro.serve.resident import build_resident as jbuild_resident
 
-from repro_torch.convert import (from_jax_primaries, from_jax_state,
-                                 load_global_state)
-from repro_torch.core.engine import TrainHparams, ZeroEngine
+from repro_torch.convert import from_jax_primaries, load_global_state
 from repro_torch.core.partition import single_device_config
-from repro_torch.data.pipeline import BatchSpec
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as serve_cli
-from repro_torch.launch.mesh import TEST_AXES, Mesh, scheme_config
 from repro_torch.models.config import ShapeConfig
 from repro_torch.models.registry import build_model, get_arch
 from repro_torch.serve.resident import (ResidentLayout, ResidentServeEngine,
                                         build_resident)
-from repro_torch.train.trainer import Trainer
-from test_torch_train import (AX, RUN, _check, four_rank_run,  # noqa: F401
-                              one_torch_thread, port_run, reduced_arch,
-                              reference_run)
+from test_torch_train import (AX, RUN, _check,  # noqa: F401
+                              assert_state_converts, four_rank_run,
+                              one_torch_thread, port_run, port_train_state,
+                              reduced_arch, reference_run)
 
 NEOX = ["gpt-neox-20b", "gpt-neox-20b@hd96", "gpt-neox-10b@hd128"]
 HD128 = "gpt-neox-10b@hd128"
@@ -92,24 +88,6 @@ def test_neox_train_step_four_ranks(tmp_path):
     _check(ref, ports[0])
 
 
-def _port_train(arch: str, state_npz, steps: int) -> dict:
-    """The port's engine and trainer on (1, 1, 1), set up as
-    ``launch.train.train_rank`` sets them up for port_run's arguments, from
-    the reference's initial state; returns the state after ``steps``."""
-    a = reduced_arch(get_arch, arch)
-    model = build_model(a)
-    mesh = Mesh((1, 1, 1), TEST_AXES)
-    cfg = scheme_config("zero_topo", mesh, quant_block=RUN["quant_block"],
-                        compute_dtype="float32")
-    hp = TrainHparams(lr=RUN["lr"], total_steps=RUN["steps"],
-                      warmup_steps=max(RUN["steps"] // 20, 2))
-    eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp, device="cpu")
-    state = from_jax_state(load_global_state(state_npz), eng)
-    tr = Trainer(model, eng, BatchSpec(RUN["batch"], RUN["seq"], a.vocab),
-                 seed=0)
-    return tr.run(state, steps, log_every=0)
-
-
 @pytest.fixture(scope="module")
 def hd128_run(mesh1, tmp_path_factory):
     """The reference's 3 steps at head dim 128 on (1, 1, 1): its initial
@@ -130,7 +108,7 @@ def test_neox_only_leaves_train(hd128_run):
     gradient is near 0 turns a f32 difference of order in its sum into a
     visible change of m / sqrt(v)."""
     init = load_global_state(hd128_run / "state.npz")["master"]
-    state = _port_train(HD128, hd128_run / "state.npz", RUN["steps"])
+    state = port_train_state(HD128, hd128_run / "state.npz", RUN["steps"])
     with np.load(hd128_run / "final.npz") as z:
         for name in NEOX_ONLY:
             got = state["master"][name].numpy()
@@ -145,20 +123,8 @@ def test_neox_only_leaves_train(hd128_run):
 def test_convert_carries_neox_state(hd128_run):
     """``from_jax_state`` on the D = 128 reduction: ``lm_head`` and the
     ``_b`` leaves bit for bit in every state dict."""
-    a = reduced_arch(get_arch, HD128)
-    mesh = Mesh((1, 1, 1), TEST_AXES)
-    eng = ZeroEngine(build_model(a).leaf_specs(),
-                     scheme_config("zero_topo", mesh, quant_block=64,
-                                   compute_dtype="float32"), mesh,
-                     device="cpu")
-    port = from_jax_state(load_global_state(hd128_run / "state.npz"), eng)
-    names = NEOX_ONLY + ("neox.b_in", "neox.b_out")
-    with np.load(hd128_run / "state.npz") as z:
-        for key in ("primaries", "master", "opt_m", "opt_v"):
-            for name in names:
-                want = z[f"{key}/{name}"]
-                assert tuple(port[key][name].shape) == want.shape
-                np.testing.assert_array_equal(port[key][name].numpy(), want)
+    assert_state_converts(HD128, hd128_run / "state.npz",
+                          NEOX_ONLY + ("neox.b_in", "neox.b_out"))
 
 
 # ---------------------------------------------------------------------------

@@ -74,6 +74,18 @@ def test_train_cli_on_cpu_prints_losses(capsys):
     assert "final loss: " in out
 
 
+def test_train_cli_schemes_all_held():
+    """Every scheme the train CLI offers (``--scheme``'s choices) is held
+    against the reference on four ranks (tests/test_torch_train.py), and
+    no other: a scheme offered and not held fails here."""
+    from test_torch_train import FOUR_RANK_CASES
+
+    choices = next(a.choices for a in train.build_parser()._actions
+                   if a.dest == "scheme")
+    held = [scheme for _, scheme in FOUR_RANK_CASES]
+    assert sorted(choices) == sorted(set(held))
+
+
 def _engine_args():
     from repro_torch.launch.mesh import TEST_AXES, Mesh, scheme_config
     from repro_torch.models.registry import build_model, get_arch

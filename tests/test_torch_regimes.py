@@ -14,11 +14,19 @@
   ``tests/test_overlap.py``, ``tests/test_stream_grads.py``): the four
   combinations of overlap and streaming give bit-equal losses, grad norms
   and master shards over 3 steps, at (1, 1, 1) with 1 and 2 microbatches
-  (bf16 compute) and on 4 ranks at (1, 2, 2) with 1 (f32, from the
-  reference's ``init_state``); the collectives move the same bytes.
+  (bf16 compute) and on 4 ranks at (1, 2, 2) with 1 (f32); the collectives
+  move the same bytes. On three reductions (ARCHS): qwen2-0.5b (the
+  uniform stack), gemma3-1b (two kinds, ``attn_local`` with a window of 64
+  and ``attn_global``, through ``loop_layers``; at seq 128, where the
+  window masks, as the reference holds its heterogeneous loop path,
+  ``tests/_scenarios.py``) and falcon-mamba-7b (the mamba stack, whose
+  streamed leaves include the unfusable ``w_xproj``). On 4 ranks qwen2 and
+  gemma start from the reference's ``init_state``, falcon-mamba from the
+  port's own.
 * The regimes against the reference at (1, 2, 2), over 3 steps, within
   tests/test_torch_train.py's tolerances: the port's overlapped streaming
-  step against the reference's seed step at 1 microbatch, and against the
+  step against the reference's seed step at 1 microbatch (qwen2-0.5b and
+  gemma3-1b), and against the
   reference's streaming step at 2 (global batch 8; the stage-2
   quantization then applies per microbatch, as in the reference). The reference's overlap is not
   used: its own overlap test fails with the installed jax (ROADMAP
@@ -29,28 +37,45 @@
 """
 import functools
 import json
-import multiprocessing as mp
 import os
-import socket
 import subprocess
 import sys
-from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_train import AX, GNORM_RTOL, LOSS_RTOL, RUN, reference_run
+from test_torch_train import (AX, GNORM_RTOL, LOSS_RTOL, RUN,
+                              TRAJECTORY_GNORM_RTOL, port_forced_rank,
+                              reference_run, run_ranks)
 
 SHAPE = (1, 2, 2)
 COMBOS = [(False, False), (True, False), (False, True), (True, True)]
+# arch -> sequence length; gemma3-1b's window of 64 masks only past 64
+ARCHS = {"qwen2-0.5b": RUN["seq"], "gemma3-1b": 128,
+         "falcon-mamba-7b": RUN["seq"]}
+# the archs the 4-rank runs start from the reference's init_state (the
+# others from the port's own, seed 0)
+REF_INIT = ("qwen2-0.5b", "gemma3-1b")
 RS_BLOCK, RS_N = 64, 4 * 64 * 8        # quant block, elements per rank
 RS_AXES = {"W": "weight", "E": "extra_grad", "all": "all"}
 
 
 def _combo_id(c):
     return f"overlap{int(c[0])}-stream{int(c[1])}"
+
+
+def _cases(combos):
+    """(arch, combo) for every arch of ARCHS; qwen2-0.5b's ids are the
+    combo's alone, as before the other archs joined."""
+    return [pytest.param(arch, c, id=_combo_id(c) if arch == "qwen2-0.5b"
+                         else f"{arch}-{_combo_id(c)}")
+            for arch in ARCHS for c in combos]
+
+
+def _run_id(arch: str, c) -> str:
+    return _combo_id(c) if arch == "qwen2-0.5b" else f"{arch}-{_combo_id(c)}"
 
 
 def _rs_input() -> np.ndarray:
@@ -115,6 +140,9 @@ def _reference_main(out_dir: Path) -> None:
 
     (out_dir / "seed").mkdir()
     reference_run(mesh, out_dir / "seed")
+    (out_dir / "seed-gemma3-1b").mkdir()
+    reference_run(mesh, out_dir / "seed-gemma3-1b", arch="gemma3-1b",
+                  seq=ARCHS["gemma3-1b"], forced=True)
     (out_dir / "stream2").mkdir()
     reference_run(mesh, out_dir / "stream2", 2, batch=2 * RUN["batch"],
                   stream_grads=True)
@@ -134,10 +162,13 @@ def ref_dir(tmp_path_factory):
 # -- the port, on 4 gloo ranks --------------------------------------------------
 
 def _train(rank: int, n_mb: int, overlap: bool, stream: bool, init: Path,
-           compute_dtype: str = "float32", batch: int = RUN["batch"]):
+           compute_dtype: str = "float32", batch: int = RUN["batch"],
+           arch_name: str = "qwen2-0.5b"):
     """3 steps of the port's zero_topo step on this rank of (1, 2, 2) (or
-    one device when rank is None). Returns (losses, grad norms, master
-    shards, payload bytes per collective, memory_report)."""
+    one device when rank is None), on ``arch_name``'s reduction at its
+    sequence length (ARCHS), from ``init`` (else the port's seed-0 init).
+    Returns (losses, grad norms, master shards, payload bytes per
+    collective, memory_report)."""
     from repro_torch.convert import from_jax_state, load_global_state
     from repro_torch.core import collectives as col
     from repro_torch.core.engine import TrainHparams, ZeroEngine
@@ -146,7 +177,7 @@ def _train(rank: int, n_mb: int, overlap: bool, stream: bool, init: Path,
     from repro_torch.models.registry import build_model, get_arch
     from repro_torch.train.trainer import Trainer
 
-    arch = get_arch("qwen2-0.5b").reduced()
+    arch = get_arch(arch_name).reduced()
     model = build_model(arch)
     mesh = Mesh(SHAPE, TEST_AXES, rank) if rank is not None \
         else Mesh((1, 1, 1), TEST_AXES)
@@ -159,7 +190,7 @@ def _train(rank: int, n_mb: int, overlap: bool, stream: bool, init: Path,
     state = from_jax_state(load_global_state(init), eng) if init \
         else eng.init_state(0)
     col.reset_counters()
-    tr = Trainer(model, eng, BatchSpec(batch, RUN["seq"], arch.vocab))
+    tr = Trainer(model, eng, BatchSpec(batch, ARCHS[arch_name], arch.vocab))
     state = tr.run(state, RUN["steps"], log_every=0)
     return dict(losses=tr.log.losses, grad_norms=tr.log.grad_norms,
                 master={n: t.clone() for n, t in state["master"].items()},
@@ -189,42 +220,27 @@ def _port_rs(rank: int) -> dict:
     return out
 
 
-def _port_main(rank: int, port: int, ref_dir: Path, out_dir: Path) -> None:
-    import torch.distributed as dist
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=4,
-                            timeout=timedelta(seconds=120))
-    try:
-        runs = {_combo_id(c): _train(rank, 1, *c, ref_dir / "seed" /
-                                     "state.npz") for c in COMBOS}
-        runs["stream2"] = _train(rank, 2, True, True,
-                                 ref_dir / "stream2" / "state.npz",
-                                 batch=2 * RUN["batch"])
-        torch.save(dict(runs=runs, rs=_port_rs(rank)),
-                   out_dir / f"rank{rank}.pt")
-    finally:
-        dist.destroy_process_group()
+def _port_main(rank: int, ref_dir: Path) -> dict:
+    """The port's side of every test here, on this rank of 4."""
+    runs = {}
+    for arch in ARCHS:
+        init = None if arch not in REF_INIT else ref_dir / (
+            "seed" if arch == "qwen2-0.5b" else f"seed-{arch}") / "state.npz"
+        runs.update({_run_id(arch, c): _train(rank, 1, *c, init,
+                                              arch_name=arch)
+                     for c in COMBOS})
+    runs["gemma3-1b-forced"] = port_forced_rank(
+        rank, SHAPE, "gemma3-1b", ARCHS["gemma3-1b"],
+        ref_dir / "seed-gemma3-1b", overlap=True, stream=True)
+    runs["stream2"] = _train(rank, 2, True, True,
+                             ref_dir / "stream2" / "state.npz",
+                             batch=2 * RUN["batch"])
+    return dict(runs=runs, rs=_port_rs(rank))
 
 
 @pytest.fixture(scope="module")
 def port_ranks(ref_dir, tmp_path_factory):
-    out = tmp_path_factory.mktemp("port")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_port_main, args=(r, port, ref_dir, out))
-             for r in range(4)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=300)
-        if p.is_alive():
-            p.kill()
-            p.join()
-    assert [p.exitcode for p in procs] == [0] * 4
-    return [torch.load(out / f"rank{r}.pt") for r in range(4)]
+    return run_ranks(_port_main, 4, tmp_path_factory.mktemp("port"), ref_dir)
 
 
 # -- the bits=8 (and bits=4) reduce-scatter -------------------------------------
@@ -268,13 +284,14 @@ def _rs_members(axes: str, rank: int) -> list[int]:
 # -- the regimes inside the port -------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _local_run(n_mb: int, overlap: bool, stream: bool):
+def _local_run(arch: str, n_mb: int, overlap: bool, stream: bool):
     # one thread, as the ranks run: the reduced model gains nothing from more,
     # and beside other test workers more threads only contend
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return _train(None, n_mb, overlap, stream, None, "bfloat16")
+        return _train(None, n_mb, overlap, stream, None, "bfloat16",
+                      arch_name=arch)
     finally:
         torch.set_num_threads(threads)
 
@@ -287,32 +304,48 @@ def _assert_same_run(a: dict, b: dict):
         assert torch.equal(a["master"][n], b["master"][n]), n
 
 
-@pytest.mark.parametrize("combo", COMBOS[1:], ids=_combo_id)
+@pytest.mark.parametrize("arch,combo", _cases(COMBOS[1:]))
 @pytest.mark.parametrize("n_mb", [1, 2])
-def test_regimes_bitwise_one_device(n_mb, combo):
-    _assert_same_run(_local_run(n_mb, *combo), _local_run(n_mb, False, False))
+def test_regimes_bitwise_one_device(n_mb, arch, combo):
+    _assert_same_run(_local_run(arch, n_mb, *combo),
+                     _local_run(arch, n_mb, False, False))
 
 
-@pytest.mark.parametrize("combo", COMBOS[1:], ids=_combo_id)
-def test_regimes_bitwise_four_ranks(port_ranks, combo):
+@pytest.mark.parametrize("arch,combo", _cases(COMBOS[1:]))
+def test_regimes_bitwise_four_ranks(port_ranks, arch, combo):
     for res in port_ranks:
-        run, seed = res["runs"][_combo_id(combo)], res["runs"][_combo_id(
-            COMBOS[0])]
+        run = res["runs"][_run_id(arch, combo)]
+        seed = res["runs"][_run_id(arch, COMBOS[0])]
         _assert_same_run(run, seed)
         # only the schedule moves: the same bytes through every collective
         assert run["payload"] == seed["payload"]
 
 
-def _check_ref(ref: dict, port: dict):
+def _check_ref(ref: dict, port: dict, gnorm_rtol: float = GNORM_RTOL):
     np.testing.assert_allclose(port["losses"], ref["losses"], rtol=LOSS_RTOL)
     np.testing.assert_allclose(port["grad_norms"], ref["grad_norms"],
-                               rtol=GNORM_RTOL)
+                               rtol=gnorm_rtol)
 
 
 def test_overlap_stream_against_reference_seed(ref_dir, port_ranks):
     ref = json.loads((ref_dir / "seed" / "metrics.json").read_text())
     for res in port_ranks:
         _check_ref(ref, res["runs"][_combo_id((True, True))])
+
+
+def test_gemma_overlap_stream_against_reference_seed(ref_dir, port_ranks):
+    """gemma3-1b's overlapped streaming step at seq 128 (its loop path
+    over two kinds, the windowed layer masking) against the reference's
+    seed step: each step from the reference's state before it within
+    tests/test_torch_train.py's tolerances (forced steps), and the
+    free-running run from the same ``init_state`` with its grad norms
+    within TRAJECTORY_GNORM_RTOL (test_torch_train.py says why)."""
+    ref = json.loads((ref_dir / "seed-gemma3-1b" / "metrics.json")
+                     .read_text())
+    for res in port_ranks:
+        _check_ref(ref, res["runs"]["gemma3-1b-forced"])
+        _check_ref(ref, res["runs"][_run_id("gemma3-1b", (True, True))],
+                   TRAJECTORY_GNORM_RTOL)
 
 
 def test_stream_two_microbatches_against_reference(ref_dir, port_ranks):

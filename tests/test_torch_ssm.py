@@ -272,6 +272,51 @@ def test_selective_scan_grads_match_reference(monkeypatch, impl):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("seq", [300, 512])
+def test_selective_scan_blocked_backward(seq):
+    """The scan's backward rematerialises 256-step blocks
+    (``ref.selective_scan_ref_vjp``, what ``ops.selective_scan``'s backward
+    runs) and gives the gradients of autograd through the whole unblocked
+    sequence: at S = 300 (a block and a short one) and 512 (two whole
+    blocks), with a non-zero h0. The plain version run block by block from
+    each block's start state (what the backward re-runs) gives the whole
+    sequence's y and h_last bit for bit; each gradient is within 1e-6 of
+    its max|grad| (the gradient of ``a`` sums the blocks' shares in another
+    order; the others run the same ops). Through ``ops.selective_scan``
+    the gradients are the blocked ones exactly."""
+    rng = np.random.default_rng(seq)
+    args = [torch.from_numpy(t) for t in _scan_inputs(2, seq, 24, 16, seed=9)]
+    gy = torch.from_numpy(rng.standard_normal((2, seq, 24)).astype(np.float32))
+    gh = torch.from_numpy(rng.standard_normal((2, 24, 16)).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, h = kref.selective_scan_ref(*leaves)
+    want = torch.autograd.grad((y, h), leaves, (gy, gh))
+
+    block = kref.SCAN_BWD_BLOCK
+    assert block == 256 and seq > block
+    dt, x, b, c, a, hb = args
+    yb = []
+    for t0 in range(0, seq, block):
+        part, hb = kref.selective_scan_ref(
+            *(t[:, t0:t0 + block] for t in (dt, x, b, c)), a, hb)
+        yb.append(part)
+    assert torch.equal(torch.cat(yb, 1), y.detach())
+    assert torch.equal(hb, h.detach())
+
+    got = kref.selective_scan_ref_vjp(*args, gy, gh)
+    for name, g, w in zip(("dt", "x", "b", "c", "a", "h0"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-6 * float(w.abs().max()),
+                                   err_msg=name)
+    leaves = [t.clone().requires_grad_() for t in args]
+    yo, ho = ops.selective_scan(*leaves)
+    assert torch.equal(yo, y.detach()) and torch.equal(ho, h.detach())
+    through_ops = torch.autograd.grad((yo, ho), leaves, (gy, gh))
+    for name, g, w in zip(("dt", "x", "b", "c", "a", "h0"), through_ops, got):
+        assert torch.equal(g, w), name
+
+
 def test_mamba_loss_grads_through_kernel_branch(monkeypatch):
     """One reduced falcon-mamba ``LM.loss`` backward with the scan's kernel
     branch forced gives the plain branch's gradients for every leaf (the
