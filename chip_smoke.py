@@ -170,7 +170,19 @@ either is missing or any phase fails. Phases, in order:
             layer products and its tied head at M = 4 and 640 (head M = 1)
             on the path expected_path names, timed beside bf16 cuBLAS and
             the bound; its prefill attention (global, local, f32) timed
-            beside plain, SDPA and the bound; then its residency is freed
+            beside plain, SDPA and the bound; then its residency is freed.
+3f. deepseek: the same for deepseek-7b at published width and depth (30
+            attn layers, d_model 4,096, 32 heads of 128 over 32, SiLU-GLU
+            d_ff 11,008, RMSNorm, untied vocab 102,400; INT8 residency of
+            7.1 GB) under SERVE_KERNELS: the prefill, f32 and f32-ratio
+            prefill checks, the decode step's check, peak device memory,
+            the decode graphs in turns; the traced prefill must show 30
+            launches of the tensor-core flash kernel at head dim 128 and
+            its head (rows of 4,096) on the decode path's dmm_dec_tn_kernel;
+            its seven layer products and its head at M = 4 and 128 (head
+            M = 1) on the paths expected_path names beside bf16 cuBLAS and
+            the bound, the head also on SIMT and plain; its attention timed
+            at its prefill and training shapes; then its residency is freed
             before the training ranks start. Every serving phase
             fails if any attention call fell back to the chunked plain path
             (ops.dispatch_counters), at these fusable shapes.
@@ -196,6 +208,14 @@ either is missing or any phase fails. Phases, in order:
             as a step launches flash_attention. Prints step_s, tok/s, each
             rank's peak memory and their sum beside the card's, the phase's
             seconds. No training rank may record an attention fallback.
+            The step updates its state in place (the reference's donated
+            step), so NEOX_TRAIN_L is the deepest cut that leaves
+            TRAIN_HEADROOM of the card free; the phase prints the summed
+            peak as bytes a parameter.
+4g. train_deepseek: deepseek-7b at published width and DEEPSEEK_TRAIN_L
+            layers, held as train_neox is; the traced step must show
+            flash_attention_tc_kernel<128> as often as a step launches
+            flash_attention.
 4e. train_ssm: first one mamba layer's plain scan backward at a training
             rank's shape (B = 2, S = 1,024, D = 8,192) on the free card,
             blocked in 256 steps as the step runs it and unblocked: host
@@ -251,7 +271,8 @@ either is missing or any phase fails. Phases, in order:
             512 and causal) and the scan at falcon-mamba-7b's (B = 2, S =
             1,024) beside the plain versions, SDPA and the bounds.
 6. report : JSON lines (serve, serve_ssm, serve_neox, serve_neox10b,
-            serve_gemma, train, train_neox, train_ssm, train_gemma,
+            serve_gemma, serve_deepseek, train, train_neox, train_deepseek,
+            train_ssm, train_gemma,
             regimes, collectives,
             kernels_extra with the extra
             timing rows and every dequant_matmul shape's path, then the
@@ -341,12 +362,17 @@ GEMMA_H, GEMMA_HKV, GEMMA_HD, GEMMA_L, GEMMA_W = 4, 1, 256, 26, 512
 GEMMA_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 # gpt-neox-20b trained at published width and a cut depth on the qwen2
 # train phase's mesh, batch and sequence, 3 steps (the last traced). Each
-# layer holds 453 M parameters and embed + head 620 M; NEOX_TRAIN_L is
-# chosen from the ranks' max_memory_allocated summed (the phase prints it
-# beside the card's memory): at 2 layers (1.53 G parameters) a rank held
-# 17.97 GiB in the optimizer update of the second step and the four ran
-# the 79.18 GiB card out of memory
-NEOX_TRAIN_L = 1
+# layer holds 453 M parameters and embed + head 620 M. NEOX_TRAIN_L is the
+# deepest cut whose ranks' max_memory_allocated, summed (the phase prints
+# it beside the card's memory and as bytes a parameter), leaves at least
+# TRAIN_HEADROOM of the card free and whose plain run fits too
+# (probes/train_phases.py --phase depth): at 4 layers the kernel run's sum
+# was 64.0 GB (26.3 bytes a parameter) but the plain versions' f32
+# temporaries ran the card out of memory, with each rank's CUDA context
+# and libraries, about 2 GiB outside the allocator, beside them. Until the
+# step updated its state in place, as the reference's donated step does,
+# two layers ran the four ranks out of the card in the optimizer update
+NEOX_TRAIN_L = 3
 NEOX_TRAIN_ARGS = ["--arch", "gpt-neox-20b"] + TRAIN_ARGS[2:]
 NEOX_TRAIN_ARGS[NEOX_TRAIN_ARGS.index("--steps") + 1] = "3"
 NEOX_PROFILE_STEP = 2
@@ -369,6 +395,23 @@ TRAIN_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
 SSM_TRAIN_L, GEMMA_TRAIN_L = 2, 12
 SSM_TRAIN_ARGS = ["--arch", "falcon-mamba-7b"] + NEOX_TRAIN_ARGS[2:]
 GEMMA_TRAIN_ARGS = ["--arch", "gemma3-1b"] + NEOX_TRAIN_ARGS[2:]
+# deepseek-7b (arXiv:2401.02954), dense MHA: served at published width and
+# depth (30 layers, d_model 4,096, 32 heads of 128, SiLU-GLU d_ff 11,008,
+# untied vocab 102,400; its head's rows of 4,096 take the decode path's
+# dmm_dec_tn_kernel, 8b), and trained like gpt-neox-20b at DEEPSEEK_TRAIN_L
+# layers (839 M embed + head, 202.4 M a layer), chosen the same way: the
+# kernel run fit up to 10 layers (74.9 GB summed, 26.2 bytes a parameter),
+# the plain one not at 10, and at 7 with its reserved memory and the
+# ranks' contexts within about 1 GB of the card, too little beside this
+# script's own process
+DEEPSEEK_SERVE_ARGS = ["--arch", "deepseek-7b"] + SERVE_ARGS[2:]
+DEEPSEEK_H, DEEPSEEK_HD, DEEPSEEK_L = 32, 128, 30
+DEEPSEEK_LEAVES = GEMMA_LEAVES      # wq wk wv wo w_gate w_up w_down
+DEEPSEEK_TRAIN_L = 6
+DEEPSEEK_TRAIN_ARGS = ["--arch", "deepseek-7b"] + NEOX_TRAIN_ARGS[2:]
+# the summed peak a cut-depth phase is chosen to stay under: the card's
+# memory less this headroom (printed, not held)
+TRAIN_HEADROOM = 8 * 2 ** 30
 # the mamba block runs the scan where an attention block runs flash
 SSM_TRAIN_KERNELS = tuple("selective_scan" if k == "flash_attention" else k
                           for k in TRAIN_KERNELS)
@@ -1274,13 +1317,47 @@ def serve_phase(argv, kernels):
                 memory=layout.memory_report(), peak_bytes=peak)
 
 
+# a traced prefill's trace must hold every launch that the launch counters
+# count of these kernels (counter: a device kernel's name part)
+TRACED_KERNELS = {"flash_attention": "flash_attention_",
+                  "selective_scan": "selective_scan_kernel"}
+
+
+def trace_prefill(s, pre_k, tokens) -> dict:
+    """One kernel prefill traced by torch.profiler (_device_summary: its
+    device time and kernels), with train.trainer.pad_trace's idle card at
+    each end of the trace (the profiler drops events it reads outside its
+    window); fails if the trace misses a launch of TRACED_KERNELS that the
+    launch counters counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import _device_summary, _profiler, pad_trace
+
+    before = ops.launches()
+    prof = _profiler(s["device"])
+    with prof:
+        pad_trace(s["device"])
+        t0 = time.perf_counter()
+        pre_k(s["residency"], {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        pad_trace(s["device"])
+    traced = _device_summary(prof, 0, wall_s, top=8)
+    after = ops.launches()
+    for k, part in TRACED_KERNELS.items():
+        seen = sum(row["calls"] for row in traced["kernels"]
+                   if part in row["name"])
+        if seen != after[k] - before[k]:
+            raise Failed(f"traced {s['arch'].name} prefill: {seen} of the "
+                         f"{after[k] - before[k]} {k} launches counted")
+    return traced
+
+
 def check_prefill(s):
     """The first request's prefill through the kernels vs the plain versions,
-    and one kernel prefill traced by torch.profiler (its device time and
-    largest kernels)."""
+    and one kernel prefill traced by torch.profiler (trace_prefill: its
+    device time and largest kernels)."""
     from repro_torch.serve.resident import ResidentLayout, ResidentServeEngine
     from repro_torch.models.config import ShapeConfig
-    from repro_torch.train.trainer import _device_summary, _profiler
 
     layout = s["layout"]
     plain = ResidentLayout(layout.specs,
@@ -1297,12 +1374,7 @@ def check_prefill(s):
         lk, _ = pre_k(s["residency"], {"tokens": tokens})
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    prof = _profiler(s["device"])
-    with prof:
-        t0 = time.perf_counter()
-        pre_k(s["residency"], {"tokens": tokens})
-        torch.cuda.synchronize()
-    traced = _device_summary(prof, 0, time.perf_counter() - t0, top=8)
+    traced = trace_prefill(s, pre_k, tokens)
     lp, _ = pre_p(s["residency"], {"tokens": tokens})
     if lk.shape != (1, s["arch"].vocab) or lk.dtype != torch.float32:
         raise Failed(f"prefill logits {lk.shape} {lk.dtype}")
@@ -1719,17 +1791,21 @@ def attn_serve(argv, n_layers: int, hd: int):
         raise Failed(f"traced {s['arch'].name} prefill: "
                      f"{pf['traced_flash_calls']} launches of "
                      f"flash_attention_tc_kernel<{hd}>, not {n_layers}")
-    # the head (x @ W.T at M = 1, N = d_model) on the decode path's wide
-    # kernel where its rows are wider than DEC_TN_MAX_N
-    wide = [k for k in pf["traced"]["kernels"]
-            if "dmm_dec_tn_wide_kernel" in k["name"]]
-    pf["traced_head_wide_calls"] = sum(k["calls"] for k in wide)
-    pf["traced_head_wide_ms"] = sum(k["ms"] for k in wide)
-    want = int(s["arch"].d_model > DEC_TN_MAX_N)
-    if pf["traced_head_wide_calls"] != want:
-        raise Failed(f"traced {s['arch'].name} prefill: "
-                     f"{pf['traced_head_wide_calls']} launches of "
-                     f"dmm_dec_tn_wide_kernel, not {want}")
+    # the head (x @ W.T at M = 1, N = d_model) on the decode path: its wide
+    # kernel (8e) where the rows are wider than DEC_TN_MAX_N, else 8b
+    wide = int(s["arch"].d_model > DEC_TN_MAX_N)
+    pf["traced_head_calls"] = {}
+    for kernel, want in (("dmm_dec_tn_wide_kernel", wide),
+                         ("dmm_dec_tn_kernel", 1 - wide)):
+        rows = [k for k in pf["traced"]["kernels"] if kernel in k["name"]]
+        calls = sum(k["calls"] for k in rows)
+        pf["traced_head_calls"][kernel] = calls
+        if kernel == "dmm_dec_tn_wide_kernel":
+            pf["traced_head_wide_calls"] = calls
+            pf["traced_head_wide_ms"] = sum(k["ms"] for k in rows)
+        if calls != want:
+            raise Failed(f"traced {s['arch'].name} prefill: {calls} "
+                         f"launches of {kernel}, not {want}")
     graphs = decode_graphs(s)
     s["decode_step_graph_ms"] = statistics.mean(graphs["own"])
     s["decode_step_graph_runs"] = graphs
@@ -1773,34 +1849,29 @@ def neox10b_phase(gen, dev):
     return record, pf, timing
 
 
-def gemma_shapes(s, gen):
-    """gemma3-1b's products, from layer 0 of its local stack and its tied
-    head, per call: the seven layer products and the head at the decode
-    step's M = slots and at the prefill's M = prompt_len (head M = 1), each
-    held to the path expected_path names (a call on another path fails the
-    run), with its time, bf16 cuBLAS on the dequantized weight and the
-    bound."""
+def layer_shapes(s, gen, label: str, leaves, simt_head: bool = False):
+    """A served model's products, from layer 0 of its first stack and its
+    head (the tied embedding or lm_head), per call (shape_row): the layer
+    products ``leaves`` and the head at the decode step's M = slots and at
+    the prefill's M = prompt_len (head M = 1), each held to the path
+    expected_path names (a call on another path fails the run), with its
+    time, bf16 cuBLAS on the dequantized weight and the bound; with
+    ``simt_head`` the head also on the SIMT kernel (forced)."""
     slots, plen = s["args"].slots, s["args"].prompt_len
+    head = "embed" if s["arch"].tie_embeddings else "lm_head"
     rows = []
-    for step, m, m_head in (("gemma decode", slots, slots),
-                            ("gemma prefill", plen, 1)):
+    for step, m, m_head in ((f"{label} decode", slots, slots),
+                            (f"{label} prefill", plen, 1)):
         calls = matmul_calls(s, m, m_head, gen, n_layers=1)
-        for call, leaf in zip(calls, GEMMA_LEAVES + ("embed",)):
+        for call, leaf in zip(calls, tuple(leaves) + (head,)):
             x, _, _, (k, n), block, tr = call
             path = call_path(call)
             want = expected_path(x.shape[0], k, n, block, tr, x.dtype)
             if path != want:
                 raise Failed(f"{step} {leaf} M={x.shape[0]} ({k}, {n}): path "
                              f"{path}, expected {want}")
-            dense = dense_weights([call])
-            b, o = matmul_work([call])
-            rows.append(dict(
-                step=step, leaf=leaf, M=x.shape[0], K=k, N=n, transpose=tr,
-                path=path, ms_per_call=device_ms(run_matmuls([call]), reps=5),
-                library_ms_per_call=device_ms(run_dense([call], dense),
-                                              reps=5),
-                bound_ms_per_call=bound_ms(b, o, "bf16")[0]))
-            del dense
+            rows.append(shape_row(step, leaf, call,
+                                  simt_head and leaf == head))
     return rows
 
 
@@ -1814,7 +1885,7 @@ def gemma_phase(gen, dev):
     freed."""
     s, pf = attn_serve(GEMMA_SERVE_ARGS, GEMMA_L, GEMMA_HD)
     seq = s["args"].prompt_len
-    timing = {"shapes": gemma_shapes(s, gen)}
+    timing = {"shapes": layer_shapes(s, gen, "gemma", GEMMA_LEAVES)}
     for key, dt, win in (("flash_attention_d256", torch.bfloat16, 0),
                          ("flash_attention_d256_window", torch.bfloat16,
                           GEMMA_W),
@@ -1822,6 +1893,32 @@ def gemma_phase(gen, dev):
         timing[key] = flash_timing(gen, dev, 1, GEMMA_H, seq, GEMMA_HD, dt,
                                    "gemma prefill attention", hkv=GEMMA_HKV,
                                    window=win)
+    record = {k: s[k] for k in SERVE_RECORD}
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, pf, timing
+
+
+def deepseek_phase(gen, dev):
+    """deepseek-7b served at published width and depth (30 layers, 32 heads
+    of 128), held as neox_phase holds gpt-neox-20b, with 30 launches of the
+    tensor-core flash kernel at head dim 128 and its untied head on the
+    decode path (8b: rows of 4,096) in the traced prefill; its seven layer
+    products and its head at M = 4 and 128 (head M = 1) on the paths
+    expected_path names, the head also on SIMT and plain; its prefill and
+    training attention timed. Returns the serve record, the prefill checks
+    and the timings; the residency is freed."""
+    s, pf = attn_serve(DEEPSEEK_SERVE_ARGS, DEEPSEEK_L, DEEPSEEK_HD)
+    seq = s["args"].prompt_len
+    timing = {"shapes": layer_shapes(s, gen, "deepseek", DEEPSEEK_LEAVES,
+                                     simt_head=True)}
+    timing["flash_attention_d128_deepseek"] = flash_timing(
+        gen, dev, 1, DEEPSEEK_H, seq, DEEPSEEK_HD, torch.bfloat16,
+        "deepseek prefill attention")
+    timing["flash_attention_train_d128_deepseek"] = flash_timing(
+        gen, dev, TRAIN_M // 1024, DEEPSEEK_H, 1024, DEEPSEEK_HD,
+        torch.bfloat16, "deepseek training attention")
     record = {k: s[k] for k in SERVE_RECORD}
     del s
     gc.collect()
@@ -1942,6 +2039,11 @@ def cut_train_phase(argv, arch, kernels, traced, profile_step: int):
     from repro_torch.launch import train
 
     ap = train.build_parser()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what the card has free as the ranks start, and what this process holds
+    card_free, _ = torch.cuda.mem_get_info()
+    parent_reserved = torch.cuda.memory_reserved()
     t_phase = time.perf_counter()
     kern = train.run(ap.parse_args(argv + ["--profile-step",
                                            str(profile_step)]), arch)
@@ -1975,8 +2077,22 @@ def cut_train_phase(argv, arch, kernels, traced, profile_step: int):
                                          r["profile"]["kernels"])
                                      for r in kern],
                 peak_bytes_sum=sum(r["peak_bytes"] for r in kern),
+                plain_peak_bytes_sum=sum(r["peak_bytes"] for r in plain),
+                peak_reserved_sum=sum(r["peak_reserved_bytes"] for r in kern),
+                plain_peak_reserved_sum=sum(r["peak_reserved_bytes"]
+                                            for r in plain),
+                card_free_at_start=card_free, parent_reserved=parent_reserved,
+                params=arch_params(arch),
                 card_bytes=torch.cuda.get_device_properties(0).total_memory,
                 phase_s=time.perf_counter() - t_phase, **held)
+
+
+def arch_params(arch) -> int:
+    """The parameters of ``arch`` (logical sizes, unpadded)."""
+    from repro_torch.models.transformer import LM
+
+    return sum(s.logical_size * (s.stack or 1)
+               for s in LM(arch).leaf_specs().values())
 
 
 def neox_train_phase():
@@ -1997,6 +2113,18 @@ def ssm_train_phase():
                            SSM_TRAIN_KERNELS, ("selective_scan",
                                                "selective_scan_kernel",
                                                "selective_scan_kernel"),
+                           NEOX_PROFILE_STEP)
+
+
+def deepseek_train_phase():
+    """deepseek-7b at published width and DEEPSEEK_TRAIN_L layers, 3 steps
+    (the last traced); the traced step must show the tensor-core flash
+    kernel at head dim 128 as often as a step launches flash_attention."""
+    return cut_train_phase(DEEPSEEK_TRAIN_ARGS,
+                           cut_train_arch("deepseek-7b", DEEPSEEK_TRAIN_L),
+                           TRAIN_KERNELS, ("flash_attention",
+                                           "flash_attention_tc_kernel<",
+                                           f"<{DEEPSEEK_HD}>"),
                            NEOX_PROFILE_STEP)
 
 
@@ -2815,8 +2943,8 @@ def print_attn(nx, npf):
     print(f"  traced prefill: {npf['traced_flash_calls']} flash_attention "
           f"{npf['traced_flash_ms']:.4f} ms of "
           f"{npf['traced']['device_ms']:.3f} ms device time "
-          f"({npf['traced_flash_names']}); the head on the wide decode "
-          f"kernel: {npf['traced_head_wide_calls']} calls "
+          f"({npf['traced_flash_names']}); the head's decode kernel: "
+          f"{npf['traced_head_calls']} calls, the wide one "
           f"{npf['traced_head_wide_ms']:.4f} ms")
 
 
@@ -2848,15 +2976,23 @@ def print_cut_train(tc, what: str):
     print(f"  traced step, {what} by rank: {tc['traced']}; device kernel "
           f"calls by rank: {tc['traced_kernel_calls']}")
     spare = (tc["card_bytes"] - tc["peak_bytes_sum"]) / 2 ** 30
-    print(f"  {tc['arch'].name} at {tc['arch'].n_layers} layers: "
-          f"max_memory_allocated summed over the ranks {tc['peak_bytes_sum']} "
-          f"of {tc['card_bytes']} bytes ({spare:.2f} GiB to spare); phase "
+    print(f"  {tc['arch'].name} at {tc['arch'].n_layers} layers "
+          f"({tc['params']} parameters): max_memory_allocated summed over "
+          f"the ranks {tc['peak_bytes_sum']} of {tc['card_bytes']} bytes "
+          f"({spare:.2f} GiB to spare, {TRAIN_HEADROOM / 2 ** 30:.0f} "
+          f"wanted), {tc['peak_bytes_sum'] / tc['params']:.2f} bytes a "
+          f"parameter; plain run {tc['plain_peak_bytes_sum']} bytes; "
+          f"max_memory_reserved summed {tc['peak_reserved_sum']} (plain "
+          f"{tc['plain_peak_reserved_sum']}); the card had "
+          f"{tc['card_free_at_start']} bytes free as the ranks started, this "
+          f"process reserving {tc['parent_reserved']}; phase "
           f"{tc['phase_s']:.1f} s")
 
 
 def cut_train_line(tc, traced_key: str, **extra) -> dict:
-    """A cut-depth training phase's JSON line (train_neox, train_ssm,
-    train_gemma): step 0 pays for first use and the last is traced, so
+    """A cut-depth training phase's JSON line (train_neox, train_deepseek,
+    train_ssm, train_gemma): step 0 pays for first use and the last is
+    traced, so
     step 1 is the timed one."""
     a, n0 = tc["arch"], tc["kernel"][0]
     return dict(
@@ -2873,6 +3009,14 @@ def cut_train_line(tc, traced_key: str, **extra) -> dict:
         plain_step_s=tc["plain"][0]["step_times"],
         peak_bytes_per_rank=[r["peak_bytes"] for r in tc["kernel"]],
         peak_bytes_sum=tc["peak_bytes_sum"], card_bytes=tc["card_bytes"],
+        params=tc["params"],
+        peak_bytes_per_param=tc["peak_bytes_sum"] / tc["params"],
+        plain_peak_bytes_per_rank=[r["peak_bytes"] for r in tc["plain"]],
+        plain_peak_bytes_sum=tc["plain_peak_bytes_sum"],
+        peak_reserved_sum=tc["peak_reserved_sum"],
+        plain_peak_reserved_sum=tc["plain_peak_reserved_sum"],
+        card_free_at_start=tc["card_free_at_start"],
+        parent_reserved=tc["parent_reserved"],
         payload_bytes_per_step_per_rank={
             op: b / tc["steps"] for op, b in n0["payload_bytes"].items()},
         phase_s_per_step=[{k: v / tc["steps"] for k, v in r["phase_s"].items()}
@@ -2901,7 +3045,7 @@ def print_train(tr):
 
 
 def serve_attn_line(nx, npf) -> dict:
-    """A served attention model's JSON line (NeoX, gemma)."""
+    """A served attention model's JSON line (NeoX, gemma, deepseek)."""
     return dict(
         arch=nx["arch"].name, requests=len(nx["reqs"]), slots=nx["args"].slots,
         prompt_len=nx["args"].prompt_len, gen=nx["args"].gen,
@@ -2927,7 +3071,8 @@ def serve_attn_line(nx, npf) -> dict:
         traced_prefill_flash_ms=npf["traced_flash_ms"],
         traced_prefill_flash_calls=npf["traced_flash_calls"],
         traced_prefill_head_wide_ms=npf["traced_head_wide_ms"],
-        traced_prefill_head_wide_calls=npf["traced_head_wide_calls"])
+        traced_prefill_head_wide_calls=npf["traced_head_wide_calls"],
+        traced_prefill_head_calls=npf["traced_head_calls"])
 
 
 def sm_clock_mhz() -> float:
@@ -3054,6 +3199,14 @@ def main(argv=None) -> int:
             print_timing(key, tm)
     print_shapes(gm_t["shapes"])
 
+    phase("deepseek")
+    ds, dspf, ds_t = deepseek_phase(gen, dev)
+    print_attn(ds, dspf)
+    for key, tm in ds_t.items():
+        if key != "shapes":
+            print_timing(key, tm)
+    print_shapes(ds_t["shapes"])
+
     phase("train")
     tr = train_phase()
     print_train(tr)
@@ -3061,6 +3214,10 @@ def main(argv=None) -> int:
     phase("train_neox")
     tn = neox_train_phase()
     print_cut_train(tn, "tensor-core flash")
+
+    phase("train_deepseek")
+    tds = deepseek_train_phase()
+    print_cut_train(tds, "tensor-core flash")
 
     phase("train_ssm")
     tsm = ssm_train_phase()
@@ -3108,9 +3265,10 @@ def main(argv=None) -> int:
     t["dequantize_int8_w_xproj"] = xproj_t
     t.update({k: v for k, v in nx_t.items() if k != "shapes"})
     t["dequant_matmul_shapes"] += nx_t["shapes"] + x10_t["shapes"] \
-        + gm_t["shapes"]
+        + gm_t["shapes"] + ds_t["shapes"]
     t.update({k: v for k, v in x10_t.items() if k != "shapes"})
     t.update({k: v for k, v in gm_t.items() if k != "shapes"})
+    t.update({k: v for k, v in ds_t.items() if k != "shapes"})
     # the NeoX training step's attention forward (2 rows of 1,024 a rank) at
     # both models' head widths, and its products on 8a / 9a
     for key, h, hd in (("flash_attention_train_d96", NEOX_H, NEOX_HD),
@@ -3148,8 +3306,10 @@ def main(argv=None) -> int:
                        serve_neox=nx["launches"][name],
                        serve_neox10b=x10["launches"][name],
                        serve_gemma=gm["launches"][name],
+                       serve_deepseek=ds["launches"][name],
                        train=tr["launches"][name],
                        train_neox=tn["launches"][name],
+                       train_deepseek=tds["launches"][name],
                        train_ssm=tsm["launches"][name],
                        train_gemma=tgm["launches"][name],
                        collectives=cl_launches[name],
@@ -3162,6 +3322,8 @@ def main(argv=None) -> int:
             launches_per_train_step_per_rank=tr["per_rank_step_launches"][name],
             launches_per_neox_train_step_per_rank=tn[
                 "per_rank_step_launches"][name],
+            launches_per_deepseek_train_step_per_rank=tds[
+                "per_rank_step_launches"][name],
             launches_per_ssm_train_step_per_rank=tsm[
                 "per_rank_step_launches"][name],
             launches_per_gemma_train_step_per_rank=tgm[
@@ -3170,9 +3332,9 @@ def main(argv=None) -> int:
             tolerance=[c["tolerance"] for c in checks[name]],
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bms, bound_by=by,
             library_ms=tm["library_ms"], work=tm["work"],
-            **(dict(paths=DMM_PATHS, neox_heads=[
+            **(dict(paths=DMM_PATHS, untied_heads=[
                 r for r in t["dequant_matmul_shapes"]
-                if r.get("leaf") == "lm_head" and r["N"] > DEC_TN_MAX_N])
+                if r.get("leaf") == "lm_head" and "simt_ms_per_call" in r])
                if name == "dequant_matmul" else {})))
     dq4 = t["dequantize_int4"]["per_dtype"]["bfloat16"]
     kernels_extra = {
@@ -3192,7 +3354,8 @@ def main(argv=None) -> int:
                     "flash_attention_d256_window",
                     "flash_attention_f32_d256", "flash_attention_train_d256",
                     "flash_attention_train_d256_window",
-                    "selective_scan_train")}
+                    "selective_scan_train", "flash_attention_d128_deepseek",
+                    "flash_attention_train_d128_deepseek")}
     blk = t["dequant_matmul_blocked"]
     kernels_extra.update(
         dequant_matmul_blocked_bounds=dict(
@@ -3258,6 +3421,7 @@ def main(argv=None) -> int:
     neox_line = serve_attn_line(nx, npf)
     neox10b_line = serve_attn_line(x10, x10pf)
     gemma_line = serve_attn_line(gm, gpf)
+    deepseek_line = serve_attn_line(ds, dspf)
     k0 = tr["kernel"][0]
     # the first step pays for the kernels' first use, the last is traced
     timed = slice(1, PROFILE_STEP)
@@ -3285,6 +3449,7 @@ def main(argv=None) -> int:
         state_bytes_per_rank=k0["memory"], run_s=tr["run_s"],
         plain_run_s=tr["plain_run_s"])
     train_neox_line = cut_train_line(tn, "flash")
+    train_deepseek_line = cut_train_line(tds, "flash")
     sm_arch = tsm["arch"]
     train_ssm_line = cut_train_line(
         tsm, "scan", d_inner=sm_arch.d_inner, d_state=sm_arch.ssm.d_state,
@@ -3328,21 +3493,24 @@ def main(argv=None) -> int:
             kernels_extra=kernels_extra,
             serve=serve_line, serve_ssm=ssm_line, serve_neox=neox_line,
             serve_neox10b=neox10b_line, serve_gemma=gemma_line,
-            train=train_line,
-            train_neox=train_neox_line, train_ssm=train_ssm_line,
+            serve_deepseek=deepseek_line, train=train_line,
+            train_neox=train_neox_line, train_deepseek=train_deepseek_line,
+            train_ssm=train_ssm_line,
             train_gemma=train_gemma_line,
             regimes=regimes_line, collectives=collectives_line,
             collective_ranks=cl,
             regime_ranks=[rg["ranks"] for rg in regimes],
             train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
             train_neox_ranks=tn["kernel"], train_neox_plain_ranks=tn["plain"],
+            train_deepseek_ranks=tds["kernel"],
+            train_deepseek_plain_ranks=tds["plain"],
             train_ssm_ranks=tsm["kernel"], train_ssm_plain_ranks=tsm["plain"],
             train_gemma_ranks=tgm["kernel"],
             train_gemma_plain_ranks=tgm["plain"],
             checks=checks, timing={k: v for k, v in t.items()},
             launches=s["launches"], launches_ssm=m["launches"],
             launches_neox=nx["launches"], launches_neox10b=x10["launches"],
-            launches_gemma=gm["launches"],
+            launches_gemma=gm["launches"], launches_deepseek=ds["launches"],
             build=kcuda.BUILD_LOG,
             torch=torch.__version__, cuda=torch.version.cuda),
             indent=1, default=str))
@@ -3353,8 +3521,10 @@ def main(argv=None) -> int:
     print("serve_neox " + json.dumps(neox_line))
     print("serve_neox10b " + json.dumps(neox10b_line))
     print("serve_gemma " + json.dumps(gemma_line))
+    print("serve_deepseek " + json.dumps(deepseek_line))
     print("train " + json.dumps(train_line))
     print("train_neox " + json.dumps(train_neox_line))
+    print("train_deepseek " + json.dumps(train_deepseek_line))
     print("train_ssm " + json.dumps(train_ssm_line))
     print("train_gemma " + json.dumps(train_gemma_line))
     print("regimes " + json.dumps(regimes_line))

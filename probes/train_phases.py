@@ -25,6 +25,24 @@ Needs one CUDA card and nvcc. Phases (all by default):
   the train phases' mesh and batch for 3 steps, the last traced, once
   recording the card's events alone (what ``train.trainer`` records) and
   once the host's too; the traced device ms of each run, kernel by kernel.
+- ``depth``: gpt-neox-20b and deepseek-7b at published width on the train
+  phases' mesh and batch, 3 steps through the kernels, at each depth of
+  ``--neox-layers`` / ``--deepseek-layers`` in turn until one leaves less
+  than chip_smoke's TRAIN_HEADROOM of the card free or fails: the ranks'
+  summed max_memory_allocated, bytes a parameter, step times; then the
+  deepest depth that fit again through the plain versions (the phase runs
+  both). How NEOX_TRAIN_L and DEEPSEEK_TRAIN_L are chosen.
+- ``serve_deepseek``: chip_smoke's deepseek serving phase alone.
+- ``trace_window``: gpt-neox-20b served at published depth, then its
+  prefill traced ``--traces`` times, in turns bare (launched the moment
+  the trace starts), padded (``train.trainer.pad_trace``'s idle card
+  inside the profiler before and after the prefill, as
+  ``chip_smoke.trace_prefill`` and the trainer trace), and bare recording
+  the host's events too. For each trace: its device events, the flash
+  launches counted and traced, and the margins between the host's clock
+  (profiler entered, prefill synchronised) and the first and last device
+  event; a trace that lost events is listed with the names it lost
+  against a whole trace and its first events.
 
 With ``--out``, writes every phase's result to that JSON file.
 """
@@ -41,7 +59,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("ssm", "gemma", "timing", "scan_backward", "ssm_ablation",
-          "trace_events")
+          "trace_events", "depth", "serve_deepseek", "trace_window")
 # the ops functions turned plain, one at a time, in ``ssm_ablation``
 ABLATED = ("selective_scan", "dequant_matmul", "matmul_quant")
 
@@ -239,6 +257,161 @@ def trace_events(c) -> dict:
     return out
 
 
+def _traced_prefill(c, s, pre_k, tokens, variant: str) -> dict:
+    """One prefill under torch.profiler as ``variant`` runs it: its flash
+    launches counted and traced, the calls of every traced device kernel,
+    the first / last device event against the host's clock (us), and the
+    first few device events in time order."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import pad_trace
+
+    act = torch.profiler.ProfilerActivity
+    acts = [act.CUDA] + ([act.CPU] if variant == "bare+host" else [])
+    before = ops.launches()["flash_attention"]
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=acts)
+    with prof:
+        t_in = time.time_ns()
+        if variant == "padded":
+            pad_trace(s["device"])
+        pre_k(s["residency"], {"tokens": tokens})
+        torch.cuda.synchronize()
+        t_done = time.time_ns()
+        if variant == "padded":
+            pad_trace(s["device"])
+    counted = ops.launches()["flash_attention"] - before
+    res = prof.profiler.kineto_results
+    dev = sorted((e for e in res.events()
+                  if e.device_type() != torch.autograd.DeviceType.CPU),
+                 key=lambda e: e.start_ns())
+    calls = {}
+    for e in dev:
+        calls[e.name()] = calls.get(e.name(), 0) + 1
+    last = max(dev, key=lambda e: e.end_ns())
+    return dict(variant=variant, flash_counted=counted,
+                flash_traced=sum(n for k, n in calls.items()
+                                 if "flash_attention_" in k),
+                events=len(dev), calls=calls,
+                trace_start_after_enter_us=(res.trace_start_ns() - t_in) / 1e3,
+                first_event_after_enter_us=(dev[0].start_ns() - t_in) / 1e3,
+                last_event_before_sync_us=(t_done - last.end_ns()) / 1e3,
+                head=[(e.name()[:40], (e.start_ns() - t_in) / 1e3)
+                      for e in dev[:4]])
+
+
+MARGINS = ("trace_start_after_enter_us", "first_event_after_enter_us",
+           "last_event_before_sync_us")
+
+
+def trace_window(c, traces: int) -> dict:
+    """gpt-neox-20b's prefill traced ``traces`` times in turns bare,
+    padded and bare with the host's events (``_traced_prefill``). For each
+    variant: every trace's (device events, flash traced, margins); each
+    trace with fewer device events than the variant's most, or fewer
+    flash launches than counted, with what it lost against a whole trace
+    and its first events."""
+    import statistics
+
+    import torch
+
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve.resident import ResidentServeEngine
+
+    s = c.serve_phase(c.NEOX_SERVE_ARGS, c.SERVE_KERNELS)
+    shape = ShapeConfig("p", s["args"].prompt_len, 1, "decode")
+    tokens = torch.as_tensor(s["reqs"][0].prompt[None]).long().to(
+        s["device"])
+    pre_k = ResidentServeEngine(s["model"], s["layout"], shape).make_prefill()
+    for _ in range(3):
+        pre_k(s["residency"], {"tokens": tokens})
+    variants = ("bare", "padded", "bare+host")
+    rows = [_traced_prefill(c, s, pre_k, tokens, variants[i % 3])
+            for i in range(traces)]
+    out = {}
+    for v in variants:
+        mine = [r for r in rows if r["variant"] == v]
+        most = max(r["events"] for r in mine)
+        whole = next(r for r in mine if r["events"] == most)
+        lossy = [dict(index=rows.index(r), events=r["events"],
+                      flash=(r["flash_counted"], r["flash_traced"]),
+                      margins={k: r[k] for k in MARGINS}, head=r["head"],
+                      whole_head=whole["head"],
+                      lost={k[:60]: n - r["calls"].get(k, 0)
+                            for k, n in whole["calls"].items()
+                            if n != r["calls"].get(k, 0)})
+                 for r in mine if r["events"] < most
+                 or r["flash_traced"] != r["flash_counted"]]
+        margins = {k: dict(min=min(r[k] for r in mine),
+                           median=statistics.median(r[k] for r in mine),
+                           max=max(r[k] for r in mine)) for k in MARGINS}
+        out[v] = dict(traces=len(mine), events_most=most, lossy=lossy,
+                      margins=margins,
+                      rows=[[r["events"], r["flash_traced"]]
+                            + [round(r[k], 1) for k in MARGINS]
+                            for r in mine])
+        print(f"  trace_window {v}: {len(lossy)} of {len(mine)} traces lost "
+              f"events; margins {json.dumps(margins)}; lossy "
+              f"{json.dumps(lossy, default=str)[:3000]}", flush=True)
+    return out
+
+
+def depth_search(c, name: str, depths, argv) -> dict:
+    """``name`` at each of ``depths`` (ascending) through the kernels until
+    a depth leaves under TRAIN_HEADROOM of the card free or fails, then the
+    deepest that fit through the plain versions: each run's summed peak,
+    bytes a parameter, losses and step times (or its error)."""
+    import torch
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    out, fit = {}, None
+    for n in depths:
+        arch = c.cut_train_arch(name, n)
+        gc.collect()
+        torch.cuda.empty_cache()
+        card_free = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        try:
+            ranks = run_ranks(argv, arch)
+        except RuntimeError as e:
+            out[n] = dict(error=str(e)[-2000:], run_s=time.perf_counter() - t0)
+            print(f"  depth {name} {n}: failed after {out[n]['run_s']:.1f} s",
+                  flush=True)
+            break
+        peak = sum(r["peak_bytes"] for r in ranks)
+        params = c.arch_params(arch)
+        out[n] = dict(params=params, peak_bytes_per_rank=[
+            r["peak_bytes"] for r in ranks], peak_bytes_sum=peak,
+            bytes_per_param=peak / params, spare_gib=(card - peak) / 2 ** 30,
+            peak_reserved_sum=sum(r["peak_reserved_bytes"] for r in ranks),
+            card_free_at_start=card_free,
+            losses=ranks[0]["losses"], grad_norms=ranks[0]["grad_norms"],
+            step_s=ranks[0]["step_times"],
+            phase_s=ranks[0]["phase_s"], run_s=time.perf_counter() - t0)
+        print(f"  depth {name} {n}: {out[n]}", flush=True)
+        if card - peak < c.TRAIN_HEADROOM:
+            break
+        fit = n
+    if fit is not None:
+        t0 = time.perf_counter()
+        arch = c.cut_train_arch(name, fit)
+        try:
+            ranks = run_ranks(argv + ["--kernel-impl", "plain"], arch)
+            peak = sum(r["peak_bytes"] for r in ranks)
+            out["plain"] = dict(layers=fit, peak_bytes_sum=peak,
+                                spare_gib=(card - peak) / 2 ** 30,
+                                peak_reserved_sum=sum(
+                                    r["peak_reserved_bytes"] for r in ranks),
+                                losses=ranks[0]["losses"],
+                                grad_norms=ranks[0]["grad_norms"],
+                                run_s=time.perf_counter() - t0)
+        except RuntimeError as e:
+            out["plain"] = dict(layers=fit, error=str(e)[-2000:])
+        print(f"  depth {name} plain: {out['plain']}", flush=True)
+    return dict(card_bytes=card, runs=out, deepest_fit=fit)
+
+
 def main():
     import torch
 
@@ -250,6 +423,13 @@ def main():
                     choices=PHASES)
     ap.add_argument("--out", default="",
                     help="also write every phase's result to this file")
+    ap.add_argument("--neox-layers", type=int, nargs="*", default=[3, 4, 5],
+                    help="gpt-neox-20b depths the depth phase tries")
+    ap.add_argument("--deepseek-layers", type=int, nargs="*",
+                    default=[6, 8, 10],
+                    help="deepseek-7b depths the depth phase tries")
+    ap.add_argument("--traces", type=int, default=90,
+                    help="prefills the trace_window phase traces")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("train_phases: no CUDA device", file=sys.stderr)
@@ -290,8 +470,31 @@ def main():
     if "ssm_ablation" in args.phase:
         out["ssm_ablation"] = ssm_ablation(c)
         save()
+    if "serve_deepseek" in args.phase:
+        ds, dspf, ds_t = c.deepseek_phase(gen, dev)
+        c.print_attn(ds, dspf)
+        for key, tm in ds_t.items():
+            if key != "shapes":
+                c.print_timing(key, tm)
+        c.print_shapes(ds_t["shapes"])
+        out["serve_deepseek"] = dict(c.serve_attn_line(ds, dspf),
+                                     shapes=ds_t["shapes"])
+        print("serve_deepseek " + json.dumps(out["serve_deepseek"],
+                                             default=str), flush=True)
+        save()
+    if "depth" in args.phase:
+        out["depth"] = {
+            name: depth_search(c, name, layers, argv)
+            for name, layers, argv in (
+                ("gpt-neox-20b", args.neox_layers, c.NEOX_TRAIN_ARGS),
+                ("deepseek-7b", args.deepseek_layers,
+                 c.DEEPSEEK_TRAIN_ARGS))}
+        save()
     if "trace_events" in args.phase:
         out["trace_events"] = trace_events(c)
+        save()
+    if "trace_window" in args.phase:
+        out["trace_window"] = trace_window(c, args.traces)
         save()
     if "timing" in args.phase:
         timing = {key: c.flash_timing(gen, dev, c.SCAN_TRAIN_B, c.GEMMA_H,

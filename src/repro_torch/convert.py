@@ -60,7 +60,10 @@ STATE_KEYS = ("primaries", "master", "opt_m", "opt_v")
 def from_jax_state(state: dict, engine) -> dict:
     """The reference's global state -> this rank's port state. The arrays
     may be numpy (bf16 as ml_dtypes' bfloat16) or torch tensors (as
-    ``load_global_state`` returns them)."""
+    ``load_global_state`` returns them). Every returned tensor is a copy the
+    engine owns (``engine.shard_primary`` / ``shard_os`` clone), since its
+    step updates the state in place: the caller's arrays stay as they
+    were."""
     specs = engine.specs
     out = {"step": int(state["step"])}
     for key in STATE_KEYS:

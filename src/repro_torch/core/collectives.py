@@ -297,7 +297,9 @@ def cross_replica_grad(x, cfg: ZeroConfig, out_dtype=torch.float32):
         full = full + parts[j].float()
     piece = x.shape[-1] // r
     i = axis_index(axes, cfg)
-    return full[..., i * piece:(i + 1) * piece].to(out_dtype)
+    # a copy, not a view: the step scales and consumes it in place, and a
+    # view would keep all R slices alive until then
+    return full[..., i * piece:(i + 1) * piece].to(out_dtype, copy=True)
 
 
 def update_all_gather(master_shard: torch.Tensor, cfg: ZeroConfig,

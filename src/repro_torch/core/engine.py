@@ -25,7 +25,8 @@ One step:
 2. Stage 2: the INT4 all-to-all reduce-scatter over E.
 3. The cross-replica sync over R.
 4. Grad-norm clipping (``det_psum``: the same sum on every process layout),
-   AdamW on the master shard.
+   AdamW on the master shard, in place: the step consumes its state, as the
+   reference's step donates it.
 5. The update all-gather over E + R rebuilds the primary shards.
 
 With ``stream_grads`` the stacked MATMUL / GATHER_Q leaves run steps 2 and 3
@@ -48,7 +49,7 @@ from typing import Callable
 import torch
 
 from ..device import resolve
-from ..optim.adamw import adamw_update, cosine_lr
+from ..optim.adamw import adamw_update_, cosine_lr
 from . import collectives as col
 from . import schedule as sched
 from .linear import PlainGather, ZeroGatherQ, ZeroMatmul, _dtype, gather_issue
@@ -368,11 +369,20 @@ class ZeroEngine:
 
     @staticmethod
     def _grad(leaf) -> torch.Tensor:
+        """A leaf's f32 grad (a stacked leaf's rows into one tensor); each
+        row's own ``.grad`` is dropped as it is taken, so the compute-dtype
+        grads and their f32 form are not all alive at once."""
         def one(t):
-            return torch.zeros_like(t, dtype=torch.float32) if t.grad is None \
+            g = torch.zeros_like(t, dtype=torch.float32) if t.grad is None \
                 else t.grad.float()
+            t.grad = None
+            return g
         if isinstance(leaf, list):
-            return torch.stack([one(t) for t in leaf])
+            out = torch.empty((len(leaf),) + tuple(leaf[0].shape),
+                              dtype=torch.float32, device=leaf[0].device)
+            for i, t in enumerate(leaf):
+                out[i] = one(t)
+            return out
         return one(leaf)
 
     def local_grads(self, loss_fn: Callable, primaries, batch):
@@ -430,10 +440,14 @@ class ZeroEngine:
         return col.cross_replica_grad(g, self.leaf_cfg[name])
 
     def _clip_grads(self, os_grads: dict):
+        """Scales the optimizer-shard grads in place; returns the global
+        grad norm."""
         sq = sum(g.square().sum() for g in os_grads.values())
         gnorm = torch.sqrt(col.det_psum(sq, self.cfg.axes.all, self.cfg))
         scale = torch.clamp(self.hp.grad_clip / (gnorm + 1e-6), max=1.0)
-        return {n: g * scale for n, g in os_grads.items()}, gnorm
+        for g in os_grads.values():
+            g.mul_(scale)
+        return gnorm
 
     def _lr(self, step: int):
         hp = self.hp
@@ -442,23 +456,27 @@ class ZeroEngine:
                          device=self.device)
 
     def _apply_updates(self, state, os_grads: dict):
+        """AdamW on each leaf's master, m and v in place, then its primary
+        replaced by the update all-gather's result before the next leaf, so
+        no second copy of the state or of the primaries is ever alive. Each
+        leaf's grad is dropped from ``os_grads`` once it is used."""
         hp = self.hp
         step = state["step"] + 1
         lr = self._lr(state["step"])
         b1, b2 = hp.betas
         cdt = _dtype(self.cfg)
-        new = dict(primaries={}, master={}, opt_m={}, opt_v={}, step=step)
         for n in sorted(self.specs):
             wd = hp.weight_decay \
                 if self.specs[n].kind in (MATMUL, GATHER_Q) else 0.0
-            master, m, v = adamw_update(
+            master, _, _ = adamw_update_(
                 state["master"][n], state["opt_m"][n], state["opt_v"][n],
-                os_grads[n], step=step, lr=lr, beta1=b1, beta2=b2,
+                os_grads.pop(n), step=step, lr=lr, beta1=b1, beta2=b2,
                 eps=hp.eps, weight_decay=wd)
-            new["master"][n], new["opt_m"][n], new["opt_v"][n] = master, m, v
-            new["primaries"][n] = col.update_all_gather(master, self.leaf_cfg[n],
-                                                        cdt)
-        return new, lr
+            state["primaries"][n] = None      # freed before the gather
+            state["primaries"][n] = col.update_all_gather(
+                master, self.leaf_cfg[n], cdt)
+        state["step"] = step
+        return state, lr
 
     def _phase(self, name: str, t0: float) -> float:
         if self.device.type == "cuda":
@@ -468,21 +486,30 @@ class ZeroEngine:
         return t1
 
     def train_step(self, loss_fn: Callable, state, batch):
-        """One step; returns (new state, metrics) with the metrics global
-        over the mesh: loss, grad_norm, lr, tokens (f32 scalars). Adds the
-        host time of its phases to ``phase_s``: "grads" (forward, backward
-        and stage 1), "stage2" (+ the replica sync), "update" (clip, AdamW,
-        update all-gather)."""
+        """One step; returns (state, metrics) with the metrics global over
+        the mesh: loss, grad_norm, lr, tokens (f32 scalars).
+
+        The step consumes ``state``, as the reference's step donates its
+        state (``jax.jit(..., donate_argnums=(0,))``,
+        ``src/repro/core/engine.py:643``): the returned state is the same
+        dict, its ``master`` / ``opt_m`` / ``opt_v`` tensors updated in
+        place and its primaries replaced, so a caller that still needs the
+        state before the step keeps a copy of its own. Adds the host time of
+        its phases to ``phase_s``: "grads" (forward, backward and stage 1),
+        "stage2" (+ the replica sync), "update" (clip, AdamW, update
+        all-gather)."""
         t = time.perf_counter()
         grads, loss, gtok = self.local_grads(loss_fn, state["primaries"], batch)
         t = self._phase("grads", t)
         streamed = self.stream_leaf_names() if self.cfg.stream_grads else ()
-        os_grads = {n: grads[n] if n in streamed else
-                    self._replica_sync(n, self._stage2_rs(n, grads[n]))
-                    for n in sorted(self.specs)}
-        del grads
+        os_grads = {}
+        for n in sorted(self.specs):      # each stage-1 grad freed once used
+            g = grads.pop(n)
+            os_grads[n] = g if n in streamed else \
+                self._replica_sync(n, self._stage2_rs(n, g))
+            del g
         t = self._phase("stage2", t)
-        os_grads, gnorm = self._clip_grads(os_grads)
-        new_state, lr = self._apply_updates(state, os_grads)
+        gnorm = self._clip_grads(os_grads)
+        state, lr = self._apply_updates(state, os_grads)
         self._phase("update", t)
-        return new_state, dict(loss=loss, grad_norm=gnorm, lr=lr, tokens=gtok)
+        return state, dict(loss=loss, grad_norm=gnorm, lr=lr, tokens=gtok)

@@ -182,6 +182,8 @@ def train_rank(rank: int, world: int, args, arch=None) -> dict:
                 phase_s=dict(eng.phase_s), profile=log.meta.get("profile"),
                 memory=eng.memory_report(),
                 peak_bytes=torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else None,
+                peak_reserved_bytes=torch.cuda.max_memory_reserved(device)
                 if device.type == "cuda" else None)
 
 
@@ -215,6 +217,13 @@ def init_group(rank: int, world: int, timeout_s: float,
 
 def _worker(rank: int, world: int, port: int, args, arch, queue) -> None:
     import torch.distributed as dist
+    if args.device != "cpu":
+        # local ranks share the cards round-robin (four on one H100): with
+        # growable segments a rank's freed blocks do not stay reserved in
+        # fixed segments the other ranks cannot use (set before this
+        # process's first allocation; a caller's own setting stands)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     try:
         init_group(rank, world, args.timeout, port)
         queue.put((rank, train_rank(rank, world, args, arch), None))

@@ -4,6 +4,9 @@ Port of ``repro.optim.adamw`` (``adamw_update`` :20, ``cosine_lr`` :36).
 Every rank updates only its optimizer shard of the fp32 master (paper §V-C),
 so the optimizer itself needs no communication. Scalars are f32 tensors, as
 they are f32 arrays in the reference.
+
+``adamw_update_`` writes the step into the given master, m and v: what the
+reference's step does to its donated state (``src/repro/core/engine.py:643``).
 """
 from __future__ import annotations
 
@@ -19,20 +22,28 @@ class AdamWOut(NamedTuple):
     v: torch.Tensor
 
 
-def adamw_update(master, m, v, grad, *, step: int, lr, beta1: float = 0.9,
-                 beta2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.0) -> AdamWOut:
-    """One decoupled-weight-decay Adam step on a flat fp32 shard. ``step`` is
-    the 1-based step index (bias correction); ``lr`` an f32 scalar."""
+def adamw_update_(master, m, v, grad, *, step: int, lr, beta1: float = 0.9,
+                  beta2: float = 0.95, eps: float = 1e-8,
+                  weight_decay: float = 0.0) -> AdamWOut:
+    """One decoupled-weight-decay Adam step on a flat fp32 shard, in place:
+    ``master``, ``m`` and ``v`` take the new values and are returned.
+    ``step`` is the 1-based step index (bias correction); ``lr`` an f32
+    scalar. Every element goes through the reference's f32 operations in
+    its order, each product and sum rounded on its own (no fused ``alpha=``
+    / ``addcmul_`` forms); at most two shard-sized temporaries live at
+    once."""
     g = grad.float()
-    m = beta1 * m + (1 - beta1) * g
-    v = beta2 * v + (1 - beta2) * g.square()
+    m.mul_(beta1).add_(g * (1 - beta1))
+    sq = g.square()
+    v.mul_(beta2).add_(sq.mul_(1 - beta2))
+    del sq
     t = torch.tensor(float(step), dtype=torch.float32, device=master.device)
-    mh = m / (1 - torch.pow(beta1, t))
+    upd = m / (1 - torch.pow(beta1, t))
     vh = v / (1 - torch.pow(beta2, t))
-    upd = mh / (vh.sqrt() + eps)
-    new_master = master * (1 - lr * weight_decay) - lr * upd
-    return AdamWOut(new_master, m, v)
+    upd.div_(vh.sqrt_().add_(eps))
+    del vh
+    master.mul_(1 - lr * weight_decay).sub_(upd.mul_(lr))
+    return AdamWOut(master, m, v)
 
 
 def cosine_lr(step: int, *, base_lr: float, warmup_steps: int,

@@ -6,7 +6,8 @@ checkpoints. Step time is the host clock around one step that ends in
 ``torch.cuda.synchronize()`` on a card (the metrics' host copies
 synchronize on any device); the first step's time includes the kernels'
 first use. ``run(profile_step=i)`` traces step i with ``torch.profiler``
-and keeps the device time of its kernels in ``TrainLog.meta["profile"]``.
+(``pad_trace`` at each end on a card, outside the step's time) and keeps
+the device time of its kernels in ``TrainLog.meta["profile"]``.
 """
 from __future__ import annotations
 
@@ -81,19 +82,26 @@ class Trainer:
 
     def run(self, state, n_steps: int, *, log_every: int = 1, print_fn=print,
             profile_step: int | None = None):
+        """``n_steps`` steps from ``state``; returns the state after them.
+        ``state`` is consumed, as the reference's donated step consumes it
+        (``src/repro/core/engine.py:643``; ``ZeroEngine.train_step``): its
+        tensors are updated in place, so a caller that needs the state it
+        started from keeps a copy of its own."""
         loss_fn = self.model.lm.loss
         for i in range(n_steps):
             batch = self._batch(i)
             prof = _profiler(self.engine.device) if i == profile_step else None
-            t0 = time.perf_counter()
             if prof is not None:
                 prof.__enter__()
+                pad_trace(self.engine.device)
+            t0 = time.perf_counter()
             state, metrics = self.engine.train_step(loss_fn, state, batch)
             if self.engine.device.type == "cuda":
                 torch.cuda.synchronize(self.engine.device)
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             if prof is not None:
+                pad_trace(self.engine.device)
                 prof.__exit__(None, None, None)
                 self.log.meta["profile"] = _device_summary(prof, i, dt)
             self.log.record(state["step"], metrics, dt)
@@ -103,6 +111,24 @@ class Trainer:
                          f"lr {metrics['lr']:.3e} {dt:.3f}s/step "
                          f"{metrics['tokens'] / dt:.0f} tok/s")
         return state
+
+
+# torch.profiler (Kineto) drops every device event whose timestamp falls
+# outside the window between entering and leaving the profiler, and it
+# reads the card's timestamps some hundreds of microseconds, and at times
+# a few milliseconds, off the host's clock: work launched the moment a
+# trace starts can lose its first kernels (probes/train_phases.py --phase
+# trace_window). A trace on a card keeps this much idle card at each end.
+TRACE_PAD_S = 0.05
+
+
+def pad_trace(device: torch.device) -> None:
+    """Inside a trace on a card, after its work is synchronised or before
+    any is launched: TRACE_PAD_S of idle card, so the work's events lie
+    inside the profiler's window; nothing on another device."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        time.sleep(TRACE_PAD_S)
 
 
 def _profiler(device: torch.device):

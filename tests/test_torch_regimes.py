@@ -26,7 +26,8 @@
 * The regimes against the reference at (1, 2, 2), over 3 steps, within
   tests/test_torch_train.py's tolerances: the port's overlapped streaming
   step against the reference's seed step at 1 microbatch (qwen2-0.5b and
-  gemma3-1b), and against the
+  gemma3-1b: each step from the reference's state before it, the
+  free-running trajectory at TRAJECTORY_GNORM_RTOL), and against the
   reference's streaming step at 2 (global batch 8; the stage-2
   quantization then applies per microbatch, as in the reference). The reference's overlap is not
   used: its own overlap test fails with the installed jax (ROADMAP
@@ -139,7 +140,7 @@ def _reference_main(out_dir: Path) -> None:
     (out_dir / "memory.json").write_text(json.dumps(mem))
 
     (out_dir / "seed").mkdir()
-    reference_run(mesh, out_dir / "seed")
+    reference_run(mesh, out_dir / "seed", forced=True)
     (out_dir / "seed-gemma3-1b").mkdir()
     reference_run(mesh, out_dir / "seed-gemma3-1b", arch="gemma3-1b",
                   seq=ARCHS["gemma3-1b"], forced=True)
@@ -229,6 +230,9 @@ def _port_main(rank: int, ref_dir: Path) -> dict:
         runs.update({_run_id(arch, c): _train(rank, 1, *c, init,
                                               arch_name=arch)
                      for c in COMBOS})
+    runs["qwen2-0.5b-forced"] = port_forced_rank(
+        rank, SHAPE, "qwen2-0.5b", ARCHS["qwen2-0.5b"], ref_dir / "seed",
+        overlap=True, stream=True)
     runs["gemma3-1b-forced"] = port_forced_rank(
         rank, SHAPE, "gemma3-1b", ARCHS["gemma3-1b"],
         ref_dir / "seed-gemma3-1b", overlap=True, stream=True)
@@ -328,9 +332,18 @@ def _check_ref(ref: dict, port: dict, gnorm_rtol: float = GNORM_RTOL):
 
 
 def test_overlap_stream_against_reference_seed(ref_dir, port_ranks):
+    """qwen2-0.5b's overlapped streaming step against the reference's seed
+    step, as the gemma3-1b case below is held: each step from the
+    reference's state before it within tests/test_torch_train.py's
+    tolerances (forced steps), then the free-running run from the same
+    ``init_state`` with its grad norms within TRAJECTORY_GNORM_RTOL (its
+    step 3 drifts past GNORM_RTOL on some hosts; test_torch_train.py says
+    why)."""
     ref = json.loads((ref_dir / "seed" / "metrics.json").read_text())
     for res in port_ranks:
-        _check_ref(ref, res["runs"][_combo_id((True, True))])
+        _check_ref(ref, res["runs"]["qwen2-0.5b-forced"])
+        _check_ref(ref, res["runs"][_combo_id((True, True))],
+                   TRAJECTORY_GNORM_RTOL)
 
 
 def test_gemma_overlap_stream_against_reference_seed(ref_dir, port_ranks):

@@ -7,6 +7,10 @@ the residency must then match bit for bit, prefill and teacher-forced decode
 logits within rtol=atol=1e-4 (the matmuls sum in another order), and the
 continuous batcher must emit the same greedy tokens with the same
 admission / rejection / preemption / retirement counts.
+
+Each test's body is a ``hold_*`` function of (reference setup, port setup),
+so other dense full-attention models run the same checks on their own
+``_pair(arch)`` (tests/test_torch_deepseek.py).
 """
 import functools
 
@@ -35,16 +39,19 @@ from repro_torch.models.registry import build_model, get_arch
 from repro_torch.serve.resident import (ResidentLayout, ResidentServeEngine,
                                         build_resident)
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, ServeSLO
+from test_torch_train import reduced_arch
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 AX = ("data", "node", "gcd")
+ARCH = "qwen2-0.5b"
 
 
-@functools.lru_cache(maxsize=1)
-def _pair():
-    """(reference setup, port setup) sharing one set of weights."""
+@functools.lru_cache(maxsize=2)
+def _pair(arch: str = ARCH):
+    """(reference setup, port setup) sharing one set of weights, on the
+    reduction ``arch`` names (test_torch_train.reduced_arch)."""
     mesh = make_test_mesh(shape=(1, 1, 1), axes=AX)
-    jarch = jget("qwen2-0.5b").reduced()
+    jarch = reduced_arch(jget, arch)
     jmodel = jbuild(jarch)
     jcfg = scheme_config("zero_topo", mesh, quant_block=64,
                          compute_dtype="float32")
@@ -54,7 +61,7 @@ def _pair():
     ref = dict(mesh=mesh, arch=jarch, model=jmodel, eng=eng, state=state,
                res=jres)
 
-    arch = get_arch("qwen2-0.5b").reduced()
+    arch = reduced_arch(get_arch, arch)
     model = build_model(arch)
     layout = ResidentLayout(model.leaf_specs(), single_device_config(
         "zero_topo", quant_block=64, compute_dtype="float32"))
@@ -71,7 +78,10 @@ def _tokens(seed, shape, vocab):
 
 
 def test_convert_carries_primaries():
-    ref, port = _pair()
+    hold_convert(*_pair())
+
+
+def hold_convert(ref, port):
     assert set(port["prim"]) == set(ref["state"]["primaries"])
     for name, a in ref["state"]["primaries"].items():
         t = port["prim"][name]
@@ -80,14 +90,22 @@ def test_convert_carries_primaries():
 
 
 def test_residency_bitwise():
-    ref, port = _pair()
+    # embed + the 7 projections of the block
+    hold_residency(*_pair(), ["attn.w_down", "attn.w_gate", "attn.w_up",
+                              "attn.wk", "attn.wo", "attn.wq", "attn.wv",
+                              "embed"])
+
+
+def hold_residency(ref, port, wire_names):
+    """Every residency entry bit for bit; the INT8 (wire) leaves are
+    exactly ``wire_names``."""
     layout = port["layout"]
     assert set(port["res"]) == set(ref["res"])
-    n_wire = 0
+    wire = []
     for name, entry in ref["res"].items():
         mine = port["res"][name]
         if layout.mode(name) == "wire":
-            n_wire += 1
+            wire.append(name)
             np.testing.assert_array_equal(mine["q"].numpy(),
                                           np.asarray(entry["q"]))
             np.testing.assert_array_equal(
@@ -95,7 +113,7 @@ def test_residency_bitwise():
                 np.asarray(entry["s"]).view(np.uint32))
         else:
             np.testing.assert_array_equal(mine.numpy(), np.asarray(entry))
-    assert n_wire == 1 + 7          # embed + the 7 projections of the block
+    assert sorted(wire) == sorted(wire_names)
 
 
 def _prefill_both(ref, port, tokens):
@@ -110,7 +128,10 @@ def _prefill_both(ref, port, tokens):
 
 
 def test_prefill_logits_and_caches():
-    ref, port = _pair()
+    hold_prefill(*_pair())
+
+
+def hold_prefill(ref, port):
     tokens = _tokens(0, (2, 16), port["arch"].vocab)
     (jl, jc), (tl, tc) = _prefill_both(ref, port, tokens)
     assert tl.shape == (2, port["arch"].vocab) and tl.dtype == torch.float32
@@ -129,7 +150,11 @@ def test_decode_teacher_forced():
     more than the tolerance. So the caches are held to one bf16 rounding of
     values that agree to 1e-5 (rtol=2**-7, atol=1e-5), and the logits to
     1e-4 per step."""
-    ref, port = _pair()
+    hold_decode(*_pair())
+
+
+def hold_decode(ref, port):
+    """``test_decode_teacher_forced`` on a pair."""
     plen, max_len, steps = 8, 16, 6
     vocab = port["arch"].vocab
     tokens = _tokens(1, (2, plen), vocab)
@@ -165,7 +190,7 @@ def _bf16_torch(a) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
 
 
-@pytest.mark.parametrize("case", [
+BATCHER_CASES = [
     # fully provisioned: 3 requests recycle 2 slots
     dict(n_slots=2, max_len=24, prompt_len=8, page_size=4, n_pages=0,
          n_req=3, max_new=5, max_queue_steps=0, expect=None),
@@ -176,9 +201,16 @@ def _bf16_torch(a) -> torch.Tensor:
     # one slot and a short queue-wait bound: late requests are rejected
     dict(n_slots=1, max_len=32, prompt_len=8, page_size=0, n_pages=0,
          n_req=6, max_new=8, max_queue_steps=3, expect="rejected"),
-], ids=["provisioned", "oversubscribed", "slo_reject"])
+]
+BATCHER_IDS = ["provisioned", "oversubscribed", "slo_reject"]
+
+
+@pytest.mark.parametrize("case", BATCHER_CASES, ids=BATCHER_IDS)
 def test_batcher_tokens_and_counters(case):
-    ref, port = _pair()
+    hold_batcher(*_pair(), case)
+
+
+def hold_batcher(ref, port, case):
     vocab = port["arch"].vocab
     prompts = [_tokens(10 + i, (case["prompt_len"],), vocab)
                for i in range(case["n_req"])]
@@ -213,7 +245,10 @@ def test_batcher_tokens_and_counters(case):
 def test_generate_greedy_tokens():
     """``ResidentServeEngine.generate`` (prefill, then scalar-position
     decode over the prefill cache) emits the reference's greedy tokens."""
-    ref, port = _pair()
+    hold_generate(*_pair())
+
+
+def hold_generate(ref, port):
     tokens = _tokens(3, (2, 8), port["arch"].vocab)
     jtoks = JEngine(ref["model"], ref["eng"], ref["mesh"],
                     JShape("g", 8, 2, "decode")).generate(

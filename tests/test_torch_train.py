@@ -42,8 +42,10 @@ moves its m; where the element's gradient is near 0, Adam's first update
 side and not the other, and step 3's grad norm follows: falcon-mamba-7b's
 and gemma3-1b's reductions at (1, 2, 2) differ by 3.1e-4 and 2.7e-4 there
 while the same step from the reference's state differs by 1.5e-5 and
-2.4e-6. Such trajectories are held at TRAJECTORY_GNORM_RTOL, ten times the
-measured, and every step also forced.
+2.4e-6; qwen2-0.5b's zero_topo run at (1, 2, 2) by 3.57e-4 on one host
+(4.3e-7 forced) and within GNORM_RTOL on another, the same code. Such
+trajectories are held at TRAJECTORY_GNORM_RTOL, ten times the measured,
+and every step also forced.
 """
 import json
 import multiprocessing as mp
@@ -369,18 +371,36 @@ FOUR_RANK_CASES = [((1, 2, 2), "zero_topo"), ((2, 1, 2), "zero_topo"),
                    ((1, 2, 2), "zero1"), ((1, 2, 2), "zero2")]
 
 
+# the cases held by forced steps: their free-running trajectories drift
+# past GNORM_RTOL at step 3 on some hosts (qwen2's zero_topo at (1, 2, 2):
+# 3.57e-4, while the same step from the reference's state differs by
+# 4.3e-7; the module docstring says why)
+FORCED_CASES = (((1, 2, 2), "zero_topo"),)
+
+
 @pytest.mark.parametrize("shape,scheme", FOUR_RANK_CASES)
 def test_train_step_four_ranks(tmp_path, shape, scheme):
     """4 gloo ranks against the reference on 4 host devices: every scheme
     the train CLI offers (``zero1``: the optimizer state over all four
     ranks, the cross-replica all-reduce and select; ``zero2``: the
-    gradients reduce-scattered over all four in f32)."""
-    ref, ports = four_rank_run(tmp_path, shape, scheme)
+    gradients reduce-scattered over all four in f32). The FORCED_CASES
+    hold each step from the reference's state before it at slice 2's
+    tolerances first, then the free-running run's grad norms within
+    TRAJECTORY_GNORM_RTOL."""
+    forced = (shape, scheme) in FORCED_CASES
+    if forced:
+        ref, ports, steps = forced_four_rank_run(tmp_path, ARCH)
+        for f in steps:
+            assert f == steps[0]
+        _check(ref, steps[0])
+    else:
+        ref, ports = four_rank_run(tmp_path, shape, scheme)
     assert [p["rank"] for p in ports] == [0, 1, 2, 3]
     for p in ports:   # the metrics are global: every rank reports the same
         assert p["losses"] == ports[0]["losses"]
         assert p["grad_norms"] == ports[0]["grad_norms"]
-    _check(ref, ports[0])
+    _check(ref, ports[0],
+           gnorm_rtol=TRAJECTORY_GNORM_RTOL if forced else GNORM_RTOL)
 
 
 def _bf16_dw_rank(rank: int) -> list:
