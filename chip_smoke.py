@@ -190,7 +190,8 @@ either is missing or any phase fails. Phases, in order:
             width and depth under zero_topo on the mesh (data, node, gcd) =
             (1, 2, 2), four ranks (processes) on this one card over gloo,
             quant block 128, bf16, global batch 8 x seq 1024, 5 steps from
-            seed 0, the last one traced by torch.profiler. Each rank zeroes
+            seed 0, the last one traced by torch.profiler, saving a
+            checkpoint after step 3 (for 4h). Each rank zeroes
             its counters before its steps and reads them after: every kernel
             of TRAIN_KERNELS must have launched on every rank (the report
             gives every kernel's count). Then the same steps from the same
@@ -233,6 +234,22 @@ either is missing or any phase fails. Phases, in order:
             step must show flash_attention_tc_kernel<256> as often as a
             step launches flash_attention. Both print what train_neox
             prints, and no training rank may record an attention fallback.
+4h. ckpt   : the train phase's kernel run also saves a checkpoint after
+            its step 3 (CKPT_DIR, per_process: a file a rank a leaf; the
+            JAX package's v1 format). (a) The same run resumed from it on
+            the same 4 ranks for 2 steps, whose losses and grad norms must
+            be the kernel run's steps 4 and 5 bit for bit; (b) resumed on
+            2 ranks, (1, 1, 2), for one step (elastic restore: the
+            optimizer shards double, each rank reads two writers' files),
+            its loss held against step 4's at TRAIN_LOSS_RTOL, its grad
+            norm reported; (c) --strict-restore on 2 ranks must fail with
+            MeshMismatch before any rank starts. In (a) and (b) each rank
+            reports the sha256 of every shard it restored and this script
+            hashes the same slices read from the files with numpy, by its
+            own code; every kernel of TRAIN_KERNELS must launch on every
+            rank, with no attention fallback. Prints the bytes on disk,
+            save and restore seconds a rank, each leg's step_s and peak
+            memory; CKPT_DIR is removed at the end, and on a failure.
 4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
             quantized reduce-scatter at bits 4 and 8 over W, E and all four
             ranks on an embedding-sized f32 shard each; every kernel of
@@ -273,11 +290,11 @@ either is missing or any phase fails. Phases, in order:
 6. report : JSON lines (serve, serve_ssm, serve_neox, serve_neox10b,
             serve_gemma, serve_deepseek, train, train_neox, train_deepseek,
             train_ssm, train_gemma,
-            regimes, collectives,
+            regimes, collectives, ckpt,
             kernels_extra with the extra
             timing rows and every dequant_matmul shape's path, then the
             kernels line: all 11 kernels with their launches on every
-            path), the card's name and
+            path, the ckpt legs' included), the card's name and
             power limit (nvidia-smi), and last the line
             {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -288,16 +305,20 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -332,6 +353,13 @@ TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--scheme", "zero_topo", "--devices", "4",
               "--quant-block", "128", "--compute-dtype", "bfloat16",
               "--seed", "0", "--timeout", "600"]
 PROFILE_STEP = 4        # the kernel run traces its last step
+# the kernel run also saves a checkpoint after its step CKPT_EVERY (of 5),
+# which the ckpt phase resumes on 4 ranks for CKPT_HELD_STEPS steps (held
+# against the kernel run's next ones), on 2 ranks for one step, and
+# strictly on 2 ranks (refused); the phase removes it
+CKPT_DIR = ROOT / "build" / "ckpt_smoke"
+CKPT_EVERY = 3
+CKPT_HELD_STEPS = 2
 # kernels vs plain versions through 5 bf16 training steps of 24 layers:
 # about 20x (loss) and 9x (grad norm) the largest relative differences of
 # the first runs on the H100 (4.8e-5 and 1.1e-3). The loss is a mean over
@@ -1996,8 +2024,10 @@ def train_phase():
 
     ap = train.build_parser()
     t0 = time.perf_counter()
-    kern = train.run(ap.parse_args(TRAIN_ARGS + ["--profile-step",
-                                                 str(PROFILE_STEP)]))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    kern = train.run(ap.parse_args(TRAIN_ARGS + [
+        "--profile-step", str(PROFILE_STEP), "--ckpt-dir", str(CKPT_DIR),
+        "--ckpt-every", str(CKPT_EVERY)]))
     t_kern = time.perf_counter() - t0
     t0 = time.perf_counter()
     plain = train.run(ap.parse_args(TRAIN_ARGS + ["--kernel-impl", "plain"]))
@@ -2181,6 +2211,196 @@ def regime_phase(tr, flags):
                 grad_norm_rel=gn_rel, bitwise=bitwise, run_s=run_s,
                 launches={k: sum(r["launches"][k] for r in runs)
                           for k in runs[0]["launches"]})
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: checkpoints, resumed on the writing layout and on half the ranks
+# ---------------------------------------------------------------------------
+
+def ckpt_file_digest(step_dir: Path, meta: dict, key: str, shape, rank: int,
+                     width: int) -> str:
+    """The sha256 of the columns of leaf ``key`` that ``rank`` of a
+    zero_topo mesh ``shape`` = (data, node, gcd) holds, ``width`` wide,
+    read straight from the per-process files with numpy (zero past the
+    saved width): the writer's shards placed by its device map and the
+    axes its scheme records, the reader's by W = gcd and the optimizer
+    state over (gcd, node, data)."""
+    axes = meta["scheme"]["axes"]
+    cat = key.split("/", 1)[0]
+    cat_axes = axes["weight"] if cat == "primaries" else \
+        axes["weight"] + axes["extra_grad"] + axes["replica"]
+    names, sizes = meta["mesh"]["axes"], meta["mesh"]["shape"]
+    base = meta["names"][key]
+    shards = {}
+    for w, coords in meta["device_map"]["coords"].items():
+        c = dict(zip(names, coords))
+        i = 0
+        for a in cat_axes:
+            i = i * sizes[names.index(a)] + c[a]
+        shards.setdefault(i, w)
+    glob = meta["global_shapes"][key]
+    per = glob[-1] // len(shards)
+    data, node, gcd = shape
+    mine = dict(data=rank // (node * gcd), node=rank // gcd % node,
+                gcd=rank % gcd)
+    i = mine["gcd"] if cat == "primaries" else \
+        (mine["gcd"] * node + mine["node"]) * data + mine["data"]
+    lo, hi = i * width, (i + 1) * width
+    got = None
+    for j in range(len(shards)):
+        a, b = max(lo, j * per), min(hi, (j + 1) * per)
+        f = np.load(step_dir / f"{base}.p{int(shards[j]):03d}.npy",
+                    mmap_mode="r")[0]
+        if got is None:
+            got = np.zeros(tuple(glob[:-1]) + (width,), f.dtype)
+        if a < b:
+            got[..., a - lo:b - lo] = f[..., a - j * per:b - j * per]
+    return hashlib.sha256(got).hexdigest()
+
+
+def ckpt_leg(label: str, argv, steps: int, kern):
+    """``argv`` resumed from CKPT_DIR for ``steps`` steps (the schedule of
+    ``--steps`` kept): every rank resumed from step CKPT_EVERY with each
+    restored shard equal (sha256) to the files' slice, every kernel of
+    TRAIN_KERNELS launched on every rank, no attention fallback, the same
+    finite global metrics on every rank. Returns the runs, the metrics
+    against the kernel run's next steps and the leg's seconds."""
+    from repro_torch.launch import train
+
+    n = int(argv[argv.index("--devices") + 1])
+    shape = (1, 1, n) if n in (1, 2) else (n // 4, 2, 2)
+    t0 = time.perf_counter()
+    runs = train.run(train.build_parser().parse_args(
+        argv + ["--resume", "--ckpt-dir", str(CKPT_DIR)]), steps=steps)
+    run_s = time.perf_counter() - t0
+    step_dir = CKPT_DIR / f"step_{CKPT_EVERY:08d}"
+    meta = json.loads((step_dir / "meta.json").read_text())
+    jobs = [(r["rank"], k, d["shape"][-1]) for r in runs
+            for k, d in r["restored_shards"].items()]
+    with ThreadPoolExecutor(8) as pool:
+        want = list(pool.map(lambda j: ckpt_file_digest(
+            step_dir, meta, j[1], shape, j[0], j[2]), jobs))
+    bad = [(rank, k) for (rank, k, _), h in zip(jobs, want)
+           if runs[rank]["restored_shards"][k]["sha256"] != h]
+    if bad or len(jobs) != len(runs) * len(meta["names"]) - len(runs):
+        raise Failed(f"ckpt leg {label}: restored shards differ from the "
+                     f"files' slices: {bad[:8]} ({len(jobs)} compared)")
+    for r in runs:
+        if r["resumed_from"] != CKPT_EVERY:
+            raise Failed(f"ckpt leg {label} rank {r['rank']}: resumed from "
+                         f"{r['resumed_from']}")
+        missing = [k for k in TRAIN_KERNELS if r["launches"][k] == 0]
+        if missing:
+            raise Failed(f"ckpt leg {label} rank {r['rank']}: kernels not "
+                         f"launched: {missing}")
+        no_fallback(f"ckpt leg {label} rank {r['rank']}", r["fallbacks"])
+        vals = r["losses"] + r["grad_norms"]
+        if len(r["losses"]) != steps or \
+                not all(math.isfinite(v) for v in vals) or \
+                (r["losses"], r["grad_norms"]) != (runs[0]["losses"],
+                                                  runs[0]["grad_norms"]):
+            raise Failed(f"ckpt leg {label}: losses {r['losses']}, grad "
+                         f"norms {r['grad_norms']} (rank {r['rank']})")
+    k0, r0 = kern[0], runs[0]
+    held = slice(CKPT_EVERY, CKPT_EVERY + steps)
+    return dict(
+        label=label, ranks=runs, mesh=list(shape), run_s=run_s,
+        digests_equal=len(jobs),
+        losses=r0["losses"], grad_norms=r0["grad_norms"],
+        kernel_run_losses=k0["losses"][held],
+        kernel_run_grad_norms=k0["grad_norms"][held],
+        loss_rel=[abs(a - b) / abs(b)
+                  for a, b in zip(r0["losses"], k0["losses"][held])],
+        grad_norm_rel=[abs(a - b) / abs(b)
+                       for a, b in zip(r0["grad_norms"], k0["grad_norms"][held])],
+        bitwise=(r0["losses"], r0["grad_norms"]) == (
+            k0["losses"][held], k0["grad_norms"][held]),
+        restore_s=[r["ckpt_restore_s"] for r in runs],
+        step_s=[r["step_times"] for r in runs],
+        peak_bytes=[r["peak_bytes"] for r in runs],
+        launches={k: sum(r["launches"][k] for r in runs)
+                  for k in runs[0]["launches"]})
+
+
+def ckpt_phase(tr) -> dict:
+    """The train phase's kernel run saved step CKPT_EVERY on its 4 ranks.
+    (a) Resumed on the same layout for CKPT_HELD_STEPS steps: their losses
+    and grad norms must be the kernel run's next steps' bit for bit (the
+    kernels are deterministic and the arithmetic the same; the second
+    step's loss is the first one to follow an update from the restored
+    optimizer state). (b) Resumed on 2 ranks, (1, 1, 2), as a job that
+    lost half its GPUs: the first loss held against the kernel run's at
+    TRAIN_LOSS_RTOL (W = gcd on both meshes, the rows summed by det_psum),
+    the grad norm reported (stage 2 over E is gone, so the INT4 roundings
+    differ). (c) --strict-restore on 2 ranks must fail with MeshMismatch
+    before any rank starts. The caller removes CKPT_DIR."""
+    from repro_torch.launch import train
+    from repro_torch.train.checkpoint import MeshMismatch
+
+    t_phase = time.perf_counter()
+    kern = tr["kernel"]
+    for r in kern:
+        if list(r["ckpt_save_s"]) != [CKPT_EVERY]:
+            raise Failed(f"train rank {r['rank']} saved {r['ckpt_save_s']}")
+    files = [f for f in CKPT_DIR.rglob("*") if f.is_file()]
+    disk = sum(f.stat().st_size for f in files)
+    a = ckpt_leg("a", TRAIN_ARGS, CKPT_HELD_STEPS, kern)
+    if not a["bitwise"]:
+        raise Failed(f"ckpt leg a vs the kernel run: not bit for bit; loss "
+                     f"rel {a['loss_rel']}, grad norm rel "
+                     f"{a['grad_norm_rel']}")
+    half = list(TRAIN_ARGS)
+    half[half.index("--devices") + 1] = "2"
+    b = ckpt_leg("b", half, 1, kern)
+    if b["loss_rel"][0] > TRAIN_LOSS_RTOL:
+        raise Failed(f"ckpt leg b vs the kernel run: loss rel "
+                     f"{b['loss_rel']}")
+    t0 = time.perf_counter()
+    try:
+        train.run(train.build_parser().parse_args(half + [
+            "--resume", "--strict-restore", "--ckpt-dir", str(CKPT_DIR)]),
+            steps=1)
+    except MeshMismatch as e:
+        refused = f"MeshMismatch: {e}"
+    else:
+        raise Failed("ckpt leg c: a strict restore onto 2 ranks ran")
+    if "reshard=True" not in refused:
+        raise Failed(f"ckpt leg c: MeshMismatch without the reshard=True "
+                     f"hint:\n{refused}")
+    c_s = time.perf_counter() - t0
+    return dict(bytes_on_disk=disk, files=len(files),
+                save_s=[r["ckpt_save_s"][CKPT_EVERY] for r in kern],
+                legs=[a, b], strict=dict(
+                    mesh=[1, 1, 2], refused="MeshMismatch", run_s=c_s,
+                    message=refused[refused.index("MeshMismatch:"):][:400]),
+                phase_s=time.perf_counter() - t_phase)
+
+
+def print_ckpt(ck):
+    print(f"  checkpoint: {ck['bytes_on_disk']} bytes on disk in "
+          f"{ck['files']} files; save s per rank {ck['save_s']}")
+    for leg in ck["legs"]:
+        print(f"  leg {leg['label']} on {leg['mesh']}: restore s "
+              f"{leg['restore_s']}, restored shards equal to the files' "
+              f"slices ({leg['digests_equal']}), losses {leg['losses']} grad "
+              f"norms {leg['grad_norms']} vs the kernel run's "
+              f"{leg['kernel_run_losses']} {leg['kernel_run_grad_norms']} "
+              f"(loss rel {leg['loss_rel']}, grad norm rel "
+              f"{leg['grad_norm_rel']}, bitwise {leg['bitwise']}), step_s "
+              f"{leg['step_s']}, peak_bytes {leg['peak_bytes']}, "
+              f"{leg['run_s']:.1f} s")
+    print(f"  leg c: strict restore on {ck['strict']['mesh']} refused "
+          f"({ck['strict']['message']}) in {ck['strict']['run_s']:.1f} s; "
+          f"phase {ck['phase_s']:.1f} s")
+
+
+def ckpt_line(ck) -> dict:
+    legs = [{k: v for k, v in leg.items() if k != "ranks"}
+            for leg in ck["legs"]]
+    return dict(arch="qwen2-0.5b", scheme="zero_topo", saved_step=CKPT_EVERY,
+                bytes_on_disk=ck["bytes_on_disk"], files=ck["files"],
+                save_s_per_rank=ck["save_s"], legs=legs, strict=ck["strict"],
+                phase_s=ck["phase_s"])
 
 
 # ---------------------------------------------------------------------------
@@ -3208,8 +3428,14 @@ def main(argv=None) -> int:
     print_shapes(ds_t["shapes"])
 
     phase("train")
-    tr = train_phase()
-    print_train(tr)
+    try:
+        tr = train_phase()
+        print_train(tr)
+        phase("ckpt")
+        ck = ckpt_phase(tr)
+        print_ckpt(ck)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     phase("train_neox")
     tn = neox_train_phase()
@@ -3312,6 +3538,7 @@ def main(argv=None) -> int:
                        train_deepseek=tds["launches"][name],
                        train_ssm=tsm["launches"][name],
                        train_gemma=tgm["launches"][name],
+                       ckpt=sum(leg["launches"][name] for leg in ck["legs"]),
                        collectives=cl_launches[name],
                        regimes=sum(rg["launches"][name] for rg in regimes),
                        quant_error=qe_launches[name],
@@ -3498,6 +3725,7 @@ def main(argv=None) -> int:
             train_ssm=train_ssm_line,
             train_gemma=train_gemma_line,
             regimes=regimes_line, collectives=collectives_line,
+            ckpt=ckpt_line(ck), ckpt_ranks=[leg["ranks"] for leg in ck["legs"]],
             collective_ranks=cl,
             regime_ranks=[rg["ranks"] for rg in regimes],
             train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
@@ -3529,6 +3757,7 @@ def main(argv=None) -> int:
     print("train_gemma " + json.dumps(train_gemma_line))
     print("regimes " + json.dumps(regimes_line))
     print("collectives " + json.dumps(collectives_line))
+    print("ckpt " + json.dumps(ckpt_line(ck)))
     print("kernels_extra " + json.dumps(kernels_extra))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {card}")

@@ -22,17 +22,22 @@ Needs one CUDA card and nvcc. Phases (all by default):
   scan, the dequant-matmul and matmul_quant turned plain; each run's loss
   and grad norm a step beside the plain run's.
 - ``trace_events``: qwen2-0.5b (24 layers) and gpt-neox-20b (1 layer) on
-  the train phases' mesh and batch for 3 steps, the last traced, once
+  the train phases' mesh and batch for 2 steps, the last traced, once
   recording the card's events alone (what ``train.trainer`` records) and
   once the host's too; the traced device ms of each run, kernel by kernel.
 - ``depth``: gpt-neox-20b and deepseek-7b at published width on the train
-  phases' mesh and batch, 3 steps through the kernels, at each depth of
+  phases' mesh and batch, 2 steps through the kernels, at each depth of
   ``--neox-layers`` / ``--deepseek-layers`` in turn until one leaves less
   than chip_smoke's TRAIN_HEADROOM of the card free or fails: the ranks'
   summed max_memory_allocated, bytes a parameter, step times; then the
   deepest depth that fit again through the plain versions (the phase runs
   both). How NEOX_TRAIN_L and DEEPSEEK_TRAIN_L are chosen.
 - ``serve_deepseek``: chip_smoke's deepseek serving phase alone.
+- ``ckpt``: chip_smoke's train phase's kernel run alone (qwen2-0.5b at
+  full size on four ranks, saving step 3 into ``chip_smoke.CKPT_DIR``),
+  then ``chip_smoke.ckpt_phase`` (legs (a), (b), (c)); prints the
+  ``ckpt`` line and removes the checkpoint. About 5 minutes with the
+  builds.
 - ``trace_window``: gpt-neox-20b served at published depth, then its
   prefill traced ``--traces`` times, in turns bare (launched the moment
   the trace starts), padded (``train.trainer.pad_trace``'s idle card
@@ -59,7 +64,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("ssm", "gemma", "timing", "scan_backward", "ssm_ablation",
-          "trace_events", "depth", "serve_deepseek", "trace_window")
+          "trace_events", "depth", "serve_deepseek", "trace_window", "ckpt")
 # the ops functions turned plain, one at a time, in ``ssm_ablation``
 ABLATED = ("selective_scan", "dequant_matmul", "matmul_quant")
 
@@ -214,7 +219,7 @@ def ssm_ablation(c) -> dict:
 
 
 def trace_events(c) -> dict:
-    """qwen2-0.5b (24 layers) and gpt-neox-20b (1 layer), 3 steps, step 2
+    """qwen2-0.5b (24 layers) and gpt-neox-20b (1 layer), 2 steps, step 1
     traced recording the card's events alone and then the host's too:
     each run's traced device ms by rank, its step times, and rank 0's
     device time by kernel name in both runs (the names whose ms differ
@@ -412,6 +417,30 @@ def depth_search(c, name: str, depths, argv) -> dict:
     return dict(card_bytes=card, runs=out, deepest_fit=fit)
 
 
+def ckpt_probe(c) -> dict:
+    """The train phase's kernel run (saving step c.CKPT_EVERY), then the
+    ckpt phase on its checkpoint; the checkpoint is removed after."""
+    import shutil
+
+    from repro_torch.launch import train
+
+    shutil.rmtree(c.CKPT_DIR, ignore_errors=True)
+    try:
+        kern = train.run(train.build_parser().parse_args(c.TRAIN_ARGS + [
+            "--profile-step", str(c.PROFILE_STEP), "--ckpt-dir",
+            str(c.CKPT_DIR), "--ckpt-every", str(c.CKPT_EVERY)]))
+        print(f"kernel run: losses {kern[0]['losses']} grad norms "
+              f"{kern[0]['grad_norms']} step_s {kern[0]['step_times']}",
+              flush=True)
+        ck = c.ckpt_phase(dict(kernel=kern))
+    finally:
+        shutil.rmtree(c.CKPT_DIR, ignore_errors=True)
+    c.print_ckpt(ck)
+    line = c.ckpt_line(ck)
+    print("ckpt " + json.dumps(line), flush=True)
+    return line
+
+
 def main():
     import torch
 
@@ -489,6 +518,9 @@ def main():
                 ("gpt-neox-20b", args.neox_layers, c.NEOX_TRAIN_ARGS),
                 ("deepseek-7b", args.deepseek_layers,
                  c.DEEPSEEK_TRAIN_ARGS))}
+        save()
+    if "ckpt" in args.phase:
+        out["ckpt"] = ckpt_probe(c)
         save()
     if "trace_events" in args.phase:
         out["trace_events"] = trace_events(c)

@@ -3,7 +3,8 @@
 Port of the train step of ``repro.core.engine`` (``init_state`` :501,
 ``make_train_step`` :602, ``_make_local_grads`` :645, ``_stage2_rs`` :541,
 ``_replica_sync`` :553, ``_clip_grads`` :719, ``_apply_updates`` :574,
-``memory_report`` :440, ``stream_leaf_names`` :415, ``_zero_sinks`` :533,
+``memory_report`` :440, ``stream_leaf_names`` :415,
+``scheme_fingerprint`` :398, ``_zero_sinks`` :533,
 ``_grads_to_os`` :567), in both gradient regimes and with or without the
 gather prefetch (``ZeroConfig.overlap``). The reference runs one program over the mesh
 inside ``shard_map``; here every rank runs this code on its own shards and
@@ -287,15 +288,36 @@ class ZeroEngine:
 
     # -- state ------------------------------------------------------------------
 
+    def shard_cols(self, name: str, key: str) -> tuple[int, int]:
+        """The columns [lo, hi) of the global ``[stack,] pad`` leaf ``name``
+        that this rank holds in the state dict ``key``: its W shard for
+        "primaries", its optimizer shard (over all axes) for "master",
+        "opt_m" and "opt_v"."""
+        if key == "primaries":
+            i = self.mesh.index(self.cfg.axes.weight)
+            n = self.primary_shard_len(name)
+        else:
+            i, n = self.mesh.index(self.cfg.axes.all), self.os_shard_len(name)
+        return i * n, (i + 1) * n
+
     def shard_primary(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's W shard of a global ``[stack,] pad`` tensor."""
-        i, n = self.mesh.index(self.cfg.axes.weight), self.primary_shard_len(name)
-        return full[..., i * n:(i + 1) * n].to(self.device).clone()
+        lo, hi = self.shard_cols(name, "primaries")
+        return full[..., lo:hi].to(self.device).clone()
 
     def shard_os(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's optimizer shard (over all axes) of a global tensor."""
-        i, n = self.mesh.index(self.cfg.axes.all), self.os_shard_len(name)
-        return full[..., i * n:(i + 1) * n].to(self.device).clone()
+        lo, hi = self.shard_cols(name, "master")
+        return full[..., lo:hi].to(self.device).clone()
+
+    def scheme_fingerprint(self) -> dict:
+        """Layout identity of this engine's checkpoints (JSON-serializable):
+        the config's ``fingerprint`` and every leaf's padded length. A
+        checkpoint written under one fingerprint restores under another only
+        by resharding (train/checkpoint.py)."""
+        fp = self.cfg.fingerprint()
+        fp["padded_sizes"] = {n: self._pad[n] for n in sorted(self._pad)}
+        return fp
 
     def shard_state(self, full: dict[str, torch.Tensor]):
         """This rank's fresh state from global padded fp32 masters

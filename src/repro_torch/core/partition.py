@@ -8,7 +8,8 @@ memory formulas the engine reports (``grad_buffer_bytes``,
 ``prefetch_buffer_bytes``). Each category of training state is
 sharded over a prefix of the bandwidth hierarchy: weights over W, gradients
 over W + E, optimizer state over W + E + R, with the flat slices nested in
-that major -> minor order.
+that major -> minor order. ``ZeroConfig.fingerprint`` is the layout
+identity a checkpoint records (``repro.core.partition`` :107).
 """
 from __future__ import annotations
 
@@ -86,6 +87,26 @@ class ZeroConfig:
     def validate_dependency_rule(self) -> None:
         """AMSP / paper §V: deg(os) >= deg(grad) >= deg(weight)."""
         assert self.os_degree >= self.g_degree >= self.w_degree, self
+
+    def fingerprint(self) -> dict:
+        """Shard-layout identity (JSON-serializable): everything about this
+        config that determines how a flat parameter is split across ranks.
+        ``ZeroEngine.scheme_fingerprint`` extends it with per-leaf padded
+        sizes; train/checkpoint.py refuses to restore across different
+        fingerprints. ``overlap``, ``stream_grads``, ``impl`` and
+        ``compute_dtype`` leave the layout as it is and stay out."""
+        return dict(
+            scheme=self.name,
+            axes=dict(weight=list(self.axes.weight),
+                      extra_grad=list(self.axes.extra_grad),
+                      replica=list(self.axes.replica),
+                      secondary=None if self.axes.secondary is None
+                      else list(self.axes.secondary)),
+            axis_sizes={a: s for a, s in self.axis_sizes},
+            degrees=dict(w=self.w_degree, g=self.g_degree, os=self.os_degree,
+                         sec=self.sec_degree),
+            quant_block=self.quant_block,
+        )
 
     def block_for(self, logical_size: int) -> int:
         """Effective quantization block for a leaf: large leaves use the full

@@ -7,13 +7,18 @@
 
 Port of ``repro.launch.train`` with the flags ``--arch --scheme --steps
 --batch --seq --reduced --quant-block --overlap --stream-grads --lr
---compute-dtype --log-json`` plus
+--compute-dtype --ckpt-dir --ckpt-every --resume --strict-restore
+--log-json`` plus
 ``--device`` (default ``cuda``; there is no CPU fallback), ``--devices N``,
 ``--seed``, ``--microbatches``, ``--kernel-impl plain`` (the plain PyTorch version of every
 kernel, the reference the kernels are held against) and ``--init-npz`` (start
 from a global state saved by ``convert.save_global_state``, e.g. the JAX
 package's ``init_state``). The reference trains the reduced model on fake
 CPU devices; this launcher trains the published width unless ``--reduced``.
+``--resume`` restores the latest checkpoint of ``--ckpt-dir`` (in the JAX
+package's format: either package's) in place of the seed, resharded onto
+this run's mesh unless ``--strict-restore``; ``--steps`` stays the steps of
+this run and the schedule's ``total_steps``, as in the reference.
 
 ``--devices N`` runs the step on the mesh ("data", "node", "gcd") =
 (N/4, 2, 2) (N = 1, 2 give (1, 1, N); ``--mesh-shape`` picks another shape
@@ -78,6 +83,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--init-npz", default="",
                     help="start from this global state "
                          "(convert.save_global_state) instead of the seed")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint in --ckpt-dir; a "
+                         "checkpoint written under a different mesh/process "
+                         "layout or scheme is resharded onto the live one "
+                         "(elastic restore, DESIGN.md §11)")
+    ap.add_argument("--strict-restore", action="store_true",
+                    help="with --resume: refuse any layout difference "
+                         "(MeshMismatch/SchemeMismatch) instead of "
+                         "resharding — the pre-elastic behavior")
     ap.add_argument("--timeout", type=float, default=900.0,
                     help="seconds a rank waits at the rendezvous or in a "
                          "collective before it fails")
@@ -106,11 +122,14 @@ def mesh_shape(args) -> tuple[int, ...]:
     return (n // 4, 2, 2)
 
 
-def train_rank(rank: int, world: int, args, arch=None) -> dict:
+def train_rank(rank: int, world: int, args, arch=None, steps=None) -> dict:
     """One rank's run. Returns its per-step metrics, its kernel launches
-    and collective payload bytes over the steps, and its peak device
-    memory. ``arch`` (an ArchConfig) stands in for ``get_arch(args.arch)``
-    when given (e.g. a published width at a cut depth)."""
+    and collective payload bytes over the steps, its peak device memory,
+    the step it resumed from, the sha256 of each shard it restored
+    (``checkpoint.shard_digests``) and its checkpoints' seconds. ``arch``
+    (an ArchConfig) stands in for ``get_arch(args.arch)`` when given (e.g.
+    a published width at a cut depth). ``steps``: stop after this many
+    steps (default ``--steps``, which still sets the schedule)."""
     import torch
 
     from ..convert import from_jax_state, load_global_state
@@ -120,6 +139,7 @@ def train_rank(rank: int, world: int, args, arch=None) -> dict:
     from ..device import resolve
     from ..kernels import ops
     from ..models.registry import build_model, get_arch
+    from ..train import checkpoint
     from ..train.trainer import Trainer
     from .mesh import TEST_AXES, Mesh, scheme_config
 
@@ -146,18 +166,27 @@ def train_rank(rank: int, world: int, args, arch=None) -> dict:
                       n_microbatch=args.microbatches, overlap=args.overlap,
                       stream_grads=args.stream_grads)
     eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp, device)
-    if args.init_npz:
-        state = from_jax_state(load_global_state(args.init_npz), eng)
-    else:
-        state = eng.init_state(args.seed)
+    tr = Trainer(model, eng, BatchSpec(args.batch, args.seq, arch.vocab),
+                 seed=args.seed)
     log0(f"arch={arch.name} scheme={cfg.name} mesh={mesh.shape} "
          f"params={eng.param_count():,} overlap={eng.cfg.overlap} "
          f"stream_grads={eng.cfg.stream_grads} device={device} "
          f"kernel_impl={eng.cfg.impl or 'kernel'} ranks={world}")
     log0(f"per-rank state bytes: {eng.memory_report()}")
-
-    tr = Trainer(model, eng, BatchSpec(args.batch, args.seq, arch.vocab),
-                 seed=args.seed)
+    resumed_from, restore_s, restored = None, None, None
+    if args.resume:
+        t0 = time.perf_counter()
+        state = tr.restore(args.ckpt_dir, reshard=not args.strict_restore)
+        restore_s = time.perf_counter() - t0
+        resumed_from = state["step"]
+        restored = checkpoint.shard_digests(state)
+        log0(f"resumed from step {resumed_from}"
+             + ("" if args.strict_restore else " (elastic restore enabled)")
+             + f" in {restore_s:.3f}s")
+    elif args.init_npz:
+        state = from_jax_state(load_global_state(args.init_npz), eng)
+    else:
+        state = eng.init_state(args.seed)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -165,8 +194,9 @@ def train_rank(rank: int, world: int, args, arch=None) -> dict:
     ops.reset_dispatch_counters()
     col.reset_counters()
     eng.phase_s.clear()
-    tr.run(state, args.steps, print_fn=log0,
-           profile_step=args.profile_step if args.profile_step >= 0 else None)
+    tr.run(state, args.steps if steps is None else steps, print_fn=log0,
+           profile_step=args.profile_step if args.profile_step >= 0 else None,
+           ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every)
     launches, payload = ops.launches(), dict(col.PAYLOAD)
     fallbacks = ops.dispatch_counters()
     log = tr.log
@@ -180,7 +210,9 @@ def train_rank(rank: int, world: int, args, arch=None) -> dict:
                 fallbacks=fallbacks,
                 payload_bytes=payload, collective_s=dict(col.SECONDS),
                 phase_s=dict(eng.phase_s), profile=log.meta.get("profile"),
-                memory=eng.memory_report(),
+                memory=eng.memory_report(), resumed_from=resumed_from,
+                ckpt_save_s=log.ckpt_save_s, ckpt_restore_s=restore_s,
+                restored_shards=restored,
                 peak_bytes=torch.cuda.max_memory_allocated(device)
                 if device.type == "cuda" else None,
                 peak_reserved_bytes=torch.cuda.max_memory_reserved(device)
@@ -215,7 +247,8 @@ def init_group(rank: int, world: int, timeout_s: float,
                             world_size=world, timeout=timeout)
 
 
-def _worker(rank: int, world: int, port: int, args, arch, queue) -> None:
+def _worker(rank: int, world: int, port: int, args, arch, steps,
+            queue) -> None:
     import torch.distributed as dist
     if args.device != "cpu":
         # local ranks share the cards round-robin (four on one H100): with
@@ -226,7 +259,7 @@ def _worker(rank: int, world: int, port: int, args, arch, queue) -> None:
                               "expandable_segments:True")
     try:
         init_group(rank, world, args.timeout, port)
-        queue.put((rank, train_rank(rank, world, args, arch), None))
+        queue.put((rank, train_rank(rank, world, args, arch, steps), None))
     except Exception:
         # the parent raises with this traceback and stops the other ranks
         queue.put((rank, None, traceback.format_exc()))
@@ -235,14 +268,17 @@ def _worker(rank: int, world: int, port: int, args, arch, queue) -> None:
             dist.destroy_process_group()
 
 
-def run(args, arch=None) -> list[dict]:
+def run(args, arch=None, *, steps=None) -> list[dict]:
     """Train; returns every local rank's ``train_rank`` result by rank.
-    ``arch``: an ArchConfig to train in place of ``get_arch(args.arch)``."""
+    ``arch``: an ArchConfig to train in place of ``get_arch(args.arch)``;
+    ``steps``: as ``train_rank`` takes it. ``--resume --strict-restore``
+    onto another mesh layout raises ``checkpoint.MeshMismatch`` here,
+    before any rank starts."""
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         init_group(rank, world, args.timeout)
         try:
-            return [train_rank(rank, world, args, arch)]
+            return [train_rank(rank, world, args, arch, steps)]
         finally:
             import torch.distributed as dist
             dist.destroy_process_group()
@@ -250,14 +286,23 @@ def run(args, arch=None) -> list[dict]:
     mesh_shape(args)
     from ..device import resolve
     resolve(args.device)      # no card for --device cuda: raise here, once
+    if args.resume and args.strict_restore and args.ckpt_dir:
+        # a strict restore onto another layout is refused before any rank
+        # starts (each rank's restore checks the scheme and the rest)
+        from ..train import checkpoint
+        from .mesh import TEST_AXES, Mesh
+        step = checkpoint.latest_step(args.ckpt_dir)
+        if step is not None:
+            checkpoint.check_layout(args.ckpt_dir, step,
+                                    Mesh(mesh_shape(args), TEST_AXES))
     if n == 1:
-        return [train_rank(0, 1, args, arch)]
+        return [train_rank(0, 1, args, arch, steps)]
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     store = rendezvous(n, args.timeout)
     procs = [ctx.Process(target=_worker,
-                         args=(r, n, store.port, args, arch, queue))
+                         args=(r, n, store.port, args, arch, steps, queue))
              for r in range(n)]
     for p in procs:
         p.start()
@@ -296,7 +341,10 @@ def run(args, arch=None) -> list[dict]:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
     results = run(args)
     if len(results) > 1:
         for r in results:

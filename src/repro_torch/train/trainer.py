@@ -1,13 +1,20 @@
 """Training loop: deterministic batches -> this rank's rows -> the engine's
 train step -> per-step log.
 
-Port of ``repro.train.trainer`` (``TrainLog``, ``Trainer.run`` :95) without
-checkpoints. Step time is the host clock around one step that ends in
-``torch.cuda.synchronize()`` on a card (the metrics' host copies
+Port of ``repro.train.trainer`` (``TrainLog``, ``Trainer.run`` :95,
+``Trainer.restore`` :199). Step time is the host clock around one step that
+ends in ``torch.cuda.synchronize()`` on a card (the metrics' host copies
 synchronize on any device); the first step's time includes the kernels'
-first use. ``run(profile_step=i)`` traces step i with ``torch.profiler``
-(``pad_trace`` at each end on a card, outside the step's time) and keeps
-the device time of its kernels in ``TrainLog.meta["profile"]``.
+first use. ``run(ckpt_dir=, ckpt_every=)`` saves a checkpoint
+(train/checkpoint.py) after every ``ckpt_every``-th step of the run, its
+seconds kept out of the step's and logged beside it (``ckpt_save_s``).
+A run takes batch ``state["step"]`` of the data stream at each step, so a
+run resumed at step k sees the batches k, k+1, ... that the uninterrupted
+run saw (the reference's ``run`` restarts its stream at batch 0 on every
+call, ``src/repro/train/trainer.py:142``). ``run(profile_step=i)`` traces
+step i with ``torch.profiler`` (``pad_trace`` at each end on a card,
+outside the step's time) and keeps the device time of its kernels in
+``TrainLog.meta["profile"]``.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 
 from ..core.engine import ZeroEngine
 from ..data.pipeline import BatchSpec, SyntheticTokens, local_rows
+from . import checkpoint
 
 
 @dataclass
@@ -31,6 +39,7 @@ class TrainLog:
     lrs: list[float] = field(default_factory=list)
     tokens: list[float] = field(default_factory=list)
     tokens_per_s: list[float] = field(default_factory=list)
+    ckpt_save_s: dict[int, float] = field(default_factory=dict)  # by step
     meta: dict = field(default_factory=dict)
 
     def record(self, step: int, metrics: dict, dt: float):
@@ -81,15 +90,18 @@ class Trainer:
                 for k, v in rows.items()}
 
     def run(self, state, n_steps: int, *, log_every: int = 1, print_fn=print,
-            profile_step: int | None = None):
+            profile_step: int | None = None, ckpt_dir: str | None = None,
+            ckpt_every: int = 0):
         """``n_steps`` steps from ``state``; returns the state after them.
         ``state`` is consumed, as the reference's donated step consumes it
         (``src/repro/core/engine.py:643``; ``ZeroEngine.train_step``): its
         tensors are updated in place, so a caller that needs the state it
-        started from keeps a copy of its own."""
+        started from keeps a copy of its own. Each step takes batch
+        ``state["step"]``; with ``ckpt_dir`` and ``ckpt_every`` the state is
+        saved after every ``ckpt_every``-th step of this run."""
         loss_fn = self.model.lm.loss
         for i in range(n_steps):
-            batch = self._batch(i)
+            batch = self._batch(state["step"])
             prof = _profiler(self.engine.device) if i == profile_step else None
             if prof is not None:
                 prof.__enter__()
@@ -105,12 +117,37 @@ class Trainer:
                 prof.__exit__(None, None, None)
                 self.log.meta["profile"] = _device_summary(prof, i, dt)
             self.log.record(state["step"], metrics, dt)
+            saved = ""
+            if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
+                t0 = time.perf_counter()
+                checkpoint.save(state, ckpt_dir, state["step"],
+                                scheme=self.engine.scheme_fingerprint(),
+                                engine=self.engine)
+                save_s = time.perf_counter() - t0
+                self.log.ckpt_save_s[state["step"]] = save_s
+                saved = f" ckpt {save_s:.3f}s"
             if log_every and i % log_every == 0:
                 print_fn(f"step {state['step']:5d} loss {metrics['loss']:.6f} "
                          f"gnorm {metrics['grad_norm']:.6f} "
                          f"lr {metrics['lr']:.3e} {dt:.3f}s/step "
-                         f"{metrics['tokens'] / dt:.0f} tok/s")
+                         f"{metrics['tokens'] / dt:.0f} tok/s{saved}")
         return state
+
+    def restore(self, ckpt_dir, step: int | None = None, *,
+                reshard: bool = True):
+        """The state of checkpoint ``step`` (default: the latest) for this
+        trainer's engine. ``reshard=True`` (default): a checkpoint written
+        under another mesh / process layout or partition scheme is
+        resharded onto this engine (checkpoint.py, DESIGN.md §11), which
+        makes ``--resume`` elastic; ``reshard=False`` restores strictly,
+        failing (``checkpoint.MeshMismatch`` / ``SchemeMismatch``) on any
+        layout difference."""
+        step = checkpoint.latest_step(ckpt_dir) if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+        return checkpoint.restore(ckpt_dir, step, self.engine,
+                                  self.engine.scheme_fingerprint(),
+                                  reshard=reshard)
 
 
 # torch.profiler (Kineto) drops every device event whose timestamp falls

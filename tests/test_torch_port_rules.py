@@ -1,6 +1,6 @@
-"""Rules of the PyTorch port: it imports neither jax nor the JAX package,
-and its serving and training entry points run on the card unless asked for
-the CPU."""
+"""Rules of the PyTorch port: it imports neither jax, nor ml_dtypes, nor
+the JAX package, and its serving and training entry points run on the card
+unless asked for the CPU."""
 import ast
 from pathlib import Path
 
@@ -28,7 +28,7 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax_and_no_reference(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), \
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
             f"{path.relative_to(ROOT)} imports {mod}"
 
 
@@ -84,6 +84,23 @@ def test_train_cli_schemes_all_held():
                    if a.dest == "scheme")
     held = [scheme for _, scheme in FOUR_RANK_CASES]
     assert sorted(choices) == sorted(set(held))
+
+
+def test_train_cli_checkpoint_flags_as_the_reference():
+    """``--ckpt-dir``, ``--ckpt-every``, ``--resume`` and
+    ``--strict-restore`` exist with the reference launcher's names,
+    defaults, types and help texts."""
+    from repro.launch import train as ref_train
+
+    def flags(ap):
+        return {a.dest: (a.option_strings, a.default, a.type, a.help)
+                for a in ap._actions
+                if a.dest in ("ckpt_dir", "ckpt_every", "resume",
+                              "strict_restore")}
+
+    port = flags(train.build_parser())
+    assert len(port) == 4
+    assert port == flags(ref_train.build_parser())
 
 
 def _engine_args():
