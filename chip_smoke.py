@@ -186,6 +186,9 @@ either is missing or any phase fails. Phases, in order:
             before the training ranks start. Every serving phase
             fails if any attention call fell back to the chunked plain path
             (ops.dispatch_counters), at these fusable shapes.
+Every training run's ranks (and the collectives phase's) are processes
+forked from the launcher's fork server, which imports torch once for the
+whole script (launch.train.PRELOAD), started before the build.
 4. train  : repro_torch.launch.train with --devices 4: qwen2-0.5b at full
             width and depth under zero_topo on the mesh (data, node, gcd) =
             (1, 2, 2), four ranks (processes) on this one card over gloo,
@@ -217,11 +220,7 @@ either is missing or any phase fails. Phases, in order:
             layers, held as train_neox is; the traced step must show
             flash_attention_tc_kernel<128> as often as a step launches
             flash_attention.
-4e. train_ssm: first one mamba layer's plain scan backward at a training
-            rank's shape (B = 2, S = 1,024, D = 8,192) on the free card,
-            blocked in 256 steps as the step runs it and unblocked: host
-            seconds, peak memory, the six gradients within F32_TOL of each
-            other. Then falcon-mamba-7b at published width (d_model 4,096,
+4e. train_ssm: falcon-mamba-7b at published width (d_model 4,096,
             d_inner 8,192, d_state 16, dt_rank 256, vocab 65,024, tied)
             and SSM_TRAIN_L layers, held as train_neox is under
             SSM_TRAIN_KERNELS (the scan in place of flash); the traced step
@@ -243,13 +242,38 @@ either is missing or any phase fails. Phases, in order:
             optimizer shards double, each rank reads two writers' files),
             its loss held against step 4's at TRAIN_LOSS_RTOL, its grad
             norm reported; (c) --strict-restore on 2 ranks must fail with
-            MeshMismatch before any rank starts. In (a) and (b) each rank
+            MeshMismatch before any rank starts. Leg (a) runs in trace
+            mode (segments fenced, probes every step, a metrics lane, a
+            Chrome trace and a heartbeat a rank; held as 4i holds them), so
+            its bit-for-bit match shows that tracing changes nothing on the
+            card. In (a) and (b) each rank
             reports the sha256 of every shard it restored and this script
             hashes the same slices read from the files with numpy, by its
             own code; every kernel of TRAIN_KERNELS must launch on every
             rank, with no attention fallback. Prints the bytes on disk,
             save and restore seconds a rank, each leg's step_s and peak
             memory; CKPT_DIR is removed at the end, and on a failure.
+4i. replica: qwen2-0.5b at full width and depth under zero_topo on the
+            mesh (data, node, gcd) = (2, 1, 2) (W = gcd, E = node of size 1,
+            R = data of size 2: the replica tier is real), four ranks, batch
+            8 x 1,024, bf16, quant block 128, REPLICA_STEPS steps from seed 0
+            with cross_replica="reduce_scatter" and quantize_update_gather
+            (REPLICA_OPTS, through launch.train.run's engine_opts), in trace
+            mode with the probes every step; then the same run through the
+            plain versions (untraced), held at TRAIN_LOSS_RTOL /
+            TRAIN_GNORM_RTOL. Every kernel of TRAIN_KERNELS must launch on
+            every rank, and the update all-gather quantize_int8 and
+            dequantize_int8 once a leaf a step on every rank (counted inside
+            update_all_gather, the probes' launches taken out); no attention
+            fallback. Each rank's five segments must sum to its step's wall
+            time within SEGMENT_SUM_RTOL; its metrics lane must hold a record
+            a step and its Chrome trace every span; rank 0's heartbeat
+            report must read every rank ok at the last step. Prints the
+            cross_replica and update segments and the five probes by step,
+            the segment sums beside the wall times, overlap_efficiency, the
+            wire bytes a rank a step of the INT8 update gather beside the
+            bf16 gather's and of the reduce-scatter over R beside the
+            all-reduce's (the same shapes), step_s, tok/s and peak memory.
 4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
             quantized reduce-scatter at bits 4 and 8 over W, E and all four
             ranks on an embedding-sized f32 shard each; every kernel of
@@ -290,11 +314,12 @@ either is missing or any phase fails. Phases, in order:
 6. report : JSON lines (serve, serve_ssm, serve_neox, serve_neox10b,
             serve_gemma, serve_deepseek, train, train_neox, train_deepseek,
             train_ssm, train_gemma,
-            regimes, collectives, ckpt,
+            regimes, collectives, ckpt, replica,
             kernels_extra with the extra
             timing rows and every dequant_matmul shape's path, then the
             kernels line: all 11 kernels with their launches on every
-            path, the ckpt legs' included), the card's name and
+            path, the ckpt legs' and the replica run's included), the
+            card's name and
             power limit (nvidia-smi), and last the line
             {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -367,6 +392,19 @@ CKPT_HELD_STEPS = 2
 # also carries INT4 rounding flips of the gradients.
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GNORM_RTOL = 1e-2
+# phase 4i: qwen2-0.5b on the replica mesh (data, node, gcd) = (2, 1, 2):
+# W = gcd, E = node of size 1, R = data of size 2, the one mesh whose
+# replica tier is real; 3 steps with the reference's two beyond-paper
+# options, under trace mode (probes every step), then with --kernel-impl
+# plain (untraced: a traced step is bit for bit the untraced one)
+REPLICA_STEPS = 3
+REPLICA_ARGS = TRAIN_ARGS[:TRAIN_ARGS.index("--steps") + 1] \
+    + [str(REPLICA_STEPS)] + TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 2:] \
+    + ["--mesh-shape", "2,1,2"]
+REPLICA_OPTS = dict(cross_replica="reduce_scatter", quantize_update_gather=True)
+TRACE_DIR = ROOT / "build" / "trace_smoke"
+# the reference's bound: the fenced segments sum to the step's wall time
+SEGMENT_SUM_RTOL = 0.10
 SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
                  "flash_attention")
 SSM_SERVE_ARGS = ["--arch", "falcon-mamba-7b"] + SERVE_ARGS[2:]
@@ -1959,7 +1997,7 @@ def deepseek_phase(gen, dev):
 # ---------------------------------------------------------------------------
 
 def hold_train_runs(kern, plain, steps: int, label: str,
-                    kernels=TRAIN_KERNELS) -> dict:
+                    kernels=TRAIN_KERNELS, profiled: bool = True) -> dict:
     """A training run through the kernels against the same run through the
     plain versions: every kernel of ``kernels`` (the path's own: TRAIN_KERNELS
     or SSM_TRAIN_KERNELS) launched on every rank
@@ -1968,7 +2006,8 @@ def hold_train_runs(kern, plain, steps: int, label: str,
     launches, none on SIMT), the same finite global loss and grad norm on
     every rank, and the kernel run's within TRAIN_LOSS_RTOL /
     TRAIN_GNORM_RTOL of the plain one's. Returns the relative differences
-    and the traced matmul_quant calls by rank."""
+    and the traced matmul_quant calls by rank (``profiled=False``: the run
+    traced no step with torch.profiler, and none are read)."""
     for r in kern:
         missing = [k for k in kernels if r["launches"][k] == 0]
         if missing:
@@ -1979,7 +2018,7 @@ def hold_train_runs(kern, plain, steps: int, label: str,
     # the traced step ran every fused dW on the tensor-core kernel (its bf16
     # operands), none on the SIMT one
     mq_traced = []
-    for r in kern:
+    for r in kern if profiled else ():
         per_step = r["launches"]["matmul_quant"] / steps
         calls = {path: sum(row["calls"] for row in r["profile"]["kernels"]
                            if f"matmul_quant_{path}_kernel" in row["name"])
@@ -2344,11 +2383,14 @@ def ckpt_phase(tr) -> dict:
             raise Failed(f"train rank {r['rank']} saved {r['ckpt_save_s']}")
     files = [f for f in CKPT_DIR.rglob("*") if f.is_file()]
     disk = sum(f.stat().st_size for f in files)
-    a = ckpt_leg("a", TRAIN_ARGS, CKPT_HELD_STEPS, kern)
+    shutil.rmtree(TRACE_DIR / "ckpt_a", ignore_errors=True)
+    a = ckpt_leg("a", TRAIN_ARGS + trace_args("ckpt_a"), CKPT_HELD_STEPS,
+                 kern)
     if not a["bitwise"]:
-        raise Failed(f"ckpt leg a vs the kernel run: not bit for bit; loss "
-                     f"rel {a['loss_rel']}, grad norm rel "
+        raise Failed(f"ckpt leg a (traced) vs the kernel run: not bit for "
+                     f"bit; loss rel {a['loss_rel']}, grad norm rel "
                      f"{a['grad_norm_rel']}")
+    a["trace"] = hold_trace(a["ranks"], "ckpt_a")
     half = list(TRAIN_ARGS)
     half[half.index("--devices") + 1] = "2"
     b = ckpt_leg("b", half, 1, kern)
@@ -2389,6 +2431,13 @@ def print_ckpt(ck):
               f"{leg['grad_norm_rel']}, bitwise {leg['bitwise']}), step_s "
               f"{leg['step_s']}, peak_bytes {leg['peak_bytes']}, "
               f"{leg['run_s']:.1f} s")
+        if "trace" in leg:
+            t = leg["trace"]
+            print(f"  leg {leg['label']} traced: segment sums "
+                  f"{[x['segment_sum_s'] for x in t['segment_sums']]} s, "
+                  f"Chrome events {t['chrome_events']}, metrics records "
+                  f"{t['metrics_records']}, heartbeat ok {t['heartbeat']['ok']} "
+                  f"at step {t['heartbeat']['max_step']}")
     print(f"  leg c: strict restore on {ck['strict']['mesh']} refused "
           f"({ck['strict']['message']}) in {ck['strict']['run_s']:.1f} s; "
           f"phase {ck['phase_s']:.1f} s")
@@ -2404,11 +2453,198 @@ def ckpt_line(ck) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: the replica tier, the reduce-scatter over R and the INT8 update
+# gather, traced
+# ---------------------------------------------------------------------------
+
+def trace_args(label: str) -> list[str]:
+    """Trace mode's flags, writing under TRACE_DIR / label."""
+    d = TRACE_DIR / label
+    return ["--metrics-jsonl", str(d / "metrics.jsonl"), "--chrome-trace",
+            str(d / "trace.json"), "--heartbeat-dir", str(d / "heartbeat"),
+            "--probe-every", "1"]
+
+
+def hold_trace(runs, label: str) -> dict:
+    """A traced run's records: every rank's fenced segments within
+    SEGMENT_SUM_RTOL of its step's wall time, rank 0's heartbeat report all
+    ok at the last step, each rank's metrics lane with a record a step (the
+    schema checked as it is read) and its Chrome trace with every span."""
+    from repro_torch.obs import metrics
+
+    steps = len(runs[0]["losses"])
+    d = TRACE_DIR / label
+    sums = []
+    for r in runs:
+        tr = r["trace"]
+        seg = [sum(sp.values()) for sp in tr["segments"]]
+        rel = [abs(a - b) / b for a, b in zip(seg, r["step_times"])]
+        sums.append(dict(rank=r["rank"], segment_sum_s=seg,
+                         step_s=r["step_times"], rel=rel))
+        if max(rel) > SEGMENT_SUM_RTOL:
+            raise Failed(f"{label} rank {r['rank']}: segments {seg} s vs "
+                         f"step wall {r['step_times']} s")
+        events = json.loads(metrics.lane_path(
+            d / "trace.json", r["rank"], len(runs)).read_text())["traceEvents"]
+        if len(events) != tr["chrome_events"]:
+            raise Failed(f"{label} rank {r['rank']}: {len(events)} Chrome "
+                         f"events on disk, {tr['chrome_events']} spans")
+    records = metrics.read_lanes(d / "metrics.jsonl")
+    start = runs[0]["resumed_from"] or 0
+    want = [(start + i + 1, r["rank"]) for i in range(steps) for r in runs]
+    if [(x["step"], x["rank"]) for x in records] != sorted(want):
+        raise Failed(f"{label}: metrics records "
+                     f"{[(x['step'], x['rank']) for x in records]}")
+    hb = runs[0]["heartbeat"]
+    if not hb["ok"] or hb["max_step"] != steps:
+        raise Failed(f"{label}: heartbeat {hb}")
+    return dict(segment_sums=sums, metrics_records=len(records),
+                chrome_events=[r["trace"]["chrome_events"] for r in runs],
+                heartbeat=hb)
+
+
+def replica_phase() -> dict:
+    """qwen2-0.5b at full width and depth under zero_topo on (2, 1, 2), four
+    ranks, REPLICA_STEPS steps from seed 0 with REPLICA_OPTS, traced with
+    probes every step: every kernel of TRAIN_KERNELS on every rank, the
+    update all-gather's quantize_int8 and dequantize_int8 once a leaf a step
+    on every rank (counted inside ``update_all_gather``, less the probes'),
+    no attention fallback; held against the same run through the plain
+    versions; the trace's records held (``hold_trace``). Returns the runs
+    and the wire bytes of the reduce-scatter over R and of the INT8 update
+    gather beside the flows they replace, from the same shapes."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ap = train.build_parser()
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRACE_DIR / "replica", ignore_errors=True)
+    kern = train.run(ap.parse_args(REPLICA_ARGS + trace_args("replica")),
+                     engine_opts=REPLICA_OPTS)
+    t_kern = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    plain = train.run(ap.parse_args(REPLICA_ARGS + ["--kernel-impl", "plain"]),
+                      engine_opts=REPLICA_OPTS)
+    t_plain = time.perf_counter() - t0
+    held = hold_train_runs(kern, plain, REPLICA_STEPS, "replica",
+                           profiled=False)
+    traced = hold_trace(kern, "replica")
+    leaves = len(kern[0]["trace"]["probe_inventory"]["update_gather"]["leaves"])
+    update = []
+    for r in kern:
+        probe = r["trace"]["probe_counts"]["update_gather"]
+        step = {k: r["update_gather_launches"].get(k, 0) - probe.get(k, 0)
+                for k in ("quantize_int8", "dequantize_int8")}
+        update.append(step)
+        if any(v != leaves * REPLICA_STEPS for v in step.values()):
+            raise Failed(f"replica rank {r['rank']}: the update gather "
+                         f"launched {step}, {leaves} leaves x "
+                         f"{REPLICA_STEPS} steps wanted")
+    # bytes a rank a step, from the payload each rank handed to gloo: a
+    # gather over d members sends its input to d - 1 of them, the
+    # reduce-scatter over R sends (R - 1) / R of its input; the all-reduce
+    # flow (the reference's psum) and the bf16 gather from the same shapes
+    r0 = kern[0]
+    pay = {k: v / REPLICA_STEPS for k, v in r0["payload_bytes"].items()}
+    probe_pay = {k: v / REPLICA_STEPS for k, v in
+                 r0["trace"]["probe_counts"]["payload"].items()}
+    r_deg = 2
+    ug = pay["update_gather"] - probe_pay.get("update_gather", 0)
+    os_elems = r0["memory"]["optimizer"] // 12
+    rs = pay["reduce_scatter"]
+    wire = dict(
+        update_gather_int8=ug * (r_deg - 1),
+        update_gather_bf16=2 * os_elems * (r_deg - 1),
+        cross_replica_reduce_scatter=rs * (r_deg - 1) / r_deg,
+        cross_replica_allreduce=rs * 2 * (r_deg - 1) / r_deg)
+    wire["update_gather_ratio"] = wire["update_gather_int8"] / \
+        wire["update_gather_bf16"]
+    wire["cross_replica_ratio"] = wire["cross_replica_reduce_scatter"] / \
+        wire["cross_replica_allreduce"]
+    step_launches = {k: sum(r["launches"][k] - r["trace"]["probe_counts"]
+                            ["launches"].get(k, 0) for r in kern)
+                     for k in ops.KERNELS}
+    return dict(kernel=kern, plain=plain, steps=REPLICA_STEPS,
+                launches=step_launches,
+                probe_launches={k: sum(r["trace"]["probe_counts"]["launches"]
+                                       .get(k, 0) for r in kern)
+                                for k in ops.KERNELS},
+                update_gather_launches=update, leaves=leaves, wire=wire,
+                payload_per_step=pay, probe_payload_per_step=probe_pay,
+                run_s=t_kern, plain_run_s=t_plain,
+                phase_s=time.perf_counter() - t_phase, **held, **traced)
+
+
+def print_replica(rp):
+    for r in rp["kernel"]:
+        t = r["trace"]
+        for i, (seg, pr) in enumerate(zip(t["segments"], t["probes"])):
+            print(f"  rank {r['rank']} step {i}: cross_replica "
+                  f"{seg['cross_replica']:.4f} s update {seg['update']:.4f} s "
+                  f"probes {json.dumps(pr)}")
+        print(f"  rank {r['rank']}: loss {r['losses']} grad_norm "
+              f"{r['grad_norms']} step_s {r['step_times']} tok/s "
+              f"{r['tokens_per_s']} peak_bytes {r['peak_bytes']} "
+              f"overlap_efficiency {t['overlap_efficiency']}")
+    for x in rp["segment_sums"]:
+        print(f"  rank {x['rank']}: segment sum {x['segment_sum_s']} s vs "
+              f"wall {x['step_s']} s (rel {x['rel']})")
+    w = rp["wire"]
+    print(f"  wire bytes a rank a step: update gather INT8 "
+          f"{w['update_gather_int8']:.0f} vs bf16 "
+          f"{w['update_gather_bf16']:.0f} ({w['update_gather_ratio']:.4f}); "
+          f"cross-replica reduce-scatter "
+          f"{w['cross_replica_reduce_scatter']:.0f} vs all-reduce "
+          f"{w['cross_replica_allreduce']:.0f} ({w['cross_replica_ratio']:.4f})")
+    print(f"  update gather launches a rank (less the probes'): "
+          f"{rp['update_gather_launches']} ({rp['leaves']} leaves x "
+          f"{rp['steps']} steps); Chrome events {rp['chrome_events']}; "
+          f"metrics records {rp['metrics_records']}")
+    from repro_torch.obs import heartbeat
+    print(f"  {heartbeat.format_report(rp['heartbeat'])}")
+    print(f"  kernel vs plain: loss rel {rp['loss_rel']}, grad norm rel "
+          f"{rp['grad_norm_rel']}; peak bytes summed "
+          f"{sum(r['peak_bytes'] for r in rp['kernel'])}; phase "
+          f"{rp['phase_s']:.1f} s")
+
+
+def replica_line(rp) -> dict:
+    k0 = rp["kernel"][0]
+    return dict(
+        arch="qwen2-0.5b", scheme="zero_topo", mesh=[2, 1, 2], ranks=4,
+        engine_opts=REPLICA_OPTS, global_batch=8, seq=1024,
+        steps=rp["steps"], losses=k0["losses"], grad_norms=k0["grad_norms"],
+        plain_losses=rp["plain"][0]["losses"],
+        plain_grad_norms=rp["plain"][0]["grad_norms"],
+        loss_rel=rp["loss_rel"], grad_norm_rel=rp["grad_norm_rel"],
+        step_s=k0["step_times"], plain_step_s=rp["plain"][0]["step_times"],
+        tok_s=k0["tokens_per_s"],
+        tflops_per_rank=k0["tflops_per_gpu"],
+        peak_bytes_per_rank=[r["peak_bytes"] for r in rp["kernel"]],
+        peak_bytes_sum=sum(r["peak_bytes"] for r in rp["kernel"]),
+        segments=[r["trace"]["segments"] for r in rp["kernel"]],
+        probes=[r["trace"]["probes"] for r in rp["kernel"]],
+        overlap_efficiency=[r["trace"]["overlap_efficiency"]
+                            for r in rp["kernel"]],
+        segment_sums=rp["segment_sums"], wire_bytes_per_step=rp["wire"],
+        payload_bytes_per_step_per_rank=rp["payload_per_step"],
+        probe_payload_bytes_per_step_per_rank=rp["probe_payload_per_step"],
+        update_gather_launches_per_rank=rp["update_gather_launches"],
+        leaves=rp["leaves"], probe_launches=rp["probe_launches"],
+        chrome_events=rp["chrome_events"],
+        metrics_records=rp["metrics_records"], heartbeat=rp["heartbeat"],
+        probe_inventory=k0["trace"]["probe_inventory"],
+        run_s=rp["run_s"], plain_run_s=rp["plain_run_s"],
+        phase_s=rp["phase_s"])
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: the quantized reduce-scatters on four ranks
 # ---------------------------------------------------------------------------
 
 def collective_rank(rank: int, port: int, queue) -> None:
-    """One of the four gloo ranks of the collectives phase (spawned)."""
+    """One of the four gloo ranks of the collectives phase (forked from the
+    launcher's fork server)."""
     import torch.distributed as dist
     from datetime import timedelta
     try:
@@ -2497,7 +2733,9 @@ def collectives_phase() -> list[dict]:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    ctx = mp.get_context("spawn")
+    from repro_torch.launch import train
+
+    ctx = train.fork_context()
     queue = ctx.Queue()
     procs = [ctx.Process(target=collective_rank, args=(r, port, queue))
              for r in range(4)]
@@ -3321,6 +3559,11 @@ def main(argv=None) -> int:
         return 1
     from repro_torch.kernels import cuda as kcuda
     from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    # the training phases' ranks fork from this server; its imports run
+    # beside the build and the serving phases
+    train.start_fork_server()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3434,8 +3677,12 @@ def main(argv=None) -> int:
         phase("ckpt")
         ck = ckpt_phase(tr)
         print_ckpt(ck)
+        phase("replica")
+        rp = replica_phase()
+        print_replica(rp)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        shutil.rmtree(TRACE_DIR, ignore_errors=True)
 
     phase("train_neox")
     tn = neox_train_phase()
@@ -3539,6 +3786,7 @@ def main(argv=None) -> int:
                        train_ssm=tsm["launches"][name],
                        train_gemma=tgm["launches"][name],
                        ckpt=sum(leg["launches"][name] for leg in ck["legs"]),
+                       replica=rp["launches"][name],
                        collectives=cl_launches[name],
                        regimes=sum(rg["launches"][name] for rg in regimes),
                        quant_error=qe_launches[name],
@@ -3726,6 +3974,8 @@ def main(argv=None) -> int:
             train_gemma=train_gemma_line,
             regimes=regimes_line, collectives=collectives_line,
             ckpt=ckpt_line(ck), ckpt_ranks=[leg["ranks"] for leg in ck["legs"]],
+            replica=replica_line(rp), replica_ranks=rp["kernel"],
+            replica_plain_ranks=rp["plain"],
             collective_ranks=cl,
             regime_ranks=[rg["ranks"] for rg in regimes],
             train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
@@ -3758,6 +4008,7 @@ def main(argv=None) -> int:
     print("regimes " + json.dumps(regimes_line))
     print("collectives " + json.dumps(collectives_line))
     print("ckpt " + json.dumps(ckpt_line(ck)))
+    print("replica " + json.dumps(replica_line(rp)))
     print("kernels_extra " + json.dumps(kernels_extra))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {card}")
@@ -3768,4 +4019,11 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        # the launcher's fork server, where this run started one
+        launcher = sys.modules.get("repro_torch.launch.train")
+        if launcher is not None:
+            launcher.stop_fork_server()
+    sys.exit(code)

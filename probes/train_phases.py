@@ -38,6 +38,20 @@ Needs one CUDA card and nvcc. Phases (all by default):
   then ``chip_smoke.ckpt_phase`` (legs (a), (b), (c)); prints the
   ``ckpt`` line and removes the checkpoint. About 5 minutes with the
   builds.
+- ``first_step``: where a training run's start and first step spend the
+  seconds a steady step does not: chip_smoke's train phase run (qwen2-0.5b
+  at full size on four ranks, 3 steps, trace mode without probes, so each
+  step's fenced segments are kept) three times: its ranks spawned (a fresh
+  interpreter each, as before the launcher's fork server), forked from the
+  fork server that has imported torch (as chip_smoke runs them), and
+  forked and warm, each rank first importing torch._dynamo (the first
+  checkpoint call's import), loading the kernel libraries (ctypes), creating
+  cuBLAS's handles (bf16 and f32 products, a product with a bias),
+  growing its allocator by WARM_ALLOC bytes and sending WARM_GATHER bytes
+  through gloo twice, each timed. Prints every rank's host timeline
+  (spawn, entry, torch imported, group joined, CUDA context, engine and
+  groups bound, state, run end, joined) and each step's segments.
+- ``replica``: chip_smoke's replica phase (4i) alone.
 - ``trace_window``: gpt-neox-20b served at published depth, then its
   prefill traced ``--traces`` times, in turns bare (launched the moment
   the trace starts), padded (``train.trainer.pad_trace``'s idle card
@@ -55,6 +69,7 @@ import argparse
 import gc
 import json
 import queue as queue_mod
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -64,7 +79,12 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("ssm", "gemma", "timing", "scan_backward", "ssm_ablation",
-          "trace_events", "depth", "serve_deepseek", "trace_window", "ckpt")
+          "trace_events", "depth", "serve_deepseek", "trace_window", "ckpt",
+          "first_step", "replica")
+# the bytes the first_step phase's warm run has its allocator map before
+# the steps, and sends through one gloo all-gather twice
+WARM_ALLOC = 6 << 30
+WARM_GATHER = 256 << 20
 # the ops functions turned plain, one at a time, in ``ssm_ablation``
 ABLATED = ("selective_scan", "dequant_matmul", "matmul_quant")
 
@@ -121,7 +141,8 @@ def _forced_plain(fn):
     return plain
 
 
-def _worker(rank, world, port, args, arch, queue, plain, host_events):
+def _worker(rank, world, port, args, arch, queue, plain, host_events,
+            std=None):
     """``launch.train``'s rank, with the ops of ``plain`` turned plain and,
     with ``host_events``, the traced step recording the host's events too."""
     import torch
@@ -136,24 +157,161 @@ def _worker(rank, world, port, args, arch, queue, plain, host_events):
         act = torch.profiler.ProfilerActivity
         trainer._profiler = lambda device: torch.profiler.profile(
             activities=[act.CPU, act.CUDA])
-    train._worker(rank, world, port, args, arch, queue)
+    train._worker(rank, world, port, args, arch, None, None, queue, std)
 
 
-def run_ranks(argv, arch, plain=(), host_events=False) -> list[dict]:
+def warm_up(device, world: int) -> dict:
+    """The first uses a step pays for, each timed on the host clock (s):
+    the kernel libraries' load, cuBLAS's handles, the allocator's growth and
+    the first and second gloo all-gathers of a CUDA tensor."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import cuda as kcuda
+
+    out = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        out[key] = time.perf_counter() - t0
+
+    a = torch.randn(256, 256, device=device, dtype=torch.bfloat16)
+    timed("import_dynamo", lambda: __import__("torch._dynamo"))
+    timed("ctypes_load", kcuda.build_all)
+    timed("cublas_bf16", lambda: a @ a)
+    timed("cublas_f32", lambda: a.float() @ a.float())
+    timed("cublaslt_bias", lambda: torch.nn.functional.linear(a, a, a[0]))
+    timed("allocator_grow", lambda: torch.empty(WARM_ALLOC, dtype=torch.uint8,
+                                                device=device))
+    x = torch.ones(WARM_GATHER // 4, device=device)
+    outs = [torch.empty_like(x) for _ in range(world)]
+    timed("gloo_first", lambda: dist.all_gather(outs, x))
+    timed("gloo_second", lambda: dist.all_gather(outs, x))
+    return out
+
+
+class _Tagged:
+    """A queue whose results carry ``extra`` (a spawned rank's own data)."""
+
+    def __init__(self, queue, extra):
+        self.queue, self.extra = queue, extra
+
+    def put(self, item):
+        rank, res, err = item
+        self.queue.put((rank, res if res is None else dict(res, **self.extra),
+                        err))
+
+
+def _first_step_worker(rank, world, port, args, queue, warm, std=None):
+    """``launch.train``'s rank, its host timeline stamped (``time.time()``,
+    comparable across the processes of one host) at its entry, torch
+    imported, the group joined, ``train_rank`` started, the CUDA context,
+    the engine and its groups bound, the state built, the run's end and
+    ``train_rank``'s end (results under ``timeline``); with ``warm`` it runs
+    ``warm_up`` after the state is built, before the steps (under
+    ``warm``)."""
+    timeline = dict(entry=time.time())
+    import torch
+    import torch.distributed  # noqa: F401
+
+    from repro_torch.core import engine
+    from repro_torch.launch import train
+    from repro_torch.train import trainer
+
+    timeline["torch"] = time.time()
+
+    def stamped(obj, attr, before=None, after=None):
+        real = getattr(obj, attr)
+
+        def call(*a, **kw):
+            if before and before not in timeline:
+                timeline[before] = time.time()
+            out = real(*a, **kw)
+            if after and after not in timeline:
+                timeline[after] = time.time()
+            return out
+        setattr(obj, attr, call)
+
+    stamped(train, "init_group", after="group")
+    stamped(train, "train_rank", before="start", after="end")
+    stamped(torch.cuda, "set_device", after="context")
+    stamped(engine.ZeroEngine, "__init__", after="engine")
+    timed = {}
+    real_run = trainer.Trainer.run
+
+    def run(self, state, n_steps, **kw):
+        timeline["state"] = time.time()
+        if warm:
+            timed.update(warm_up(self.engine.device, world))
+        out = real_run(self, state, n_steps, **kw)
+        timeline["run"] = time.time()
+        return out
+
+    trainer.Trainer.run = run
+    train._worker(rank, world, port, args, None, None, None,
+                  _Tagged(queue, dict(warm=timed, timeline=timeline)), std)
+
+
+def first_step(c) -> dict:
+    """chip_smoke's train phase run for 3 steps, traced without probes:
+    its ranks spawned (a fresh interpreter each, as before the launcher's
+    fork server), forked from the fork server that preloads torch, and
+    forked and warmed up (``_first_step_worker``): every rank's timeline
+    relative to the entry, its steps' seconds and fenced segments, and the
+    warm run's first uses."""
+    argv = list(c.TRAIN_ARGS)
+    argv[argv.index("--steps") + 1] = "3"
+    argv += ["--trace", "--probe-every", "0"]
+    out = {}
+    for label, start, warm in (("spawn", "spawn", False),
+                               ("forkserver", "forkserver", False),
+                               ("warm", "forkserver", True)):
+        t0 = time.perf_counter()
+        runs = run_ranks(argv, None, worker=_first_step_worker,
+                         extra=(warm,), start=start)
+        wall = time.perf_counter() - t0
+        rows = []
+        for r in runs:
+            tl = r["timeline"]
+            rows.append(dict(
+                rank=r["rank"], step_s=r["step_times"],
+                segments=r["trace"]["segments"],
+                collective_s=r["collective_s"], warm=r["warm"],
+                timeline={k: v - tl["entry"] for k, v in sorted(
+                    tl.items(), key=lambda kv: kv[1])}))
+            print(f"first_step {label} rank {r['rank']}: "
+                  f"{json.dumps(rows[-1])}", flush=True)
+        out[label] = dict(wall_s=wall, ranks=rows)
+        print(f"first_step {label}: {wall:.1f} s", flush=True)
+    return out
+
+
+def run_ranks(argv, arch, plain=(), host_events=False, worker=None,
+              extra=(), start="forkserver") -> list[dict]:
     """``launch.train.run`` of ``argv`` on its local ranks through
-    ``_worker``: each rank's result, by rank."""
+    ``_worker`` (or ``worker(rank, world, port, args, queue, *extra)``),
+    started as the launcher starts them (``start``: its fork server) or by
+    another start method: each rank's result, by rank."""
     import multiprocessing as mp
 
     from repro_torch.launch import train
 
     args = train.build_parser().parse_args(argv)
     n = args.devices
-    ctx = mp.get_context("spawn")
+    ctx = train.fork_context() if start == "forkserver" else \
+        mp.get_context(start)
     queue = ctx.Queue()
     store = train.rendezvous(n, args.timeout)
+    t_spawn = time.time()
+    std = (train.ParentFd(1), train.ParentFd(2))
     procs = [ctx.Process(target=_worker, args=(r, n, store.port, args, arch,
                                                queue, tuple(plain),
-                                               host_events))
+                                               host_events, std))
+             if worker is None else
+             ctx.Process(target=worker, args=(r, n, store.port, args, queue)
+                         + tuple(extra) + (std,))
              for r in range(n)]
     for p in procs:
         p.start()
@@ -182,6 +340,10 @@ def run_ranks(argv, arch, plain=(), host_events=False) -> list[dict]:
                 p.join()
     if errors:
         raise RuntimeError("\n".join(errors))
+    t_joined = time.time()
+    for r in results.values():
+        if "timeline" in r:        # a _first_step_worker's
+            r["timeline"].update(spawn=t_spawn, joined=t_joined)
     return [results[r] for r in range(n)]
 
 
@@ -528,6 +690,18 @@ def main():
     if "trace_window" in args.phase:
         out["trace_window"] = trace_window(c, args.traces)
         save()
+    if "first_step" in args.phase:
+        out["first_step"] = first_step(c)
+        save()
+    if "replica" in args.phase:
+        try:
+            rp = c.replica_phase()
+            c.print_replica(rp)
+            out["replica"] = c.replica_line(rp)
+            print("replica " + json.dumps(out["replica"]), flush=True)
+        finally:
+            shutil.rmtree(c.TRACE_DIR, ignore_errors=True)
+        save()
     if "timing" in args.phase:
         timing = {key: c.flash_timing(gen, dev, c.SCAN_TRAIN_B, c.GEMMA_H,
                                       1024, c.GEMMA_HD, torch.bfloat16,
@@ -547,4 +721,11 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        # the launcher's fork server, where this run started one
+        launcher = sys.modules.get("repro_torch.launch.train")
+        if launcher is not None:
+            launcher.stop_fork_server()
+    sys.exit(code)

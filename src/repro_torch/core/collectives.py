@@ -42,6 +42,8 @@ from .partition import AxisTuple, ZeroConfig
 _MESH = None
 PAYLOAD: collections.Counter = collections.Counter()
 SECONDS: collections.Counter = collections.Counter()
+# kernel launches made inside ``update_all_gather`` (its INT8 form)
+UPDATE_GATHER_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def bind(mesh) -> None:
@@ -53,6 +55,7 @@ def bind(mesh) -> None:
 def reset_counters() -> None:
     PAYLOAD.clear()
     SECONDS.clear()
+    UPDATE_GATHER_LAUNCHES.clear()
 
 
 def _group(axes: AxisTuple):
@@ -143,14 +146,15 @@ def det_psum(x: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig) -> torch.Tensor:
     return acc
 
 
-def psum_scatter(x: torch.Tensor, axes: AxisTuple,
-                 cfg: ZeroConfig) -> torch.Tensor:
+def psum_scatter(x: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig, *,
+                 op: str = "psum_scatter") -> torch.Tensor:
     """Tiled reduce-scatter of a flat tensor: this rank's 1/d slice of the
-    sum over ``axes``, summed in f32 in axis order, in x's dtype."""
+    sum over ``axes``, summed in f32 in axis order, in x's dtype (its
+    payload counted under ``op``)."""
     d = cfg.size(tuple(axes))
     if d == 1:
         return x
-    recv = _all_to_all(x.reshape(d, -1), axes, "psum_scatter")
+    recv = _all_to_all(x.reshape(d, -1), axes, op)
     acc = recv[0].float()
     for j in range(1, d):
         acc = acc + recv[j].float()
@@ -284,18 +288,33 @@ def reduce_scatter_flat(x, axes: AxisTuple, cfg: ZeroConfig, *,
 
 
 def cross_replica_grad(x, cfg: ZeroConfig, out_dtype=torch.float32):
-    """Final gradient sync over the replica tier (the paper's flow): sum the
-    stage-2 shards over R, in f32 in axis order, and keep this rank's 1/R
-    slice of the last axis."""
+    """Final gradient sync over the replica tier of a stage-2 shard, flat
+    ``(n,)`` or stacked ``(rows, n)``: this rank's 1/R slice of each row's
+    sum over R, summed in f32 in axis order.
+
+    ``cfg.cross_replica == "allreduce"`` (the paper's flow): gather the R
+    shards, sum them and keep the slice. ``"reduce_scatter"``: each row's R
+    chunks are laid out chunk-major (as ``ZeroEngine._stage2_rs`` lays out
+    stage 2) and one ``psum_scatter`` lands every row's slice at once, with
+    about half the wire bytes. Both add the same values in the same order,
+    so they give the same bits."""
     axes = cfg.axes.replica
     r = cfg.size(axes)
     if r == 1:
         return x.to(out_dtype)
+    piece = x.shape[-1] // r
+    if cfg.cross_replica == "reduce_scatter":
+        rows = x.reshape(-1, x.shape[-1])
+        chunks = rows.reshape(rows.shape[0], r, piece).transpose(0, 1)
+        out = psum_scatter(chunks.reshape(-1), axes, cfg, op="reduce_scatter")
+        return out.reshape(x.shape[:-1] + (piece,)).to(out_dtype)
+    if cfg.cross_replica != "allreduce":
+        raise ValueError(f"cross_replica {cfg.cross_replica!r}: "
+                         "'allreduce' or 'reduce_scatter'")
     parts = _gather(x, axes, "all_reduce")
     full = parts[0].float()
     for j in range(1, r):
         full = full + parts[j].float()
-    piece = x.shape[-1] // r
     i = axis_index(axes, cfg)
     # a copy, not a view: the step scales and consumes it in place, and a
     # view would keep all R slices alive until then
@@ -305,12 +324,34 @@ def cross_replica_grad(x, cfg: ZeroConfig, out_dtype=torch.float32):
 def update_all_gather(master_shard: torch.Tensor, cfg: ZeroConfig,
                       out_dtype=torch.bfloat16) -> torch.Tensor:
     """Rebuild primary shards from updated optimizer shards: all-gather over
-    E + R along the last axis (flat or stacked (layers, shard) leaves)."""
+    E + R along the last axis (flat or stacked (layers, shard) leaves).
+
+    With ``cfg.quantize_update_gather`` the compute-dtype shard is quantized
+    to INT8 flat with the leaf's block (blocks never cross rows: a shard is
+    a whole number of blocks), q and the f32 scales are gathered, and the
+    gathered blocks are dequantized to the compute dtype, as the reference
+    does (``src/repro/core/collectives.py:270-282``). The kernels' launches
+    here are also counted in ``UPDATE_GATHER_LAUNCHES``."""
     axes = cfg.axes.extra_grad + cfg.axes.replica
     x = master_shard.to(out_dtype)
     if cfg.size(axes) == 1:
         return x
-    return _tiled(_gather(x, axes, "all_gather"))
+    if not cfg.quantize_update_gather:
+        return _tiled(_gather(x, axes, "update_gather"))
+    before = ops.launches()
+    q, s = ops.quantize_int8(x.reshape(-1), cfg.quant_block, impl=cfg.impl)
+    del x
+    q = q.reshape(master_shard.shape)
+    s = s.reshape(master_shard.shape[:-1] + (-1,))
+    qf = _tiled(_gather(q, axes, "update_gather"))
+    sf = _tiled(_gather(s, axes, "update_gather"))
+    del q, s
+    out = ops.dequantize_int8(qf.reshape(-1), sf.reshape(-1),
+                              cfg.quant_block, out_dtype, impl=cfg.impl)
+    for k, v in ops.launches().items():
+        if v > before[k]:
+            UPDATE_GATHER_LAUNCHES[k] += v - before[k]
+    return out.reshape(master_shard.shape[:-1] + (-1,))
 
 
 def secondary_slice(qf, sf, axes: AxisTuple, cfg: ZeroConfig):

@@ -41,6 +41,7 @@ each layer's gathers during the previous layer (core/schedule.py).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import time
@@ -50,6 +51,7 @@ from typing import Callable
 import torch
 
 from ..device import resolve
+from ..obs.spans import tracing
 from ..optim.adamw import adamw_update_, cosine_lr
 from . import collectives as col
 from . import schedule as sched
@@ -507,7 +509,7 @@ class ZeroEngine:
         self.phase_s[name] += t1 - t0
         return t1
 
-    def train_step(self, loss_fn: Callable, state, batch):
+    def train_step(self, loss_fn: Callable, state, batch, rec=None):
         """One step; returns (state, metrics) with the metrics global over
         the mesh: loss, grad_norm, lr, tokens (f32 scalars).
 
@@ -519,19 +521,41 @@ class ZeroEngine:
         state before the step keeps a copy of its own. Adds the host time of
         its phases to ``phase_s``: "grads" (forward, backward and stage 1),
         "stage2" (+ the replica sync), "update" (clip, AdamW, update
-        all-gather)."""
-        t = time.perf_counter()
-        grads, loss, gtok = self.local_grads(loss_fn, state["primaries"], batch)
-        t = self._phase("grads", t)
-        streamed = self.stream_leaf_names() if self.cfg.stream_grads else ()
-        os_grads = {}
-        for n in sorted(self.specs):      # each stage-1 grad freed once used
-            g = grads.pop(n)
-            os_grads[n] = g if n in streamed else \
-                self._replica_sync(n, self._stage2_rs(n, g))
-            del g
-        t = self._phase("stage2", t)
-        gnorm = self._clip_grads(os_grads)
-        state, lr = self._apply_updates(state, os_grads)
-        self._phase("update", t)
+        all-gather).
+
+        ``rec`` (an ``obs.spans.SpanRecorder``: trace mode) runs each piece
+        under ``rec.fenced`` in the reference's segments
+        (``obs.spans.SEGMENTS``), one span each: fwd_bwd, grad_rs_e,
+        cross_replica, gnorm_clip, update. A fence waits for the card and
+        changes nothing the step computes, so a traced step is bit for bit
+        the untraced one (the reference jits its segments apart and is only
+        float-close)."""
+        fence = _unfenced if rec is None else rec.fenced
+        with contextlib.nullcontext() if rec is None else tracing():
+            t = time.perf_counter()
+            grads, loss, gtok = fence("fwd_bwd", self.local_grads, loss_fn,
+                                      state["primaries"], batch)
+            t = self._phase("grads", t)
+            streamed = self.stream_leaf_names() if self.cfg.stream_grads \
+                else ()
+            # primary-layout grads; streamed leaves arrive from the backward
+            # already reduced to the optimizer shard. Stage 2 of each, then
+            # the replica sync of each, each grad freed as it is taken
+            seeded = [n for n in sorted(self.specs) if n not in streamed]
+            g2 = fence("grad_rs_e", lambda: {
+                n: self._stage2_rs(n, grads.pop(n)) for n in seeded})
+            g3 = fence("cross_replica", lambda: {
+                n: self._replica_sync(n, g2.pop(n)) for n in seeded})
+            t = self._phase("stage2", t)
+            # sorted leaf order: the grad norm's sum depends on it
+            os_grads = {n: g3.pop(n) if n in g3 else grads.pop(n)
+                        for n in sorted(self.specs)}
+            gnorm = fence("gnorm_clip", self._clip_grads, os_grads)
+            state, lr = fence("update", self._apply_updates, state, os_grads)
+            self._phase("update", t)
         return state, dict(loss=loss, grad_norm=gnorm, lr=lr, tokens=gtok)
+
+
+def _unfenced(name: str, fn: Callable, *args):
+    """``SpanRecorder.fenced``'s call without the span (an untraced step)."""
+    return fn(*args)

@@ -52,6 +52,10 @@ class ZeroConfig:
     quantize_weights: bool = False      # INT8 block quant on weight all-gather
     quantize_grads: bool = False        # INT4 a2a-based gradient reduce-scatter
     quant_block: int = 512
+    cross_replica: str = "allreduce"    # the paper's flow: all-reduce over R,
+    # then keep this rank's slice; "reduce_scatter": a reduce-scatter over R
+    # lands the slice directly, at about half the wire bytes
+    quantize_update_gather: bool = False  # INT8 update all-gather over E + R
     overlap: bool = False               # prefetch layer i+1's weight gathers
     # while layer i computes; schedule only: the same collectives and numbers
     stream_grads: bool = False          # reduce each stacked layer's weight
@@ -93,8 +97,9 @@ class ZeroConfig:
         config that determines how a flat parameter is split across ranks.
         ``ZeroEngine.scheme_fingerprint`` extends it with per-leaf padded
         sizes; train/checkpoint.py refuses to restore across different
-        fingerprints. ``overlap``, ``stream_grads``, ``impl`` and
-        ``compute_dtype`` leave the layout as it is and stay out."""
+        fingerprints. ``cross_replica``, ``quantize_update_gather``,
+        ``overlap``, ``stream_grads``, ``impl`` and ``compute_dtype`` leave
+        the layout as it is and stay out."""
         return dict(
             scheme=self.name,
             axes=dict(weight=list(self.axes.weight),
@@ -182,7 +187,8 @@ def preset(scheme: str, *, intra_axes: AxisTuple, inter_axes: AxisTuple,
                           quantize_grads=True, name="zero_topo", **over)
     if scheme == "zero1":
         axes = ZeroAxes(weight=(), extra_grad=(), replica=every)
-        return ZeroConfig(axes, sizes, name="zero1", **over)
+        return ZeroConfig(axes, sizes, name="zero1",
+                          cross_replica="allreduce", **over)
     if scheme == "zero2":
         axes = ZeroAxes(weight=(), extra_grad=every, replica=())
         return ZeroConfig(axes, sizes, name="zero2", **over)

@@ -59,6 +59,7 @@ class Mesh:
         self.rank = rank
         self.coords = self._coords(rank)
         self._groups: dict[AxisTuple, Group] = {}
+        self._pgs: dict[tuple[int, ...], object] = {}   # by sorted members
 
     def _coords(self, rank: int) -> dict[str, int]:
         out = {}
@@ -97,7 +98,10 @@ class Mesh:
     def bind(self, axis_tuples) -> None:
         """Create the process groups of every axis tuple of size > 1. Every
         rank calls this with the same tuples in the same order (each
-        ``new_group`` is collective over the whole world)."""
+        ``new_group`` is collective over the whole world). Tuples over the
+        same set of ranks (on (1, 2, 2): ("gcd", "node") and all three
+        axes) share one gloo group, the world's own when they are every rank:
+        each new group costs its connections."""
         for axes in axis_tuples:
             axes = tuple(axes)
             if self.axis_size(axes) == 1 or axes in self._groups:
@@ -112,7 +116,12 @@ class Mesh:
                 if key in seen:
                     continue
                 seen.add(key)
-                pg = dist.new_group(ranks=sorted(members))
+                ranks = tuple(sorted(members))
+                pg = self._pgs.get(ranks)
+                if pg is None:
+                    pg = dist.group.WORLD if len(ranks) == self.size \
+                        else dist.new_group(ranks=list(ranks))
+                    self._pgs[ranks] = pg
                 if self.rank in members:
                     self._groups[axes] = Group(
                         axes, members, members.index(self.rank), pg,

@@ -23,6 +23,8 @@ import time
 import numpy as np
 
 from ..core.partition import SCHEMES
+from ..obs.metrics import (SERVE_REQUIRED_FIELDS, MetricsWriter, read_jsonl,
+                           serve_aggregates)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,19 +70,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and the requests")
     return ap
-
-
-class JsonlWriter:
-    """One JSON object per line (the batcher's per-step records)."""
-
-    def __init__(self, path: str):
-        self._fh = open(path, "w")
-
-    def write(self, record: dict):
-        self._fh.write(json.dumps(record, sort_keys=True) + "\n")
-
-    def close(self):
-        self._fh.close()
 
 
 def setup(args):
@@ -134,7 +123,9 @@ def main(argv=None):
     print(f"residency: axes={rep['res_axes']} degree={rep['res_degree']} "
           f"wire={rep['wire_bytes']}B dense={rep['dense_bytes']}B "
           f"per device ({device})")
-    metrics = JsonlWriter(args.metrics_jsonl) if args.metrics_jsonl else None
+    metrics = MetricsWriter(args.metrics_jsonl,
+                            fields=SERVE_REQUIRED_FIELDS) \
+        if args.metrics_jsonl else None
     cb = make_batcher(args, model, layout, device, metrics)
     print(f"paged pool: {cb.paged.n_pages} pages x {cb.paged.page_size} "
           f"tokens ({cb.paged.blocks_per_slot}/slot)")
@@ -144,6 +135,10 @@ def main(argv=None):
     dt = time.time() - t0
     if metrics is not None:
         metrics.close()
+        # the lane read back, its schema checked again, and summarised
+        agg = serve_aggregates(read_jsonl(args.metrics_jsonl,
+                                          SERVE_REQUIRED_FIELDS))
+        print(f"metrics: {args.metrics_jsonl} {json.dumps(agg)}")
 
     c = cb.counters
     tok = sum(len(r.out) for r in reqs)

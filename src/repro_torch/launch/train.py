@@ -8,7 +8,9 @@
 Port of ``repro.launch.train`` with the flags ``--arch --scheme --steps
 --batch --seq --reduced --quant-block --overlap --stream-grads --lr
 --compute-dtype --ckpt-dir --ckpt-every --resume --strict-restore
---log-json`` plus
+--log-json``, the observability group ``--trace --metrics-jsonl
+--chrome-trace --heartbeat-dir --probe-every`` and the distributed group
+``--coordinator --num-processes --process-id`` (launch/distributed.py), plus
 ``--device`` (default ``cuda``; there is no CPU fallback), ``--devices N``,
 ``--seed``, ``--microbatches``, ``--kernel-impl plain`` (the plain PyTorch version of every
 kernel, the reference the kernels are held against) and ``--init-npz`` (start
@@ -24,9 +26,16 @@ this run and the schedule's ``total_steps``, as in the reference.
 (N/4, 2, 2) (N = 1, 2 give (1, 1, N); ``--mesh-shape`` picks another shape
 of N ranks, e.g. 2,1,2 for a replica tier): N local processes, one rank each,
 meeting over gloo at one TCP rendezvous on 127.0.0.1. Ranks on a card share
-the cards round-robin (four ranks on one H100 all use cuda:0). Under
-``torchrun`` the launcher reads RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT
-from the environment instead and runs its one rank.
+the cards round-robin (four ranks on one H100 all use cuda:0). A job whose
+processes were started by someone else (the three flags, SLURM, OpenMPI,
+the ``REPRO_*`` variables or torchrun: ``distributed.detect``) runs one rank
+in each process, and ``--devices`` is then its process count.
+
+Trace mode (any of ``--trace``, ``--metrics-jsonl``, ``--chrome-trace``,
+``--heartbeat-dir``) fences the step's segments (``ZeroEngine.train_step``
+with a ``SpanRecorder``: bit for bit the untraced step) and runs the
+out-of-band probes (obs/phased.py); after the run rank 0 prints the
+heartbeat report and the throughput without the first step.
 """
 from __future__ import annotations
 
@@ -38,6 +47,16 @@ import traceback
 from datetime import timedelta
 
 from ..core.partition import SCHEMES
+from .distributed import add_cli_args, from_args, initialize
+
+# the modules the launcher's fork server imports once, before it forks any
+# rank: each rank then starts with torch imported, and with torch._dynamo,
+# which the first torch.utils.checkpoint call of a step imports otherwise.
+# Four ranks spawned at once on an H100 host paid 8 s for `import torch` and
+# 27 s more in their first step than in a steady one
+# (probes/train_phases.py --phase first_step). Nothing here touches a card.
+PRELOAD = ("torch", "torch.distributed", "torch._dynamo",
+           "repro_torch.launch.train", "repro_torch.train.trainer")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,8 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--scheme", default="zero_topo", choices=SCHEMES)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--devices", type=int, default=4,
-                    help="ranks (local processes) of the mesh")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks of the mesh (default 4, or the process "
+                         "count of a multi-process launch); spawned as local "
+                         "processes unless the launch is multi-process")
     ap.add_argument("--mesh-shape", default="",
                     help="data,node,gcd sizes of the mesh, their product "
                          "--devices (default: from --devices)")
@@ -102,13 +123,47 @@ def build_parser() -> argparse.ArgumentParser:
                          "report its kernels' device time (-1: none)")
     ap.add_argument("--log-json", default="",
                     help="write rank 0's TrainLog as JSON")
+    g = ap.add_argument_group(
+        "observability", "opt-in runtime tracing (DESIGN.md §10); without "
+        "--trace the monolithic step runs untouched and every bitwise "
+        "contract holds")
+    g.add_argument("--trace", action="store_true",
+                   help="run the phased fenced step: per-phase spans, "
+                        "comm-attribution probes, JSONL metrics stream")
+    g.add_argument("--metrics-jsonl", default="",
+                   help="per-step JSONL metrics path (multi-process runs "
+                        "write per-rank .rank<k> lanes next to it)")
+    g.add_argument("--chrome-trace", default="",
+                   help="write collected spans as a Chrome/Perfetto "
+                        "trace.json at end of run")
+    g.add_argument("--heartbeat-dir", default="",
+                   help="per-rank heartbeat files + straggler report "
+                        "(launch.distributed.Heartbeat)")
+    g.add_argument("--probe-every", type=int, default=4,
+                   help="steps between out-of-band comm-attribution probe "
+                        "runs (0 disables probes)")
+    add_cli_args(ap)
     return ap
+
+
+def trace_config(args):
+    """The run's TraceConfig: trace mode when any of ``--trace``,
+    ``--metrics-jsonl``, ``--chrome-trace``, ``--heartbeat-dir`` is given
+    (the reference's rule), else None."""
+    if not (args.trace or args.metrics_jsonl or args.chrome_trace
+            or args.heartbeat_dir):
+        return None
+    from ..obs.spans import TraceConfig
+    return TraceConfig(metrics_path=args.metrics_jsonl or None,
+                       chrome_trace=args.chrome_trace or None,
+                       heartbeat_dir=args.heartbeat_dir or None,
+                       probe_every=args.probe_every)
 
 
 def mesh_shape(args) -> tuple[int, ...]:
     """The (data, node, gcd) sizes for ``args``: ``--mesh-shape``, else
-    (N/4, 2, 2) for N = --devices (N = 1, 2: (1, 1, N))."""
-    n = args.devices
+    (N/4, 2, 2) for N = --devices (N = 1, 2: (1, 1, N); unset: 4)."""
+    n = args.devices or 4
     if args.mesh_shape:
         shape = tuple(int(v) for v in args.mesh_shape.split(","))
         if len(shape) != 3 or shape[0] * shape[1] * shape[2] != n:
@@ -122,15 +177,22 @@ def mesh_shape(args) -> tuple[int, ...]:
     return (n // 4, 2, 2)
 
 
-def train_rank(rank: int, world: int, args, arch=None, steps=None) -> dict:
+def train_rank(rank: int, world: int, args, arch=None, steps=None,
+               engine_opts=None) -> dict:
     """One rank's run. Returns its per-step metrics, its kernel launches
-    and collective payload bytes over the steps, its peak device memory,
-    the step it resumed from, the sha256 of each shard it restored
-    (``checkpoint.shard_digests``) and its checkpoints' seconds. ``arch``
-    (an ArchConfig) stands in for ``get_arch(args.arch)`` when given (e.g.
-    a published width at a cut depth). ``steps``: stop after this many
-    steps (default ``--steps``, which still sets the schedule)."""
+    and collective payload bytes over the steps (and the launches inside
+    the update all-gather), its peak device memory, the step it resumed
+    from, the sha256 of each shard it restored
+    (``checkpoint.shard_digests``), its checkpoints' seconds and, in trace
+    mode, its spans (``trace``; rank 0 also the heartbeat report, read after
+    every rank has stamped its last step). ``arch`` (an ArchConfig) stands
+    in for ``get_arch(args.arch)`` when given (e.g. a published width at a
+    cut depth). ``steps``: stop after this many steps (default ``--steps``,
+    which still sets the schedule). ``engine_opts``: ZeroConfig overrides
+    (``cross_replica``, ``quantize_update_gather``), as the reference's
+    ``scheme_config(**engine_opts)``."""
     import torch
+    import torch.distributed as dist
 
     from ..convert import from_jax_state, load_global_state
     from ..core import collectives as col
@@ -139,8 +201,10 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None) -> dict:
     from ..device import resolve
     from ..kernels import ops
     from ..models.registry import build_model, get_arch
+    from ..obs.spans import PROBES, SEGMENTS
     from ..train import checkpoint
     from ..train.trainer import Trainer
+    from .distributed import heartbeat
     from .mesh import TEST_AXES, Mesh, scheme_config
 
     device = resolve(args.device)
@@ -160,18 +224,26 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None) -> dict:
     mesh = Mesh(mesh_shape(args), TEST_AXES, rank)
     cfg = scheme_config(args.scheme, mesh, quant_block=args.quant_block,
                         overlap=args.overlap, stream_grads=args.stream_grads,
-                        compute_dtype=args.compute_dtype, impl=args.kernel_impl)
+                        compute_dtype=args.compute_dtype, impl=args.kernel_impl,
+                        **(engine_opts or {}))
     hp = TrainHparams(lr=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 2),
                       n_microbatch=args.microbatches, overlap=args.overlap,
                       stream_grads=args.stream_grads)
     eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp, device)
+    trace = trace_config(args)
     tr = Trainer(model, eng, BatchSpec(args.batch, args.seq, arch.vocab),
-                 seed=args.seed)
+                 seed=args.seed, trace=trace)
     log0(f"arch={arch.name} scheme={cfg.name} mesh={mesh.shape} "
          f"params={eng.param_count():,} overlap={eng.cfg.overlap} "
-         f"stream_grads={eng.cfg.stream_grads} device={device} "
-         f"kernel_impl={eng.cfg.impl or 'kernel'} ranks={world}")
+         f"stream_grads={eng.cfg.stream_grads} "
+         f"cross_replica={eng.cfg.cross_replica} "
+         f"quantize_update_gather={eng.cfg.quantize_update_gather} "
+         f"device={device} kernel_impl={eng.cfg.impl or 'kernel'} "
+         f"ranks={world}")
+    if trace is not None:
+        log0(f"trace mode: phased fenced step (bit for bit the untraced "
+             f"step) probes_every={args.probe_every}")
     log0(f"per-rank state bytes: {eng.memory_report()}")
     resumed_from, restore_s, restored = None, None, None
     if args.resume:
@@ -198,8 +270,32 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None) -> dict:
            profile_step=args.profile_step if args.profile_step >= 0 else None,
            ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every)
     launches, payload = ops.launches(), dict(col.PAYLOAD)
+    update_gather = dict(col.UPDATE_GATHER_LAUNCHES)
     fallbacks = ops.dispatch_counters()
     log = tr.log
+    traced = None
+    if tr.phased is not None:
+        rec, ph = tr.recorder, tr.phased
+        spans = [rec.step_seconds(i) for i in range(len(log.steps))]
+        probes = [{k: v for k, v in sp.items() if k in PROBES}
+                  for sp in spans]
+        traced = dict(
+            segments=[{k: v for k, v in sp.items() if k in SEGMENTS}
+                      for sp in spans],
+            probes=probes,
+            phase_s=[ph.phase_seconds(rec, i, p or None)
+                     for i, p in enumerate(probes)],
+            overlap_efficiency=[ph.overlap_efficiency(rec, i)
+                                for i in range(len(spans))],
+            probe_inventory=ph.probe_inventory(),
+            probe_counts={k: dict(v) for k, v in ph.probe_counts.items()},
+            chrome_events=len(rec.chrome_events(rank)))
+    hb_report = None
+    if args.heartbeat_dir:
+        if world > 1:
+            dist.barrier()      # every rank has stamped its last step
+        if rank == 0:
+            hb_report = heartbeat(args.heartbeat_dir).report()
     log0(f"final loss: {log.losses[-1]}")
     if rank == 0 and args.log_json:
         log.save(args.log_json)
@@ -207,7 +303,9 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None) -> dict:
                 grad_norms=log.grad_norms, lrs=log.lrs,
                 step_times=log.step_times, tokens=log.tokens,
                 tokens_per_s=log.tokens_per_s, launches=launches,
-                fallbacks=fallbacks,
+                tflops_per_gpu=log.tflops_per_gpu,
+                aggregates=log.aggregates(), update_gather_launches=update_gather,
+                trace=traced, heartbeat=hb_report, fallbacks=fallbacks,
                 payload_bytes=payload, collective_s=dict(col.SECONDS),
                 phase_s=dict(eng.phase_s), profile=log.meta.get("profile"),
                 memory=eng.memory_report(), resumed_from=resumed_from,
@@ -217,6 +315,34 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None) -> dict:
                 if device.type == "cuda" else None,
                 peak_reserved_bytes=torch.cuda.max_memory_reserved(device)
                 if device.type == "cuda" else None)
+
+
+def fork_context():
+    """The multiprocessing context the launcher starts its ranks in: a fork
+    server that imports PRELOAD once (started at its first use, or by
+    ``start_fork_server``)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(list(PRELOAD))
+    return ctx
+
+
+def start_fork_server() -> None:
+    """Start the fork server now: its imports run in the background while
+    the caller goes on, and the first ranks find it ready."""
+    from multiprocessing import forkserver
+    fork_context()
+    forkserver.ensure_running()
+
+
+def stop_fork_server() -> None:
+    """Stop this process's fork server, if it started one, and wait until it
+    has exited (it would otherwise exit on its own only once this process
+    has)."""
+    from multiprocessing import forkserver
+    stop = getattr(forkserver._forkserver, "_stop", None)
+    if stop is not None:
+        stop()
 
 
 def rendezvous(world: int, timeout_s: float):
@@ -231,24 +357,42 @@ def rendezvous(world: int, timeout_s: float):
                          timeout=timedelta(seconds=timeout_s))
 
 
-def init_group(rank: int, world: int, timeout_s: float,
-               port: int | None = None) -> None:
-    """Join the gloo group: through the ``rendezvous`` store on ``port``,
-    or, with no port, through torchrun's environment."""
+def init_group(rank: int, world: int, timeout_s: float, port: int) -> None:
+    """Join the gloo group through the ``rendezvous`` store on ``port``."""
     import torch.distributed as dist
     timeout = timedelta(seconds=timeout_s)
-    if port is None:
-        dist.init_process_group("gloo", init_method="env://", rank=rank,
-                                world_size=world, timeout=timeout)
-        return
     store = dist.TCPStore("127.0.0.1", port, world_size=world,
                           is_master=False, timeout=timeout)
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=world, timeout=timeout)
 
 
-def _worker(rank: int, world: int, port: int, args, arch, steps,
-            queue) -> None:
+class ParentFd:
+    """The launching process's file descriptor ``fd`` as a forked rank
+    receives it: pickled while the rank starts, it reaches the rank through
+    the fork server (which holds the descriptors of the process that
+    started it, not the launcher's current ones)."""
+
+    def __init__(self, fd: int):
+        self.fd = fd
+
+    def __reduce__(self):
+        from multiprocessing import reduction
+        return _detach_fd, (reduction.DupFd(self.fd),)
+
+
+def _detach_fd(dup) -> int:
+    return dup.detach()
+
+
+def _worker(rank: int, world: int, port: int, args, arch, steps, engine_opts,
+            queue, std=None) -> None:
+    """A local rank: its stdout and stderr are ``std``, the launcher's own
+    (``ParentFd``), then the group and ``train_rank``; the result, or the
+    traceback, goes on ``queue``."""
+    for fd, target in enumerate(std or (), start=1):
+        os.dup2(target, fd)
+        os.close(target)
     import torch.distributed as dist
     if args.device != "cpu":
         # local ranks share the cards round-robin (four on one H100): with
@@ -259,7 +403,8 @@ def _worker(rank: int, world: int, port: int, args, arch, steps,
                               "expandable_segments:True")
     try:
         init_group(rank, world, args.timeout, port)
-        queue.put((rank, train_rank(rank, world, args, arch, steps), None))
+        queue.put((rank, train_rank(rank, world, args, arch, steps,
+                                    engine_opts), None))
     except Exception:
         # the parent raises with this traceback and stops the other ranks
         queue.put((rank, None, traceback.format_exc()))
@@ -268,20 +413,30 @@ def _worker(rank: int, world: int, port: int, args, arch, steps,
             dist.destroy_process_group()
 
 
-def run(args, arch=None, *, steps=None) -> list[dict]:
+def launch_config(args):
+    """This process's ``distributed.DistConfig``; sets ``args.devices`` to
+    its process count when it is multi-process (a ``--devices`` that
+    differs raises ValueError), else to 4 when unset."""
+    dcfg = from_args(args)
+    if dcfg.is_distributed:
+        if args.devices not in (None, dcfg.num_processes):
+            raise ValueError(f"--devices {args.devices}: this launch has "
+                             f"{dcfg.num_processes} processes ({dcfg.source})")
+        args.devices = dcfg.num_processes
+    elif args.devices is None:
+        args.devices = 4
+    return dcfg
+
+
+def run(args, arch=None, *, steps=None, engine_opts=None) -> list[dict]:
     """Train; returns every local rank's ``train_rank`` result by rank.
     ``arch``: an ArchConfig to train in place of ``get_arch(args.arch)``;
-    ``steps``: as ``train_rank`` takes it. ``--resume --strict-restore``
-    onto another mesh layout raises ``checkpoint.MeshMismatch`` here,
-    before any rank starts."""
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-        init_group(rank, world, args.timeout)
-        try:
-            return [train_rank(rank, world, args, arch, steps)]
-        finally:
-            import torch.distributed as dist
-            dist.destroy_process_group()
+    ``steps``, ``engine_opts``: as ``train_rank`` takes them. A
+    multi-process launch (``distributed.detect``) runs this process's one
+    rank; ``--devices``, when given, must be its process count. ``--resume
+    --strict-restore`` onto another mesh layout raises
+    ``checkpoint.MeshMismatch`` here, before any rank starts."""
+    dcfg = launch_config(args)
     n = args.devices
     mesh_shape(args)
     from ..device import resolve
@@ -295,14 +450,22 @@ def run(args, arch=None, *, steps=None) -> list[dict]:
         if step is not None:
             checkpoint.check_layout(args.ckpt_dir, step,
                                     Mesh(mesh_shape(args), TEST_AXES))
+    if dcfg.is_distributed:
+        initialize(dcfg, args.timeout)
+        try:
+            return [train_rank(dcfg.process_id, n, args, arch, steps,
+                               engine_opts)]
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     if n == 1:
-        return [train_rank(0, 1, args, arch, steps)]
-    import multiprocessing as mp
-    ctx = mp.get_context("spawn")
+        return [train_rank(0, 1, args, arch, steps, engine_opts)]
+    ctx = fork_context()
     queue = ctx.Queue()
     store = rendezvous(n, args.timeout)
     procs = [ctx.Process(target=_worker,
-                         args=(r, n, store.port, args, arch, steps, queue))
+                         args=(r, n, store.port, args, arch, steps,
+                               engine_opts, queue, (ParentFd(1), ParentFd(2))))
              for r in range(n)]
     for p in procs:
         p.start()
@@ -345,11 +508,27 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
+    try:
+        launch_config(args)
+    except ValueError as e:
+        ap.error(str(e))
     results = run(args)
     if len(results) > 1:
         for r in results:
             print(f"rank {r['rank']}: launches {r['launches']} payload "
                   f"bytes {r['payload_bytes']}")
+    r0 = results[0]
+    if r0["rank"] == 0:
+        from ..obs import heartbeat as hb
+        if r0["heartbeat"] is not None:
+            print(hb.format_report(r0["heartbeat"]))
+        agg = r0["aggregates"]
+        if agg.get("n_timed_steps"):
+            share = f" (per rank of {args.devices})" \
+                if args.devices > 1 else ""
+            print(f"throughput (excl. compile step): "
+                  f"{agg['tokens_per_s_mean']:.0f} tok/s, "
+                  f"{agg['tflops_per_gpu_mean']:.3f} model-TFLOPS/GPU{share}")
     return results
 
 

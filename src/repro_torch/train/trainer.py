@@ -15,6 +15,16 @@ call, ``src/repro/train/trainer.py:142``). ``run(profile_step=i)`` traces
 step i with ``torch.profiler`` (``pad_trace`` at each end on a card,
 outside the step's time) and keeps the device time of its kernels in
 ``TrainLog.meta["profile"]``.
+
+Trace mode (``Trainer(..., trace=TraceConfig(...))``, the reference's
+``trainer.py:132-195``): each step stamps the rank's heartbeat
+(``launch.distributed.Heartbeat``) before it, runs
+``ZeroEngine.train_step`` with a ``SpanRecorder`` (each segment fenced: bit
+for bit the untraced step), the out-of-band probes of ``obs.phased`` every
+``probe_every`` steps, and writes a metrics record with every field of
+``obs.metrics.REQUIRED_FIELDS`` (a lane a rank); the run ends with a stamp
+of ``n_steps`` and the Chrome trace (a lane a rank). With ``trace=None``
+the step runs with no recorder.
 """
 from __future__ import annotations
 
@@ -27,6 +37,9 @@ import torch
 
 from ..core.engine import ZeroEngine
 from ..data.pipeline import BatchSpec, SyntheticTokens, local_rows
+from ..launch.distributed import Heartbeat
+from ..obs import metrics as obs_metrics
+from ..obs.spans import SpanRecorder, TraceConfig, write_chrome_trace
 from . import checkpoint
 
 
@@ -39,10 +52,12 @@ class TrainLog:
     lrs: list[float] = field(default_factory=list)
     tokens: list[float] = field(default_factory=list)
     tokens_per_s: list[float] = field(default_factory=list)
+    tflops_per_gpu: list[float] = field(default_factory=list)
     ckpt_save_s: dict[int, float] = field(default_factory=dict)  # by step
     meta: dict = field(default_factory=dict)
 
-    def record(self, step: int, metrics: dict, dt: float):
+    def record(self, step: int, metrics: dict, dt: float, *,
+               tflops_per_gpu: float = 0.0):
         self.steps.append(step)
         self.losses.append(metrics["loss"])
         self.grad_norms.append(metrics["grad_norm"])
@@ -50,6 +65,7 @@ class TrainLog:
         self.lrs.append(metrics["lr"])
         self.tokens.append(metrics["tokens"])
         self.tokens_per_s.append(metrics["tokens"] / dt if dt > 0 else 0.0)
+        self.tflops_per_gpu.append(tflops_per_gpu)
 
     def aggregates(self) -> dict:
         """Run summary; time aggregates leave out the first step (it pays
@@ -66,7 +82,8 @@ class TrainLog:
                     loss_mean=mean(self.losses),
                     grad_norm_mean=mean(self.grad_norms),
                     dt_s_mean=mean(self.step_times[timed]),
-                    tokens_per_s_mean=mean(self.tokens_per_s[timed]))
+                    tokens_per_s_mean=mean(self.tokens_per_s[timed]),
+                    tflops_per_gpu_mean=mean(self.tflops_per_gpu[timed]))
 
     def save(self, path):
         payload = dict(self.__dict__)
@@ -76,13 +93,16 @@ class TrainLog:
 
 class Trainer:
     def __init__(self, model, engine: ZeroEngine, spec: BatchSpec, *,
-                 seed: int = 0):
+                 seed: int = 0, trace: TraceConfig | None = None):
         self.model = model
         self.engine = engine
         self.data = SyntheticTokens(spec, seed=seed)
+        self.trace = trace
+        self.recorder = self.phased = None   # a traced run's, after it
         self.log = TrainLog(meta=dict(arch=model.arch.name,
                                       scheme=engine.cfg.name,
-                                      mesh=dict(engine.mesh.shape)))
+                                      mesh=dict(engine.mesh.shape),
+                                      traced=trace is not None))
 
     def _batch(self, step: int) -> dict[str, torch.Tensor]:
         rows = local_rows(self.data.batch(step), self.engine.mesh)
@@ -100,29 +120,64 @@ class Trainer:
         ``state["step"]``; with ``ckpt_dir`` and ``ckpt_every`` the state is
         saved after every ``ckpt_every``-th step of this run."""
         loss_fn = self.model.lm.loss
+        eng = self.engine
+        n_params = eng.param_count()
+        rank, n_ranks = eng.mesh.rank, eng.mesh.size
+        trace = self.trace
+        rec = writer = phased = hb = None
+        if trace is not None:
+            from ..obs.phased import PhasedStep
+            rec = SpanRecorder(device=eng.device)
+            phased = PhasedStep(eng, loss_fn)
+            mem_pred = eng.memory_report()["total"]
+            if trace.metrics_path:
+                writer = obs_metrics.MetricsWriter(trace.metrics_path,
+                                                   rank=rank, n_ranks=n_ranks)
+            if trace.heartbeat_dir:
+                hb = Heartbeat(trace.heartbeat_dir, rank, n_ranks)
         for i in range(n_steps):
             batch = self._batch(state["step"])
-            prof = _profiler(self.engine.device) if i == profile_step else None
+            if hb is not None:
+                hb.stamp(i)
+            prof = _profiler(eng.device) if i == profile_step else None
             if prof is not None:
                 prof.__enter__()
-                pad_trace(self.engine.device)
+                pad_trace(eng.device)
             t0 = time.perf_counter()
-            state, metrics = self.engine.train_step(loss_fn, state, batch)
-            if self.engine.device.type == "cuda":
-                torch.cuda.synchronize(self.engine.device)
+            if rec is not None:
+                rec.step = i
+            state, metrics = eng.train_step(loss_fn, state, batch, rec=rec)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             if prof is not None:
-                pad_trace(self.engine.device)
+                pad_trace(eng.device)
                 prof.__exit__(None, None, None)
                 self.log.meta["profile"] = _device_summary(prof, i, dt)
-            self.log.record(state["step"], metrics, dt)
+            if phased is not None and trace.probe_every \
+                    and i % trace.probe_every == 0:
+                phased.run_probes(state, batch, rec)
+            tfl = obs_metrics.tflops_per_gpu(n_params, metrics["tokens"], dt,
+                                             n_ranks)
+            self.log.record(state["step"], metrics, dt, tflops_per_gpu=tfl)
+            if writer is not None:
+                phase = phased.phase_seconds(rec, i)
+                writer.write(dict(
+                    step=state["step"], rank=rank, loss=metrics["loss"],
+                    grad_norm=metrics["grad_norm"], lr=metrics["lr"],
+                    tokens=metrics["tokens"], dt_s=dt,
+                    tokens_per_s=self.log.tokens_per_s[-1],
+                    tflops_per_gpu=tfl,
+                    phase_ms={k: v * 1e3 for k, v in phase.items()},
+                    overlap_efficiency=phased.overlap_efficiency(rec, i),
+                    memory_hw_bytes=obs_metrics.memory_high_water(eng.device),
+                    memory_pred_bytes=mem_pred))
             saved = ""
             if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
                 t0 = time.perf_counter()
                 checkpoint.save(state, ckpt_dir, state["step"],
-                                scheme=self.engine.scheme_fingerprint(),
-                                engine=self.engine)
+                                scheme=eng.scheme_fingerprint(), engine=eng)
                 save_s = time.perf_counter() - t0
                 self.log.ckpt_save_s[state["step"]] = save_s
                 saved = f" ckpt {save_s:.3f}s"
@@ -131,6 +186,16 @@ class Trainer:
                          f"gnorm {metrics['grad_norm']:.6f} "
                          f"lr {metrics['lr']:.3e} {dt:.3f}s/step "
                          f"{metrics['tokens'] / dt:.0f} tok/s{saved}")
+        if trace is not None:
+            if hb is not None:
+                hb.stamp(n_steps)
+            if trace.chrome_trace:
+                write_chrome_trace(rec.chrome_events(rank=rank),
+                                   obs_metrics.lane_path(trace.chrome_trace,
+                                                         rank, n_ranks))
+            if writer is not None:
+                writer.close()
+        self.recorder, self.phased = rec, phased
         return state
 
     def restore(self, ckpt_dir, step: int | None = None, *,

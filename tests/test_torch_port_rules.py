@@ -35,6 +35,12 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_port_files_found():
     assert (ROOT / "chip_smoke.py").exists()
     assert len(PORT_FILES) > 20
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if p.name != "chip_smoke.py"}
+    # the import rule covers obs/ and the multi-process launcher
+    assert {"obs/__init__.py", "obs/spans.py", "obs/metrics.py",
+            "obs/heartbeat.py", "obs/phased.py",
+            "launch/distributed.py"} <= names
 
 
 def test_serve_cli_without_device_raises_here():
@@ -100,6 +106,31 @@ def test_train_cli_checkpoint_flags_as_the_reference():
 
     port = flags(train.build_parser())
     assert len(port) == 4
+    assert port == flags(ref_train.build_parser())
+
+
+OBS_AND_DIST_FLAGS = ("trace", "metrics_jsonl", "chrome_trace", "heartbeat_dir",
+                      "probe_every", "coordinator", "num_processes",
+                      "process_id")
+
+
+def test_train_cli_trace_and_distributed_flags_as_the_reference():
+    """``--trace --metrics-jsonl --chrome-trace --heartbeat-dir
+    --probe-every`` (the observability group) and ``--coordinator
+    --num-processes --process-id`` (the distributed group) exist with the
+    reference launcher's names, defaults, types and help texts, in groups
+    of the same titles."""
+    from repro.launch import train as ref_train
+
+    def flags(ap):
+        out = {a.dest: (a.option_strings, a.default, a.type, a.help)
+               for a in ap._actions if a.dest in OBS_AND_DIST_FLAGS}
+        groups = {a.dest: g.title for g in ap._action_groups
+                  for a in g._group_actions if a.dest in OBS_AND_DIST_FLAGS}
+        return out, groups
+
+    port = flags(train.build_parser())
+    assert len(port[0]) == len(OBS_AND_DIST_FLAGS)
     assert port == flags(ref_train.build_parser())
 
 
