@@ -274,6 +274,35 @@ whole script (launch.train.PRELOAD), started before the build.
             wire bytes a rank a step of the INT8 update gather beside the
             bf16 gather's and of the reduce-scatter over R beside the
             all-reduce's (the same shapes), step_s, tok/s and peak memory.
+4j. serve_mesh: qwen2-0.5b at published width and depth served on the mesh
+            (2, 1, 2) by one spawn of four ranks sharing the card (W = gcd,
+            R = data; the decode batch over data, the full-attention caches
+            along the sequence over (node, gcd), the residency over (gcd,
+            node), degree 2), bf16, quant block 128, the weights
+            ZeroEngine.init_primaries(seed 0); SERVE_MESH_REQUESTS
+            requests of 128 tokens, 4 slots, max length 256,
+            SERVE_MESH_GEN new tokens, through continuous batching. Each
+            leg but (sp) is the serve launcher's rank (launch.serve.
+            serve_rank, the entry point of `--devices 4 --mesh-shape
+            2,1,2`), its prefills and steps recorded by its hook. Legs:
+            (g) the gathered backend through the kernels; (r) the resident
+            backend (degree 2): every prefill's and decode step's logits bit
+            for bit (g)'s on every rank, tokens and counters equal; (p) the
+            gathered backend through the plain versions, fed (g)'s tokens:
+            prefill and decode-step logits within PREFILL_TOL * max|ref|
+            of (g)'s, its greedy tokens counted against (g)'s; (sp) one B = 1
+            prefill sequence-parallel and not, on (g)'s engine and weights:
+            logits and this rank's chunk of every cache entry bit for bit,
+            flash_attention launched at q_offset 64 on the second sequence
+            rank (Sq 64, Sk 128); no attention fallback on any rank in any
+            leg; then (1) the bare one-card launch (serve_rank, (1, 1, 1),
+            the default backend) in this process, fed (g)'s tokens: its
+            prefills and first decode step bit for bit the mesh's, every
+            step within PREFILL_TOL. Prints each leg's prefill_ms,
+            decode_step_ms, tok_s, the peak bytes a rank, the payload bytes
+            a rank a decode step by collective label beside the prediction
+            from the leaf sizes, and the launches a rank of kernels 1, 2, 8
+            and 10.
 4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
             quantized reduce-scatter at bits 4 and 8 over W, E and all four
             ranks on an embedding-sized f32 shard each; every kernel of
@@ -314,7 +343,7 @@ whole script (launch.train.PRELOAD), started before the build.
 6. report : JSON lines (serve, serve_ssm, serve_neox, serve_neox10b,
             serve_gemma, serve_deepseek, train, train_neox, train_deepseek,
             train_ssm, train_gemma,
-            regimes, collectives, ckpt, replica,
+            regimes, collectives, ckpt, replica, serve_mesh,
             kernels_extra with the extra
             timing rows and every dequant_matmul shape's path, then the
             kernels line: all 11 kernels with their launches on every
@@ -372,7 +401,7 @@ PREFILL_BF16_RATIO = 1.5
 
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--requests", "8", "--slots", "4",
               "--prompt-len", "128", "--gen", "32", "--max-len", "256",
-              "--seed", "0"]
+              "--seed", "0", "--backend", "resident"]
 TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--scheme", "zero_topo", "--devices", "4",
               "--batch", "8", "--seq", "1024", "--steps", "5",
               "--quant-block", "128", "--compute-dtype", "bfloat16",
@@ -403,6 +432,12 @@ REPLICA_ARGS = TRAIN_ARGS[:TRAIN_ARGS.index("--steps") + 1] \
     + ["--mesh-shape", "2,1,2"]
 REPLICA_OPTS = dict(cross_replica="reduce_scatter", quantize_update_gather=True)
 TRACE_DIR = ROOT / "build" / "trace_smoke"
+# phase 4j: qwen2-0.5b served on (2, 1, 2), four ranks sharing the card
+SERVE_MESH_SHAPE = (2, 1, 2)
+SERVE_MESH_REQUESTS, SERVE_MESH_SLOTS = 4, 4
+SERVE_MESH_PROMPT, SERVE_MESH_MAX_LEN, SERVE_MESH_GEN = 128, 256, 8
+SERVE_MESH_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
+                      "flash_attention")
 # the reference's bound: the fenced segments sum to the step's wall time
 SEGMENT_SUM_RTOL = 0.10
 SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
@@ -422,7 +457,7 @@ NEOX10B_H, NEOX10B_HD, NEOX10B_L = 40, 128, 32
 # and their rings wrap in prefill and again in decode (positions 640-671)
 GEMMA_SERVE_ARGS = ["--arch", "gemma3-1b", "--requests", "8", "--slots", "4",
                     "--prompt-len", "640", "--gen", "32", "--max-len", "768",
-                    "--seed", "0"]
+                    "--seed", "0", "--backend", "resident"]
 # query heads, KV heads, head dim, layers, window
 GEMMA_H, GEMMA_HKV, GEMMA_HD, GEMMA_L, GEMMA_W = 4, 1, 256, 26, 512
 GEMMA_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -2639,6 +2674,441 @@ def replica_line(rp) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4j: serving on the mesh (2, 1, 2)
+# ---------------------------------------------------------------------------
+
+def serve_mesh_tree(obj, leaf):
+    """``obj`` with every tensor / array mapped by ``leaf``: a rank's result
+    crosses the process boundary as numpy (pickled by value), not as
+    tensors shared through file descriptors the rank takes with it."""
+    if isinstance(obj, dict):
+        return {k: serve_mesh_tree(v, leaf) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)) and obj and \
+            isinstance(obj[0], (torch.Tensor, np.ndarray, dict, list)):
+        return type(obj)(serve_mesh_tree(v, leaf) for v in obj)
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        return leaf(obj)
+    return obj
+
+
+def serve_mesh_args(devices: int, backend: str | None = None):
+    """The serve launcher's arguments of phase 4j: qwen2-0.5b, zero_topo,
+    bf16, quant block 128, seed 0 (``ZeroEngine.init_primaries``: the same
+    global weights on any mesh) and the phase's traffic; ``devices`` 4 on
+    SERVE_MESH_SHAPE, or 1 (a bare one-card run, the default backend when
+    ``backend`` is None)."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "qwen2-0.5b", "--scheme", "zero_topo", "--quant-block",
+            "128", "--seed", "0", "--devices", str(devices),
+            "--requests", str(SERVE_MESH_REQUESTS),
+            "--slots", str(SERVE_MESH_SLOTS),
+            "--prompt-len", str(SERVE_MESH_PROMPT),
+            "--max-len", str(SERVE_MESH_MAX_LEN), "--gen", str(SERVE_MESH_GEN)]
+    if backend is not None:
+        argv += ["--backend", backend]
+    if devices > 1:
+        argv += ["--mesh-shape", ",".join(map(str, SERVE_MESH_SHAPE))]
+    args = serve.build_parser().parse_args(argv)
+    serve.launch_config(args)
+    return args
+
+
+def serve_mesh_hook(rec: dict, forced=None):
+    """A ``hook(cb, params)`` for ``launch.serve.serve_rank``: it records in
+    ``rec`` this rank's prefill and decode-step logits (on the host), each
+    prefill's host ms, each decode step's global input tokens, the payload
+    bytes a decode-only step hands gloo by collective label, the per-step
+    metrics, the batcher's rows and sequence range, and the model, mesh,
+    engine and weights (the (sp) leg's). ``forced``: another leg's decode
+    inputs, fed in place of this batcher's own tokens (its host state keeps
+    its own)."""
+    from repro_torch.core import collectives as col
+
+    def hook(cb, params):
+        blocks = cb.paged.blocks
+        rec.update(prefill=[], prefill_ms=[], decode=[], inputs=[],
+                   step_payload=[], metrics=Collect(), row0=cb.serve.row0,
+                   seq_index=blocks.start // (blocks.stop - blocks.start),
+                   model=cb.model, mesh=cb.serve.mesh,
+                   engine=getattr(cb.serve, "engine", None), params=params)
+        cb.metrics = rec["metrics"]
+        pre, dec, step = cb._prefill1, cb._decode, cb.step
+
+        def prefill(params, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, c = pre(params, batch)
+            torch.cuda.synchronize()
+            rec["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["prefill"].append(logits.float().cpu())
+            return logits, c
+
+        def decode(params, caches, batch):
+            if forced is not None:
+                batch = dict(batch, token=forced[len(rec["decode"])].to(
+                    batch["token"].device))
+            rec["inputs"].append(batch["token"].cpu())
+            logits, c = dec(params, caches, batch)
+            rec["decode"].append(logits.float().cpu())
+            return logits, c
+
+        def stepped(params):
+            n_pre = len(rec["prefill"])
+            before = collections.Counter(col.PAYLOAD)
+            active = step(params)
+            if active and len(rec["prefill"]) == n_pre:
+                rec["step_payload"].append(
+                    dict(collections.Counter(col.PAYLOAD) - before))
+            return active
+
+        cb._prefill1, cb._decode, cb.step = prefill, decode, stepped
+    return hook
+
+
+def serve_mesh_leg(res: dict, rec: dict) -> dict:
+    """One leg's record: ``serve_rank``'s result ``res`` (tokens, counters,
+    timings, launches, fallbacks, peak bytes) and the hook's ``rec``."""
+    full = [r["phase_ms"]["serve_decode"] for r in rec["metrics"].records
+            if r["active_slots"] == SERVE_MESH_SLOTS]
+    n_tok = sum(len(t) for t in res["tokens"])
+    return dict(
+        prefill=rec["prefill"], decode=rec["decode"], inputs=rec["inputs"],
+        tokens=res["tokens"], counters=res["counters"], steps=res["steps"],
+        row0=rec["row0"], seq_index=rec["seq_index"],
+        prefill_ms=statistics.median(rec["prefill_ms"]),
+        decode_step_ms=statistics.median(full), decode_steps_full=len(full),
+        tok_s=n_tok / res["run_s"], run_s=res["run_s"], tokens_total=n_tok,
+        setup_s=res["setup_s"], build_s=res["build_s"],
+        launches=res["launches"], fallbacks=res["fallbacks"],
+        step_payload=rec["step_payload"], memory=res["memory"],
+        peak_bytes=res["peak_bytes"])
+
+
+def serve_mesh_rank(rank: int, world: int) -> dict:
+    """One of the four ranks of phase 4j (forked from the launcher's fork
+    server): legs (g), (r) and (p) through the serve launcher's
+    ``serve_rank``, and (sp) on (g)'s engine and weights."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve.engine import ServeEngine
+
+    out = dict(rank=rank, legs={})
+    forced = None
+    for leg, backend, opts in (("g", "gathered", None),
+                               ("r", "resident", None),
+                               ("p", "gathered", dict(impl="plain"))):
+        rec = {}
+        res = serve.serve_rank(
+            rank, world, serve_mesh_args(world, backend), engine_opts=opts,
+            hook=serve_mesh_hook(rec, forced if leg == "p" else None))
+        out["legs"][leg] = serve_mesh_leg(res, rec)
+        if leg == "g":
+            forced = rec["inputs"]
+            model, mesh = rec["model"], rec["mesh"]
+            eng, prim = rec["engine"], rec["params"]
+        del rec, res
+    # (sp): one B = 1 prefill of the first prompt, sequence-parallel and not
+    se = ServeEngine(model, eng, mesh,
+                     ShapeConfig("sp", SERVE_MESH_PROMPT, 1, "decode"))
+    args = serve_mesh_args(world)
+    tokens = torch.as_tensor(serve.make_requests(args, model.arch)[0]
+                             .prompt[None]).long().to(prim["embed"].device)
+    ops.reset_launches()
+    ops.reset_dispatch_counters()
+    lp, cp = se.make_prefill(seq_parallel=False)(prim, {"tokens": tokens})
+    calls, real = [], ops.flash_attention_cuda
+
+    def spy(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw["q_offset"]))
+        return real(q, k, v, **kw)
+
+    ops.flash_attention_cuda = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ls, cs = se.make_prefill(seq_parallel=True)(prim, {"tokens": tokens})
+        torch.cuda.synchronize()
+        sp_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops.flash_attention_cuda = real
+    # this rank's sequence chunk of every cache entry, both prefills
+    cache = dict(entries=0, equal=0, max_abs_err=0.0, max_abs=0.0)
+    for kind, entry in cp.items():
+        if kind == "pos":
+            continue
+        for name, t in entry.items():
+            e, sc = rel_err(cs[kind][name], t)
+            cache["entries"] += 1
+            cache["equal"] += int(cs[kind][name].shape == t.shape
+                                  and torch.equal(cs[kind][name], t))
+            cache["max_abs_err"] = max(cache["max_abs_err"], e)
+            cache["max_abs"] = max(cache["max_abs"], sc)
+            cache.setdefault("shape", list(t.shape))
+    out["sp"] = dict(plain=lp.float().cpu(), sp=ls.float().cpu(), calls=calls,
+                     n_layers=model.arch.n_layers, cache=cache,
+                     sp_ms=sp_ms, launches=ops.launches(),
+                     fallbacks=ops.dispatch_counters())
+    return serve_mesh_tree(out, lambda t: t.numpy())
+
+
+def serve_mesh_one(forced) -> dict:
+    """(1): the same weights and traffic on one rank (1, 1, 1) in this
+    process, the bare one-card launch (``serve_rank`` with the default
+    backend, gathered) through the kernels, fed the mesh's decode inputs
+    ``forced``."""
+    from repro_torch.launch import serve
+
+    rec = {}
+    res = serve.serve_rank(0, 1, serve_mesh_args(1),
+                           hook=serve_mesh_hook(rec, forced))
+    out = dict(prefill=rec["prefill"], decode=rec["decode"],
+               tokens=res["tokens"], counters=res["counters"],
+               backend=res["backend"], mesh=res["mesh"],
+               run_s=res["run_s"], tokens_total=sum(map(len, res["tokens"])))
+    del rec, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_prediction() -> dict:
+    """The payload bytes a rank hands gloo in one decode step, by label,
+    from the leaf sizes (before any run): each WIRE leaf's INT8 shard and
+    its f32 scales once a use (the tied embed twice: lookup and head), over
+    W (gathered, "all_gather") or the residency axes (resident,
+    "residency_gather"), both of size 2; the gathered backend also hands
+    its PLAIN leaves' bf16 shards over W; the flash-decode combine hands
+    its f32 max ("seq_max"), numerator and denominator ("seq_sum") a
+    full-attention layer, and the tokens gather its int32 rows."""
+    from repro_torch.core.partition import GATHER_Q, MATMUL, padded_flat_size
+    from repro_torch.launch.mesh import TEST_AXES, Mesh, scheme_config
+    from repro_torch.models.registry import build_model, get_arch
+
+    arch = get_arch("qwen2-0.5b")
+    mesh = Mesh(SERVE_MESH_SHAPE, TEST_AXES)
+    cfg = scheme_config("zero_topo", mesh, quant_block=128)
+    w = cfg.size(cfg.axes.weight)
+    wire = plain = 0
+    for name, spec in build_model(arch).leaf_specs().items():
+        uses = 2 if name == "embed" else (spec.stack or 1)
+        pad = padded_flat_size(spec.logical_size, cfg)
+        lcfg = cfg.for_leaf(spec.logical_size)
+        if spec.kind in (MATMUL, GATHER_Q) and lcfg.quantize_weights:
+            wire += uses * (pad + 4 * pad // lcfg.quant_block) // w
+        else:
+            plain += uses * 2 * pad // w
+    b_loc = SERVE_MESH_SLOTS // SERVE_MESH_SHAPE[0]
+    heads = b_loc * arch.n_heads
+    seq = dict(seq_max=arch.n_layers * heads * 4,
+               seq_sum=arch.n_layers * (heads * arch.hdim + heads) * 4,
+               batch_gather=b_loc * 4)
+    return dict(g=dict(all_gather=wire + plain, **seq),
+                r=dict(residency_gather=wire, **seq))
+
+
+def serve_mesh_phase() -> dict:
+    """Phase 4j: one spawn of four ranks (serve_mesh_rank), held leg by
+    leg, then (1) in this process."""
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    ranks = [serve_mesh_tree(r, torch.from_numpy) for r in train.spawn(
+        serve_mesh_rank, 4, 900, True, (), what="serve_mesh")]
+    t_ranks = time.perf_counter() - t_phase
+    for r in ranks:
+        g, rl, pl = r["legs"]["g"], r["legs"]["r"], r["legs"]["p"]
+        for leg, x in r["legs"].items():
+            no_fallback(f"serve_mesh ({leg}) rank {r['rank']}",
+                        x["fallbacks"])
+            c = x["counters"]
+            if c["retired"] != SERVE_MESH_REQUESTS or c["rejected"] or \
+                    any(len(t) != SERVE_MESH_GEN for t in x["tokens"]):
+                raise Failed(f"serve_mesh ({leg}) rank {r['rank']}: "
+                             f"counters {c}, tokens {x['tokens']}")
+        for k in SERVE_MESH_KERNELS:
+            if k != "quantize_int8" and rl["launches"][k] == 0 or \
+                    g["launches"][k] == 0:
+                raise Failed(f"serve_mesh rank {r['rank']}: {k} not "
+                             f"launched (g {g['launches'][k]}, r "
+                             f"{rl['launches'][k]})")
+        # (r) bit for bit (g)
+        pairs = list(zip(g["prefill"], rl["prefill"])) \
+            + list(zip(g["decode"], rl["decode"]))
+        if len(g["prefill"]) != len(rl["prefill"]) or \
+                len(g["decode"]) != len(rl["decode"]) or \
+                not all(torch.equal(a, b) for a, b in pairs):
+            raise Failed(f"serve_mesh rank {r['rank']}: resident logits not "
+                         "bit for bit the gathered ones")
+        if rl["tokens"] != g["tokens"] or rl["counters"] != g["counters"]:
+            raise Failed(f"serve_mesh rank {r['rank']}: resident tokens or "
+                         "counters differ")
+        # (p) within PREFILL_TOL of (g), on (g)'s inputs
+        errs = [rel_err(b, a) for a, b in
+                zip(g["prefill"] + g["decode"], pl["prefill"] + pl["decode"])]
+        worst = max(e / s for e, s in errs)
+        if worst > PREFILL_TOL:
+            raise Failed(f"serve_mesh rank {r['rank']}: plain logits "
+                         f"{worst:.3e} of max|ref| off the kernels'")
+        r["plain_rel_err"] = worst
+        r["plain_argmax_equal"] = sum(
+            int((a.argmax(-1) == b.argmax(-1)).sum())
+            for a, b in zip(g["prefill"] + g["decode"],
+                            pl["prefill"] + pl["decode"]))
+        r["plain_argmax_total"] = sum(
+            a.shape[0] for a in g["prefill"] + g["decode"])
+        # (sp): bit for bit the plain prefill, logits and this rank's chunk
+        # of every cache entry (as every call has measured them)
+        sp = r["sp"]
+        no_fallback(f"serve_mesh (sp) rank {r['rank']}", sp["fallbacks"])
+        e, sc = rel_err(sp["sp"], sp["plain"])
+        r["sp_rel_err"] = e / sc
+        if not torch.equal(sp["sp"], sp["plain"]):
+            raise Failed(f"serve_mesh (sp) rank {r['rank']}: logits "
+                         f"{e / sc:.3e} of max|ref| off the plain prefill's")
+        ca = sp["cache"]
+        if ca["entries"] == 0 or ca["equal"] != ca["entries"]:
+            raise Failed(f"serve_mesh (sp) rank {r['rank']}: caches {ca} "
+                         "not bit for bit the plain prefill's")
+        seq_i = g["seq_index"]
+        want = (SERVE_MESH_PROMPT // 2) * seq_i
+        if len(sp["calls"]) != sp["n_layers"] or any(
+                q[1] != SERVE_MESH_PROMPT // 2 or k[1] != SERVE_MESH_PROMPT
+                or off != want for q, k, off in sp["calls"]):
+            raise Failed(f"serve_mesh (sp) rank {r['rank']}: flash calls "
+                         f"{sp['calls'][:2]} ... ({len(sp['calls'])})")
+    tokens = {tuple(map(tuple, r["legs"]["g"]["tokens"])) for r in ranks}
+    if len(tokens) != 1:
+        raise Failed("serve_mesh: the ranks' tokens differ")
+    # (1): one rank, the bare one-card launch fed the mesh's decode inputs:
+    # its four prefills and first decode step bit for bit the mesh's (as
+    # every call has measured them), every step within PREFILL_TOL (from
+    # the second step on, the second sequence rank holds more than one
+    # position and the combine sums in another order than one shard)
+    t0 = time.perf_counter()
+    one = serve_mesh_one(ranks[0]["legs"]["g"]["inputs"])
+    t_one = time.perf_counter() - t0
+    mesh_pre = ranks[0]["legs"]["g"]["prefill"]
+    by_step = []
+    for i in range(len(ranks[0]["legs"]["g"]["decode"])):
+        by_row = {}
+        for r in ranks:
+            g = r["legs"]["g"]
+            for j, row in enumerate(g["decode"][i]):
+                by_row[g["row0"] + j] = row
+        by_step.append(torch.stack([by_row[j]
+                                    for j in range(SERVE_MESH_SLOTS)]))
+    if one["backend"] != "gathered" or one["mesh"] != [1, 1, 1]:
+        raise Failed(f"serve_mesh (1): backend {one['backend']} on "
+                     f"{one['mesh']}, not the bare launch's")
+    if one["counters"] != ranks[0]["legs"]["g"]["counters"]:
+        raise Failed(f"serve_mesh (1): counters {one['counters']} not the "
+                     "mesh's")
+    errs = [rel_err(b, a) for a, b in zip(mesh_pre + by_step,
+                                          one["prefill"] + one["decode"])]
+    if len(one["prefill"]) != len(mesh_pre) or len(one["decode"]) != \
+            len(by_step) or not all(
+                torch.equal(a, b) for a, b in
+                zip(mesh_pre + by_step[:1], one["prefill"] + one["decode"])):
+        raise Failed("serve_mesh (1): the prefills and first decode step "
+                     "not bit for bit the mesh's: max|diff| / max|ref| "
+                     f"{[f'{e / sc:.2e}' for e, sc in errs]}")
+    one_worst = max(e / sc for e, sc in errs)
+    if one_worst > PREFILL_TOL:
+        raise Failed(f"serve_mesh (1): a decode step {one_worst:.3e} of "
+                     "max|ref| off the mesh's")
+    one["argmax_equal"] = sum(
+        int((a.argmax(-1) == b.argmax(-1)).sum())
+        for a, b in zip(by_step, one["decode"]))
+    one["argmax_total"] = sum(a.shape[0] for a in by_step)
+    launches = {k: sum(r["legs"][leg]["launches"][k] + (
+        r["sp"]["launches"][k] if leg == "g" else 0)
+        for r in ranks for leg in ("g", "r")) for k in KERNEL_INFO}
+    return dict(ranks=ranks, launches=launches, one_rel_err=one_worst,
+                one=one, prediction=serve_mesh_prediction(),
+                ranks_s=t_ranks, one_s=t_one,
+                phase_s=time.perf_counter() - t_phase)
+
+
+def print_serve_mesh(sm):
+    pred = sm["prediction"]
+    for r in sm["ranks"]:
+        for leg, x in r["legs"].items():
+            pay = x["step_payload"]
+            step = {k: statistics.median(p.get(k, 0) for p in pay)
+                    for k in sorted({k for p in pay for k in p})}
+            print(f"  rank {r['rank']} ({leg}): prefill_ms "
+                  f"{x['prefill_ms']:.1f} decode_step_ms "
+                  f"{x['decode_step_ms']:.1f} ({x['decode_steps_full']} full "
+                  f"steps) tok_s {x['tok_s']:.3f} peak_bytes "
+                  f"{x['peak_bytes']} payload bytes a decode step {step}"
+                  + (f" (predicted {pred[leg]})" if leg in pred else "")
+                  + f" launches " + json.dumps(
+                      {k: x["launches"][k] for k in SERVE_MESH_KERNELS}))
+        ca = r["sp"]["cache"]
+        print(f"  rank {r['rank']}: (r) bit for bit (g); (p) logits "
+              f"{r['plain_rel_err']:.3e} of max|ref|, argmax equal "
+              f"{r['plain_argmax_equal']} of {r['plain_argmax_total']}; (sp) "
+              f"bit for bit ({ca['equal']} of {ca['entries']} cache entries "
+              f"{ca.get('shape')}), {r['sp']['sp_ms']:.1f} ms, "
+              f"flash q_offsets {sorted({c[2] for c in r['sp']['calls']})} x "
+              f"{len(r['sp']['calls'])}; setup_s "
+              f"{[round(x['setup_s'], 1) for x in r['legs'].values()]} "
+              f"(build {r['legs']['g']['build_s']:.1f})")
+    one = sm["one"]
+    print(f"  (1) the bare one-card launch (backend {one['backend']}): "
+          f"prefills and first step bit for bit the mesh's, every step "
+          f"{sm['one_rel_err']:.3e} of max|ref|, argmax equal "
+          f"{one['argmax_equal']} of {one['argmax_total']}; "
+          f"{one['tokens_total']} tokens "
+          f"in {one['run_s']:.2f} s; ranks {sm['ranks_s']:.1f} s, (1) "
+          f"{sm['one_s']:.1f} s, phase {sm['phase_s']:.1f} s")
+
+
+def serve_mesh_line(sm) -> dict:
+    r0 = sm["ranks"][0]
+    legs = {}
+    for leg in ("g", "r", "p"):
+        xs = [r["legs"][leg] for r in sm["ranks"]]
+        pay = xs[0]["step_payload"]
+        legs[leg] = dict(
+            prefill_ms=[x["prefill_ms"] for x in xs],
+            run_s=[x["run_s"] for x in xs],
+            decode_step_ms=[x["decode_step_ms"] for x in xs],
+            tok_s=[x["tok_s"] for x in xs],
+            peak_bytes_per_rank=[x["peak_bytes"] for x in xs],
+            payload_bytes_per_decode_step_rank0={
+                k: statistics.median(p.get(k, 0) for p in pay)
+                for k in sorted({k for p in pay for k in p})},
+            launches_per_rank=[{k: x["launches"][k]
+                                for k in SERVE_MESH_KERNELS} for x in xs],
+            tokens=xs[0]["tokens"], counters=xs[0]["counters"],
+            steps=xs[0]["steps"])
+    return dict(
+        arch="qwen2-0.5b", scheme="zero_topo", mesh=list(SERVE_MESH_SHAPE),
+        ranks=4, requests=SERVE_MESH_REQUESTS, slots=SERVE_MESH_SLOTS,
+        prompt_len=SERVE_MESH_PROMPT, max_len=SERVE_MESH_MAX_LEN,
+        gen=SERVE_MESH_GEN, res_degree=r0["legs"]["r"]["memory"]["res_degree"],
+        residency_wire_bytes_per_rank=r0["legs"]["r"]["memory"]["wire_bytes"],
+        legs=legs, predicted_payload_bytes_per_decode_step=sm["prediction"],
+        resident_bitwise_gathered=True,
+        plain_rel_err=[r["plain_rel_err"] for r in sm["ranks"]],
+        plain_argmax_equal=[r["plain_argmax_equal"] for r in sm["ranks"]],
+        plain_argmax_total=r0["plain_argmax_total"],
+        sp_rel_err=[r["sp_rel_err"] for r in sm["ranks"]],
+        sp_cache=[r["sp"]["cache"] for r in sm["ranks"]],
+        sp_ms=[r["sp"]["sp_ms"] for r in sm["ranks"]],
+        sp_flash_q_offsets=[sorted({c[2] for c in r["sp"]["calls"]})
+                            for r in sm["ranks"]],
+        one_rank_rel_err=sm["one_rel_err"],
+        one_rank_argmax_equal=sm["one"]["argmax_equal"],
+        one_rank_tok_s=sm["one"]["tokens_total"] / sm["one"]["run_s"],
+        setup_s=[[x["setup_s"] for x in r["legs"].values()]
+                 for r in sm["ranks"]], ranks_s=sm["ranks_s"],
+        one_s=sm["one_s"], phase_s=sm["phase_s"])
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: the quantized reduce-scatters on four ranks
 # ---------------------------------------------------------------------------
 
@@ -3680,6 +4150,9 @@ def main(argv=None) -> int:
         phase("replica")
         rp = replica_phase()
         print_replica(rp)
+        phase("serve_mesh")
+        sm = serve_mesh_phase()
+        print_serve_mesh(sm)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
         shutil.rmtree(TRACE_DIR, ignore_errors=True)
@@ -3787,6 +4260,7 @@ def main(argv=None) -> int:
                        train_gemma=tgm["launches"][name],
                        ckpt=sum(leg["launches"][name] for leg in ck["legs"]),
                        replica=rp["launches"][name],
+                       serve_mesh=sm["launches"][name],
                        collectives=cl_launches[name],
                        regimes=sum(rg["launches"][name] for rg in regimes),
                        quant_error=qe_launches[name],
@@ -3803,6 +4277,10 @@ def main(argv=None) -> int:
                 "per_rank_step_launches"][name],
             launches_per_gemma_train_step_per_rank=tgm[
                 "per_rank_step_launches"][name],
+            launches_serve_mesh_per_rank=[
+                r["legs"]["g"]["launches"][name]
+                + r["legs"]["r"]["launches"][name]
+                + r["sp"]["launches"][name] for r in sm["ranks"]],
             max_abs_err=max(c["max_abs_err"] for c in checks[name]),
             tolerance=[c["tolerance"] for c in checks[name]],
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bms, bound_by=by,
@@ -3975,6 +4453,7 @@ def main(argv=None) -> int:
             regimes=regimes_line, collectives=collectives_line,
             ckpt=ckpt_line(ck), ckpt_ranks=[leg["ranks"] for leg in ck["legs"]],
             replica=replica_line(rp), replica_ranks=rp["kernel"],
+            serve_mesh=serve_mesh_line(sm),
             replica_plain_ranks=rp["plain"],
             collective_ranks=cl,
             regime_ranks=[rg["ranks"] for rg in regimes],
@@ -4009,6 +4488,7 @@ def main(argv=None) -> int:
     print("collectives " + json.dumps(collectives_line))
     print("ckpt " + json.dumps(ckpt_line(ck)))
     print("replica " + json.dumps(replica_line(rp)))
+    print("serve_mesh " + json.dumps(serve_mesh_line(sm)))
     print("kernels_extra " + json.dumps(kernels_extra))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {card}")

@@ -52,6 +52,8 @@ Needs one CUDA card and nvcc. Phases (all by default):
   (spawn, entry, torch imported, group joined, CUDA context, engine and
   groups bound, state, run end, joined) and each step's segments.
 - ``replica``: chip_smoke's replica phase (4i) alone.
+- ``serve_mesh``: chip_smoke's serving phase on the mesh (2, 1, 2) (4j)
+  alone, about 2-3 minutes with the build.
 - ``trace_window``: gpt-neox-20b served at published depth, then its
   prefill traced ``--traces`` times, in turns bare (launched the moment
   the trace starts), padded (``train.trainer.pad_trace``'s idle card
@@ -80,7 +82,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("ssm", "gemma", "timing", "scan_backward", "ssm_ablation",
           "trace_events", "depth", "serve_deepseek", "trace_window", "ckpt",
-          "first_step", "replica")
+          "first_step", "replica", "serve_mesh")
 # the bytes the first_step phase's warm run has its allocator map before
 # the steps, and sends through one gloo all-gather twice
 WARM_ALLOC = 6 << 30
@@ -701,6 +703,12 @@ def main():
             print("replica " + json.dumps(out["replica"]), flush=True)
         finally:
             shutil.rmtree(c.TRACE_DIR, ignore_errors=True)
+        save()
+    if "serve_mesh" in args.phase:
+        sm = c.serve_mesh_phase()
+        c.print_serve_mesh(sm)
+        out["serve_mesh"] = c.serve_mesh_line(sm)
+        print("serve_mesh " + json.dumps(out["serve_mesh"]), flush=True)
         save()
     if "timing" in args.phase:
         timing = {key: c.flash_timing(gen, dev, c.SCAN_TRAIN_B, c.GEMMA_H,

@@ -27,6 +27,15 @@ Reductions (``det_psum``, ``psum_scatter``) sum in axis order, which makes
 the loss and the grad norm independent of the process layout; the
 reference's ``psum_scatter`` sums in XLA's order, so those float results are
 held to it with a tolerance.
+
+Serving on a mesh adds three collectives over the bound mesh's groups,
+each counted under its own label: ``seq_max`` and ``seq_sum`` (the
+flash-decode combine over the sequence axes; the sum in axis order, so
+every rank gets the same bits) and ``gather_dim`` (a tiled all-gather
+along a dimension: the sequence-parallel K/V and the admission's prefill
+cache under "seq_gather", the greedy tokens over the data axes under
+"batch_gather"). The residency's per-product re-gather is counted under
+"residency_gather".
 """
 from __future__ import annotations
 
@@ -134,16 +143,21 @@ def _tiled(stacked: torch.Tensor) -> torch.Tensor:
 
 # -- the collectives ------------------------------------------------------------
 
+def _ordered_sum(x: torch.Tensor, axes: AxisTuple, op: str) -> torch.Tensor:
+    """Gather the partials over ``axes``, add them in axis order."""
+    parts = _gather(x, axes, op)
+    acc = parts[0]
+    for j in range(1, parts.shape[0]):
+        acc = acc + parts[j]
+    return acc
+
+
 def det_psum(x: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig) -> torch.Tensor:
     """Order-deterministic sum of a (near-)scalar over ``axes``: gather the
     partials, add them in axis order."""
     if cfg.size(tuple(axes)) == 1:
         return x
-    parts = _gather(x, axes, "det_psum")
-    acc = parts[0]
-    for j in range(1, parts.shape[0]):
-        acc = acc + parts[j]
-    return acc
+    return _ordered_sum(x, axes, "det_psum")
 
 
 def psum_scatter(x: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig, *,
@@ -382,5 +396,56 @@ def residency_slice(qf, sf, axes: AxisTuple, cfg: ZeroConfig):
 
 
 def gather_residency_q(res_q, res_s, axes: AxisTuple, cfg: ZeroConfig):
-    """Decode-path wire re-gather: residency shards -> full (q, scales)."""
-    return gather_secondary_q(res_q, res_s, axes, cfg)
+    """Decode-path wire re-gather: residency shards -> full (q, scales),
+    its payload counted under "residency_gather"."""
+    if cfg.size(tuple(axes)) == 1:
+        return res_q, res_s
+    return (_tiled(_gather(res_q, axes, "residency_gather")),
+            _tiled(_gather(res_s, axes, "residency_gather")))
+
+
+# -- serving over the mesh's sequence and data axes ----------------------------
+# These take no scheme config: the axes' sizes are the bound mesh's, and an
+# empty tuple (or one of size 1) makes each the identity.
+
+def mesh_size(axes: AxisTuple) -> int:
+    """The size of ``axes`` on the bound mesh (1 for no axes)."""
+    if not axes:
+        return 1
+    if _MESH is None:
+        raise RuntimeError(f"axes {tuple(axes)}: no mesh bound "
+                           "(core.collectives.bind)")
+    return _MESH.axis_size(tuple(axes))
+
+
+def mesh_coord(axis: str) -> int:
+    """This rank's coordinate on ``axis`` of the bound mesh."""
+    if _MESH is None:
+        raise RuntimeError(f"axis {axis}: no mesh bound "
+                           "(core.collectives.bind)")
+    return _MESH.coords[axis]
+
+
+def seq_max(x: torch.Tensor, axes: AxisTuple) -> torch.Tensor:
+    """Elementwise max over ``axes`` (exact in any order)."""
+    if mesh_size(axes) == 1:
+        return x
+    return _gather(x, axes, "seq_max").amax(dim=0)
+
+
+def seq_sum(x: torch.Tensor, axes: AxisTuple) -> torch.Tensor:
+    """Sum over ``axes`` in axis order, as ``det_psum``: every rank of the
+    group gets the same bits."""
+    if mesh_size(axes) == 1:
+        return x
+    return _ordered_sum(x, axes, "seq_sum")
+
+
+def gather_dim(x: torch.Tensor, axes: AxisTuple, dim: int,
+               op: str = "seq_gather") -> torch.Tensor:
+    """Tiled all-gather along ``dim``: the members' ``x`` concatenated in
+    axis order (the sequence-parallel K/V, the prefill cache at admission;
+    the decode tokens over the data axes under ``op="batch_gather"``)."""
+    if mesh_size(axes) == 1:
+        return x
+    return torch.cat(list(_gather(x, axes, op)), dim=dim)

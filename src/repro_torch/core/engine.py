@@ -104,7 +104,12 @@ class ParamView:
 
     ``sinks`` (streaming): {name: [zero fp32 optimizer-shard row per layer]}
     for the stacked MATMUL / GATHER_Q leaves; the bound layer's row takes
-    that leaf's fully reduced gradient."""
+    that leaf's fully reduced gradient.
+
+    Serving (``serve.engine.ServeEngine``) builds one straight over the
+    primaries under ``torch.no_grad``, with no buffers and no sinks: every
+    ``mm`` and ``get`` then runs the training forward's inline gather and
+    nothing keeps a graph."""
 
     def __init__(self, fns: dict[str, _LeafFns], leaves: dict, impl,
                  layer: int | None = None, *, bufs: dict | None = None,
@@ -336,19 +341,19 @@ class ZeroEngine:
             state["opt_v"][n] = torch.zeros_like(m)
         return state
 
-    def init_state(self, seed: int = 0):
-        """Seeded init with the reference's distributions (zeros, ones, or
-        normal * (init_scale or 1/sqrt(fan_in)), zero-padded), drawn from one
-        ``torch.Generator`` on the engine's device in sorted leaf order, so
-        every rank draws the same global tensors and keeps its shards. The
-        numbers differ from ``jax.random``'s."""
+    def _init_leaves(self, seed: int, dtype):
+        """Yields (name, global padded ``[stack,] pad`` leaf at ``dtype``) of
+        the seeded init, one leaf at a time in sorted leaf order: the
+        reference's distributions (zeros, ones, or normal * (init_scale or
+        1/sqrt(fan_in)), zero-padded), drawn from one ``torch.Generator`` on
+        the engine's device, so every rank draws the same global tensors.
+        The draw is rounded to ``dtype`` once, whatever ``dtype`` is."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        state = dict(primaries={}, master={}, opt_m={}, opt_v={}, step=0)
         for n in sorted(self.specs):
             spec = self.specs[n]
             rows, size = spec.stack or 1, spec.logical_size
-            f = torch.zeros((rows, self._pad[n]), dtype=torch.float32,
+            f = torch.zeros((rows, self._pad[n]), dtype=dtype,
                             device=self.device)
             if spec.init == "ones":
                 f[:, :size] = 1.0
@@ -357,12 +362,29 @@ class ZeroEngine:
                 if scale is None:
                     fan_in = spec.shape[0] if len(spec.shape) >= 2 else size
                     scale = 1.0 / math.sqrt(max(fan_in, 1))
-                f[:, :size] = torch.randn((rows, size), generator=gen,
-                                          device=self.device) * scale
-            one = self.shard_state({n: f if spec.stack else f[0]})
+                draw = torch.randn((rows, size), generator=gen,
+                                   device=self.device)
+                f[:, :size] = draw.mul_(scale)
+                del draw
+            yield n, (f if spec.stack else f[0])
+            del f
+
+    def init_state(self, seed: int = 0):
+        """Seeded init (``_init_leaves``): this rank's shards of the global
+        tensors. The numbers differ from ``jax.random``'s."""
+        state = dict(primaries={}, master={}, opt_m={}, opt_v={}, step=0)
+        for n, f in self._init_leaves(seed, torch.float32):
+            one = self.shard_state({n: f})
             for k in ("primaries", "master", "opt_m", "opt_v"):
                 state[k].update(one[k])
         return state
+
+    def init_primaries(self, seed: int = 0) -> dict:
+        """``init_state(seed)["primaries"]`` bit for bit, with no master and
+        no optimizer state (serving): each leaf drawn at compute dtype, so
+        the peak is the primaries, one leaf's f32 draw and its copy."""
+        return {n: self.shard_primary(n, f)
+                for n, f in self._init_leaves(seed, _dtype(self.cfg))}
 
     # -- the train step -------------------------------------------------------
 

@@ -144,6 +144,15 @@ def config_axis_tuples(cfg: ZeroConfig) -> list[AxisTuple]:
     return out
 
 
+def serve_axis_tuples(mesh: Mesh) -> list[AxisTuple]:
+    """Every axis tuple serving runs a collective over, besides the
+    scheme's: the model-tier axes (the caches' sequence axes: the
+    flash-decode combine, the sequence-parallel K/V gather) and the data
+    axes (the decode batch's rows; the tokens are gathered over them)."""
+    from ..models.registry import data_axes, model_axes
+    return [model_axes(mesh), data_axes(mesh)]
+
+
 def zero_tiers(mesh: Mesh) -> dict[str, AxisTuple]:
     """Map a mesh's axes onto the (l0, intra, inter) bandwidth tiers."""
     names = set(mesh.axis_names)

@@ -385,16 +385,16 @@ def _detach_fd(dup) -> int:
     return dup.detach()
 
 
-def _worker(rank: int, world: int, port: int, args, arch, steps, engine_opts,
-            queue, std=None) -> None:
+def rank_main(rank: int, world: int, port: int, timeout: float, cuda: bool,
+              fn, fn_args: tuple, queue, std=None) -> None:
     """A local rank: its stdout and stderr are ``std``, the launcher's own
-    (``ParentFd``), then the group and ``train_rank``; the result, or the
-    traceback, goes on ``queue``."""
+    (``ParentFd``), then the group and ``fn(rank, world, *fn_args)``; the
+    result, or the traceback, goes on ``queue``."""
     for fd, target in enumerate(std or (), start=1):
         os.dup2(target, fd)
         os.close(target)
     import torch.distributed as dist
-    if args.device != "cpu":
+    if cuda:
         # local ranks share the cards round-robin (four on one H100): with
         # growable segments a rank's freed blocks do not stay reserved in
         # fixed segments the other ranks cannot use (set before this
@@ -402,15 +402,70 @@ def _worker(rank: int, world: int, port: int, args, arch, steps, engine_opts,
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
     try:
-        init_group(rank, world, args.timeout, port)
-        queue.put((rank, train_rank(rank, world, args, arch, steps,
-                                    engine_opts), None))
+        init_group(rank, world, timeout, port)
+        queue.put((rank, fn(rank, world, *fn_args), None))
     except Exception:
         # the parent raises with this traceback and stops the other ranks
         queue.put((rank, None, traceback.format_exc()))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _worker(rank: int, world: int, port: int, args, arch, steps, engine_opts,
+            queue, std=None) -> None:
+    """A local training rank (``rank_main`` of ``train_rank``)."""
+    rank_main(rank, world, port, args.timeout, args.device != "cpu",
+              train_rank, (args, arch, steps, engine_opts), queue, std)
+
+
+def spawn(fn, n: int, timeout: float, cuda: bool, fn_args: tuple,
+          what: str = "training") -> list:
+    """``fn(rank, n, *fn_args)`` on ``n`` local ranks forked from the fork
+    server (``fork_context``), meeting at one ``rendezvous`` store; returns
+    their results by rank. A rank's failure stops the others and raises
+    with its traceback."""
+    ctx = fork_context()
+    queue = ctx.Queue()
+    store = rendezvous(n, timeout)
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, n, store.port, timeout, cuda, fn, fn_args,
+                               queue, (ParentFd(1), ParentFd(2))))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    deadline = time.monotonic() + timeout + 120
+    try:
+        while len(results) < n and not errors:
+            try:
+                rank, res, err = queue.get(timeout=5)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and p.exitcode not in (None, 0)]
+                if dead:
+                    errors.append(f"ranks {dead} died without a result")
+                elif time.monotonic() > deadline:
+                    errors.append(f"no result within {timeout + 120} s")
+                continue
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+            else:
+                results[rank] = res
+    finally:
+        for p in procs:
+            if errors:
+                p.terminate()
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise RuntimeError(f"{what} rank failed\n" + "\n".join(errors))
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"{what} ranks exited with {bad}")
+    return [results[r] for r in range(n)]
 
 
 def launch_config(args):
@@ -460,47 +515,8 @@ def run(args, arch=None, *, steps=None, engine_opts=None) -> list[dict]:
             dist.destroy_process_group()
     if n == 1:
         return [train_rank(0, 1, args, arch, steps, engine_opts)]
-    ctx = fork_context()
-    queue = ctx.Queue()
-    store = rendezvous(n, args.timeout)
-    procs = [ctx.Process(target=_worker,
-                         args=(r, n, store.port, args, arch, steps,
-                               engine_opts, queue, (ParentFd(1), ParentFd(2))))
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    results, errors = {}, []
-    deadline = time.monotonic() + args.timeout + 120
-    try:
-        while len(results) < n and not errors:
-            try:
-                rank, res, err = queue.get(timeout=5)
-            except queue_mod.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if r not in results and p.exitcode not in (None, 0)]
-                if dead:
-                    errors.append(f"ranks {dead} died without a result")
-                elif time.monotonic() > deadline:
-                    errors.append(f"no result within {args.timeout + 120} s")
-                continue
-            if err is not None:
-                errors.append(f"rank {rank}:\n{err}")
-            else:
-                results[rank] = res
-    finally:
-        for p in procs:
-            if errors:
-                p.terminate()
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    if errors:
-        raise RuntimeError("training rank failed\n" + "\n".join(errors))
-    bad = [p.exitcode for p in procs if p.exitcode != 0]
-    if bad:
-        raise RuntimeError(f"training ranks exited with {bad}")
-    return [results[r] for r in range(n)]
+    return spawn(train_rank, n, args.timeout, args.device != "cpu",
+                 (args, arch, steps, engine_opts))
 
 
 def main(argv=None):

@@ -11,7 +11,12 @@ once) and runs the reference's chunked attention in plain PyTorch: an f32
 online softmax over KV chunks, each query chunk recomputed in the
 backward. Decode attention (``flash_decode``, and ``ring_decode`` over a
 sliding window's ring) is plain PyTorch, as it is plain jnp in the
-reference.
+reference. On a mesh, a full-attention cache is sharded along the sequence
+over the model-tier axes: ``flash_decode`` takes this rank's slice, its
+softmax partials combined exactly over those axes (``core.collectives``
+``seq_max`` / ``seq_sum``), and ``sharded_cache_write`` writes only the
+positions this rank owns. The offsets are host integers from the bound
+mesh (``seq_offset``), where the reference traces ``lax.axis_index``.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core import collectives as col
 from ..kernels import ops
 
 NEG_INF = -1e30
@@ -165,24 +171,30 @@ def _row_positions(pos, b: int, device) -> torch.Tensor:
         else p.reshape(b)
 
 
-def flash_decode(q, k_loc, v_loc, pos, softmax_scale: float | None = None):
-    """Single-token decode over a KV cache.
+def flash_decode(q, k_loc, v_loc, pos, *, seq_axes: tuple[str, ...] = (),
+                 seq_offset: int = 0, softmax_scale: float | None = None):
+    """Single-token decode over a (possibly sequence-sharded) KV cache.
 
-    q: (B, H, D); k_loc/v_loc: (B, S, Hkv, D); valid entries are positions
-    <= pos (scalar or per-row (B,), for continuous batching)."""
+    q: (B, H, D); k_loc/v_loc: (B, S_loc, Hkv, D), this rank's slice of the
+    cache, whose entry 0 is global position ``seq_offset``; valid entries
+    are positions <= pos (scalar or per-row (B,), for continuous batching).
+    The partial softmax is combined exactly over ``seq_axes``: the max over
+    the axes, then the numerator and denominator summed in f32 over them
+    (in axis order, so every rank of the group gets the same bits)."""
     b, h, d = q.shape
     _, s_loc, hkv, _ = k_loc.shape
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     n_rep = h // hkv
-    kpos = torch.arange(s_loc, device=q.device)
+    kpos = torch.arange(seq_offset, seq_offset + s_loc, device=q.device)
     valid = kpos[None, :] <= _row_positions(pos, b, q.device)[:, None]
     qg = q.reshape(b, hkv, n_rep, d).float()
     s = torch.einsum("bgrd,bsgd->bgrs", qg, k_loc.float()) * scale
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    m = s.amax(dim=-1)
+    m = col.seq_max(s.amax(dim=-1), seq_axes)
     p = torch.exp(s - m[..., None])
-    num = torch.einsum("bgrs,bsgd->bgrd", p, v_loc.float())
-    den = p.sum(dim=-1)
+    num = col.seq_sum(torch.einsum("bgrs,bsgd->bgrd", p, v_loc.float()),
+                      seq_axes)
+    den = col.seq_sum(p.sum(dim=-1), seq_axes)
     out = num / torch.clamp(den[..., None], min=1e-30)
     return out.reshape(b, h, d).to(q.dtype)
 
@@ -223,24 +235,57 @@ def ring_cache_write(ring, new, pos):
     return ring
 
 
-def sharded_cache_write(cache_loc, new, pos):
-    """Write ``new`` (B, 1, Hkv, D) at sequence position ``pos`` of
-    ``cache_loc`` (B, S, Hkv, D), IN PLACE, and return the cache.
+def sharded_cache_write(cache_loc, new, pos, *, seq_axes: tuple[str, ...] = (),
+                        axis_sizes: dict[str, int] | None = None):
+    """Write ``new`` (B, 1, Hkv, D) at global sequence position ``pos`` of
+    ``cache_loc`` (B, S_loc, Hkv, D), IN PLACE, and return the cache.
 
-    A scalar ``pos`` outside [0, S) writes nothing (the reference's masked
-    update). A per-row (B,) ``pos`` writes row r at pos[r]; callers keep
-    every per-row position inside the cache (the batcher retires a slot
-    before it reaches max_len)."""
+    ``cache_loc`` is this rank's contiguous slice of the global (B, S, ...)
+    cache over ``seq_axes`` (major -> minor), and only the owner of a
+    position writes it: a scalar ``pos`` outside this rank's range writes
+    nothing (the reference's masked update), and so does each row of a
+    per-row (B,) ``pos`` whose position lies outside it. Unsharded, a
+    per-row write lands at each row's position: callers keep them inside
+    the cache (the batcher retires a slot before it reaches max_len). The
+    per-row write reads no position on the host (a CUDA graph can hold
+    it)."""
     b, s_loc = cache_loc.shape[:2]
+    sharded = col.mesh_size(seq_axes) > 1
+    off = seq_offset(seq_axes, axis_sizes, s_loc) if sharded else 0
     p = torch.as_tensor(pos, device=cache_loc.device)
     val = new[:, 0].to(cache_loc.dtype)
     if p.ndim == 0:
-        i = int(p)
+        i = int(p) - off
         if 0 <= i < s_loc:
             cache_loc[:, i] = val
         return cache_loc
-    cache_loc[torch.arange(b, device=cache_loc.device), p.long()] = val
+    rows = torch.arange(b, device=cache_loc.device)
+    if not sharded:
+        cache_loc[rows, p.long()] = val
+        return cache_loc
+    local = p.long() - off
+    inb = (local >= 0) & (local < s_loc)
+    idx = local.clamp(0, s_loc - 1)
+    cache_loc[rows, idx] = torch.where(inb[:, None, None], val,
+                                       cache_loc[rows, idx])
     return cache_loc
+
+
+def _linear_index(axes: tuple[str, ...], axis_sizes: dict[str, int]) -> int:
+    """This rank's row-major index over ``axes`` (major -> minor), from the
+    bound mesh's coordinates."""
+    idx = 0
+    for a in axes:
+        idx = idx * axis_sizes[a] + (col.mesh_coord(a) if axis_sizes[a] > 1
+                                     else 0)
+    return idx
+
+
+def seq_offset(axes: tuple[str, ...], axis_sizes: dict[str, int],
+               s_loc: int) -> int:
+    """Global position of this rank's first entry of a cache (or sequence
+    chunk) of ``s_loc`` positions sharded over ``axes``."""
+    return _linear_index(axes, axis_sizes) * s_loc
 
 
 def _best_chunk(s: int, target: int) -> int:

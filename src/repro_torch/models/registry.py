@@ -1,10 +1,14 @@
 """Architecture registry: ArchConfig -> ModelDef (leaf specs + cache shapes).
 
-The torch-side half of ``repro.models.registry``: ``register``/``get_arch``
+The torch-side half of ``repro.models.registry``: ``register``/``get_arch``,
+the serving axes of a mesh (``data_axes``, ``model_axes``, ``batch_axes``)
 and the per-kind cache shapes serving allocates. KV caches are bf16 whatever
 the compute dtype, as in the reference; a sliding-window layer's ring holds
 its window's W positions, and a mamba layer's scan state and conv tail are
-f32: both are O(1) per row (not sequence-indexed, so never paged).
+f32: both are O(1) per row (not sequence-indexed, so never paged). On a
+mesh the full-attention caches are sharded over the model-tier axes along
+the sequence (``seq_shard``), every cache over the batch axes along the
+rows; rings and mamba states are whole on every rank of a row's group.
 """
 from __future__ import annotations
 
@@ -43,6 +47,39 @@ def load_all_configs():
         importlib.import_module(f"repro_torch.configs.{m.name}")
 
 
+# ---------------------------------------------------------------------------
+# Batch partitioning helpers (a ``launch.mesh.Mesh``: axis_names, shape)
+# ---------------------------------------------------------------------------
+
+MODEL_AXES = ("model", "node", "gcd")
+
+
+def batch_axes(mesh, global_batch: int,
+               candidates: tuple[str, ...] | None = None) -> tuple[str, ...]:
+    """Largest major->minor prefix of mesh axes whose product divides batch."""
+    axes = candidates if candidates is not None else tuple(mesh.axis_names)
+    out: list[str] = []
+    prod = 1
+    for a in axes:
+        n = mesh.shape[a]
+        if global_batch % (prod * n) == 0:
+            out.append(a)
+            prod *= n
+        else:
+            break
+    return tuple(out)
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """Axes used for batch sharding of serve shapes (everything but model
+    tiers)."""
+    return tuple(a for a in mesh.axis_names if a not in MODEL_AXES)
+
+
+def model_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a in MODEL_AXES)
+
+
 @dataclass
 class ModelDef:
     arch: ArchConfig
@@ -72,6 +109,26 @@ class ModelDef:
             shape = (count, b, length, kv, hd)
             out[kind] = {"k": (shape, torch.bfloat16, seq_indexed),
                          "v": (shape, torch.bfloat16, seq_indexed)}
+        return out
+
+    def local_cache_shapes(self, shape: ShapeConfig, n_batch: int = 1,
+                           n_seq: int = 1) -> dict[str, Any]:
+        """One rank's cache shapes when the rows are split ``n_batch`` ways
+        and the sequence-indexed entries ``n_seq`` ways: ``(L, B / n_batch,
+        S / n_seq, Hkv, D)`` for those, ``(L, B / n_batch, ...)`` for the
+        rest."""
+        out: dict[str, Any] = {}
+        for kind, entry in self.cache_shapes(shape).items():
+            out[kind] = {}
+            for name, (sh, dt, seq_shard) in entry.items():
+                sh = list(sh)
+                if sh[1] % n_batch or (seq_shard and sh[2] % n_seq):
+                    raise ValueError(f"{kind}.{name} {tuple(sh)}: rows over "
+                                     f"{n_batch}, sequence over {n_seq}")
+                sh[1] //= n_batch
+                if seq_shard:
+                    sh[2] //= n_seq
+                out[kind][name] = (tuple(sh), dt, seq_shard)
         return out
 
 

@@ -25,6 +25,16 @@ positions, position p at slot p % W (``_to_ring``); decode writes each
 row's slot in place, then attends over the ring (``layers.ring_decode``).
 A mamba layer's caches are its f32 scan state ``h`` and conv tail; decode
 writes both back into the layer's cache in place.
+
+On a mesh (``seq_axes``: the model-tier axes), a full-attention layer's
+cache is sharded along the sequence: prefill keeps this rank's chunk
+(``_seq_shard``), decode writes the positions this rank owns and attends
+its slice with the exact distributed flash-decode. Rings and mamba states
+stay whole on every rank. Sequence-parallel prefill (``seq_parallel``,
+attention-only models) runs each rank's chunk of the prompt: K/V, roped at
+their global positions, are gathered over the sequence axes and the local
+queries attend them at a host-int ``q_offset``, so the kernel runs where
+the reference, whose offset is traced, falls back to the chunked path.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core import collectives as col
 from ..core.partition import MATMUL, PLAIN, LeafSpec
 from . import layers as L
 from .config import ArchConfig
@@ -142,13 +153,20 @@ def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
 
 @dataclass(frozen=True)
 class Ctx:
-    positions: Any                      # (S,) global positions
+    positions: Any                      # (S_loc,) global positions
     want_cache: bool = False
+    seq_axes: tuple[str, ...] = ()      # cache sequence-sharding axes
+    axis_sizes: Any = None              # dict axis -> size (for offsets)
+    seq_parallel: bool = False          # activations sharded over seq_axes;
+    # attention gathers K/V over seq_axes (gather-KV sequence parallelism)
+    q_offset: int = 0                   # global position of local chunk 0
 
 
 @dataclass(frozen=True)
 class DecCtx:
     pos: Any                            # scalar or per-row (B,) write position
+    seq_axes: tuple[str, ...] = ()
+    axis_sizes: Any = None
 
 
 def _norm(v, p, name, x, cfg: ArchConfig):
@@ -175,6 +193,16 @@ def _qkv(v, p, cfg, x, positions, m: KindMeta):
     return q, k, val
 
 
+def _seq_shard(x, ctx: Ctx):
+    """This rank's sequence chunk of a locally whole (B, S, ...) tensor."""
+    if not ctx.seq_axes:
+        return x
+    n = math.prod(ctx.axis_sizes[a] for a in ctx.seq_axes)
+    s_loc = x.shape[1] // n
+    off = L.seq_offset(ctx.seq_axes, ctx.axis_sizes, s_loc)
+    return x[:, off:off + s_loc]
+
+
 def _to_ring(k, window: int):
     """(B, S, kv, hd) -> ring (B, W, kv, hd) holding position p at slot
     p % W: the last W positions, or all S zero-padded to W when S < W."""
@@ -190,13 +218,25 @@ def _to_ring(k, window: int):
 def _attn_fwd(v, p, cfg, m: KindMeta, x, ctx: Ctx):
     b, s, _ = x.shape
     q, k, val = _qkv(v, p, cfg, x, ctx.positions, m)
-    o = L.flash_attention(q, k, val, causal=m.causal, window=m.window,
-                          impl=v.impl)
+    if ctx.seq_parallel:
+        # gather-KV sequence parallelism: q stays local (S / n positions),
+        # K/V (already roped at their global positions) gathered once
+        k_att = col.gather_dim(k, ctx.seq_axes, 1)
+        v_att = col.gather_dim(val, ctx.seq_axes, 1)
+    else:
+        k_att, v_att = k, val
+    o = L.flash_attention(q, k_att, v_att, causal=m.causal, window=m.window,
+                          q_offset=ctx.q_offset, impl=v.impl)
     out = v.mm(p + "wo", o.reshape(b, s, cfg.n_heads * cfg.hdim))
     cache = None
     if ctx.want_cache:
-        cache = {"k": _to_ring(k, m.window), "v": _to_ring(val, m.window)} \
-            if m.window else {"k": k, "v": val}
+        if m.window:
+            cache = {"k": _to_ring(k_att, m.window),
+                     "v": _to_ring(v_att, m.window)}
+        elif ctx.seq_parallel:
+            cache = {"k": k, "v": val}        # already this rank's chunk
+        else:
+            cache = {"k": _seq_shard(k, ctx), "v": _seq_shard(val, ctx)}
     return out, cache
 
 
@@ -209,9 +249,15 @@ def _attn_decode(v, p, cfg, m: KindMeta, x, cache, dc: DecCtx):
         cv = L.ring_cache_write(cache["v"], val, dc.pos)
         o = L.ring_decode(q[:, 0], ck, cv, dc.pos, m.window)
     else:
-        ck = L.sharded_cache_write(cache["k"], k, dc.pos)
-        cv = L.sharded_cache_write(cache["v"], val, dc.pos)
-        o = L.flash_decode(q[:, 0], ck, cv, dc.pos)
+        ck = L.sharded_cache_write(cache["k"], k, dc.pos, seq_axes=dc.seq_axes,
+                                   axis_sizes=dc.axis_sizes)
+        cv = L.sharded_cache_write(cache["v"], val, dc.pos,
+                                   seq_axes=dc.seq_axes,
+                                   axis_sizes=dc.axis_sizes)
+        off = L.seq_offset(dc.seq_axes, dc.axis_sizes, ck.shape[1]) \
+            if dc.seq_axes else 0
+        o = L.flash_decode(q[:, 0], ck, cv, dc.pos, seq_axes=dc.seq_axes,
+                           seq_offset=off)
     out = v.mm(p + "wo", o.reshape(b, 1, cfg.n_heads * cfg.hdim))
     return out, {"k": ck, "v": cv}
 
@@ -337,21 +383,54 @@ class LM:
             x, self._head_weight(view), labels,
             torch.ones(labels.shape, dtype=torch.float32, device=x.device))
 
-    def prefill(self, view, batch):
+    def sp_eligible(self) -> bool:
+        """Gather-KV sequence parallelism needs every mixer to be attention
+        (an SSM scan has a serial cross-chunk dependency)."""
+        return all(kind_meta(k, self.cfg).mixer in ("attn", "mla")
+                   for k in self.cfg.pattern)
+
+    def prefill(self, view, batch, *, seq_axes=(), axis_sizes=None,
+                seq_parallel: bool = False):
         """batch: {"tokens": (B, S)}. Returns (last-position logits (B, V)
-        f32, caches {kind: {"k", "v": (L, B, S, Hkv, D)} for attention,
+        f32, caches {kind: {"k", "v": (L, B, S_loc, Hkv, D)} for attention
+        (this rank's sequence chunk over ``seq_axes``, all S without them),
         (L, B, W, Hkv, D) rings for sliding-window attention, {"h": (L, B,
-        din, N), "conv": (L, B, K-1, din)} for mamba, "pos": S})."""
+        din, N), "conv": (L, B, K-1, din)} for mamba, "pos": S}).
+
+        ``seq_parallel`` (attention-only models, S a multiple of the
+        sequence ranks) runs this rank's chunk of the prompt; the last
+        position's hidden state, on the last sequence rank, is selected
+        one-hot and summed in f32 over the axes (one rank contributes
+        non-zeros: exact), as the reference does."""
         x = self._embed(view, batch["tokens"])
         s_total = x.shape[1]
         ctx = Ctx(positions=torch.arange(s_total, device=x.device),
-                  want_cache=True)
+                  want_cache=True, seq_axes=tuple(seq_axes),
+                  axis_sizes=axis_sizes)
+        n_sp = math.prod(axis_sizes[a] for a in seq_axes) if seq_axes else 1
+        seq_parallel = (seq_parallel and self.sp_eligible() and n_sp > 1
+                        and s_total % n_sp == 0)
+        if seq_parallel:
+            s_loc = s_total // n_sp
+            off = L.seq_offset(ctx.seq_axes, axis_sizes, s_loc)
+            x = x[:, off:off + s_loc]
+            # q_offset is a host int: the kernel runs (the reference's is
+            # traced and falls back to its chunked path)
+            ctx = replace(ctx, positions=off + torch.arange(s_loc,
+                                                            device=x.device),
+                          seq_parallel=True, q_offset=off)
         per_kind: dict[str, list] = {k: [] for k in self.kinds}
         for kind, i in self._layers():
             x, cache = block_fwd(kind, view.sub(i), self.cfg, x, ctx)
             per_kind[kind].append(cache)
         x = _norm(view, "", "final_norm", x, self.cfg)
-        logits = self._head_logits(view, x[:, -1:])
+        if seq_parallel:
+            last = L._linear_index(ctx.seq_axes, axis_sizes) == n_sp - 1
+            x_last = x[:, -1:] if last else torch.zeros_like(x[:, -1:])
+            x_last = col.seq_sum(x_last.float(), ctx.seq_axes).to(x.dtype)
+        else:
+            x_last = x[:, -1:]
+        logits = self._head_logits(view, x_last)
         caches: dict[str, Any] = {
             k: {n: torch.stack([c[n] for c in lst]) for n in lst[0]}
             for k, lst in per_kind.items()}
@@ -359,15 +438,16 @@ class LM:
                                      device=x.device)
         return logits, caches
 
-    def decode(self, view, caches, batch):
+    def decode(self, view, caches, batch, *, seq_axes=(), axis_sizes=None):
         """One token. batch: {"token": (B,), ["row_pos": (B,)]}.
 
         ``row_pos`` (continuous batching) overrides the shared cache position
-        with per-row write/attend positions. The caches are updated in place
-        and returned with the next position. Returns (logits, caches)."""
+        with per-row write/attend positions. The caches (this rank's slices
+        over ``seq_axes``) are updated in place and returned with the next
+        position. Returns (logits, caches)."""
         pos = batch.get("row_pos", caches["pos"])
         x = self._embed(view, batch["token"][:, None])
-        dc = DecCtx(pos=pos)
+        dc = DecCtx(pos=pos, seq_axes=tuple(seq_axes), axis_sizes=axis_sizes)
         for kind, i in self._layers():
             cl = {n: t[i] for n, t in caches[kind].items()}
             x, _ = block_decode(kind, view.sub(i), self.cfg, x, cl, dc)

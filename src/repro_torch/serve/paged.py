@@ -17,6 +17,18 @@ The dense decode view is one gather per entry (``assemble``); the decode
 step's single written position per row goes back with one scatter
 (``writeback``); admission writes a B=1 prefill cache into the slot's pages
 with one scatter (``admit_scatter``). The pool is updated in place.
+
+On a mesh (``shard``): the page table, the free list and every decision
+are global and the same on every rank, and so is the pool's layout: each
+rank holds the whole pool, every page and every slot's row, and reads and
+writes only its part of it: the rows of its batch shard, and of the
+sequence-indexed entries the blocks of its sequence range (a block is a
+page, so a page a rank never touches stays zero there). The pool costs
+every rank the bytes of the whole pool (qwen2-0.5b at 4 slots of 256,
+pages of 16: 12,779,520 bytes with the sink page), in return for the
+reference's page ids, allocation order and counters unchanged. A rank's
+dense decode view is its rows over its sequence range; ``page_size`` must
+divide that range, max_len / n_seq.
 """
 from __future__ import annotations
 
@@ -63,6 +75,21 @@ class PagedKV:
         self.table = np.full((n_slots, self.blocks_per_slot), -1, np.int32)
         self.free = list(range(self.n_pages))
         self.owner = np.full((self.n_pages,), -1, np.int32)
+        self.shard(0, n_slots, 0, 1)
+
+    def shard(self, row0: int, n_rows: int, seq_index: int, n_seq: int):
+        """This rank's part of the pool: slots [row0, row0 + n_rows) and,
+        of the sequence-indexed entries, the ``seq_index``-th of ``n_seq``
+        equal block ranges."""
+        if self.blocks_per_slot % n_seq:
+            raise ValueError(f"page size {self.page_size} does not divide "
+                             f"the sequence range {self.shape.seq_len} / "
+                             f"{n_seq}")
+        nb = self.blocks_per_slot // n_seq
+        self.rows = slice(row0, row0 + n_rows)
+        self.blocks = slice(seq_index * nb, (seq_index + 1) * nb)
+        self.seq_off = seq_index * nb * self.page_size
+        self.seq_len_loc = nb * self.page_size
 
     # -- host-side page accounting ------------------------------------------
 
@@ -109,7 +136,7 @@ class PagedKV:
     # -- device-side layout --------------------------------------------------
 
     def init_pool(self, cache_shapes, device):
-        """Zero pool state for the dense cache shapes ``{kind: {name:
+        """Zero pool state for the global dense cache shapes ``{kind: {name:
         (shape, dtype, seq_indexed)}}``, plus the shared ``pos``."""
         pool = {}
         for kind, entry in cache_shapes.items():
@@ -124,8 +151,12 @@ class PagedKV:
         return pool
 
     def assemble(self, pool, table):
-        """Pool state -> dense decode view: one gather per pageable entry.
-        Row r of the view is its pages in order."""
+        """Pool state -> this rank's dense decode view: one gather per
+        pageable entry. ``table`` is the global device table; row r of the
+        view is this rank's blocks of slot ``rows.start + r`` in order.
+        The other entries are views of this rank's rows (decode updates
+        them in place)."""
+        table = table[self.rows, self.blocks]
         out = {}
         for kind, entry in pool.items():
             if kind == "pos":
@@ -138,19 +169,30 @@ class PagedKV:
                     out[kind][name] = d.reshape(
                         d.shape[:2] + (d.shape[2] * d.shape[3],) + d.shape[4:])
                 else:
-                    out[kind][name] = v
+                    out[kind][name] = v[:, self.rows]
         return out
 
     def writeback(self, pool, dense_new, table, row_pos, active):
         """Scatter the decode step's written position back into the pool.
 
-        Each active row wrote exactly one new position (``row_pos``), at
-        page-local address ``(table[r, pos // page], pos % page)``; inactive
-        rows go to the sink page."""
+        ``row_pos`` and ``active`` are this rank's rows. Each active row
+        wrote exactly one new position (``row_pos``), at page-local address
+        ``(table[r, pos // page], pos % page)``; inactive rows, and rows
+        whose position lies outside this rank's sequence range, go to the
+        sink page. The other entries were updated in place in the view."""
         b = row_pos.shape[0]
         rows = torch.arange(b, device=row_pos.device)
-        page_i = torch.where(active, table[rows, row_pos // self.page_size],
-                             self.n_pages)
+        grows = rows + self.rows.start if self.rows.start else rows
+        block = row_pos // self.page_size
+        if self.seq_len_loc == self.shape.seq_len:
+            # the whole sequence: every position is this rank's
+            mine, local = active, row_pos
+        else:
+            mine = active & (block >= self.blocks.start) \
+                & (block < self.blocks.stop)
+            block = block.clamp(max=self.blocks_per_slot - 1)
+            local = (row_pos - self.seq_off).clamp(0, self.seq_len_loc - 1)
+        page_i = torch.where(mine, table[grows, block], self.n_pages)
         off = row_pos % self.page_size
         for kind, entry in dense_new.items():
             if kind == "pos":
@@ -158,15 +200,17 @@ class PagedKV:
                 continue
             for name, d in entry.items():
                 if (kind, name) in self.seq_keys:
-                    pool[kind][name][:, page_i, off] = d[:, rows, row_pos]
-                else:
-                    pool[kind][name] = d
+                    pool[kind][name][:, page_i, off] = d[:, rows, local]
+                elif d.data_ptr() != pool[kind][name][:, self.rows].data_ptr():
+                    pool[kind][name][:, self.rows] = d
         return pool
 
     def admit_scatter(self, pool, c1, slot: int, slot_pages: torch.Tensor):
-        """B=1 prefill cache -> the slot's pages (pageable entries, cut into
-        whole zero-padded pages) and rows (per-slot entries)."""
+        """B=1 prefill cache, whole over the prompt -> the slot's pages of
+        this rank's sequence range (pageable entries, cut into whole
+        zero-padded pages) and its row (per-slot entries)."""
         n_pp = slot_pages.shape[0]
+        mine = slice(self.blocks.start, min(self.blocks.stop, n_pp))
         for kind, entry in pool.items():
             if kind == "pos":
                 pool[kind] = torch.maximum(entry, c1["pos"])
@@ -174,13 +218,16 @@ class PagedKV:
             for name, dst in entry.items():
                 src = c1[kind][name].to(dst.dtype)
                 if (kind, name) in self.seq_keys:
+                    if mine.start >= mine.stop:
+                        continue
                     row = src[:, 0]                       # (L, P, *tail)
                     pad = n_pp * self.page_size - row.shape[1]
                     if pad:
                         row = torch.cat([row, row.new_zeros(
                             (row.shape[0], pad) + row.shape[2:])], dim=1)
-                    dst[:, slot_pages] = row.reshape(
-                        (row.shape[0], n_pp, self.page_size) + row.shape[2:])
+                    row = row.reshape((row.shape[0], n_pp, self.page_size)
+                                      + row.shape[2:])
+                    dst[:, slot_pages[mine]] = row[:, mine]
                 else:
                     dst[:, slot] = src[:, 0]
         return pool

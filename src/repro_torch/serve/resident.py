@@ -1,18 +1,26 @@
 """Quantized-resident serving: the INT8 wire format as the weight residency.
 
-Port of ``repro.serve.resident`` at degree 1. Each MATMUL leaf is quantized
-once at server start into its wire format (INT8 payload + f32 per-block
-scales, ``col.gather_issue_int8``) and every matmul of prefill and decode
-feeds that buffer straight to the fused dequant-matmul kernel
-(``linear._mm_apply_q``). PLAIN leaves (norms, biases) stay dense in the
+Port of ``repro.serve.resident``. Each MATMUL leaf is quantized once at
+server start into its wire format (INT8 payload + f32 per-block scales),
+exactly as the training forward gathers it (``col.gather_issue_int8`` over
+the weight axes W), and this rank keeps its residency slice
+(``col.residency_slice`` over the residency axes: by default the scheme's
+secondary partition, else the mesh's model tier, ``default_res_axes``).
+Every matmul of prefill and decode re-gathers the slices over the
+residency axes (``col.gather_residency_q``; nothing at degree 1) and feeds
+the buffer straight to the fused dequant-matmul kernel
+(``linear._mm_apply_q``), so the logits are bit for bit the gathered
+backend's (``serve.engine.ServeEngine``) at the same quant config. PLAIN
+leaves (norms, biases) are gathered over W once and stay dense in the
 compute dtype. The embedding lookup dequantizes only the looked-up rows:
 each row of ``embed`` is whole quant blocks, so the numbers equal the
 reference's dequantize-the-whole-table-then-take.
 
-The weights come from ``iter_primaries`` / ``init_primaries`` (a seeded
-init with the reference's distributions, drawn from a ``torch.Generator``)
-or from the reference's own primaries
-(``repro_torch.convert.from_jax_primaries``).
+The weights come, on one device, from ``iter_primaries`` /
+``init_primaries`` (a seeded init with the reference's distributions, drawn
+from a ``torch.Generator``, one leaf at a time) or from the reference's
+own primaries (``repro_torch.convert.from_jax_primaries``); on a mesh,
+from a training engine's ``state["primaries"]`` (never its fp32 master).
 """
 from __future__ import annotations
 
@@ -26,26 +34,38 @@ from ..core import linear
 from ..core.partition import (GATHER_Q, MATMUL, LeafSpec, ZeroConfig,
                               padded_flat_size, resident_memory_bytes)
 from ..models.config import ShapeConfig
+from ..models.registry import model_axes
+from .engine import MeshServe, ServeConfig
 
 WIRE = "wire"     # INT8 payload + per-block scales
 DENSE = "dense"   # compute-dtype dense tensor
 
 
+def default_res_axes(cfg: ZeroConfig, mesh=None) -> tuple[str, ...]:
+    """Residency axes: the training secondary partition when the scheme has
+    one, else the mesh's model tier (intra-node bandwidth for the per-token
+    re-gather); none without a mesh."""
+    if cfg.axes.secondary:
+        return tuple(cfg.axes.secondary)
+    return model_axes(mesh) if mesh is not None else ()
+
+
 class ResidentLayout:
     """Per-leaf quant config, padded sizes and residency mode of one model
     under one scheme config (the slice of the reference's ZeroEngine that
-    serving reads)."""
+    serving reads). On ``mesh`` (this rank's, or None for one device) the
+    residency axes' process groups are bound."""
 
     def __init__(self, specs: dict[str, LeafSpec], cfg: ZeroConfig,
-                 res_axes: tuple[str, ...] | None = None):
+                 res_axes: tuple[str, ...] | None = None, mesh=None):
         self.specs = dict(specs)
         self.cfg = cfg
         if res_axes is None:
-            res_axes = tuple(cfg.axes.secondary or ())
+            res_axes = default_res_axes(cfg, mesh)
         self.res_axes = tuple(res_axes)
         self.res_degree = cfg.size(self.res_axes)
-        if cfg.os_degree != 1 or self.res_degree != 1:
-            raise NotImplementedError("only the one-device residency is ported")
+        if mesh is not None:
+            mesh.bind([self.res_axes])
         self.leaf_cfg = {n: cfg.for_leaf(s.logical_size)
                          for n, s in self.specs.items()}
         self.pad = {n: padded_flat_size(s.logical_size, cfg)
@@ -145,17 +165,22 @@ def init_primaries(layout: ResidentLayout, seed: int, device) -> dict:
 
 
 def build_resident(layout: ResidentLayout, primaries) -> dict:
-    """Primaries -> residency: ``{"q", "s"}`` wire buffers for WIRE leaves
-    (``[stack,] pad`` int8 and ``[stack,] pad // block`` f32), dense
-    ``[stack,] *shape`` compute-dtype tensors for DENSE leaves.
+    """Primaries -> this rank's residency: ``{"q", "s"}`` wire buffers for
+    WIRE leaves (``[stack,] pad / res_degree`` int8 and ``[stack,] pad //
+    block / res_degree`` f32), dense ``[stack,] *shape`` compute-dtype
+    tensors for DENSE leaves.
 
     ``primaries`` is an iterable of (name, primary) pairs (``iter_primaries``
-    or a dict's ``items()``); a pair's primary is dropped once it is built."""
+    or a dict's ``items()``), each this rank's shard over W (the whole
+    padded leaf at degree 1); a pair's primary is dropped once it is
+    built."""
+    w = layout.cfg.size(layout.cfg.axes.weight)
     out = {}
     for name, prim in primaries:
         spec = layout.specs[name]
         lcfg = layout.leaf_cfg[name]
-        want = ((spec.stack,) if spec.stack else ()) + (layout.pad[name],)
+        want = ((spec.stack,) if spec.stack else ()) \
+            + (layout.pad[name] // w,)
         if tuple(prim.shape) != want:
             raise ValueError(f"{name}: primary shape {tuple(prim.shape)}, "
                              f"expected {want}")
@@ -169,7 +194,8 @@ def build_resident(layout: ResidentLayout, primaries) -> dict:
             out[name] = {"q": q, "s": s}
         else:
             n = spec.logical_size
-            dense = prim[..., :n].reshape(want[:-1] + spec.shape)
+            full = col.all_gather_flat(prim, layout.cfg.axes.weight, lcfg)
+            dense = full[..., :n].reshape(want[:-1] + spec.shape)
             out[name] = dense.to(linear._dtype(lcfg))
         del prim
     if set(out) != set(layout.specs):
@@ -255,37 +281,15 @@ class ResidentView:
         return out.reshape(tuple(ids.shape) + (d,))
 
 
-class ResidentServeEngine:
-    """Prefill / decode / greedy generation over the INT8 residency."""
+class ResidentServeEngine(MeshServe):
+    """Prefill / decode / greedy generation over the INT8 residency, on one
+    device (``mesh`` None) or on this rank of ``mesh``
+    (``serve.engine.MeshServe``)."""
 
-    def __init__(self, model, layout: ResidentLayout, shape: ShapeConfig):
-        self.model = model
+    def __init__(self, model, layout: ResidentLayout, shape: ShapeConfig,
+                 mesh=None, sc: ServeConfig | None = None):
+        super().__init__(model, mesh, shape, sc)
         self.layout = layout
-        self.shape = shape
 
-    def cache_shapes(self):
-        return self.model.cache_shapes(self.shape)
-
-    def make_prefill(self):
-        def prefill(residency, batch):
-            return self.model.lm.prefill(ResidentView(self.layout, residency),
-                                         batch)
-        return prefill
-
-    def make_decode(self):
-        def decode(residency, caches, batch):
-            return self.model.lm.decode(ResidentView(self.layout, residency),
-                                        caches, batch)
-        return decode
-
-    def generate(self, residency, prompt_batch, n_tokens: int):
-        """Greedy generation: prefill then decode, as the reference's
-        (a decode position past the prefill cache writes nothing)."""
-        prefill = self.make_prefill()
-        decode = self.make_decode()
-        logits, caches = prefill(residency, prompt_batch)
-        toks = [logits.argmax(dim=-1).to(torch.int32)]
-        for _ in range(n_tokens - 1):
-            logits, caches = decode(residency, caches, {"token": toks[-1]})
-            toks.append(logits.argmax(dim=-1).to(torch.int32))
-        return torch.stack(toks, dim=1)
+    def _view(self, residency):
+        return ResidentView(self.layout, residency)

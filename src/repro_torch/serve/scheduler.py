@@ -1,12 +1,29 @@
 """Continuous batching: an SLO-driven slot scheduler over the paged decode.
 
-Port of ``repro.serve.scheduler`` with the resident backend. Incoming
-requests are admitted into free slots under a latency SLO (queue-wait bound
-+ KV-page headroom), prefilled one row at a time, scattered into their
-pages, and all active slots decode in lock-step with per-row positions.
-Admission, preemption (youngest first, on page exhaustion) and retirement
-are the reference's host-side logic, with the same counters, so the same
-requests and tokens give the same decisions.
+Port of ``repro.serve.scheduler``. Incoming requests are admitted into
+free slots under a latency SLO (queue-wait bound + KV-page headroom),
+prefilled one row at a time, scattered into their pages, and all active
+slots decode in lock-step with per-row positions. Admission, preemption
+(youngest first, on page exhaustion) and retirement are the reference's
+host-side logic, with the same counters, so the same requests and tokens
+give the same decisions.
+
+Two weight backends share the scheduler: ``"gathered"`` (the training
+engine's primaries, re-gathered per use: ``serve.engine.ServeEngine``) and
+``"resident"`` (the INT8 wire residency: ``ResidentServeEngine``);
+``run(params, ...)`` takes the primaries or the residency respectively.
+
+On a mesh every rank runs the batcher. Its host state (the page table, the
+free list, slots, positions, counters and SLO decisions) is global and the
+same on every rank: the B = 1 prefill runs whole on every rank, its cache
+whole, and decode runs each rank's slots (the data axes) over its sequence
+range of the pool (the model-tier axes); every step's greedy tokens are
+all-gathered over the data axes. A sequence-parallel prefill
+(``prefill_seq_parallel``) leaves each rank its chunk of the prompt, which
+is not its decode range (at prompt 128 and max length 256 on two sequence
+ranks, rank 0 holds prompt positions 0-63 after the prefill but decode
+positions 0-127): its admission all-gathers the cache over the sequence
+axes.
 """
 from __future__ import annotations
 
@@ -16,7 +33,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core import collectives as col
 from ..models.config import ShapeConfig
+from .engine import ServeConfig, ServeEngine
 from .paged import PagedKV
 from .resident import ResidentLayout, ResidentServeEngine
 
@@ -52,15 +71,24 @@ def _default_page(max_len: int) -> int:
 
 
 class ContinuousBatcher:
-    """SLO-driven continuous batching over the paged pool, serving from the
-    INT8 residency on ``device``."""
+    """SLO-driven continuous batching over the paged pool.
 
-    def __init__(self, model, layout: ResidentLayout, *, n_slots: int,
-                 max_len: int, prompt_len: int, device, eos_token: int = -1,
-                 page_size: int | None = None, n_pages: int = 0,
-                 slo: ServeSLO | None = None, metrics=None):
+    ``engine`` is a ``core.engine.ZeroEngine`` on this rank of ``mesh``
+    (the ``backend`` "gathered", the reference's default, or "resident",
+    whose layout over ``res_axes`` is ``self.layout``), or a
+    ``serve.resident.ResidentLayout`` (the resident backend; on one device
+    when ``mesh`` is None, as the one-card launcher builds it, with
+    ``device`` given). ``prefill_seq_parallel`` runs the admission prefill
+    sequence-parallel."""
+
+    def __init__(self, model, engine, mesh=None, *, n_slots: int,
+                 max_len: int, prompt_len: int, device=None,
+                 eos_token: int = -1, page_size: int | None = None,
+                 n_pages: int = 0, slo: ServeSLO | None = None,
+                 backend: str | None = None,
+                 res_axes: tuple[str, ...] | None = None,
+                 prefill_seq_parallel: bool = False, metrics=None):
         self.model = model
-        self.device = torch.device(device)
         self.n_slots = n_slots
         self.max_len = max_len
         self.prompt_len = prompt_len
@@ -69,13 +97,44 @@ class ContinuousBatcher:
         self.metrics = metrics
         shape = ShapeConfig("cb", max_len, n_slots, "decode")
         shape1 = ShapeConfig("cb1", prompt_len, 1, "decode")
-        self.serve = ResidentServeEngine(model, layout, shape)
-        self.serve1 = ResidentServeEngine(model, layout, shape1)
-        self._prefill1 = self.serve1.make_prefill()
-        self._decode = self.serve.make_decode()
+        if isinstance(engine, ResidentLayout):
+            if backend not in (None, "resident"):
+                raise ValueError(f"backend {backend!r} with a residency "
+                                 "layout")
+            self.backend, self.layout = "resident", engine
+        else:
+            self.backend = backend or "gathered"
+            if self.backend == "resident":
+                self.layout = ResidentLayout(engine.specs, engine.cfg,
+                                             res_axes, mesh)
+            elif self.backend != "gathered":
+                raise ValueError(f"backend {self.backend!r}: 'gathered' or "
+                                 "'resident'")
+            device = device or engine.device
+        if device is None:
+            raise ValueError("device: a residency layout needs one")
+        self.device = torch.device(device)
+        if self.backend == "resident":
+            self.serve = ResidentServeEngine(model, self.layout, shape, mesh)
+        else:
+            self.serve = ServeEngine(model, engine, mesh, shape)
+        # the B = 1 prefill: sequence axes only when it is sequence-parallel
+        sc1 = ServeConfig(self.serve.sc.seq_axes if prefill_seq_parallel
+                          else (), ())
+        if self.backend == "resident":
+            self.serve1 = ResidentServeEngine(model, self.layout, shape1,
+                                              mesh, sc1)
+        else:
+            self.serve1 = ServeEngine(model, engine, mesh, shape1, sc1)
+        self._prefill1 = self.serve1.make_prefill(
+            seq_parallel=prefill_seq_parallel)
+        self._decode = self.serve.make_decode(per_row_pos=True)
         self.paged = PagedKV(model, shape,
                              page_size=page_size or _default_page(max_len),
                              n_pages=n_pages)
+        self.paged.shard(self.serve.row0, self.serve.b_loc,
+                         (mesh.index(self.serve.sc.seq_axes)
+                          if mesh is not None else 0), self.serve.n_seq)
         self.slots: list[Request | None] = [None] * n_slots
         self.queue: list[Request] = []
         self.pool = None
@@ -94,12 +153,27 @@ class ContinuousBatcher:
         self.queue.append(req)
 
     def _paged_step(self, params, table, token, row_pos, active):
+        """One decode step of every slot (global ``token``, ``row_pos``,
+        ``active``); returns this rank's rows' logits."""
         dense = self.paged.assemble(self.pool, table)
         logits, new_dense = self._decode(params, dense,
                                          {"token": token, "row_pos": row_pos})
-        self.pool = self.paged.writeback(self.pool, new_dense, table, row_pos,
-                                         active)
+        local = self.serve.local_rows
+        self.pool = self.paged.writeback(self.pool, new_dense, table,
+                                         local(row_pos), local(active))
         return logits
+
+    def _whole_prompt(self, c1):
+        """A B = 1 prefill cache with its sequence-sharded entries gathered
+        whole over the sequence axes (none unless sequence-parallel)."""
+        axes = self.serve1.sc.seq_axes
+        if not axes:
+            return c1
+        return {kind: entry if kind == "pos" else
+                {name: (col.gather_dim(t, axes, 2)
+                        if (kind, name) in self.paged.seq_keys else t)
+                 for name, t in entry.items()}
+                for kind, entry in c1.items()}
 
     # -- admission / eviction -------------------------------------------------
 
@@ -136,6 +210,7 @@ class ContinuousBatcher:
             tokens = torch.as_tensor(prompt[None].astype(np.int64),
                                      device=self.device)
             logits, c1 = self._prefill1(params, {"tokens": tokens})
+            c1 = self._whole_prompt(c1)
             ok = self.paged.alloc_prefix(slot, self.prompt_len)
             assert ok, "free-page check raced the allocator"
             pages = torch.as_tensor(self.paged.table[slot, :n_pp].astype(np.int64),
@@ -194,8 +269,8 @@ class ContinuousBatcher:
         """Admit + one decode step for all active slots. Returns #active."""
         t0 = time.perf_counter()
         if self.pool is None:
-            self.pool = self.paged.init_pool(self.serve.cache_shapes(),
-                                             self.device)
+            self.pool = self.paged.init_pool(self.model.cache_shapes(
+                self.serve.shape), self.device)
         self._reject_stale()
         t_admit0 = time.perf_counter()
         self._admit(params)
@@ -215,7 +290,8 @@ class ContinuousBatcher:
             torch.as_tensor(self.last_tok.astype(np.int64), device=dev),
             torch.as_tensor(self.pos.astype(np.int64), device=dev),
             torch.as_tensor(mask, device=dev))
-        toks = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        toks = self.serve.gather_rows(
+            logits.argmax(dim=-1).to(torch.int32)).cpu().numpy()
         t_dec = time.perf_counter() - t_dec0
         for i in active:
             req = self.slots[i]

@@ -59,6 +59,49 @@ def test_serve_cli_on_cpu_prints_tokens(capsys):
     assert "3 reqs -> 12 tokens" in out
     assert "admitted 3 rejected 0 preempted 0 retired 3" in out
     assert "sample: [" in out
+    assert "backend=gathered" in out
+
+
+def test_serve_cli_one_device_resident_prints_tokens(capsys):
+    """``--backend resident --devices 1``: the one-device residency built
+    from the seeded init one leaf at a time (``setup`` /
+    ``iter_primaries``), degree 1, served as before."""
+    results = serve.main(["--device", "cpu", "--reduced", "--backend",
+                          "resident", "--devices", "1", "--requests", "3",
+                          "--slots", "2", "--prompt-len", "8", "--max-len",
+                          "24", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "degree=1 wire=" in out
+    assert "backend=resident 3 reqs -> 12 tokens" in out
+    assert "admitted 3 rejected 0 preempted 0 retired 3" in out
+    [r] = results
+    assert r["mesh"] is None and r["memory"]["res_degree"] == 1
+    assert all(len(t) == 4 for t in r["tokens"])
+    assert not r["payload_bytes"]          # one device: no collective
+
+
+def test_serve_cli_four_ranks_without_device_raises_here():
+    """``--devices 4`` without --device cpu raises on a host with no card,
+    before it starts any rank; no rank serves on the CPU by itself."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the CLI would serve on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--requests", "1", "--devices", "4",
+                    "--mesh-shape", "2,1,2", "--max-len", "32"])
+
+
+def test_serve_cli_backends_all_held():
+    """Every backend the serve CLI offers (``--backend``'s choices) is held
+    against the reference on the (2, 1, 2) mesh
+    (tests/test_torch_serve_mesh.py: the engine and the batcher, each
+    backend), and no other."""
+    from test_torch_serve_mesh import BACKENDS
+
+    choices = next(a.choices for a in serve.build_parser()._actions
+                   if a.dest == "backend")
+    assert sorted(choices) == sorted(BACKENDS)
+    default = serve.build_parser().parse_args([]).backend
+    assert default == "gathered"
 
 
 def test_train_cli_without_device_raises_here():
