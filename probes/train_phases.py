@@ -8,8 +8,8 @@ the rest of the smoke run.
 Needs one CUDA card and nvcc. Phases (all by default):
 
 - ``ssm``, ``gemma``: ``chip_smoke.ssm_train_phase`` (falcon-mamba-7b at
-  published width and 2 layers on four ranks sharing the card) and
-  ``chip_smoke.gemma_train_phase`` (gemma3-1b at 12 layers), each held
+  published width and SSM_TRAIN_L layers on four ranks sharing the card) and
+  ``chip_smoke.gemma_train_phase`` (gemma3-1b at GEMMA_TRAIN_L layers), each held
   against the plain versions as chip_smoke.py holds them, after
   ``chip_smoke.check_kernels``; prints each phase's JSON line
   (``train_ssm``, ``train_gemma``).
@@ -33,6 +33,13 @@ Needs one CUDA card and nvcc. Phases (all by default):
   deepest depth that fit again through the plain versions (the phase runs
   both). How NEOX_TRAIN_L and DEEPSEEK_TRAIN_L are chosen.
 - ``serve_deepseek``: chip_smoke's deepseek serving phase alone.
+- ``serve_moe``: chip_smoke's moe, mixtral and vlm phases alone
+  (phi3.5-moe-42b-a6.6b at published width and depth from its INT8
+  residency, mixtral-8x7b at 2 layers, internvl2-1b with its patch
+  prefix).
+- ``train_moe``: the ``depth`` search for phi3.5-moe-42b-a6.6b at
+  ``--moe-layers`` (how MOE_TRAIN_L is chosen), then chip_smoke's
+  train_vlm phase (internvl2-1b at VLM_TRAIN_L layers).
 - ``ckpt``: chip_smoke's train phase's kernel run alone (qwen2-0.5b at
   full size on four ranks, saving step 3 into ``chip_smoke.CKPT_DIR``),
   then ``chip_smoke.ckpt_phase`` (legs (a), (b), (c)); prints the
@@ -82,6 +89,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("ssm", "gemma", "timing", "scan_backward", "ssm_ablation",
           "trace_events", "depth", "serve_deepseek", "trace_window", "ckpt",
+          "serve_moe", "train_moe",
           "first_step", "replica", "serve_mesh")
 # the bytes the first_step phase's warm run has its allocator map before
 # the steps, and sends through one gloo all-gather twice
@@ -621,6 +629,8 @@ def main():
     ap.add_argument("--deepseek-layers", type=int, nargs="*",
                     default=[6, 8, 10],
                     help="deepseek-7b depths the depth phase tries")
+    ap.add_argument("--moe-layers", type=int, nargs="*", default=[1, 2],
+                    help="phi3.5-moe-42b-a6.6b depths train_moe tries")
     ap.add_argument("--traces", type=int, default=90,
                     help="prefills the trace_window phase traces")
     args = ap.parse_args()
@@ -674,6 +684,34 @@ def main():
                                      shapes=ds_t["shapes"])
         print("serve_deepseek " + json.dumps(out["serve_deepseek"],
                                              default=str), flush=True)
+        save()
+    if "serve_moe" in args.phase:
+        mo, mopf, mo_t = c.moe_phase(gen, dev, {})
+        c.print_moe(mo, mopf, mo_t)
+        out["serve_moe"] = dict(c.serve_attn_line(mo, mopf),
+                                build_peak_bytes=mo["setup_peak_bytes"],
+                                build_peak_predicted=mo["build_peak_predicted"],
+                                decode_step_launches=mo["step_launches"],
+                                routing_rows_differ=mopf["routing_rows_differ"],
+                                timing=mo_t)
+        print("serve_moe " + json.dumps(out["serve_moe"], default=str),
+              flush=True)
+        save()
+        mx, mxpf = c.mixtral_phase(gen, dev, {})
+        out["serve_mixtral"] = c.mixtral_line(mx, mxpf)
+        print("serve_mixtral " + json.dumps(out["serve_mixtral"]), flush=True)
+        out["serve_vlm"] = c.vlm_phase(gen, dev)
+        c.print_vlm(out["serve_vlm"])
+        print("serve_vlm " + json.dumps(out["serve_vlm"]), flush=True)
+        save()
+    if "train_moe" in args.phase:
+        out["depth_moe"] = depth_search(c, "phi3.5-moe-42b-a6.6b",
+                                        args.moe_layers, c.MOE_TRAIN_ARGS)
+        save()
+        tvl = c.vlm_train_phase()
+        c.print_cut_train(tvl, "tensor-core flash")
+        out["train_vlm"] = c.cut_train_line(tvl, "flash")
+        print("train_vlm " + json.dumps(out["train_vlm"]), flush=True)
         save()
     if "depth" in args.phase:
         out["depth"] = {

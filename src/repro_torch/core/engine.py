@@ -51,6 +51,7 @@ from typing import Callable
 import torch
 
 from ..device import resolve
+from ..models.moe import expert_glu
 from ..obs.spans import tracing
 from ..optim.adamw import adamw_update_, cosine_lr
 from . import collectives as col
@@ -180,6 +181,14 @@ class ParamView:
 
     def embed_lookup(self, name: str, ids):
         return self.get(name)[ids]
+
+    def expert_ffn(self, prefix: str, e_in):
+        """The MoE expert GLU on dispatched slots (E, C, d): the expert
+        stacks come whole through ``get`` (the GATHER_Q path: INT8 gather
+        forward, INT4 reduce-scatter of their gradient backward); the
+        products are library batched matmuls, as the reference's einsums
+        run outside any kernel (``src/repro/core/engine.py:192``)."""
+        return expert_glu(self.get, prefix, e_in)
 
 
 class ZeroEngine:

@@ -1,8 +1,9 @@
 """Deterministic synthetic token batches.
 
-Port of ``repro.data.pipeline``'s ``BatchSpec`` (:29) and ``SyntheticTokens``
-(:70): the same numpy-seeded stream, so both packages train on bit-identical
-batches. Every rank draws the global batch and keeps its own rows
+Port of ``repro.data.pipeline``'s ``BatchSpec`` (:29), ``spec_for`` (:38) and
+``SyntheticTokens`` (:70): the same numpy-seeded stream, so both packages
+train on bit-identical batches (a VLM's patch embeddings drawn from the same
+generator after the tokens). Every rank draws the global batch and keeps its own rows
 (``local_rows``), as the reference's ``batch_specs`` shard dim 0 over the
 batch axes.
 """
@@ -18,6 +19,18 @@ class BatchSpec:
     global_batch: int
     seq_len: int              # text tokens per row (excl. next-token shift)
     vocab: int
+    n_patches: int = 0
+    n_frames: int = 0
+    d_model: int = 0
+
+
+def spec_for(arch, global_batch: int, seq_len: int) -> BatchSpec:
+    """The batch of ``arch`` at ``seq_len`` positions a row: a VLM's
+    ``n_patches`` of them are its patch prefix, the rest text."""
+    s_text = seq_len - arch.n_patches if arch.n_patches else seq_len
+    return BatchSpec(global_batch, s_text, arch.vocab,
+                     n_patches=arch.n_patches, n_frames=arch.n_frames,
+                     d_model=arch.d_model)
 
 
 class SyntheticTokens:
@@ -41,7 +54,16 @@ class SyntheticTokens:
         for k in range(1, 4):
             idx = np.arange(k, s + 1, 4)
             toks[:, idx] = (toks[:, idx - 1] * 31 + 7) % sp.vocab
-        return {"tokens": toks.astype(np.int32)}
+        out = {"tokens": toks.astype(np.int32)}
+        if sp.n_patches:
+            out["patches"] = self._embed(rng, (b, sp.n_patches, sp.d_model))
+        if sp.n_frames:
+            out["frames"] = self._embed(rng, (b, sp.n_frames, sp.d_model))
+        return out
+
+    @staticmethod
+    def _embed(rng, shape):
+        return (rng.standard_normal(shape) * 0.02).astype(np.float32)
 
 
 def batch_axes(mesh, global_batch: int) -> tuple[str, ...]:

@@ -292,6 +292,22 @@ def launch_config(args):
     return train_launch_config(args)
 
 
+def refuse_patch_prefix(arch) -> None:
+    """The CLI serves through the continuous batcher, which takes text
+    prompts only (as the reference's does): a model with a patch prefix
+    (``arch``: an ArchConfig or a registered name) raises before anything
+    is built."""
+    from ..models.registry import get_arch
+    if isinstance(arch, str):
+        arch = get_arch(arch)
+    if arch.n_patches:
+        raise SystemExit(f"--arch {arch.name}: the serving CLI runs the "
+                         f"continuous batcher, which takes text prompts "
+                         f"only; a model with {arch.n_patches} patch "
+                         "embeddings is served through ResidentServeEngine's "
+                         "prefill and decode")
+
+
 def run(args, arch=None) -> list[dict]:
     """Serve; returns every local rank's ``serve_rank`` result by rank. A
     multi-process launch (``distributed.detect``) runs this process's one
@@ -300,6 +316,7 @@ def run(args, arch=None) -> list[dict]:
     from .distributed import initialize
     from .train import mesh_shape, spawn
 
+    refuse_patch_prefix(arch or args.arch)
     dcfg = launch_config(args)
     n = args.devices
     mesh_shape(args)

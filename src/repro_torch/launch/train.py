@@ -197,7 +197,7 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None,
     from ..convert import from_jax_state, load_global_state
     from ..core import collectives as col
     from ..core.engine import TrainHparams, ZeroEngine
-    from ..data.pipeline import BatchSpec
+    from ..data.pipeline import spec_for
     from ..device import resolve
     from ..kernels import ops
     from ..models.registry import build_model, get_arch
@@ -232,7 +232,7 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None,
                       stream_grads=args.stream_grads)
     eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp, device)
     trace = trace_config(args)
-    tr = Trainer(model, eng, BatchSpec(args.batch, args.seq, arch.vocab),
+    tr = Trainer(model, eng, spec_for(arch, args.batch, args.seq),
                  seed=args.seed, trace=trace)
     log0(f"arch={arch.name} scheme={cfg.name} mesh={mesh.shape} "
          f"params={eng.param_count():,} overlap={eng.cfg.overlap} "

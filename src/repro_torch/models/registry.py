@@ -1,8 +1,9 @@
 """Architecture registry: ArchConfig -> ModelDef (leaf specs + cache shapes).
 
 The torch-side half of ``repro.models.registry``: ``register``/``get_arch``,
-the serving axes of a mesh (``data_axes``, ``model_axes``, ``batch_axes``)
-and the per-kind cache shapes serving allocates. KV caches are bf16 whatever
+the serving axes of a mesh (``data_axes``, ``model_axes``, ``batch_axes``),
+the train and prefill batch shapes (a VLM's patch prefix counted in the
+sequence) and the per-kind cache shapes serving allocates. KV caches are bf16 whatever
 the compute dtype, as in the reference; a sliding-window layer's ring holds
 its window's W positions, and a mamba layer's scan state and conv tail are
 f32: both are O(1) per row (not sequence-indexed, so never paged). On a
@@ -88,8 +89,34 @@ class ModelDef:
     def leaf_specs(self) -> dict[str, LeafSpec]:
         return self.lm.leaf_specs()
 
+    def _extra_inputs(self, b: int) -> dict[str, tuple]:
+        cfg = self.arch
+        if cfg.n_patches:
+            return {"patches": ((b, cfg.n_patches, cfg.d_model),
+                                torch.bfloat16)}
+        return {}
+
+    def train_batch_shapes(self, shape: ShapeConfig) -> dict[str, tuple]:
+        """Global train batch (shape, dtype) per input: ``shape.seq_len``
+        positions a row, a VLM's patch prefix among them (``S_text =
+        seq_len - n_patches`` tokens, one more for the shift)."""
+        b, s = shape.global_batch, shape.seq_len
+        s_text = s - self.arch.n_patches
+        out = {"tokens": ((b, s_text + 1), torch.int32)}
+        out.update(self._extra_inputs(b))
+        return out
+
+    def prefill_batch_shapes(self, shape: ShapeConfig) -> dict[str, tuple]:
+        """Global prefill batch (shape, dtype) per input, as
+        ``train_batch_shapes`` without the shift."""
+        b, s = shape.global_batch, shape.seq_len
+        out = {"tokens": ((b, s - self.arch.n_patches), torch.int32)}
+        out.update(self._extra_inputs(b))
+        return out
+
     def cache_shapes(self, shape: ShapeConfig) -> dict[str, Any]:
-        """Global cache (shape, dtype, seq-indexed) per kind and entry."""
+        """Global cache (shape, dtype, seq-indexed) per kind and entry; a
+        cache holds ``shape.seq_len`` positions, a patch prefix's too."""
         cfg = self.arch
         b, s = shape.global_batch, shape.seq_len
         kv, hd = cfg.kv_heads, cfg.hdim

@@ -4,12 +4,15 @@ decode.
 Port of ``repro.models.transformer`` for these block kinds: ``attn``,
 ``attn_local`` and ``attn_global`` (attention + GLU MLP, SiLU or tanh GELU,
 pre-norm RMSNorm, RoPE, optional QKV bias; a sliding window where the kind
-has one, gemma3's 5:1 local/global pattern), ``neox`` (GPT-NeoX: attention
-and a GELU MLP side by side on the block's input, ``x + attn(ln1(x)) +
-mlp(ln2(x))``, LayerNorm with biases, full-width RoPE) and ``mamba`` (the
-Mamba-1 mixer of models/ssm.py with no FFN), with a tied or separate LM
-head, and gemma's ``embed_scale``. Every weight access goes through a
-parameter view: the training engine's ``core.engine.ParamView`` (ZeRO
+has one, gemma3's 5:1 local/global pattern; RMSNorm or LayerNorm), ``moe``
+(the same attention + the top-k MoE FFN of models/moe.py, whose
+load-balance term the loss adds), ``neox`` (GPT-NeoX: attention and a GELU
+MLP side by side on the block's input, ``x + attn(ln1(x)) + mlp(ln2(x))``,
+LayerNorm with biases, full-width RoPE) and ``mamba`` (the Mamba-1 mixer of
+models/ssm.py with no FFN), with a tied or separate LM head, gemma's
+``embed_scale``, and a VLM's patch prefix (``n_patches`` precomputed patch
+embeddings before the text, positions over both, the loss over the text).
+Every weight access goes through a parameter view: the training engine's ``core.engine.ParamView`` (ZeRO
 gathers with custom backwards) or serving's ``serve.resident.ResidentView``
 (the INT8 residency). ``v.mm`` runs the fused dequant-matmul, ``v.get``
 returns a dense leaf. The reference's ``lax.scan`` over stacked layers
@@ -47,9 +50,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core import collectives as col
-from ..core.partition import MATMUL, PLAIN, LeafSpec
+from ..core.partition import GATHER_Q, MATMUL, PLAIN, LeafSpec
 from . import layers as L
 from .config import ArchConfig
+from .moe import moe_ffn
 from .ssm import mamba_decode, mamba_mixer
 
 
@@ -86,18 +90,22 @@ def kind_meta(kind: str, cfg: ArchConfig) -> KindMeta:
 
 
 def _ported(kind: str, cfg: ArchConfig) -> KindMeta:
-    """The block kinds the port runs: attention (full or sliding-window) +
-    GLU MLP (SiLU or GELU) with a sequential residual and RMSNorm; attention
-    + GELU MLP with the parallel residual and LayerNorm (GPT-NeoX); the
-    mamba mixer with no FFN and RMSNorm. Anything else raises instead of
-    running wrong."""
+    """The block kinds the port runs: attention (full or sliding-window)
+    with a sequential residual, RMSNorm or LayerNorm, and a GLU MLP (SiLU
+    or GELU) or the MoE FFN with SiLU-GLU experts (RoPE); attention + GELU
+    MLP with the parallel residual and LayerNorm (GPT-NeoX); the mamba mixer
+    with no FFN and RMSNorm; any of them behind a patch prefix. Anything
+    else raises instead of running wrong."""
     m = kind_meta(kind, cfg)
     attn_mlp = (m.mixer, m.ffn) == ("attn", "mlp")
+    attn_moe = (m.mixer, m.ffn) == ("attn", "moe") and m.rope \
+        and cfg.act == "silu_glu"
     block = ((m.mixer, m.ffn) == ("mamba", "none") and cfg.norm == "rms") \
-        or (attn_mlp and not m.parallel and cfg.norm == "rms"
+        or ((attn_mlp or attn_moe) and not m.parallel
+            and cfg.norm in ("rms", "ln")
             and cfg.act in ("silu_glu", "gelu_glu")) \
         or (attn_mlp and m.parallel and cfg.norm == "ln" and cfg.act == "gelu")
-    if not block or m.cross or cfg.n_patches or cfg.enc_layers:
+    if not block or m.cross or cfg.enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: block kind {kind!r} ({m}, norm={cfg.norm}, "
             f"act={cfg.act}) is not ported yet")
@@ -137,6 +145,13 @@ def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
         for b, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
             s[b] = LeafSpec(b, (width,), PLAIN, init="zeros")
     s.update(_norm_specs("ln2", d, cfg))
+    if m.ffn == "moe":
+        e, eff = cfg.moe.n_experts, cfg.moe.d_ff
+        s["router"] = LeafSpec("router", (d, e), PLAIN, init_scale=0.02)
+        s["w_gate"] = LeafSpec("w_gate", (e, d, eff), GATHER_Q)
+        s["w_up"] = LeafSpec("w_up", (e, d, eff), GATHER_Q)
+        s["w_down"] = LeafSpec("w_down", (e, eff, d), GATHER_Q)
+        return s
     if cfg.act.endswith("_glu"):
         for name, shape in (("w_gate", (d, ff)), ("w_up", (d, ff)),
                             ("w_down", (ff, d))):
@@ -262,28 +277,38 @@ def _attn_decode(v, p, cfg, m: KindMeta, x, cache, dc: DecCtx):
     return out, {"k": ck, "v": cv}
 
 
-def _ffn(v, p, cfg: ArchConfig, x):
+def _ffn(v, p, cfg: ArchConfig, m: KindMeta, x):
+    """(y, aux): the block's FFN on x and the MoE load-balance term (None
+    for an MLP)."""
     h = _norm(v, p, "ln2", x, cfg)
+    if m.ffn == "moe":
+        return moe_ffn(v, p, cfg, h)
+    aux = None
     if cfg.act.endswith("_glu"):
         act = F.silu if cfg.act.startswith("silu") else L.gelu
         return v.mm(p + "w_down",
-                    act(v.mm(p + "w_gate", h)) * v.mm(p + "w_up", h))
+                    act(v.mm(p + "w_gate", h)) * v.mm(p + "w_up", h)), aux
     z = v.mm(p + "w_in", h) + v.get(p + "b_in")
-    return v.mm(p + "w_out_ff", L.gelu(z)) + v.get(p + "b_out")
+    return v.mm(p + "w_out_ff", L.gelu(z)) + v.get(p + "b_out"), aux
 
 
 def _residual(v, p, cfg: ArchConfig, m: KindMeta, x, o):
-    """The block's output from its input x and its mixer's output o: the
-    parallel residual (x + o) + ffn(x), both norms on the block's input,
-    or the sequential x + o, then + ffn(x + o) where the block has one."""
+    """(the block's output, its FFN's aux or None) from its input x and its
+    mixer's output o: the parallel residual (x + o) + ffn(x), both norms on
+    the block's input, or the sequential x + o, then + ffn(x + o) where the
+    block has one."""
     if m.parallel:
-        return x + o + _ffn(v, p, cfg, x)
+        y, aux = _ffn(v, p, cfg, m, x)
+        return x + o + y, aux
     x = x + o
-    return x if m.ffn == "none" else x + _ffn(v, p, cfg, x)
+    if m.ffn == "none":
+        return x, None
+    y, aux = _ffn(v, p, cfg, m, x)
+    return x + y, aux
 
 
 def block_fwd(kind: str, v, cfg: ArchConfig, x, ctx: Ctx):
-    """Returns (x, cache_entry | None)."""
+    """Returns (x, aux loss | None, cache_entry | None)."""
     m = _ported(kind, cfg)
     p = kind + "."
     h = _norm(v, p, "ln1", x, cfg)
@@ -292,7 +317,8 @@ def block_fwd(kind: str, v, cfg: ArchConfig, x, ctx: Ctx):
         cache = {"h": h_last, "conv": conv_tail} if ctx.want_cache else None
     else:
         o, cache = _attn_fwd(v, p, cfg, m, h, ctx)
-    return _residual(v, p, cfg, m, x, o), cache
+    x, aux = _residual(v, p, cfg, m, x, o)
+    return x, aux, cache
 
 
 def block_decode(kind: str, v, cfg: ArchConfig, x, cache, dc: DecCtx):
@@ -309,7 +335,7 @@ def block_decode(kind: str, v, cfg: ArchConfig, x, cache, dc: DecCtx):
         new_cache = cache
     else:
         o, new_cache = _attn_decode(v, p, cfg, m, h, cache, dc)
-    return _residual(v, p, cfg, m, x, o), new_cache
+    return _residual(v, p, cfg, m, x, o)[0], new_cache
 
 
 class LM:
@@ -361,27 +387,44 @@ class LM:
     def _head_weight(self, view):
         return view.get("embed" if self.cfg.tie_embeddings else "lm_head")
 
+    def _inputs(self, view, batch, tokens):
+        """The embedded tokens, behind the patch prefix (``batch["patches"]``
+        (B, P, d), in the compute dtype) where the config has one."""
+        x = self._embed(view, tokens)
+        if self.cfg.n_patches:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        return x
+
     def loss(self, view, batch):
-        """batch: {"tokens": (B, S + 1)}. Next-token CE over the S inputs:
-        returns (loss_sum f32, token_count). The layers run through the
-        view's loop (the gather prefetch rotation when it overlaps), each
-        under its own checkpoint: its forward is recomputed in the backward,
-        re-issuing its gathers inline (a prefetched buffer is consumed by the
-        first forward only, so the checkpoint never keeps one alive)."""
+        """batch: {"tokens": (B, S + 1)} [+ {"patches": (B, P, d)}].
+        Next-token CE over the S text inputs plus the MoE load-balance term
+        times the token count: returns (loss sum f32, token_count). The
+        layers run through the view's loop (the gather prefetch rotation
+        when it overlaps), each under its own checkpoint: its forward is
+        recomputed in the backward, re-issuing its gathers inline (a
+        prefetched buffer is consumed by the first forward only, so the
+        checkpoint never keeps one alive)."""
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        x = self._embed(view, inputs)
+        x = self._inputs(view, batch, inputs)
         ctx = Ctx(positions=torch.arange(x.shape[1], device=x.device))
 
-        def body(v, h, kind):
-            return checkpoint(lambda t: block_fwd(kind, v, self.cfg, t, ctx)[0],
-                              h, use_reentrant=False)
+        def layer(v, kind, h, a):
+            h, aux, _ = block_fwd(kind, v, self.cfg, h, ctx)
+            return h, a if aux is None else a + aux
 
-        x = view.loop_layers(body, x, list(self._layers()))
+        def body(v, carry, kind):
+            return checkpoint(layer, v, kind, *carry, use_reentrant=False)
+
+        aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = view.loop_layers(body, (x, aux0), list(self._layers()))
         x = _norm(view, "", "final_norm", x, self.cfg)
-        return L.chunked_cross_entropy(
+        if self.cfg.n_patches:
+            x = x[:, self.cfg.n_patches:]
+        loss_sum, ntok = L.chunked_cross_entropy(
             x, self._head_weight(view), labels,
             torch.ones(labels.shape, dtype=torch.float32, device=x.device))
+        return loss_sum + aux * ntok, ntok
 
     def sp_eligible(self) -> bool:
         """Gather-KV sequence parallelism needs every mixer to be attention
@@ -391,8 +434,9 @@ class LM:
 
     def prefill(self, view, batch, *, seq_axes=(), axis_sizes=None,
                 seq_parallel: bool = False):
-        """batch: {"tokens": (B, S)}. Returns (last-position logits (B, V)
-        f32, caches {kind: {"k", "v": (L, B, S_loc, Hkv, D)} for attention
+        """batch: {"tokens": (B, S)} [+ {"patches": (B, P, d)}: positions
+        run over the P patches, then the text]. Returns (last-position
+        logits (B, V) f32, caches {kind: {"k", "v": (L, B, S_loc, Hkv, D)} for attention
         (this rank's sequence chunk over ``seq_axes``, all S without them),
         (L, B, W, Hkv, D) rings for sliding-window attention, {"h": (L, B,
         din, N), "conv": (L, B, K-1, din)} for mamba, "pos": S}).
@@ -402,7 +446,7 @@ class LM:
         position's hidden state, on the last sequence rank, is selected
         one-hot and summed in f32 over the axes (one rank contributes
         non-zeros: exact), as the reference does."""
-        x = self._embed(view, batch["tokens"])
+        x = self._inputs(view, batch, batch["tokens"])
         s_total = x.shape[1]
         ctx = Ctx(positions=torch.arange(s_total, device=x.device),
                   want_cache=True, seq_axes=tuple(seq_axes),
@@ -421,7 +465,7 @@ class LM:
                           seq_parallel=True, q_offset=off)
         per_kind: dict[str, list] = {k: [] for k in self.kinds}
         for kind, i in self._layers():
-            x, cache = block_fwd(kind, view.sub(i), self.cfg, x, ctx)
+            x, _, cache = block_fwd(kind, view.sub(i), self.cfg, x, ctx)
             per_kind[kind].append(cache)
         x = _norm(view, "", "final_norm", x, self.cfg)
         if seq_parallel:

@@ -18,7 +18,8 @@ reference's dequantize-the-whole-table-then-take.
 
 The weights come, on one device, from ``iter_primaries`` /
 ``init_primaries`` (a seeded init with the reference's distributions, drawn
-from a ``torch.Generator``, one leaf at a time) or from the reference's
+from a ``torch.Generator``, one leaf at a time and a stacked leaf one layer
+row at a time) or from the reference's
 own primaries (``repro_torch.convert.from_jax_primaries``); on a mesh,
 from a training engine's ``state["primaries"]`` (never its fp32 master).
 """
@@ -34,6 +35,7 @@ from ..core import linear
 from ..core.partition import (GATHER_Q, MATMUL, LeafSpec, ZeroConfig,
                               padded_flat_size, resident_memory_bytes)
 from ..models.config import ShapeConfig
+from ..models.moe import expert_glu
 from ..models.registry import model_axes
 from .engine import MeshServe, ServeConfig
 
@@ -107,61 +109,128 @@ class ResidentLayout:
                 self.cfg, psi, res_degree=self.res_degree)))
 
 
-def _init_values(spec: LeafSpec, rows: int, n: int, gen, device):
-    """The f32 (rows, n) initial values of one leaf, or None for zeros."""
+def _draw_rows(draw, gen, rows: int, n: int, device):
+    """Yields ``rows`` draws of ``draw((n,))`` (``torch.randn`` or
+    ``torch.rand``) from ``gen``, one at a time, so that one row's f32 is
+    alive at a time: a stacked leaf is drawn a layer row at a time."""
+    for _ in range(rows):
+        yield draw((n,), generator=gen, device=device)
+
+
+def _init_rows(spec: LeafSpec, rows: int, n: int, gen, device):
+    """Yields the f32 (n,) initial values of each of a leaf's ``rows``
+    rows in turn (None for zeros): the reference's distributions. No
+    generator here keeps a row it yielded once it is resumed, so a row's
+    draw is freed before the next one is drawn."""
     if spec.init == "zeros":
-        return None
-    if spec.init == "ones":
-        return torch.ones((rows, n), dtype=torch.float32, device=device)
-    if spec.init == "ssm_a":
+        yield from (None for _ in range(rows))
+    elif spec.init == "ones":
+        for _ in range(rows):
+            yield torch.ones((n,), dtype=torch.float32, device=device)
+    elif spec.init == "ssm_a":
         # mamba: A_log = log(1..d_state) broadcast over d_inner
         d_inner, d_state = spec.shape
         a = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32,
                                    device=device))
-        return a.expand(rows, d_inner, d_state).reshape(rows, n)
-    if spec.init == "dt_bias":
+        for _ in range(rows):
+            yield a.expand(d_inner, d_state).reshape(n)
+    elif spec.init == "dt_bias":
         # mamba: softplus^-1 of dt drawn log-uniform in [1e-3, 1e-1]
         lo, hi = 1e-3, 1e-1
-        u = torch.rand((rows, n), generator=gen, device=device)
-        dt = torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo))
-        return torch.log(torch.exp(dt) - 1.0 + 1e-9)
-    scale = spec.init_scale
-    if scale is None:
-        fan_in = spec.shape[0] if len(spec.shape) >= 2 else n
-        scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return torch.randn((rows, n), generator=gen, device=device).mul_(scale)
+        draws = _draw_rows(torch.rand, gen, rows, n, device)
+        for _ in range(rows):
+            dt = torch.exp(next(draws) * (math.log(hi) - math.log(lo))
+                           + math.log(lo))
+            dt = torch.log(torch.exp(dt) - 1.0 + 1e-9)
+            yield dt
+            del dt
+    else:
+        scale = spec.init_scale
+        if scale is None:
+            fan_in = spec.shape[0] if len(spec.shape) >= 2 else n
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        draws = _draw_rows(torch.randn, gen, rows, n, device)
+        for _ in range(rows):
+            z = next(draws).mul_(scale)
+            yield z
+            del z
+
+
+class StackRows:
+    """A stacked leaf's padded primary ``[stack, pad]``, drawn one layer
+    row at a time: ``shape`` is the stack's; iterating yields each row's
+    ``(pad,)`` primary in order, each drawn when it is asked for (once: the
+    rows come from the shared generator in leaf order)."""
+
+    def __init__(self, shape: tuple[int, int], rows):
+        self.shape = shape
+        self._rows = rows
+
+    def __iter__(self):
+        return self._rows
 
 
 def iter_primaries(layout: ResidentLayout, seed: int, device):
-    """Yields (name, seeded padded primary at compute dtype, layout
-    ``[stack,] pad``), one leaf at a time in sorted leaf order.
+    """Yields (name, seeded padded primary at compute dtype), one leaf at a
+    time in sorted leaf order: a ``(pad,)`` tensor, or for a stacked leaf a
+    ``StackRows`` that draws its layer rows one at a time.
 
     The distributions of the reference's ``ZeroEngine._init_full``: zeros,
     ones, ``ssm_a`` (log(1..N) per row), ``dt_bias`` (softplus^-1 of a
     log-uniform draw in [1e-3, 1e-1]), or normal * (init_scale or
     1/sqrt(fan_in)), zero-padded. Drawn from one ``torch.Generator``; the
-    numbers differ from ``jax.random`` and need not match them. Only one
-    leaf's f32 draw is alive at a time, so a consumer that drops each
-    primary once it is used (``build_resident``) keeps the peak near the
-    residency plus the largest leaf."""
+    numbers differ from ``jax.random`` and need not match them. A stack is
+    drawn a row at a time (``_draw_rows``), so a consumer that drops each
+    row once it is used (``build_resident``) keeps the peak near the
+    residency plus one row's f32 draw and its compute-dtype copy (an MoE
+    expert stack is 16 experts a row: whole, phi3.5's ``w_gate`` stack
+    would be 53.7 GB in f32)."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+
+    def padded(rows, n, pad):
+        for values in rows:
+            full = torch.zeros((pad,), dtype=layout.dtype, device=device)
+            if values is not None:
+                full[:n] = values
+            del values
+            yield full
+            del full
+
     for name in sorted(layout.specs):
         spec = layout.specs[name]
-        rows, n, pad = spec.stack or 1, spec.logical_size, layout.pad[name]
-        full = torch.zeros((rows, pad), dtype=layout.dtype, device=device)
-        values = _init_values(spec, rows, n, gen, device)
-        if values is not None:
-            full[:, :n] = values
-        del values
-        yield name, (full if spec.stack else full[0])
-        del full
+        n, pad = spec.logical_size, layout.pad[name]
+        rows = padded(_init_rows(spec, spec.stack or 1, n, gen, device), n,
+                      pad)
+        if spec.stack:
+            yield name, StackRows((spec.stack, pad), rows)
+        else:
+            yield name, next(rows)
 
 
 def init_primaries(layout: ResidentLayout, seed: int, device) -> dict:
-    """All of ``iter_primaries`` as one dict {name: primary}."""
-    return dict(iter_primaries(layout, seed, device))
+    """All of ``iter_primaries`` as one dict {name: ``[stack,] pad``
+    primary}."""
+    return {name: torch.stack(list(p)) if isinstance(p, StackRows) else p
+            for name, p in iter_primaries(layout, seed, device)}
+
+
+def _wire_rows(layout: ResidentLayout, name: str, rows: StackRows) -> dict:
+    """A stacked WIRE leaf's residency from its rows, quantized one at a
+    time into the stack's (q, scales) buffers."""
+    lcfg = layout.leaf_cfg[name]
+    q = s = None
+    for i, row in enumerate(rows):
+        qf, sf = col.gather_issue_int8(row, layout.cfg.axes.weight, lcfg)
+        del row
+        qr, sr = col.residency_slice(qf, sf, layout.res_axes, lcfg)
+        if q is None:
+            q = qr.new_empty((rows.shape[0],) + tuple(qr.shape))
+            s = sr.new_empty((rows.shape[0],) + tuple(sr.shape))
+        q[i], s[i] = qr, sr
+        del qf, sf, qr, sr
+    return {"q": q, "s": s}
 
 
 def build_resident(layout: ResidentLayout, primaries) -> dict:
@@ -173,7 +242,7 @@ def build_resident(layout: ResidentLayout, primaries) -> dict:
     ``primaries`` is an iterable of (name, primary) pairs (``iter_primaries``
     or a dict's ``items()``), each this rank's shard over W (the whole
     padded leaf at degree 1); a pair's primary is dropped once it is
-    built."""
+    built, a ``StackRows``' rows one at a time."""
     w = layout.cfg.size(layout.cfg.axes.weight)
     out = {}
     for name, prim in primaries:
@@ -185,6 +254,9 @@ def build_resident(layout: ResidentLayout, primaries) -> dict:
             raise ValueError(f"{name}: primary shape {tuple(prim.shape)}, "
                              f"expected {want}")
         if layout.mode(name) == WIRE:
+            if isinstance(prim, StackRows):
+                out[name] = _wire_rows(layout, name, prim)
+                continue
             if spec.stack:
                 qf, sf = col.gather_issue_int8_rows(prim, layout.cfg.axes.weight,
                                                     lcfg)
@@ -193,6 +265,8 @@ def build_resident(layout: ResidentLayout, primaries) -> dict:
             q, s = col.residency_slice(qf, sf, layout.res_axes, lcfg)
             out[name] = {"q": q, "s": s}
         else:
+            if isinstance(prim, StackRows):
+                prim = torch.stack(list(prim))
             n = spec.logical_size
             full = col.all_gather_flat(prim, layout.cfg.axes.weight, lcfg)
             dense = full[..., :n].reshape(want[:-1] + spec.shape)
@@ -261,6 +335,12 @@ class ResidentView:
             full = col.gather_wait_int8(qf, sf, lcfg, linear._dtype(lcfg))
             return full[: spec.logical_size].reshape(spec.shape)
         return self._leaf(name)
+
+    def expert_ffn(self, prefix: str, e_in):
+        """The MoE expert GLU over the residency: each expert stack
+        dequantized whole through ``get``, as the gathered backend reads it,
+        so the two backends give the same bits."""
+        return expert_glu(self.get, prefix, e_in)
 
     def embed_lookup(self, name: str, ids):
         """Token-embedding rows for ``ids``: dequantizes only those rows when

@@ -88,6 +88,14 @@ class ContinuousBatcher:
                  backend: str | None = None,
                  res_axes: tuple[str, ...] | None = None,
                  prefill_seq_parallel: bool = False, metrics=None):
+        if model.arch.n_patches:
+            # the reference's batcher admits {"tokens"} alone
+            # (src/repro/serve/scheduler.py:180): a patch prefix has no way in
+            raise ValueError(
+                f"{model.arch.name}: the continuous batcher serves text "
+                f"prompts only; a model with a patch prefix (n_patches="
+                f"{model.arch.n_patches}) is served through the engine's "
+                "prefill and decode")
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len

@@ -105,8 +105,12 @@ class Trainer:
                                       traced=trace is not None))
 
     def _batch(self, step: int) -> dict[str, torch.Tensor]:
+        """This rank's rows of batch ``step``: the tokens as int64, a VLM's
+        patch embeddings as the f32 the stream draws (the model casts them
+        to the compute dtype)."""
         rows = local_rows(self.data.batch(step), self.engine.mesh)
-        return {k: torch.from_numpy(v).long().to(self.engine.device)
+        return {k: (torch.from_numpy(v).long() if k == "tokens" else
+                    torch.from_numpy(v)).to(self.engine.device)
                 for k, v in rows.items()}
 
     def run(self, state, n_steps: int, *, log_every: int = 1, print_fn=print,

@@ -19,8 +19,8 @@ Training is tests/test_torch_train.py's run: the zero_topo step at (1, 1,
 1) on both reductions at slice 2's tolerances, and at (1, 2, 2) each step
 from the reference's state before it (forced) at the same tolerances, the
 free-running trajectory's grad norms within TRAJECTORY_GNORM_RTOL; the
-untied head's and the embedding's final masters; ``from_jax_state`` bit
-for bit.
+untied head's and the embedding's final masters after the last step, run
+from the reference's state before it; ``from_jax_state`` bit for bit.
 """
 import json
 
@@ -35,7 +35,8 @@ from repro_torch.models.registry import get_arch
 import test_torch_serve as ts
 from test_torch_train import (RUN, TRAJECTORY_GNORM_RTOL, _check,  # noqa: F401
                               assert_state_converts, forced_four_rank_run,
-                              one_torch_thread, port_run, port_train_state,
+                              forced_state, one_torch_thread, port_run,
+                              port_train_state,
                               reduced_arch, reference_run)
 
 ARCH = "deepseek-7b"
@@ -45,13 +46,16 @@ IDS = ["hd64", "hd128"]
 WIRE = ["attn.w_down", "attn.w_gate", "attn.w_up", "attn.wk", "attn.wo",
         "attn.wq", "attn.wv", "embed", "lm_head"]
 TRAINED = ("embed", "lm_head")
-# the final masters after 3 steps (the first at lr 0; AdamW moves an element
-# about lr = 1e-3 a step), where an element whose gradient is near 0 turns
-# f32 noise in its sum into a visible change of m / sqrt(v): the untied
-# head at gpt-neox's bound (tests/test_torch_neox_train.py; measured 3.4e-6
-# at most, on 116 elements over 1e-6), the embedding, whose rows sum every
-# occurrence of their token, at five times its measured 9.6e-5 (49 elements
-# over 1e-6), half of one step's move
+# the final masters after the last of 3 steps (the first at lr 0; AdamW moves
+# an element about lr = 1e-3 a step), run from the reference's state before
+# it (forced): free-running, an element whose summed gradient is near 0
+# turns the f32 order of that sum into Adam's m / sqrt(v) of about +-1 at
+# step 2, a move of up to lr on one side alone (2 embedding elements of
+# 262,144 landed 1.13e-3 apart while each step's gradient agrees within
+# 3e-9 in m). From the same state the step lands within 3.7e-5 on the
+# embedding, whose rows sum every occurrence of their token: the untied head
+# at gpt-neox's bound (tests/test_torch_neox_train.py), the embedding at
+# half of one step's move
 FINAL_ATOL = {"lm_head": 1e-4, "embed": 5e-4}
 
 
@@ -160,19 +164,23 @@ def test_train_step_four_ranks(tmp_path):
 @pytest.fixture(scope="module")
 def hd128_run(mesh1, tmp_path_factory):
     """The reference's 3 steps at head dim 128 on (1, 1, 1): its initial
-    state (``state.npz``), metrics and the final masters of TRAINED
+    state (``state.npz``), its state before each later step
+    (``forced_state``), metrics and the final masters of TRAINED
     (``final.npz``), in the returned directory."""
     out = tmp_path_factory.mktemp("deepseek")
-    reference_run(mesh1, out, arch=HD128, final_leaves=TRAINED)
+    reference_run(mesh1, out, arch=HD128, final_leaves=TRAINED, forced=True)
     return out
 
 
 def test_untied_head_and_embedding_train(hd128_run):
     """The untied head and the embedding move over 3 steps (the first at
-    lr 0) and land where the reference's do."""
+    lr 0), and the last step, from the reference's state before it, lands
+    them where the reference's do."""
     init = load_global_state(hd128_run / "state.npz")["master"]
     init = {n: init[n].numpy().copy() for n in TRAINED}
-    state = port_train_state(HD128, hd128_run / "state.npz", RUN["steps"])
+    last = RUN["steps"] - 1
+    state = port_train_state(HD128, forced_state(hd128_run, last), 1)
+    assert int(state["step"]) == RUN["steps"]
     with np.load(hd128_run / "final.npz") as z:
         for name in TRAINED:
             want = z[name]

@@ -202,3 +202,37 @@ def test_engine_on_cpu_when_asked():
 
     eng = ZeroEngine(*_engine_args(), device="cpu")
     assert eng.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["minicpm3-4b", "whisper-medium",
+                                  "jamba-v0.1-52b"])
+def test_unported_configs_raise(name):
+    """The reference's configs the port does not run yet (MLA, the
+    encoder-decoder, the mamba / MoE hybrid), carried field by field into
+    the port's ArchConfig: building their leaves raises instead of running
+    wrong. The families ported so far build."""
+    import dataclasses
+
+    from repro.models.registry import ARCHS as JARCHS
+    from repro.models.registry import get_arch as jget
+
+    from repro_torch.models import config as tconfig
+    from repro_torch.models.registry import get_arch
+    from repro_torch.models.transformer import LM
+
+    jget("qwen2-0.5b")
+    assert name in JARCHS
+
+    def carried(j):
+        sub = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
+        sub["moe"] = tconfig.MoEConfig(**dataclasses.asdict(j.moe))
+        sub["ssm"] = tconfig.SSMConfig(**dataclasses.asdict(j.ssm))
+        sub["mla"] = None if j.mla is None else \
+            tconfig.MLAConfig(**dataclasses.asdict(j.mla))
+        return tconfig.ArchConfig(**sub)
+
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        LM(carried(jget(name))).leaf_specs()
+    for ported in ("internvl2-1b", "phi3.5-moe-42b-a6.6b", "mixtral-8x7b"):
+        assert LM(carried(jget(ported))).leaf_specs() \
+            .keys() == LM(get_arch(ported)).leaf_specs().keys()
