@@ -78,7 +78,8 @@ own. Phases, in order:
             flash_attention in bf16 (the tensor-core kernel) at the
             training shape, ragged,
             with a query offset and with a window; all within one bf16 ulp
-            of max|ref|. flash_attention at head dim 128 (gpt-neox-10b's
+            of max|ref|; non-causal (cross-attention: 16 heads of 64, Sq
+            128 and 100 over Sk 1,536) in bf16 and f32. flash_attention at head dim 128 (gpt-neox-10b's
             prefill, 40 heads at S = 128, in bf16 and f32; a ragged Sq with
             GQA and a query offset; a window; f32 ragged) and at the NeoX
             training step's forward (2 rows of 1,024, D = 96 with 64 heads
@@ -194,6 +195,20 @@ own. Phases, in order:
             before the training ranks start. Every serving phase
             fails if any attention call fell back to the chunked plain path
             (ops.dispatch_counters), at these fusable shapes.
+3g. mla   : minicpm3-4b (MLA) at published width and depth (62 layers,
+            d_model 2,560, 40 heads, q_lora 768, kv_lora 256, qk_nope 64,
+            qk_rope 32, v_head 64; INT8 residency of 4.39 GB) under
+            MLA_SERVE_KERNELS through the batcher (its latent paged): every
+            prefill attention on the chunked plain path (the value width is
+            not the key width: exactly one mla_dv_mismatch fallback a layer
+            an admission, held by held_fallbacks, as every phase's
+            fallbacks are, reason by reason and count by count), the
+            prefill (PREFILL_TOL, each MLA sublayer on its own input), f32
+            and f32-ratio checks, the decode step's check (the absorbed
+            decode over the latent), a B = 1 prefill's and a 4-slot decode
+            step's launches held to MLA_PREFILL_LAUNCHES /
+            MLA_STEP_LAUNCHES, the decode graphs in turns, kernel 2 at one
+            layer's w_dkv and w_ukv.
 Every training run's ranks (and the collectives phase's) are processes
 forked from the launcher's fork server, which imports torch once for the
 whole script (launch.train.PRELOAD), started before the build.
@@ -264,7 +279,7 @@ whole script (launch.train.PRELOAD), started before the build.
             rank, with no attention fallback. Prints the bytes on disk,
             save and restore seconds a rank, each leg's step_s and peak
             memory; CKPT_DIR is removed at the end, and on a failure.
-4i. replica: qwen2-0.5b at full width and depth under zero_topo on the
+4i. replica: qwen2-0.5b at full width and REPLICA_L layers under zero_topo on the
             mesh (data, node, gcd) = (2, 1, 2) (W = gcd, E = node of size 1,
             R = data of size 2: the replica tier is real), four ranks, batch
             8 x 1,024, bf16, quant block 128, REPLICA_STEPS steps from seed 0
@@ -313,7 +328,12 @@ whole script (launch.train.PRELOAD), started before the build.
             decode_step_ms, tok_s, the peak bytes a rank, the payload bytes
             a rank a decode step by collective label beside the prediction
             from the leaf sizes, and the launches a rank of kernels 1, 2, 8
-            and 10.
+            and 10. Then the MLA leg (minicpm3-4b at MLA_MESH_L layers,
+            serve_rank, the latent sharded along the sequence over (node,
+            gcd)): (g) through the kernels, (p) through the plain versions
+            on (g)'s tokens (PREFILL_TOL), (sp) a sequence-parallel B = 1
+            prefill within PREFILL_TOL of (p)'s (the latent gathered under
+            lat_gather, no K / V gathered), its fallbacks exact.
 4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
             quantized reduce-scatter at bits 4 and 8 over W, E and all four
             ranks on an embedding-sized f32 shard each; every kernel of
@@ -384,16 +404,29 @@ whole script (launch.train.PRELOAD), started before the build.
             and decode (vlm_phase): SERVE_KERNELS launched, no fallback,
             prefill ms at 384 positions, decode step ms and tok/s; the
             prefill and a decode step against the plain versions.
-5e. train_moe, train_vlm: phi3.5-moe at MOE_TRAIN_L layers and
-            internvl2-1b at VLM_TRAIN_L layers trained as train_neox is
+5f. whisper: whisper-medium at published width and depth (24 encoder
+            layers over 1,500 seeded frames, 24 decoder layers with
+            cross-attention) through engine_phase, as vlm: a B = 1 prefill
+            launches flash 24 times (the decoder at D = 64) and records 48
+            seq_unaligned fallbacks (the encoder and the cross-attention);
+            both engine phases also trace a prefill and time a decode step
+            as a CUDA graph.
+5e. train_moe, train_vlm, train_mla, train_whisper: phi3.5-moe at
+            MOE_TRAIN_L layers, internvl2-1b at VLM_TRAIN_L, minicpm3-4b at
+            MLA_TRAIN_L (no flash: its traced matmul_quant calls held;
+            two mla_dv_mismatch fallbacks a layer a step) and
+            whisper-medium at WHISPER_TRAIN_L + WHISPER_TRAIN_L (two
+            seq_unaligned fallbacks a layer of each a step) trained as
+            train_neox is
             (cut_train_phase: the train phase's mesh and batch, 3 steps,
             held against the plain versions, phi3.5's grad norm at
             MOE_GNORM_STEPS; the traced step's tensor-core flash calls at
             head dim 128 and 64).
 6. report : JSON lines (serve, serve_ssm, serve_neox, serve_neox10b,
             serve_gemma, serve_deepseek, serve_moe, serve_mixtral,
-            serve_vlm, train, train_neox, train_deepseek, train_ssm,
-            train_gemma, train_moe, train_vlm,
+            serve_vlm, serve_mla, serve_whisper, train, train_neox,
+            train_deepseek, train_ssm, train_gemma, train_moe, train_vlm,
+            train_mla, train_whisper,
             regimes, collectives, ckpt, replica, serve_mesh,
             kernels_extra with the extra
             timing rows and every dequant_matmul shape's path, then the
@@ -511,6 +544,10 @@ MOE_GNORM_STEPS = 2
 # options, under trace mode (probes every step), then with --kernel-impl
 # plain (untraced: a traced step is bit for bit the untraced one)
 REPLICA_STEPS = 3
+# at REPLICA_L of qwen2's 24 layers (cut for the script's time in PR 30:
+# the replica tier's reduce-scatter and INT8 update gather run every leaf
+# the same way at any depth, and the 24 layers train in the train phase)
+REPLICA_L = 6
 REPLICA_ARGS = TRAIN_ARGS[:TRAIN_ARGS.index("--steps") + 1] \
     + [str(REPLICA_STEPS)] + TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 2:] \
     + ["--mesh-shape", "2,1,2"]
@@ -519,9 +556,10 @@ TRACE_DIR = ROOT / "build" / "trace_smoke"
 # phase 4j: qwen2-0.5b served on (2, 1, 2), four ranks sharing the card
 SERVE_MESH_SHAPE = (2, 1, 2)
 SERVE_MESH_REQUESTS, SERVE_MESH_SLOTS = 4, 4
-# 4 new tokens a request (cut from 8 for the script's time: each
-# leg's step moves 325 MB a rank through gloo)
-SERVE_MESH_PROMPT, SERVE_MESH_MAX_LEN, SERVE_MESH_GEN = 128, 256, 4
+# 3 new tokens a request (cut from 8 to 4 in PR 29 and to 3 in PR 30 for
+# the script's time: each leg's step moves 325 MB a rank through gloo; two
+# full decode steps a leg remain)
+SERVE_MESH_PROMPT, SERVE_MESH_MAX_LEN, SERVE_MESH_GEN = 128, 256, 3
 SERVE_MESH_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
                       "flash_attention")
 # the reference's bound: the fenced segments sum to the step's wall time
@@ -643,6 +681,58 @@ VLM_P, VLM_D, VLM_H, VLM_HD, VLM_L = 256, 896, 14, 64, 24
 VLM_PROMPT, VLM_SLOTS, VLM_GEN = 128, 4, 32
 VLM_TRAIN_L = 6
 VLM_TRAIN_ARGS = ["--arch", "internvl2-1b"] + NEOX_TRAIN_ARGS[2:]
+# minicpm3-4b (hf:openbmb/MiniCPM3-4B): 62 MLA layers (d_model 2,560, 40
+# heads, q_lora 768, kv_lora 256, qk_nope 64, qk_rope 32, v_head 64,
+# SiLU-GLU d_ff 6,400, untied vocab 73,448) served at published width and
+# depth with the qwen2 phase's traffic. Its value width (64) is not its key
+# width (96), so every prefill attention takes the chunked plain path, as
+# the reference's gate says (one mla_dv_mismatch a layer a prefill), and
+# flash never launches; w_dkv (2,560 x 288: not whole blocks of 128) is
+# dequantized whole in every prefill and decode step, w_ukv read whole
+# (absorbed) in every decode step
+MLA_SERVE_ARGS = ["--arch", "minicpm3-4b"] + SERVE_ARGS[2:]
+MLA_L = 62
+MLA_SERVE_KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul")
+MLA_FALLBACK = "attention/fallback/mla_dv_mismatch"
+UNALIGNED = "attention/fallback/seq_unaligned"
+# predicted from the code before the first card run: a B = 1 prefill
+# dequantizes w_dkv a layer and the prompt's embedding rows (kernel 2) and
+# runs w_dq, w_uq, w_ukv, wo, w_gate, w_up, w_down a layer on 8a and the
+# head on 8b (kernel 8); a decode step of 4 slots dequantizes w_dkv and
+# w_ukv a layer and the embedding rows, and runs the six other products a
+# layer on 8d and the head on 8b
+MLA_PREFILL_LAUNCHES = {"dequantize_int8": MLA_L + 1,
+                        "dequant_matmul": 7 * MLA_L + 1}
+MLA_STEP_LAUNCHES = {"dequantize_int8": 2 * MLA_L + 1,
+                     "dequant_matmul": 6 * MLA_L + 1}
+# trained at published width and MLA_TRAIN_L layers (63.2 M parameters a
+# layer, 376 M embed + head; 2 layers summed 20.70 GB, cut to 1 for the
+# script's time), the train phase's mesh, batch and sequence;
+# no flash launch (the chunked plain path, two fallbacks a layer a step:
+# the forward and its checkpointed recompute), so its traced step is held
+# on matmul_quant's tensor-core kernel
+MLA_TRAIN_L = 1
+MLA_TRAIN_ARGS = ["--arch", "minicpm3-4b"] + NEOX_TRAIN_ARGS[2:]
+MLA_TRAIN_KERNELS = tuple(k for k in TRAIN_KERNELS if k != "flash_attention")
+# and served on (2, 1, 2) in phase 4j at MLA_MESH_L layers: the latent
+# cache sharded along the sequence over (node, gcd)
+MLA_MESH_L = 2
+# whisper-medium (arXiv:2212.04356): 24 encoder layers over 1,500 frame
+# embeddings (the front end is a stub: its output is an input, drawn from
+# the seed), 24 decoder layers with cross-attention, d_model 1,024, 16
+# heads of 64, LayerNorm, GELU MLP with biases, untied vocab 51,865. Served
+# at published width and depth through ResidentServeEngine (the batcher
+# takes text prompts only), WHISPER_SLOTS prompts of WHISPER_PROMPT tokens;
+# the decoder's self-attention on flash at D = 64, the encoder and the
+# cross-attention on the chunked plain path (1,500 is not a multiple of
+# 128). Trained with encoder and decoder cut alike to WHISPER_TRAIN_L
+# (2 + 2 summed 9.31 GB; cut to 1 + 1 for the script's time)
+WHISPER_SERVE_ARGS = ["--arch", "whisper-medium", "--seed", "0",
+                      "--backend", "resident"]
+WHISPER_L = 24
+WHISPER_PROMPT, WHISPER_SLOTS, WHISPER_GEN = 128, 4, 32
+WHISPER_TRAIN_L = 1
+WHISPER_TRAIN_ARGS = ["--arch", "whisper-medium"] + NEOX_TRAIN_ARGS[2:]
 # the summed peak a cut-depth phase is chosen to stay under: the card's
 # memory less this headroom (printed, not held)
 TRAIN_HEADROOM = 8 * 2 ** 30
@@ -805,7 +895,7 @@ def expected_int4_path(block, aligned) -> str:
 
 
 def attn_case(checks, gen, dev, what, b, h, hkv, sq, sk, q_offset, window,
-              dtype, hd):
+              dtype, hd, causal: bool = True):
     """flash_attention (B, S, H, hd) through the kernel against its plain
     version: bf16 within one bf16 ulp of max|ref|, f32 within F32_TOL."""
     from repro_torch.models import layers
@@ -813,9 +903,9 @@ def attn_case(checks, gen, dev, what, b, h, hkv, sq, sk, q_offset, window,
     q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, sk, hkv, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, sk, hkv, hd), generator=gen, device=dev).to(dtype)
-    ok = layers.flash_attention(q, k, v, causal=True, window=window,
+    ok = layers.flash_attention(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset)
-    op = layers.flash_attention(q, k, v, causal=True, window=window,
+    op = layers.flash_attention(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, impl="plain")
     err, scale = rel_err(ok, op)
     tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) * scale
@@ -1051,6 +1141,14 @@ def check_kernels(dev, gen, checks):
          torch.bfloat16)
     attn("B=1 H=14/2 S=512 window=32 bf16", 1, 14, 2, 512, 512, 0, 32,
          torch.bfloat16)
+    # non-causal, the encoder-decoder's cross-attention (whisper's 16 heads
+    # of 64; 1,536 frames, the aligned count nearest its 1,500): every
+    # query reads every key tile, in both kernels, and a ragged Sq
+    for dt in (torch.bfloat16, torch.float32):
+        for sq in (128, 100):
+            attn_case(checks, gen, dev, f"B=2 H=16/16 Sq={sq} Sk=1536 "
+                      f"non-causal {str(dt)[6:]} (cross-attention)", 2, 16,
+                      16, sq, 1536, 0, 0, dt, 64, causal=False)
     # head dim 128 (gpt-neox-10b): its prefill's 40 heads at S = 128 in
     # both dtypes, a ragged Sq with GQA and a query offset, a window, f32
     # ragged; then the NeoX training step's forward (2 rows of 1,024 a
@@ -1488,12 +1586,16 @@ class Collect:
         self.records.append(record)
 
 
-def no_fallback(where: str, counts: dict) -> None:
-    """Every attention call of a path at fusable shapes reaches the kernel
-    dispatch: a recorded model-level fallback fails the run."""
-    if counts:
-        raise Failed(f"{where}: attention fell back to the chunked plain "
-                     f"path: {counts}")
+def held_fallbacks(where: str, counts: dict, want: dict | None = None) -> None:
+    """The model-level fallbacks a path recorded (``ops.dispatch_counters``
+    or a rank's ``fallbacks``) must be exactly ``want``, reason by reason
+    and count by count (none where ``want`` is None): every attention call
+    at a fusable shape reaches the kernel dispatch, and a shape the
+    reference's gate rejects (MLA's value width, whisper's 1,500 frames)
+    falls back exactly as often as the path makes such calls."""
+    if counts != (want or {}):
+        raise Failed(f"{where}: attention fallbacks {counts}, expected "
+                     f"{want or {}}")
 
 
 SERVE_RECORD = ("args", "arch", "reqs", "launches", "counters", "setup_s",
@@ -1562,7 +1664,7 @@ TRACED_KERNELS = {"flash_attention": "flash_attention_",
                   "selective_scan": "selective_scan_kernel"}
 
 
-def trace_prefill(s, pre_k, tokens) -> dict:
+def trace_prefill(s, pre_k, batch) -> dict:
     """One kernel prefill traced by torch.profiler (_device_summary: its
     device time and kernels), with train.trainer.pad_trace's idle card at
     each end of the trace (the profiler drops events it reads outside its
@@ -1581,7 +1683,7 @@ def trace_prefill(s, pre_k, tokens) -> dict:
     with prof:
         pad_trace(s["device"])
         t0 = time.perf_counter()
-        pre_k(s["residency"], {"tokens": tokens})
+        pre_k(s["residency"], batch)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         pad_trace(s["device"])
@@ -1686,29 +1788,35 @@ def f32_slots(dtype: str):
 @contextlib.contextmanager
 def attention_held(plain_layout, rows: list):
     """Each attention sublayer (``transformer._attn_fwd``: the q, k, v
-    products, flash attention, the output product) of the prefill run
-    inside, through the kernels on its own input and again through the
-    plain versions (``plain_layout`` over the same residency) on that
-    input: appends (max|d|, max|ref|) a call to ``rows``. An MoE model's
-    residual stream is the experts' (thousands of times the attention's),
-    so a wrong attention kernel barely moves its logits; this holds the
-    attention kernels at the model's own shapes and inputs."""
+    products, flash attention, the output product; or an MLA layer's
+    ``transformer._mla_fwd``: the low-rank query, the latent, its
+    decompression, the chunked attention, the output product) of the
+    prefill run inside, through the kernels on its own input and again
+    through the plain versions (``plain_layout`` over the same residency)
+    on that input: appends (max|d|, max|ref|) a call to ``rows``. An MoE
+    model's residual stream is the experts' (thousands of times the
+    attention's), so a wrong attention kernel barely moves its logits; this
+    holds the attention kernels at the model's own shapes and inputs."""
     from repro_torch.models import transformer
     from repro_torch.serve.resident import ResidentView
 
-    own = transformer._attn_fwd
+    own = {n: getattr(transformer, n) for n in ("_attn_fwd", "_mla_fwd")}
 
-    def held(v, p, cfg, m, x, ctx):
-        out, cache = own(v, p, cfg, m, x, ctx)
-        ref, _ = own(ResidentView(plain_layout, v._p, v._layer), p, cfg, m,
-                     x, ctx)
-        rows.append(rel_err(out, ref))
-        return out, cache
-    transformer._attn_fwd = held
+    def held(fn):
+        def sublayer(v, p, cfg, m, x, ctx):
+            out, cache = fn(v, p, cfg, m, x, ctx)
+            ref, _ = fn(ResidentView(plain_layout, v._p, v._layer), p, cfg,
+                        m, x, ctx)
+            rows.append(rel_err(out, ref))
+            return out, cache
+        return sublayer
+    for n, fn in own.items():
+        setattr(transformer, n, held(fn))
     try:
         yield
     finally:
-        transformer._attn_fwd = own
+        for n, fn in own.items():
+            setattr(transformer, n, fn)
 
 
 def check_prefill(s, tol: float | None = PREFILL_TOL):
@@ -1743,7 +1851,7 @@ def check_prefill(s, tol: float | None = PREFILL_TOL):
             lk, _ = pre_k(s["residency"], {"tokens": tokens})
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    traced = trace_prefill(s, pre_k, tokens)
+    traced = trace_prefill(s, pre_k, {"tokens": tokens})
     with routing.record("plain"):
         lp, _ = pre_p(s["residency"], {"tokens": tokens})
     own_err = rel_err(lk, lp)[0]
@@ -1836,6 +1944,23 @@ def print_prefill_f32(pf):
           f"{PREFILL_BF16_RATIO}x plain)")
 
 
+def grow_caches(model, caches, n: int):
+    """Prefill caches made ``n`` positions longer for decode: each
+    sequence-indexed entry (full-attention K/V, an MLA latent) zero-padded
+    along its sequence, the rest (rings, cross caches, mamba states)
+    copied."""
+    from repro_torch.models.config import ShapeConfig
+
+    seq = {(kind, name) for kind, e in model.cache_shapes(
+        ShapeConfig("g", 1, 1, "decode")).items()
+        for name, (_, _, seq_indexed) in e.items() if seq_indexed}
+    return {kind: c.clone() if kind == "pos" else
+            {name: torch.nn.functional.pad(t, (0, 0) * (t.ndim - 3) + (0, n))
+             if (kind, name) in seq and n else t.clone()
+             for name, t in c.items()}
+            for kind, c in caches.items()}
+
+
 def check_decode_step(s, tol: float | None = PREFILL_TOL):
     """One decode step of all slots after a prefill of the first requests'
     prompts: every layer product of the step at M = slots. Each compute
@@ -1851,7 +1976,6 @@ def check_decode_step(s, tol: float | None = PREFILL_TOL):
     (``Routing``), and its f32 runs keep their slots in f32
     (``f32_slots``)."""
     from repro_torch.models.config import ShapeConfig
-    from repro_torch.models.transformer import kind_meta
     from repro_torch.serve.resident import ResidentLayout, ResidentServeEngine
 
     layout, dev = s["layout"], s["device"]
@@ -1871,12 +1995,7 @@ def check_decode_step(s, tol: float | None = PREFILL_TOL):
 
     def copied(caches):
         # a sliding window's ring keeps its W slots; the step writes one
-        return {kind: {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
-                       if n in ("k", "v")
-                       and not kind_meta(kind, s["arch"]).window
-                       else t.clone() for n, t in c.items()}
-                if isinstance(c, dict) else c.clone()
-                for kind, c in caches.items()}
+        return grow_caches(s["model"], caches, 1)
 
     bf = layout.cfg.compute_dtype
     out = {}
@@ -2022,7 +2141,7 @@ def ssm_phase(gen, dev):
               for seq in (plen, 2048)}
     xproj = row_timing(s, next(k for k in s["layout"].specs
                                 if k.endswith("w_xproj")))
-    no_fallback(s["arch"].name, ops.dispatch_counters())
+    held_fallbacks(s["arch"].name, ops.dispatch_counters())
     record = {k: s[k] for k in SERVE_RECORD}
     del s
     gc.collect()
@@ -2052,42 +2171,48 @@ def scan_timing(gen, dev, b, seq, what) -> dict:
     return out
 
 
-def flash_timing(gen, dev, b, h, seq, hd, dtype, what, hkv=None, window=0):
+def flash_timing(gen, dev, b, h, seq, hd, dtype, what, hkv=None, window=0,
+                 sk=None, causal=True):
     """flash_attention at (B, H, S, hd) over ``hkv`` KV heads (default: all
-    H), causal, within ``window`` where it is > 0: device time of the
-    kernel, its plain version and SDPA (K and V repeated to H heads
-    beforehand; the window as a boolean mask), and the bound (q, k, v, o
-    moved once; 4 hd operations an unmasked (query, key) pair)."""
+    H) and ``sk`` keys (default: S), causal (or not), within ``window``
+    where it is > 0: device time of the kernel, its plain version and SDPA
+    (K and V repeated to H heads beforehand; the window as a boolean mask),
+    and the bound (q, k, v, o moved once; 4 hd operations an unmasked
+    (query, key) pair)."""
     from repro_torch.kernels import ops
 
-    hkv = hkv or h
+    hkv, sk = hkv or h, sk or seq
     q = torch.randn((b * h, seq, hd), generator=gen, device=dev).to(dtype)
-    k, v = (torch.randn((b * hkv, seq, hd), generator=gen, device=dev)
+    k, v = (torch.randn((b * hkv, sk, hd), generator=gen, device=dev)
             .to(dtype) for _ in range(2))
     size = torch.empty((), dtype=dtype).element_size()
-    keys = [min(i + 1, window or seq) for i in range(seq)]
+    keys = [min(i + 1, window or seq) if causal else sk for i in range(seq)]
     pairs = b * h * sum(keys)
-    reps = max(2, 50 * 128 // seq)
-    kx, vx = (t.view(b, hkv, seq, hd).repeat_interleave(h // hkv, dim=1)
+    reps = max(2, 50 * 128 // max(seq, sk))
+    kx, vx = (t.view(b, hkv, sk, hd).repeat_interleave(h // hkv, dim=1)
               for t in (k, v))
     mask = None
     if window:
         i = torch.arange(seq, device=dev)
         mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
     out = dict(
-        work=f"{what}: B={b} x {h} heads over {hkv}, S={seq}, D={hd}, causal"
+        work=f"{what}: B={b} x {h} heads over {hkv}, "
+             f"{f'S={seq}' if sk == seq else f'Sq={seq} Sk={sk}'}, D={hd}, "
+             f"{'causal' if causal else 'non-causal'}"
              f"{f', window {window}' if window else ''}, {str(dtype)[6:]}",
-        ms=device_ms(lambda: ops.flash_attention(q, k, v, window=window),
-                     reps=reps),
+        ms=device_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                 window=window), reps=reps),
         plain_ms=device_ms(lambda: ops.flash_attention(
-            q, k, v, window=window, impl="plain"),
-            reps=reps if seq <= 128 else 2),
+            q, k, v, causal=causal, window=window, impl="plain"),
+            reps=reps if max(seq, sk) <= 128 else 2),
         library_ms=device_ms(lambda: torch.nn.functional
                              .scaled_dot_product_attention(
                                  q.view(b, h, seq, hd), kx, vx,
-                                 attn_mask=mask, is_causal=mask is None),
+                                 attn_mask=mask,
+                                 is_causal=causal and mask is None),
                              reps=reps),
-        bound=bound_ms(size * 2 * b * (h + hkv) * seq * hd, 4 * hd * pairs,
+        bound=bound_ms(size * 2 * b * (h * seq + hkv * sk) * hd,
+                       4 * hd * pairs,
                        "bf16" if dtype == torch.bfloat16 else "f32"))
     del q, k, v, kx, vx
     return out
@@ -2199,7 +2324,7 @@ def attn_serve(argv, n_layers: int, hd: int, arch=None,
     pf = check_prefill(s, tol)
     pf.update(check_prefill_f32(s))
     pf.update(check_decode_step(s, tol))
-    no_fallback(s["arch"].name, ops.dispatch_counters())
+    held_fallbacks(s["arch"].name, ops.dispatch_counters())
     # the traced prefill: one flash launch a layer (counted), every traced
     # one on the tensor-core kernel at head dim hd; a flash event the trace
     # lost is recorded (trace_prefill)
@@ -2381,15 +2506,26 @@ def step_launches(s):
                               ShapeConfig("d", plen + 1, slots, "decode"))
     _, caches = eng.make_prefill()(s["residency"],
                                    {"tokens": tokens.to(s["device"])})
-    caches = {k: v if k == "pos" else
-              {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
-               for n, t in v.items()} for k, v in caches.items()}
+    caches = grow_caches(s["model"], caches, 1)
     tok = torch.as_tensor([r.out[0] for r in reqs]).long().to(s["device"])
+    _, launched, fell = counted(lambda: eng.make_decode()(
+        s["residency"], caches, {"token": tok}))
+    held_fallbacks(f"{s['arch'].name} decode step", fell)
+    return launched
+
+
+def counted(fn):
+    """(``fn()``, the kernel launches it made by kernel, the attention
+    fallbacks it recorded), the device synchronized after it."""
+    from repro_torch.kernels import ops
+
     before = ops.launches()
-    eng.make_decode()(s["residency"], caches, {"token": tok})
+    ops.reset_dispatch_counters()
+    out = fn()
     torch.cuda.synchronize()
     after = ops.launches()
-    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}, ops.dispatch_counters()
 
 
 def moe_phase(gen, dev, checks):
@@ -2448,7 +2584,7 @@ def mixtral_phase(gen, dev, checks):
                     arch=cut_train_arch("mixtral-8x7b", MIXTRAL_L))
     pf = check_prefill(s, MOE_BF16_TOL)
     pf.update(check_decode_step(s, MOE_BF16_TOL))
-    no_fallback(s["arch"].name, ops.dispatch_counters())
+    held_fallbacks(s["arch"].name, ops.dispatch_counters())
     record = {k: s.get(k) for k in SERVE_RECORD}      # no decode graphs
     del s
     gc.collect()
@@ -2456,23 +2592,29 @@ def mixtral_phase(gen, dev, checks):
     return record, pf
 
 
-def vlm_phase(gen, dev):
-    """internvl2-1b at published width and depth served from its INT8
-    residency through ResidentServeEngine: VLM_SLOTS prompts of VLM_PROMPT
-    tokens behind VLM_P seeded patch rows each, one B = 1 prefill timed,
-    then a batched prefill and VLM_GEN - 1 greedy decode steps (each timed;
-    the caches VLM_GEN positions longer). Every kernel of SERVE_KERNELS must
-    launch in that run (the counters zeroed before the residency is built);
-    no attention fallback. Then, outside the counted run, the B = 1 prefill
-    and one decode step through the kernels against the plain versions
-    (within PREFILL_TOL * max|ref|). Returns the record; the residency is
-    freed."""
+def engine_phase(gen, argv, n_prompt: int, slots: int, n_new: int,
+                 extra, positions: int, fallbacks: dict):
+    """``argv``'s model at published width and depth served from its INT8
+    residency through ResidentServeEngine (a model the continuous batcher
+    cannot take: a patch prefix or an encoder): ``slots`` prompts of
+    ``n_prompt`` tokens with the inputs ``extra(arch, device, b)`` gives
+    (seeded patch rows or frame embeddings), ``positions`` cache positions
+    a prompt; one B = 1 prefill timed, then a batched prefill and ``n_new``
+    - 1 greedy decode steps (each timed; the caches ``n_new`` positions
+    longer). Every kernel of SERVE_KERNELS must launch in that run (the
+    counters zeroed before the residency is built), and each prefill call
+    record exactly ``fallbacks``. One B = 1 prefill alone: its launches
+    (one flash launch a layer) and fallbacks (``fallbacks``), traced
+    (device ms); one decode step alone: its launches, no fallback, and as a
+    CUDA graph (per-row positions). Then the B = 1 prefill and one decode
+    step through the kernels against the plain versions (within
+    PREFILL_TOL * max|ref|). Returns the record; the residency is freed."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.config import ShapeConfig
     from repro_torch.serve.resident import ResidentLayout, ResidentServeEngine
 
-    args = serve.build_parser().parse_args(VLM_SERVE_ARGS)
+    args = serve.build_parser().parse_args(argv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -2483,14 +2625,11 @@ def vlm_phase(gen, dev):
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed)
     tokens = torch.as_tensor(rng.integers(0, arch.vocab,
-                                          (VLM_SLOTS, VLM_PROMPT))).to(device)
-    patches = (torch.randn((VLM_SLOTS, arch.n_patches, arch.d_model),
-                           generator=gen, device=device) * 0.02
-               ).to(torch.bfloat16)
-    s_all = arch.n_patches + VLM_PROMPT
-    one = {"tokens": tokens[:1], "patches": patches[:1]}
+                                          (slots, n_prompt))).to(device)
+    batch = dict(extra(arch, device, slots), tokens=tokens)
+    one = {k: v[:1] for k, v in batch.items()}
     pre1 = ResidentServeEngine(model, layout, ShapeConfig(
-        "p", s_all, 1, "decode")).make_prefill()
+        "p", positions, 1, "decode")).make_prefill()
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2499,17 +2638,14 @@ def vlm_phase(gen, dev):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     eng = ResidentServeEngine(model, layout, ShapeConfig(
-        "g", s_all + VLM_GEN, VLM_SLOTS, "decode"))
+        "g", positions + n_new, slots, "decode"))
     dec = eng.make_decode()
     t_run = time.perf_counter()
-    logits, caches = eng.make_prefill()(res, {"tokens": tokens,
-                                              "patches": patches})
-    caches = {k: v if k == "pos" else
-              {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, VLM_GEN))
-               for n, t in v.items()} for k, v in caches.items()}
+    logits, caches = eng.make_prefill()(res, batch)
+    caches = grow_caches(model, caches, n_new)
     out = [logits.argmax(-1)]
     steps = []
-    for _ in range(VLM_GEN - 1):
+    for _ in range(n_new - 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches = dec(res, caches, {"token": out[-1]})
@@ -2522,45 +2658,70 @@ def vlm_phase(gen, dev):
     missing = [k for k in SERVE_KERNELS if launches[k] == 0]
     if missing:
         raise Failed(f"{arch.name}: kernels not launched: {missing}")
-    no_fallback(arch.name, ops.dispatch_counters())
+    # four prefill calls: the three timed and the batched one
+    held_fallbacks(arch.name, ops.dispatch_counters(),
+                   {k: 4 * n for k, n in fallbacks.items()})
     toks = torch.stack(out, dim=1)
-    if toks.shape != (VLM_SLOTS, VLM_GEN) or int(toks.min()) < 0 or \
+    if toks.shape != (slots, n_new) or int(toks.min()) < 0 or \
             int(toks.max()) >= arch.vocab:
         raise Failed(f"{arch.name}: tokens {toks.shape}")
+    # one B = 1 prefill and one decode step alone, counted; the prefill
+    # traced, the step as a CUDA graph at per-row positions
+    _, pre_launches, pre_fell = counted(lambda: pre1(res, one))
+    held_fallbacks(f"{arch.name} prefill", pre_fell, fallbacks)
+    if pre_launches.get("flash_attention") != arch.n_layers:
+        raise Failed(f"{arch.name} prefill: launches {pre_launches}, not "
+                     f"{arch.n_layers} of flash_attention")
+    traced = trace_prefill(dict(device=device, residency=res, arch=arch),
+                           pre1, one)
+    row_pos = torch.full((slots,), positions + n_new - 1, dtype=torch.long,
+                         device=device)
+    step_in = {"token": out[-1], "row_pos": row_pos}
+    _, step_launched, step_fell = counted(lambda: dec(res, caches, step_in))
+    held_fallbacks(f"{arch.name} decode step", step_fell)
+    graph_ms = [device_ms(lambda: dec(res, caches, step_in), reps=3)
+                for _ in range(2)]
     # kernels against the plain versions, outside the counted run
     plain = ResidentLayout(layout.specs,
                            dataclasses.replace(layout.cfg, impl="plain"),
                            layout.res_axes)
     lp, _ = ResidentServeEngine(model, plain, ShapeConfig(
-        "p", s_all, 1, "decode")).make_prefill()(res, one)
+        "p", positions, 1, "decode")).make_prefill()(res, one)
     err, scale = rel_err(l1, lp)
     if l1.shape != (1, arch.vocab) or err > PREFILL_TOL * scale:
         raise Failed(f"{arch.name} prefill logits: err {err} > "
                      f"{PREFILL_TOL} * {scale}")
     _, pc = ResidentServeEngine(model, plain, ShapeConfig(
-        "p", s_all, VLM_SLOTS, "decode")).make_prefill()(
-        res, {"tokens": tokens, "patches": patches})
-    pc = {k: v if k == "pos" else
-          {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 1))
-           for n, t in v.items()} for k, v in pc.items()}
-    shape_d = ShapeConfig("d", s_all + 1, VLM_SLOTS, "decode")
+        "p", positions, slots, "decode")).make_prefill()(res, batch)
+    pc = grow_caches(model, pc, 1)
+    shape_d = ShapeConfig("d", positions + 1, slots, "decode")
     step = {}
     for impl, lay in (("kernel", layout), ("plain", plain)):
-        c = {k: v if k == "pos" else {n: t.clone() for n, t in v.items()}
-             for k, v in pc.items()}
         step[impl], _ = ResidentServeEngine(model, lay, shape_d).make_decode()(
-            res, c, {"token": out[0]})
+            res, grow_caches(model, pc, 0), {"token": out[0]})
     derr, dscale = rel_err(step["kernel"], step["plain"])
     if derr > PREFILL_TOL * dscale:
         raise Failed(f"{arch.name} decode-step logits: err {derr} > "
                      f"{PREFILL_TOL} * {dscale}")
     record = dict(
-        arch=arch.name, n_patches=arch.n_patches, slots=VLM_SLOTS,
-        prompt_len=VLM_PROMPT, positions=s_all, gen=VLM_GEN,
+        arch=arch.name, n_layers=arch.n_layers, enc_layers=arch.enc_layers,
+        n_patches=arch.n_patches, n_frames=arch.n_frames, slots=slots,
+        prompt_len=n_prompt, positions=positions, gen=n_new,
         prefill_ms=statistics.median(times), prefill_ms_runs=times,
+        traced_prefill_wall_ms=traced["wall_ms"],
+        traced_prefill_device_ms=traced["device_ms"],
+        traced_prefill_top_kernels=traced["top"],
+        traced_prefill_missed=traced["missed"],
+        prefill_launches=pre_launches, prefill_fallbacks=pre_fell,
+        decode_step_launches=step_launched,
         decode_step_ms=statistics.median(steps), decode_steps=len(steps),
-        tok_s=VLM_SLOTS * VLM_GEN / run_s, run_s=run_s, setup_s=setup_s,
+        decode_step_graph_ms=statistics.mean(graph_ms),
+        decode_step_graph_runs=graph_ms,
+        tok_s=slots * n_new / run_s, run_s=run_s, setup_s=setup_s,
         residency_bytes=layout.memory_report()["wire_bytes"],
+        scale_bytes=layout.memory_report()["wire_bytes"]
+        - sum(sp.logical_size * (sp.stack or 1)
+              for n, sp in layout.specs.items() if layout.mode(n) == "wire"),
         max_memory_allocated=peak, launches=launches,
         prefill_logits_max_abs_err=err, prefill_logits_max_abs_ref=scale,
         prefill_argmax_equal=bool(l1.argmax() == lp.argmax()),
@@ -2573,7 +2734,86 @@ def vlm_phase(gen, dev):
     return record
 
 
+def vlm_phase(gen, dev):
+    """internvl2-1b at published width and depth, VLM_SLOTS prompts of
+    VLM_PROMPT tokens behind VLM_P seeded patch rows each (engine_phase):
+    no attention fallback."""
+    def patches(arch, device, b):
+        return {"patches": (torch.randn((b, arch.n_patches, arch.d_model),
+                                        generator=gen, device=device) * 0.02
+                            ).to(torch.bfloat16)}
+    return engine_phase(gen, VLM_SERVE_ARGS, VLM_PROMPT, VLM_SLOTS, VLM_GEN,
+                        patches, VLM_P + VLM_PROMPT, {})
+
+
+def whisper_phase(gen, dev):
+    """whisper-medium at published width and depth (24 + 24 layers,
+    WHISPER_F seeded frame embeddings a prompt), WHISPER_SLOTS prompts of
+    WHISPER_PROMPT tokens (engine_phase): the decoder's self-attention on
+    the flash kernel at D = 64 (24 launches a prefill), the encoder and the
+    cross-attention on the chunked plain path over 1,500 frames (24 + 24
+    seq_unaligned fallbacks a prefill, as the reference's gate says)."""
+    def frames(arch, device, b):
+        return {"frames": (torch.randn((b, arch.n_frames, arch.d_model),
+                                       generator=gen, device=device) * 0.02
+                           ).to(torch.bfloat16)}
+    return engine_phase(gen, WHISPER_SERVE_ARGS, WHISPER_PROMPT,
+                        WHISPER_SLOTS, WHISPER_GEN, frames, WHISPER_PROMPT,
+                        {UNALIGNED: 2 * WHISPER_L})
+
+
+def mla_phase(gen, dev):
+    """minicpm3-4b served at published width and depth (62 MLA layers) from
+    its INT8 residency through the continuous batcher (serve_phase, under
+    MLA_SERVE_KERNELS: no flash launch, every prefill attention on the
+    chunked plain path, MLA_L mla_dv_mismatch fallbacks an admission and
+    nothing else); check_prefill (bf16 within PREFILL_TOL, each of the 62
+    MLA sublayers held on its own input), check_prefill_f32 and the
+    decode-step check against the plain versions; one B = 1 prefill's and
+    one 4-slot decode step's launches held to MLA_PREFILL_LAUNCHES and
+    MLA_STEP_LAUNCHES; the batcher's decode step as a CUDA graph; kernel 2
+    at one layer's w_dkv and w_ukv. Returns the record, the prefill checks
+    and the timings; the residency is freed."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve.resident import ResidentServeEngine
+
+    s = serve_phase(MLA_SERVE_ARGS, MLA_SERVE_KERNELS)
+    held_fallbacks(f"{s['arch'].name} serving", ops.dispatch_counters(),
+                   {MLA_FALLBACK: MLA_L * s["counters"]["admitted"]})
+    pf = check_prefill(s)
+    pf.update(check_prefill_f32(s))
+    pf.update(check_decode_step(s))
+    pre = ResidentServeEngine(s["model"], s["layout"], ShapeConfig(
+        "p", s["args"].prompt_len, 1, "decode")).make_prefill()
+    tokens = torch.as_tensor(s["reqs"][0].prompt[None]).long().to(dev)
+    _, pl, fell = counted(lambda: pre(s["residency"], {"tokens": tokens}))
+    held_fallbacks(f"{s['arch'].name} prefill", fell, {MLA_FALLBACK: MLA_L})
+    s["prefill_launches"] = pl
+    s["step_launches"] = step_launches(s)
+    for what, got, want in (("prefill", pl, MLA_PREFILL_LAUNCHES),
+                            ("decode step", s["step_launches"],
+                             MLA_STEP_LAUNCHES)):
+        if got != want:
+            raise Failed(f"{s['arch'].name} {what}: launches {got}, "
+                         f"predicted {want}")
+    graphs = decode_graphs(s)
+    s["decode_step_graph_ms"] = statistics.mean(graphs["own"])
+    s["decode_step_graph_runs"] = graphs
+    timing = {f"dequantize_int8_{leaf}": row_timing(s, f"mla.{leaf}")
+              for leaf in ("w_dkv", "w_ukv")}
+    record = {k: s[k] for k in SERVE_RECORD + ("prefill_launches",
+                                               "step_launches")}
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, pf, timing
+
+
 def print_vlm(v):
+    print(f"  {v['arch']}: a B = 1 prefill's launches "
+          f"{v['prefill_launches']} (fallbacks {v['prefill_fallbacks']}), a "
+          f"decode step's {v['decode_step_launches']}")
     print(f"  launches {v['launches']}; prefill (B=1, {v['positions']} "
           f"positions) logits max_abs_err {v['prefill_logits_max_abs_err']:.3e}"
           f" (max|ref| {v['prefill_logits_max_abs_ref']:.3e}, argmax equal "
@@ -2581,11 +2821,13 @@ def print_vlm(v):
           f"{v['decode_logits_max_abs_err']:.3e} (max|ref| "
           f"{v['decode_logits_max_abs_ref']:.3e}, argmax equal "
           f"{v['decode_argmax_equal']})")
-    print(f"  prefill_ms {v['prefill_ms']:.3f} decode_step_ms "
-          f"{v['decode_step_ms']:.3f} tok_s {v['tok_s']:.3f} setup_s "
+    print(f"  prefill_ms {v['prefill_ms']:.3f} (traced device ms "
+          f"{v['traced_prefill_device_ms']:.3f}) decode_step_ms "
+          f"{v['decode_step_ms']:.3f} decode_step_graph_ms "
+          f"{v['decode_step_graph_runs']} tok_s {v['tok_s']:.3f} setup_s "
           f"{v['setup_s']:.1f} max_memory_allocated "
           f"{v['max_memory_allocated']} residency_bytes "
-          f"{v['residency_bytes']}")
+          f"{v['residency_bytes']} (scales {v['scale_bytes']})")
 
 
 def print_routing(pf):
@@ -2645,11 +2887,13 @@ def plain_argv(argv):
 
 def hold_train_runs(kern, plain, steps: int, label: str,
                     kernels=TRAIN_KERNELS, profiled: bool = True,
-                    gnorm_steps: int = PLAIN_STEPS) -> dict:
+                    gnorm_steps: int = PLAIN_STEPS,
+                    fallbacks: dict | None = None) -> dict:
     """A training run through the kernels against the same run through the
     plain versions: every kernel of ``kernels`` (the path's own: TRAIN_KERNELS
     or SSM_TRAIN_KERNELS) launched on every rank
-    and none in the plain run, no attention fallback, the traced step's
+    and none in the plain run, the attention fallbacks a rank records
+    exactly ``fallbacks`` a step (none where it is None), the traced step's
     fused dW all on the tensor-core matmul_quant kernel (as many as a step
     launches, none on SIMT), the same finite global loss and grad norm on
     every rank, and the kernel run's within TRAIN_LOSS_RTOL /
@@ -2664,8 +2908,10 @@ def hold_train_runs(kern, plain, steps: int, label: str,
         if missing:
             raise Failed(f"{label} rank {r['rank']}: kernels not launched on "
                          f"the training path: {missing}")
-    for r in kern + plain:
-        no_fallback(f"{label} rank {r['rank']}", r["fallbacks"])
+    for run, n in ((kern, steps), (plain, PLAIN_STEPS)):
+        for r in run:
+            held_fallbacks(f"{label} rank {r['rank']}", r["fallbacks"],
+                           {k: c * n for k, c in (fallbacks or {}).items()})
     # the traced step ran every fused dW on the tensor-core kernel (its bf16
     # operands), none on the SIMT one
     mq_traced = []
@@ -2735,12 +2981,13 @@ def train_phase():
 
 def cut_train_arch(name: str, n_layers: int):
     """``name`` at published width and its first ``n_layers`` layers (its
-    own block pattern, cut)."""
+    own block pattern, cut; an encoder cut alike)."""
     from repro_torch.models.registry import get_arch
 
     a = get_arch(name)
     return dataclasses.replace(a, n_layers=n_layers,
-                               block_pattern=a.pattern[:n_layers])
+                               block_pattern=a.pattern[:n_layers],
+                               enc_layers=min(a.enc_layers, n_layers))
 
 
 def neox_train_arch():
@@ -2748,7 +2995,8 @@ def neox_train_arch():
     return cut_train_arch("gpt-neox-20b", NEOX_TRAIN_L)
 
 
-def cut_train_phase(argv, arch, kernels, traced, profile_step: int):
+def cut_train_phase(argv, arch, kernels, traced, profile_step: int,
+                    fallbacks: dict | None = None):
     """``arch`` (published width, a cut depth) trained with ``argv`` on the
     train phase's mesh and batch, the step ``profile_step`` traced, through
     the kernels and again through the plain versions (hold_train_runs on
@@ -2756,7 +3004,8 @@ def cut_train_phase(argv, arch, kernels, traced, profile_step: int):
     traced step must show the device kernels whose names hold ``name`` as
     often as a step launches ``counter``, each name holding ``instance``.
     Also reports each rank's peak memory summed beside the card's and the
-    traced step's kernel calls."""
+    traced step's kernel calls. ``fallbacks``: the attention fallbacks a
+    rank records a step (hold_train_runs)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
@@ -2776,7 +3025,8 @@ def cut_train_phase(argv, arch, kernels, traced, profile_step: int):
     steps = int(argv[argv.index("--steps") + 1])
     moe = any(k.startswith("moe") for k in arch.pattern)
     held = hold_train_runs(kern, plain, steps, arch.name, kernels,
-                           gnorm_steps=MOE_GNORM_STEPS if moe else PLAIN_STEPS)
+                           gnorm_steps=MOE_GNORM_STEPS if moe else PLAIN_STEPS,
+                           fallbacks=fallbacks)
     counter, name, instance = traced
     rows_traced = []
     for r in kern:
@@ -2889,6 +3139,38 @@ def vlm_train_phase():
                                            f"<{VLM_HD}>"), NEOX_PROFILE_STEP)
 
 
+def mla_train_phase():
+    """minicpm3-4b at published width and MLA_TRAIN_L layers, 3 steps (the
+    last traced), under MLA_TRAIN_KERNELS: the attention's forward and
+    backward on the chunked plain path (two mla_dv_mismatch fallbacks a
+    layer a step on every rank), w_dkv's gradient on the unfused INT4
+    quantize; the traced step must show matmul_quant's tensor-core kernel
+    as often as a step launches matmul_quant."""
+    return cut_train_phase(MLA_TRAIN_ARGS,
+                           cut_train_arch("minicpm3-4b", MLA_TRAIN_L),
+                           MLA_TRAIN_KERNELS, ("matmul_quant",
+                                               "matmul_quant_tc_kernel",
+                                               "matmul_quant_tc_kernel"),
+                           NEOX_PROFILE_STEP,
+                           fallbacks={MLA_FALLBACK: 2 * MLA_TRAIN_L})
+
+
+def whisper_train_phase():
+    """whisper-medium at published width, WHISPER_TRAIN_L encoder and
+    decoder layers, 3 steps (the last traced), its batches from
+    SyntheticTokens with 1,500 frames a row: the decoder's self-attention on
+    flash at D = 64 (the traced step's tensor-core flash calls as often as
+    a step launches flash_attention), the encoder and the cross-attention
+    on the chunked plain path (two seq_unaligned fallbacks a layer of each
+    a step on every rank)."""
+    return cut_train_phase(WHISPER_TRAIN_ARGS,
+                           cut_train_arch("whisper-medium", WHISPER_TRAIN_L),
+                           TRAIN_KERNELS, ("flash_attention",
+                                           "flash_attention_tc_kernel<",
+                                           "<64>"), NEOX_PROFILE_STEP,
+                           fallbacks={UNALIGNED: 4 * WHISPER_TRAIN_L})
+
+
 def regime_phase(tr, flags):
     """The training step again with ``flags`` (--overlap, --stream-grads)
     for 3 steps, the same batches from the same seed: every kernel of
@@ -2908,7 +3190,7 @@ def regime_phase(tr, flags):
         if missing:
             raise Failed(f"rank {r['rank']}: kernels not launched on the "
                          f"{' '.join(flags)} path: {missing}")
-        no_fallback(f"{' '.join(flags)} rank {r['rank']}", r["fallbacks"])
+        held_fallbacks(f"{' '.join(flags)} rank {r['rank']}", r["fallbacks"])
         if (r["losses"], r["grad_norms"]) != (runs[0]["losses"],
                                               runs[0]["grad_norms"]):
             raise Failed("ranks disagree on the global loss or grad norm")
@@ -3011,7 +3293,7 @@ def ckpt_leg(label: str, argv, steps: int, kern):
         if missing:
             raise Failed(f"ckpt leg {label} rank {r['rank']}: kernels not "
                          f"launched: {missing}")
-        no_fallback(f"ckpt leg {label} rank {r['rank']}", r["fallbacks"])
+        held_fallbacks(f"ckpt leg {label} rank {r['rank']}", r["fallbacks"])
         vals = r["losses"] + r["grad_norms"]
         if len(r["losses"]) != steps or \
                 not all(math.isfinite(v) for v in vals) or \
@@ -3183,7 +3465,7 @@ def hold_trace(runs, label: str) -> dict:
 
 
 def replica_phase() -> dict:
-    """qwen2-0.5b at full width and depth under zero_topo on (2, 1, 2), four
+    """qwen2-0.5b at full width and REPLICA_L layers under zero_topo on (2, 1, 2), four
     ranks, REPLICA_STEPS steps from seed 0 with REPLICA_OPTS, traced with
     probes every step: every kernel of TRAIN_KERNELS on every rank, the
     update all-gather's quantize_int8 and dequantize_int8 once a leaf a step
@@ -3198,11 +3480,12 @@ def replica_phase() -> dict:
     ap = train.build_parser()
     t_phase = time.perf_counter()
     shutil.rmtree(TRACE_DIR / "replica", ignore_errors=True)
+    arch = cut_train_arch("qwen2-0.5b", REPLICA_L)
     kern = train.run(ap.parse_args(REPLICA_ARGS + trace_args("replica")),
-                     engine_opts=REPLICA_OPTS)
+                     arch, engine_opts=REPLICA_OPTS)
     t_kern = time.perf_counter() - t_phase
     t0 = time.perf_counter()
-    plain = train.run(ap.parse_args(plain_argv(REPLICA_ARGS)),
+    plain = train.run(ap.parse_args(plain_argv(REPLICA_ARGS)), arch,
                       engine_opts=REPLICA_OPTS)
     t_plain = time.perf_counter() - t0
     held = hold_train_runs(kern, plain, REPLICA_STEPS, "replica",
@@ -3290,7 +3573,8 @@ def print_replica(rp):
 def replica_line(rp) -> dict:
     k0 = rp["kernel"][0]
     return dict(
-        arch="qwen2-0.5b", scheme="zero_topo", mesh=[2, 1, 2], ranks=4,
+        arch="qwen2-0.5b", n_layers=REPLICA_L, scheme="zero_topo",
+        mesh=[2, 1, 2], ranks=4,
         engine_opts=REPLICA_OPTS, global_batch=8, seq=1024,
         steps=rp["steps"], losses=k0["losses"], grad_norms=k0["grad_norms"],
         plain_losses=rp["plain"][0]["losses"],
@@ -3335,14 +3619,15 @@ def serve_mesh_tree(obj, leaf):
     return obj
 
 
-def serve_mesh_args(devices: int, backend: str | None = None):
-    """The serve launcher's arguments of phase 4j: qwen2-0.5b, zero_topo,
+def serve_mesh_args(devices: int, backend: str | None = None,
+                    arch: str = "qwen2-0.5b"):
+    """The serve launcher's arguments of phase 4j: ``arch``, zero_topo,
     bf16, quant block 128, seed 0 (``ZeroEngine.init_primaries``: the same
     global weights on any mesh) and the phase's traffic; ``devices`` 4 on
     SERVE_MESH_SHAPE, or 1 (a bare one-card run, the default backend when
     ``backend`` is None)."""
     from repro_torch.launch import serve
-    argv = ["--arch", "qwen2-0.5b", "--scheme", "zero_topo", "--quant-block",
+    argv = ["--arch", arch, "--scheme", "zero_topo", "--quant-block",
             "128", "--seed", "0", "--devices", str(devices),
             "--requests", str(SERVE_MESH_REQUESTS),
             "--slots", str(SERVE_MESH_SLOTS),
@@ -3493,7 +3778,124 @@ def serve_mesh_rank(rank: int, world: int) -> dict:
                      n_layers=model.arch.n_layers, cache=cache,
                      sp_ms=sp_ms, launches=ops.launches(),
                      fallbacks=ops.dispatch_counters())
+    del se, model, mesh, eng, prim
+    out["mla"] = serve_mesh_mla(rank, world)
     return serve_mesh_tree(out, lambda t: t.numpy())
+
+
+def serve_mesh_mla(rank: int, world: int) -> dict:
+    """The MLA leg of phase 4j on this rank: minicpm3-4b at published width
+    and MLA_MESH_L layers through the serve launcher's ``serve_rank`` on
+    SERVE_MESH_SHAPE, the latent sharded along the sequence over (node,
+    gcd), decode's partial softmax combined over them: (g) the gathered
+    backend through the kernels, (p) through the plain versions fed (g)'s
+    tokens; (sp) one B = 1 prefill of the first prompt on (g)'s engine and
+    weights, sequence-parallel (the latent gathered, under ``lat_gather``)
+    and not, each with its payload bytes by label."""
+    from repro_torch.core import collectives as col
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve.engine import ServeEngine
+
+    arch = cut_train_arch("minicpm3-4b", MLA_MESH_L)
+    args = serve_mesh_args(world, "gathered", "minicpm3-4b")
+    out, forced = dict(legs={}), None
+    for leg, opts in (("g", None), ("p", dict(impl="plain"))):
+        rec = {}
+        res = serve.serve_rank(rank, world, args, arch, engine_opts=opts,
+                               hook=serve_mesh_hook(rec, forced))
+        out["legs"][leg] = serve_mesh_leg(res, rec)
+        if leg == "g":
+            forced = rec["inputs"]
+            model, mesh = rec["model"], rec["mesh"]
+            eng, prim = rec["engine"], rec["params"]
+        del rec, res
+    se = ServeEngine(model, eng, mesh,
+                     ShapeConfig("sp", SERVE_MESH_PROMPT, 1, "decode"))
+    tokens = torch.as_tensor(serve.make_requests(args, arch)[0]
+                             .prompt[None]).long().to(prim["embed"].device)
+    ops.reset_launches()
+    ops.reset_dispatch_counters()
+    got = {}
+    for key, sp in (("plain", False), ("sp", True)):
+        col.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[key] = se.make_prefill(seq_parallel=sp)(prim, {"tokens": tokens})
+        torch.cuda.synchronize()
+        got[key + "_ms"] = (time.perf_counter() - t0) * 1e3
+        got[key + "_payload"] = dict(col.PAYLOAD)
+    (lp, cp), (ls, cs) = got["plain"], got["sp"]
+    lat_sp, lat = cs["mla"]["lat"], cp["mla"]["lat"]
+    e, sc = rel_err(lat_sp, lat)
+    out["sp"] = dict(
+        plain=lp.float().cpu(), sp=ls.float().cpu(),
+        bitwise=bool(torch.equal(ls, lp)),
+        cache=dict(shape=list(lat.shape), equal=bool(
+            lat_sp.shape == lat.shape and torch.equal(lat_sp, lat)),
+            max_abs_err=e, max_abs=sc),
+        plain_ms=got["plain_ms"], sp_ms=got["sp_ms"],
+        payload_plain=got["plain_payload"], payload_sp=got["sp_payload"],
+        launches=ops.launches(), fallbacks=ops.dispatch_counters(),
+        n_layers=model.arch.n_layers,
+        lat_width=model.arch.mla.kv_lora + model.arch.mla.qk_rope)
+    return out
+
+
+def hold_serve_mesh_mla(ranks) -> None:
+    """The MLA leg on every rank: the requests retired with their tokens,
+    the kernels of MLA_SERVE_KERNELS launched in (g), one mla_dv_mismatch
+    fallback a layer a prefill and nothing else in every leg and in (sp);
+    (p)'s logits within PREFILL_TOL * max|ref| of (g)'s on (g)'s inputs;
+    (sp): the sequence-parallel prefill's logits within PREFILL_TOL *
+    max|ref| of (p)'s first prefill (the plain versions on the same
+    prompt), this rank's chunk of the latent the plain prefill's shape,
+    the latent gathered once a layer (the other rank's half of the
+    prompt's positions in bf16) under ``lat_gather``, and no K / V
+    gathered; the greedy tokens the same on every rank."""
+    for r in ranks:
+        m = r["mla"]
+        g, pl, sp = m["legs"]["g"], m["legs"]["p"], m["sp"]
+        for leg, x in m["legs"].items():
+            held_fallbacks(f"serve_mesh mla ({leg}) rank {r['rank']}",
+                           x["fallbacks"],
+                           {MLA_FALLBACK: MLA_MESH_L
+                            * x["counters"]["admitted"]})
+            c = x["counters"]
+            if c["retired"] != SERVE_MESH_REQUESTS or c["rejected"] or \
+                    any(len(t) != SERVE_MESH_GEN for t in x["tokens"]):
+                raise Failed(f"serve_mesh mla ({leg}) rank {r['rank']}: "
+                             f"counters {c}, tokens {x['tokens']}")
+        missing = [k for k in MLA_SERVE_KERNELS if g["launches"][k] == 0]
+        if missing:
+            raise Failed(f"serve_mesh mla rank {r['rank']}: {missing} not "
+                         "launched")
+        errs = [rel_err(b, a) for a, b in
+                zip(g["prefill"] + g["decode"], pl["prefill"] + pl["decode"])]
+        m["plain_rel_err"] = max(e / sc for e, sc in errs)
+        if m["plain_rel_err"] > PREFILL_TOL:
+            raise Failed(f"serve_mesh mla rank {r['rank']}: plain logits "
+                         f"{m['plain_rel_err']:.3e} of max|ref| off the "
+                         "kernels'")
+        held_fallbacks(f"serve_mesh mla (sp) rank {r['rank']}",
+                       sp["fallbacks"], {MLA_FALLBACK: 2 * MLA_MESH_L})
+        e, sc = rel_err(sp["sp"], pl["prefill"][0])
+        m["sp_vs_plain_rel_err"] = e / sc
+        if e > PREFILL_TOL * sc:
+            raise Failed(f"serve_mesh mla (sp) rank {r['rank']}: logits "
+                         f"{e / sc:.3e} of max|ref| off the plain leg's")
+        want = MLA_MESH_L * (SERVE_MESH_PROMPT // 2) * sp["lat_width"] * 2
+        if sp["payload_sp"].get("lat_gather") != want or \
+                "seq_gather" in sp["payload_sp"] or \
+                "lat_gather" in sp["payload_plain"] or \
+                not sp["cache"]["shape"][2] == SERVE_MESH_PROMPT // 2:
+            raise Failed(f"serve_mesh mla (sp) rank {r['rank']}: payload "
+                         f"{sp['payload_sp']} (lat_gather {want} wanted), "
+                         f"latent chunk {sp['cache']['shape']}")
+    if len({tuple(map(tuple, r["mla"]["legs"]["g"]["tokens"]))
+            for r in ranks}) != 1:
+        raise Failed("serve_mesh mla: the ranks' tokens differ")
 
 
 def serve_mesh_one(forced) -> dict:
@@ -3563,7 +3965,7 @@ def serve_mesh_phase() -> dict:
     for r in ranks:
         g, rl, pl = r["legs"]["g"], r["legs"]["r"], r["legs"]["p"]
         for leg, x in r["legs"].items():
-            no_fallback(f"serve_mesh ({leg}) rank {r['rank']}",
+            held_fallbacks(f"serve_mesh ({leg}) rank {r['rank']}",
                         x["fallbacks"])
             c = x["counters"]
             if c["retired"] != SERVE_MESH_REQUESTS or c["rejected"] or \
@@ -3604,7 +4006,7 @@ def serve_mesh_phase() -> dict:
         # (sp): bit for bit the plain prefill, logits and this rank's chunk
         # of every cache entry (as every call has measured them)
         sp = r["sp"]
-        no_fallback(f"serve_mesh (sp) rank {r['rank']}", sp["fallbacks"])
+        held_fallbacks(f"serve_mesh (sp) rank {r['rank']}", sp["fallbacks"])
         e, sc = rel_err(sp["sp"], sp["plain"])
         r["sp_rel_err"] = e / sc
         if not torch.equal(sp["sp"], sp["plain"]):
@@ -3665,9 +4067,13 @@ def serve_mesh_phase() -> dict:
         int((a.argmax(-1) == b.argmax(-1)).sum())
         for a, b in zip(by_step, one["decode"]))
     one["argmax_total"] = sum(a.shape[0] for a in by_step)
+    hold_serve_mesh_mla(ranks)
     launches = {k: sum(r["legs"][leg]["launches"][k] + (
         r["sp"]["launches"][k] if leg == "g" else 0)
-        for r in ranks for leg in ("g", "r")) for k in KERNEL_INFO}
+        for r in ranks for leg in ("g", "r"))
+        + sum(r["mla"]["legs"]["g"]["launches"][k]
+              + r["mla"]["sp"]["launches"][k] for r in ranks)
+        for k in KERNEL_INFO}
     return dict(ranks=ranks, launches=launches, one_rel_err=one_worst,
                 one=one, prediction=serve_mesh_prediction(),
                 ranks_s=t_ranks, one_s=t_one,
@@ -3699,6 +4105,25 @@ def print_serve_mesh(sm):
               f"{len(r['sp']['calls'])}; setup_s "
               f"{[round(x['setup_s'], 1) for x in r['legs'].values()]} "
               f"(build {r['legs']['g']['build_s']:.1f})")
+    for r in sm["ranks"]:
+        m = r["mla"]
+        for leg, x in m["legs"].items():
+            pay = x["step_payload"]
+            step = {k: statistics.median(p.get(k, 0) for p in pay)
+                    for k in sorted({k for p in pay for k in p})}
+            print(f"  rank {r['rank']} mla ({leg}): prefill_ms "
+                  f"{x['prefill_ms']:.1f} decode_step_ms "
+                  f"{x['decode_step_ms']:.1f} tok_s {x['tok_s']:.3f} "
+                  f"peak_bytes {x['peak_bytes']} payload bytes a decode "
+                  f"step {step} fallbacks {x['fallbacks']}")
+        sp = m["sp"]
+        print(f"  rank {r['rank']} mla: (p) logits {m['plain_rel_err']:.3e} "
+              f"of max|ref|; (sp) logits {m['sp_vs_plain_rel_err']:.3e} of "
+              f"max|ref| off (p)'s first prefill, bit for bit the kernels' "
+              f"own prefill {sp['bitwise']}, latent chunk {sp['cache']}, "
+              f"{sp['sp_ms']:.1f} ms (not sequence-parallel "
+              f"{sp['plain_ms']:.1f}), payload {sp['payload_sp']} (not "
+              f"sequence-parallel {sp['payload_plain']})")
     one = sm["one"]
     print(f"  (1) the bare one-card launch (backend {one['backend']}): "
           f"prefills and first step bit for bit the mesh's, every step "
@@ -3744,6 +4169,27 @@ def serve_mesh_line(sm) -> dict:
         sp_ms=[r["sp"]["sp_ms"] for r in sm["ranks"]],
         sp_flash_q_offsets=[sorted({c[2] for c in r["sp"]["calls"]})
                             for r in sm["ranks"]],
+        mla=dict(
+            arch="minicpm3-4b", n_layers=MLA_MESH_L, legs={
+                leg: dict(prefill_ms=[r["mla"]["legs"][leg]["prefill_ms"]
+                                      for r in sm["ranks"]],
+                          decode_step_ms=[r["mla"]["legs"][leg]
+                                          ["decode_step_ms"]
+                                          for r in sm["ranks"]],
+                          tok_s=[r["mla"]["legs"][leg]["tok_s"]
+                                 for r in sm["ranks"]],
+                          peak_bytes_per_rank=[r["mla"]["legs"][leg]
+                                               ["peak_bytes"]
+                                               for r in sm["ranks"]],
+                          tokens=r0["mla"]["legs"][leg]["tokens"])
+                for leg in ("g", "p")},
+            plain_rel_err=[r["mla"]["plain_rel_err"] for r in sm["ranks"]],
+            sp_vs_plain_rel_err=[r["mla"]["sp_vs_plain_rel_err"]
+                                 for r in sm["ranks"]],
+            sp_bitwise_kernel_prefill=[r["mla"]["sp"]["bitwise"]
+                                       for r in sm["ranks"]],
+            sp_cache=[r["mla"]["sp"]["cache"] for r in sm["ranks"]],
+            sp_payload=[r["mla"]["sp"]["payload_sp"] for r in sm["ranks"]]),
         one_rank_rel_err=sm["one_rel_err"],
         one_rank_argmax_equal=sm["one"]["argmax_equal"],
         one_rank_tok_s=sm["one"]["tokens_total"] / sm["one"]["run_s"],
@@ -4524,6 +4970,63 @@ def print_attn(nx, npf):
           f"{npf['traced_head_wide_ms']:.4f} ms")
 
 
+def print_mla(ml, mpf, ml_t):
+    """The mla phase: its checks, times and launches."""
+    print(f"  launches {ml['launches']}; counters {ml['counters']}; prefill "
+          f"logits max_abs_err {mpf['logits_err']:.3e} (max|ref| "
+          f"{mpf['logits_scale']:.3e}, argmax equal {mpf['argmax_equal']})")
+    print_held(mpf)
+    print_prefill_f32(mpf)
+    print_decode_step(mpf)
+    mem = ml["memory"]
+    print(f"  prefill_ms {mpf['prefill_ms']:.3f} (traced device ms "
+          f"{mpf['traced']['device_ms']:.3f}) decode_step_ms "
+          f"{ml['decode_step_ms']:.3f} decode_step_graph_ms "
+          f"{ml['decode_step_graph_ms']:.3f} (layers on SIMT and own path in "
+          f"turns: {ml['decode_step_graph_runs']}) tok_s "
+          f"{ml['tokens'] / ml['run_s']:.3f} setup_s {ml['setup_s']:.1f} "
+          f"max_memory_allocated {ml['peak_bytes']} residency_bytes "
+          f"{mem['wire_bytes']} (dense {mem['dense_bytes']})")
+    print(f"  a B = 1 prefill's launches {ml['prefill_launches']} (predicted "
+          f"{MLA_PREFILL_LAUNCHES}); a 4-slot decode step's "
+          f"{ml['step_launches']} (predicted {MLA_STEP_LAUNCHES})")
+    for key, tm in ml_t.items():
+        print_timing(key, tm)
+
+
+def mla_line(ml, mpf) -> dict:
+    """The mla phase's JSON line."""
+    return dict(
+        arch=ml["arch"].name, n_layers=ml["arch"].n_layers,
+        requests=len(ml["reqs"]), slots=ml["args"].slots,
+        prompt_len=ml["args"].prompt_len, gen=ml["args"].gen,
+        max_len=ml["args"].max_len, tokens=ml["tokens"], steps=ml["steps"],
+        prefill_ms=mpf["prefill_ms"], decode_step_ms=ml["decode_step_ms"],
+        decode_step_graph_ms=ml["decode_step_graph_ms"],
+        decode_step_graph_runs=ml["decode_step_graph_runs"],
+        tok_s=ml["tokens"] / ml["run_s"], run_s=ml["run_s"],
+        setup_s=ml["setup_s"], residency_bytes=ml["memory"]["wire_bytes"],
+        dense_bytes=ml["memory"]["dense_bytes"],
+        max_memory_allocated=ml["peak_bytes"], launches=ml["launches"],
+        prefill_launches=ml["prefill_launches"],
+        prefill_launches_predicted=MLA_PREFILL_LAUNCHES,
+        decode_step_launches=ml["step_launches"],
+        decode_step_launches_predicted=MLA_STEP_LAUNCHES,
+        prefill_logits_max_abs_err=mpf["logits_err"],
+        prefill_logits_max_abs_ref=mpf["logits_scale"],
+        prefill_argmax_equal=mpf["argmax_equal"],
+        prefill_f32_logits_max_abs_err=mpf["f32_logits_err"],
+        prefill_f32_logits_max_abs_ref=mpf["f32_logits_scale"],
+        prefill_bf16_kernel_vs_f32_plain=mpf["bf16_kernel_vs_f32_plain"],
+        prefill_bf16_plain_vs_f32_plain=mpf["bf16_plain_vs_f32_plain"],
+        **{k: v for k, v in mpf.items() if k.startswith("decode_")},
+        traced_prefill_wall_ms=mpf["traced"]["wall_ms"],
+        traced_prefill_device_ms=mpf["traced"]["device_ms"],
+        traced_prefill_top_kernels=mpf["traced"]["top"],
+        attention_sublayers_held=mpf["attention_sublayers_held"],
+        attention_sublayer_worst=mpf["attention_sublayer_worst"])
+
+
 def print_shapes(rows):
     for r in rows:
         extra = "".join(f", {label} {r[key]:.5f}" for key, label in (
@@ -4733,7 +5236,7 @@ def main(argv=None) -> int:
     pf = check_prefill(s)
     pf.update(check_prefill_f32(s))
     pf.update(check_decode_step(s))
-    no_fallback(s["arch"].name, ops.dispatch_counters())
+    held_fallbacks(s["arch"].name, ops.dispatch_counters())
     print(f"  launches {s['launches']}; counters {s['counters']}; prefill "
           f"logits max_abs_err {pf['logits_err']:.3e} (max|ref| "
           f"{pf['logits_scale']:.3e}, argmax equal {pf['argmax_equal']})")
@@ -4798,6 +5301,10 @@ def main(argv=None) -> int:
         if key != "shapes":
             print_timing(key, tm)
     print_shapes(ds_t["shapes"])
+
+    phase("mla")
+    ml, mlpf, ml_t = mla_phase(gen, dev)
+    print_mla(ml, mlpf, ml_t)
 
     phase("train")
     try:
@@ -4907,6 +5414,7 @@ def main(argv=None) -> int:
     print_moe(mo, mopf, mo_t)
     t["dequantize_int8_expert_row"] = mo_t["dequantize_int8_expert_row"]
     t["dequant_matmul_shapes"] += mo_t["shapes"]
+    t.update(ml_t)
 
     phase("mixtral")
     mx, mxpf = mixtral_phase(gen, dev, checks)
@@ -4923,6 +5431,19 @@ def main(argv=None) -> int:
     vl = vlm_phase(gen, dev)
     print_vlm(vl)
 
+    phase("whisper")
+    wh = whisper_phase(gen, dev)
+    print_vlm(wh)
+    # the non-causal kernel at whisper's cross-attention (16 heads of 64,
+    # its 128 served positions) over 1,536 frames, the aligned count nearest
+    # its 1,500 (which take the chunked plain path)
+    for key, dt in (("flash_attention_cross", torch.bfloat16),
+                    ("flash_attention_f32_cross", torch.float32)):
+        t[key] = flash_timing(gen, dev, 1, 16, WHISPER_PROMPT, 64, dt,
+                              "cross-attention over 1,536 frames", sk=1536,
+                              causal=False)
+        print_timing(key, t[key])
+
     phase("train_moe")
     tmo = moe_train_phase()
     print_cut_train(tmo, "tensor-core flash")
@@ -4930,6 +5451,14 @@ def main(argv=None) -> int:
     phase("train_vlm")
     tvl = vlm_train_phase()
     print_cut_train(tvl, "tensor-core flash")
+
+    phase("train_mla")
+    tml = mla_train_phase()
+    print_cut_train(tml, "tensor-core matmul_quant")
+
+    phase("train_whisper")
+    twh = whisper_train_phase()
+    print_cut_train(twh, "tensor-core flash")
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -4944,6 +5473,8 @@ def main(argv=None) -> int:
                        serve_moe=mo["launches"][name],
                        serve_mixtral=mx["launches"][name],
                        serve_vlm=vl["launches"][name],
+                       serve_mla=ml["launches"][name],
+                       serve_whisper=wh["launches"][name],
                        train=tr["launches"][name],
                        train_neox=tn["launches"][name],
                        train_deepseek=tds["launches"][name],
@@ -4951,6 +5482,8 @@ def main(argv=None) -> int:
                        train_gemma=tgm["launches"][name],
                        train_moe=tmo["launches"][name],
                        train_vlm=tvl["launches"][name],
+                       train_mla=tml["launches"][name],
+                       train_whisper=twh["launches"][name],
                        ckpt=sum(leg["launches"][name] for leg in ck["legs"]),
                        replica=rp["launches"][name],
                        serve_mesh=sm["launches"][name],
@@ -4974,6 +5507,15 @@ def main(argv=None) -> int:
                 "per_rank_step_launches"][name],
             launches_per_vlm_train_step_per_rank=tvl[
                 "per_rank_step_launches"][name],
+            launches_per_mla_train_step_per_rank=tml[
+                "per_rank_step_launches"][name],
+            launches_per_whisper_train_step_per_rank=twh[
+                "per_rank_step_launches"][name],
+            launches_per_mla_prefill=ml["prefill_launches"].get(name, 0),
+            launches_per_mla_decode_step=ml["step_launches"].get(name, 0),
+            launches_per_whisper_prefill=wh["prefill_launches"].get(name, 0),
+            launches_per_whisper_decode_step=wh["decode_step_launches"].get(
+                name, 0),
             launches_per_moe_decode_step=mo["step_launches"].get(name, 0),
             launches_serve_mesh_per_rank=[
                 r["legs"]["g"]["launches"][name]
@@ -5007,7 +5549,9 @@ def main(argv=None) -> int:
                     "flash_attention_train_d256_window",
                     "selective_scan_train", "flash_attention_d128_deepseek",
                     "flash_attention_train_d128_deepseek",
-                    "dequantize_int8_expert_row")}
+                    "dequantize_int8_expert_row",
+                    "dequantize_int8_w_dkv", "dequantize_int8_w_ukv",
+                    "flash_attention_cross", "flash_attention_f32_cross")}
     blk = t["dequant_matmul_blocked"]
     kernels_extra.update(
         dequant_matmul_blocked_bounds=dict(
@@ -5091,6 +5635,14 @@ def main(argv=None) -> int:
                                     n_experts=tmo["arch"].moe.n_experts)
     train_vlm_line = cut_train_line(tvl, "flash",
                                     n_patches=tvl["arch"].n_patches)
+    train_mla_line = cut_train_line(
+        tml, "matmul_quant_tc", mla=dataclasses.asdict(tml["arch"].mla),
+        fallbacks_per_step_per_rank={MLA_FALLBACK: 2 * MLA_TRAIN_L})
+    train_whisper_line = cut_train_line(
+        twh, "flash", enc_layers=twh["arch"].enc_layers,
+        n_frames=twh["arch"].n_frames,
+        fallbacks_per_step_per_rank={UNALIGNED: 4 * WHISPER_TRAIN_L})
+    mla_line_ = mla_line(ml, mlpf)
     k0 = tr["kernel"][0]
     # the first step pays for the kernels' first use, the last is traced
     timed = slice(1, PROFILE_STEP)
@@ -5164,7 +5716,9 @@ def main(argv=None) -> int:
             serve_neox10b=neox10b_line, serve_gemma=gemma_line,
             serve_deepseek=deepseek_line, serve_moe=moe_line,
             serve_mixtral=mixtral_line_, serve_vlm=vl,
+            serve_mla=mla_line_, serve_whisper=wh,
             train_moe=train_moe_line, train_vlm=train_vlm_line,
+            train_mla=train_mla_line, train_whisper=train_whisper_line,
             train=train_line,
             train_neox=train_neox_line, train_deepseek=train_deepseek_line,
             train_ssm=train_ssm_line,
@@ -5185,6 +5739,9 @@ def main(argv=None) -> int:
             train_gemma_plain_ranks=tgm["plain"],
             train_moe_ranks=tmo["kernel"], train_moe_plain_ranks=tmo["plain"],
             train_vlm_ranks=tvl["kernel"], train_vlm_plain_ranks=tvl["plain"],
+            train_mla_ranks=tml["kernel"], train_mla_plain_ranks=tml["plain"],
+            train_whisper_ranks=twh["kernel"],
+            train_whisper_plain_ranks=twh["plain"],
             checks=checks, timing={k: v for k, v in t.items()},
             launches=s["launches"], launches_ssm=m["launches"],
             launches_neox=nx["launches"], launches_neox10b=x10["launches"],
@@ -5203,6 +5760,8 @@ def main(argv=None) -> int:
     print("serve_moe " + json.dumps(moe_line))
     print("serve_mixtral " + json.dumps(mixtral_line_))
     print("serve_vlm " + json.dumps(vl))
+    print("serve_mla " + json.dumps(mla_line_))
+    print("serve_whisper " + json.dumps(wh))
     print("train " + json.dumps(train_line))
     print("train_neox " + json.dumps(train_neox_line))
     print("train_deepseek " + json.dumps(train_deepseek_line))
@@ -5210,6 +5769,8 @@ def main(argv=None) -> int:
     print("train_gemma " + json.dumps(train_gemma_line))
     print("train_moe " + json.dumps(train_moe_line))
     print("train_vlm " + json.dumps(train_vlm_line))
+    print("train_mla " + json.dumps(train_mla_line))
+    print("train_whisper " + json.dumps(train_whisper_line))
     print("regimes " + json.dumps(regimes_line))
     print("collectives " + json.dumps(collectives_line))
     print("ckpt " + json.dumps(ckpt_line(ck)))

@@ -292,20 +292,21 @@ def launch_config(args):
     return train_launch_config(args)
 
 
-def refuse_patch_prefix(arch) -> None:
+def refuse_non_text_arch(arch) -> None:
     """The CLI serves through the continuous batcher, which takes text
-    prompts only (as the reference's does): a model with a patch prefix
-    (``arch``: an ArchConfig or a registered name) raises before anything
-    is built."""
+    prompts only (as the reference's does): a model with a patch prefix or
+    an encoder (``arch``: an ArchConfig or a registered name) raises before
+    anything is built."""
     from ..models.registry import get_arch
+    from ..serve.scheduler import refuse_non_text
     if isinstance(arch, str):
         arch = get_arch(arch)
-    if arch.n_patches:
+    try:
+        refuse_non_text(arch)
+    except ValueError as e:
         raise SystemExit(f"--arch {arch.name}: the serving CLI runs the "
-                         f"continuous batcher, which takes text prompts "
-                         f"only; a model with {arch.n_patches} patch "
-                         "embeddings is served through ResidentServeEngine's "
-                         "prefill and decode")
+                         f"continuous batcher. {e} (ResidentServeEngine, "
+                         "ServeEngine)") from None
 
 
 def run(args, arch=None) -> list[dict]:
@@ -316,7 +317,7 @@ def run(args, arch=None) -> list[dict]:
     from .distributed import initialize
     from .train import mesh_shape, spawn
 
-    refuse_patch_prefix(arch or args.arch)
+    refuse_non_text_arch(arch or args.arch)
     dcfg = launch_config(args)
     n = args.devices
     mesh_shape(args)

@@ -1,15 +1,15 @@
 """Shared model layers: RMSNorm, LayerNorm, the tanh GELU, RoPE, attention,
 decode attention, chunked cross-entropy.
 
-Port of ``repro.models.layers`` for the dense ``attn`` and ``neox``
-blocks. Full-sequence attention (training and prefill) goes through the
-kernel dispatch (``ops.flash_attention``, differentiable) behind the
-reference's ``ops.attention_fusable`` gate; a shape the gate rejects (a
-sequence under 8, or over 128 and not a multiple of 128; a value width
-other than the key width) is recorded (``ops.record_fallback``, warned
-once) and runs the reference's chunked attention in plain PyTorch: an f32
-online softmax over KV chunks, each query chunk recomputed in the
-backward. Decode attention (``flash_decode``, and ``ring_decode`` over a
+Port of ``repro.models.layers``. Full-sequence attention (training and
+prefill) goes through the kernel dispatch (``ops.flash_attention``,
+differentiable) behind the reference's ``ops.attention_fusable`` gate; a
+shape the gate rejects (a sequence under 8, or over 128 and not a
+multiple of 128, as whisper's 1,500 frames; a value width other than the
+key width, as MLA's) is recorded (``ops.record_fallback``, warned once)
+and runs the reference's chunked attention in plain PyTorch: an f32
+online softmax over KV chunks at the value's width, each query chunk
+recomputed in the backward. Decode attention (``flash_decode``, and ``ring_decode`` over a
 sliding window's ring) is plain PyTorch, as it is plain jnp in the
 reference. On a mesh, a full-attention cache is sharded along the sequence
 over the model-tier axes: ``flash_decode`` takes this rank's slice, its
@@ -165,7 +165,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _row_positions(pos, b: int, device) -> torch.Tensor:
-    """Broadcast a scalar or (B,) position to (B,) int64."""
+    """Broadcast a scalar or (B,) position to (B,) int64. A host int is
+    filled on the device (no host-to-device copy, so a CUDA graph can hold
+    it: the cross-attention's last frame)."""
+    if isinstance(pos, int):
+        return torch.full((b,), pos, dtype=torch.long, device=device)
     p = torch.as_tensor(pos, device=device).long()
     return p.reshape(-1).expand(b) if p.ndim == 0 or p.numel() == 1 \
         else p.reshape(b)
@@ -237,8 +241,10 @@ def ring_cache_write(ring, new, pos):
 
 def sharded_cache_write(cache_loc, new, pos, *, seq_axes: tuple[str, ...] = (),
                         axis_sizes: dict[str, int] | None = None):
-    """Write ``new`` (B, 1, Hkv, D) at global sequence position ``pos`` of
-    ``cache_loc`` (B, S_loc, Hkv, D), IN PLACE, and return the cache.
+    """Write ``new`` (B, 1, *tail) at global sequence position ``pos`` of
+    ``cache_loc`` (B, S_loc, *tail), IN PLACE, and return the cache: K or V
+    (tail Hkv, D), or an MLA latent (tail kv_lora + qk_rope: the
+    reference's ``_lat_write``).
 
     ``cache_loc`` is this rank's contiguous slice of the global (B, S, ...)
     cache over ``seq_axes`` (major -> minor), and only the owner of a
@@ -266,8 +272,8 @@ def sharded_cache_write(cache_loc, new, pos, *, seq_axes: tuple[str, ...] = (),
     local = p.long() - off
     inb = (local >= 0) & (local < s_loc)
     idx = local.clamp(0, s_loc - 1)
-    cache_loc[rows, idx] = torch.where(inb[:, None, None], val,
-                                       cache_loc[rows, idx])
+    inb = inb.reshape((b,) + (1,) * (val.ndim - 1))
+    cache_loc[rows, idx] = torch.where(inb, val, cache_loc[rows, idx])
     return cache_loc
 
 

@@ -3,13 +3,17 @@
 The torch-side half of ``repro.models.registry``: ``register``/``get_arch``,
 the serving axes of a mesh (``data_axes``, ``model_axes``, ``batch_axes``),
 the train and prefill batch shapes (a VLM's patch prefix counted in the
-sequence) and the per-kind cache shapes serving allocates. KV caches are bf16 whatever
-the compute dtype, as in the reference; a sliding-window layer's ring holds
-its window's W positions, and a mamba layer's scan state and conv tail are
-f32: both are O(1) per row (not sequence-indexed, so never paged). On a
-mesh the full-attention caches are sharded over the model-tier axes along
-the sequence (``seq_shard``), every cache over the batch axes along the
-rows; rings and mamba states are whole on every rank of a row's group.
+sequence, an encoder-decoder's frames beside the tokens) and the per-kind
+cache shapes serving allocates. KV caches are bf16 whatever the compute
+dtype, as in the reference; an MLA layer caches its compressed latent
+(kv_lora + qk_rope a position), sequence-indexed as K/V are; a decoder
+block's cross K/V hold all F frames, written once at prefill; a
+sliding-window layer's ring holds its window's W positions, and a mamba
+layer's scan state and conv tail are f32: rings, cross caches and mamba
+states are not sequence-indexed, so never paged. On a mesh the
+full-attention caches and MLA latents are sharded over the model-tier axes
+along the sequence (``seq_shard``), every cache over the batch axes along
+the rows; the rest are whole on every rank of a row's group.
 """
 from __future__ import annotations
 
@@ -91,10 +95,12 @@ class ModelDef:
 
     def _extra_inputs(self, b: int) -> dict[str, tuple]:
         cfg = self.arch
+        out = {}
         if cfg.n_patches:
-            return {"patches": ((b, cfg.n_patches, cfg.d_model),
-                                torch.bfloat16)}
-        return {}
+            out["patches"] = ((b, cfg.n_patches, cfg.d_model), torch.bfloat16)
+        if cfg.enc_layers:
+            out["frames"] = ((b, cfg.n_frames, cfg.d_model), torch.bfloat16)
+        return out
 
     def train_batch_shapes(self, shape: ShapeConfig) -> dict[str, tuple]:
         """Global train batch (shape, dtype) per input: ``shape.seq_len``
@@ -119,7 +125,7 @@ class ModelDef:
         cache holds ``shape.seq_len`` positions, a patch prefix's too."""
         cfg = self.arch
         b, s = shape.global_batch, shape.seq_len
-        kv, hd = cfg.kv_heads, cfg.hdim
+        h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hdim
         out: dict[str, Any] = {}
         for kind, count in cfg.kind_counts().items():
             m = kind_meta(kind, cfg)
@@ -128,21 +134,27 @@ class ModelDef:
                 out[kind] = {"h": ((count,) + h_shape, h_dt, False),
                              "conv": ((count,) + c_shape, c_dt, False)}
                 continue
-            if m.mixer != "attn":
-                raise NotImplementedError(
-                    f"{kind}: only attention and mamba caches are ported")
+            if m.mixer == "mla":
+                ml = cfg.mla
+                out[kind] = {"lat": ((count, b, s, ml.kv_lora + ml.qk_rope),
+                                     torch.bfloat16, True)}
+                continue
             # a ring is always the window long (slot = pos % W)
             length, seq_indexed = (m.window, False) if m.window else (s, True)
             shape = (count, b, length, kv, hd)
             out[kind] = {"k": (shape, torch.bfloat16, seq_indexed),
                          "v": (shape, torch.bfloat16, seq_indexed)}
+            if m.cross:
+                xs = (count, b, cfg.n_frames, h, hd)
+                out[kind].update(kx=(xs, torch.bfloat16, False),
+                                 vx=(xs, torch.bfloat16, False))
         return out
 
     def local_cache_shapes(self, shape: ShapeConfig, n_batch: int = 1,
                            n_seq: int = 1) -> dict[str, Any]:
         """One rank's cache shapes when the rows are split ``n_batch`` ways
         and the sequence-indexed entries ``n_seq`` ways: ``(L, B / n_batch,
-        S / n_seq, Hkv, D)`` for those, ``(L, B / n_batch, ...)`` for the
+        S / n_seq, ...)`` for those, ``(L, B / n_batch, ...)`` for the
         rest."""
         out: dict[str, Any] = {}
         for kind, entry in self.cache_shapes(shape).items():

@@ -1,5 +1,5 @@
-"""Decoder LM: leaf specs, the training loss, prefill and single-token
-decode.
+"""Decoder LM (+ an encoder): leaf specs, the training loss, prefill and
+single-token decode.
 
 Port of ``repro.models.transformer`` for these block kinds: ``attn``,
 ``attn_local`` and ``attn_global`` (attention + GLU MLP, SiLU or tanh GELU,
@@ -8,11 +8,17 @@ has one, gemma3's 5:1 local/global pattern; RMSNorm or LayerNorm), ``moe``
 (the same attention + the top-k MoE FFN of models/moe.py, whose
 load-balance term the loss adds), ``neox`` (GPT-NeoX: attention and a GELU
 MLP side by side on the block's input, ``x + attn(ln1(x)) + mlp(ln2(x))``,
-LayerNorm with biases, full-width RoPE) and ``mamba`` (the Mamba-1 mixer of
-models/ssm.py with no FFN), with a tied or separate LM head, gemma's
-``embed_scale``, and a VLM's patch prefix (``n_patches`` precomputed patch
-embeddings before the text, positions over both, the loss over the text).
-Every weight access goes through a parameter view: the training engine's ``core.engine.ParamView`` (ZeRO
+LayerNorm with biases, full-width RoPE), ``mla`` (Multi-head Latent
+Attention: queries through a low-rank ``w_dq`` / ``q_norm`` / ``w_uq``, keys
+and values from a compressed latent of ``kv_lora`` plus a shared roped key
+of ``qk_rope``), ``enc`` / ``dec`` (the encoder-decoder: a non-causal
+encoder without RoPE over ``n_frames`` precomputed frame embeddings plus
+sinusoidal positions, and a decoder whose blocks add cross-attention over
+the encoder's output between self-attention and the FFN) and ``mamba`` (the
+Mamba-1 mixer of models/ssm.py with no FFN), with a tied or separate LM
+head, gemma's ``embed_scale``, and a VLM's patch prefix (``n_patches``
+precomputed patch embeddings before the text, positions over both, the loss
+over the text). Every weight access goes through a parameter view: the training engine's ``core.engine.ParamView`` (ZeRO
 gathers with custom backwards) or serving's ``serve.resident.ResidentView``
 (the INT8 residency). ``v.mm`` runs the fused dequant-matmul, ``v.get``
 returns a dense leaf. The reference's ``lax.scan`` over stacked layers
@@ -26,16 +32,24 @@ the new K/V into the bf16 cache *before* attending over it, as the
 reference does. A sliding-window layer keeps a ring of its last W
 positions, position p at slot p % W (``_to_ring``); decode writes each
 row's slot in place, then attends over the ring (``layers.ring_decode``).
-A mamba layer's caches are its f32 scan state ``h`` and conv tail; decode
-writes both back into the layer's cache in place.
+An MLA layer caches its compressed latent ``lat`` (B, S, kv_lora + qk_rope)
+alone: prefill decompresses it through ``w_ukv`` into K and V (the value
+width differs from the key's, so attention takes the chunked plain path, as
+in the reference), decode absorbs ``w_ukv`` into the query and attends the
+latent itself (``_mla_decode``). A decoder block caches its cross K/V
+``kx`` / ``vx`` over all frames once, at prefill. A mamba layer's caches
+are its f32 scan state ``h`` and conv tail; decode writes both back into
+the layer's cache in place.
 
 On a mesh (``seq_axes``: the model-tier axes), a full-attention layer's
-cache is sharded along the sequence: prefill keeps this rank's chunk
-(``_seq_shard``), decode writes the positions this rank owns and attends
-its slice with the exact distributed flash-decode. Rings and mamba states
-stay whole on every rank. Sequence-parallel prefill (``seq_parallel``,
+cache, and an MLA layer's latent, is sharded along the sequence: prefill
+keeps this rank's chunk (``_seq_shard``), decode writes the positions this
+rank owns and attends its slice with the exact distributed combine (max,
+then sums, over the axes). Rings, cross caches and mamba states stay whole
+on every rank. Sequence-parallel prefill (``seq_parallel``,
 attention-only models) runs each rank's chunk of the prompt: K/V, roped at
-their global positions, are gathered over the sequence axes and the local
+their global positions, are gathered over the sequence axes (an MLA layer
+gathers its latent instead, and decompresses it locally) and the local
 queries attend them at a host-int ``q_offset``, so the kernel runs where
 the reference, whose offset is traced, falls back to the chunked path.
 """
@@ -92,20 +106,26 @@ def kind_meta(kind: str, cfg: ArchConfig) -> KindMeta:
 def _ported(kind: str, cfg: ArchConfig) -> KindMeta:
     """The block kinds the port runs: attention (full or sliding-window)
     with a sequential residual, RMSNorm or LayerNorm, and a GLU MLP (SiLU
-    or GELU) or the MoE FFN with SiLU-GLU experts (RoPE); attention + GELU
-    MLP with the parallel residual and LayerNorm (GPT-NeoX); the mamba mixer
-    with no FFN and RMSNorm; any of them behind a patch prefix. Anything
-    else raises instead of running wrong."""
+    or GELU), the GELU MLP with biases under LayerNorm, or the MoE FFN with
+    SiLU-GLU experts (RoPE); attention + GELU MLP with the parallel
+    residual and LayerNorm (GPT-NeoX); MLA with a GLU MLP under RMSNorm;
+    the encoder-decoder's ``enc`` and ``dec`` kinds (a model with an
+    encoder); the mamba mixer with no FFN and RMSNorm; any of them behind a
+    patch prefix. Anything else raises instead of running wrong."""
     m = kind_meta(kind, cfg)
     attn_mlp = (m.mixer, m.ffn) == ("attn", "mlp")
     attn_moe = (m.mixer, m.ffn) == ("attn", "moe") and m.rope \
         and cfg.act == "silu_glu"
+    glu = cfg.act in ("silu_glu", "gelu_glu")
     block = ((m.mixer, m.ffn) == ("mamba", "none") and cfg.norm == "rms") \
         or ((attn_mlp or attn_moe) and not m.parallel
-            and cfg.norm in ("rms", "ln")
-            and cfg.act in ("silu_glu", "gelu_glu")) \
-        or (attn_mlp and m.parallel and cfg.norm == "ln" and cfg.act == "gelu")
-    if not block or m.cross or cfg.enc_layers:
+            and cfg.norm in ("rms", "ln") and glu) \
+        or (attn_mlp and cfg.norm == "ln" and cfg.act == "gelu") \
+        or ((m.mixer, m.ffn) == ("mla", "mlp") and cfg.norm == "rms" and glu)
+    # cross-attention reads an encoder's output: every decoder block of a
+    # model with an encoder has it, and no other block
+    enc_dec = kind == "enc" or m.cross == bool(cfg.enc_layers)
+    if not (block and enc_dec):
         raise NotImplementedError(
             f"{cfg.name}: block kind {kind!r} ({m}, norm={cfg.norm}, "
             f"act={cfg.act}) is not ported yet")
@@ -138,12 +158,30 @@ def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
         s["D"] = LeafSpec("D", (din,), PLAIN, init="ones")
         s["w_out"] = LeafSpec("w_out", (din, d), MATMUL)
         return s
-    for name, shape in (("wq", (d, h * hd)), ("wk", (d, kv * hd)),
-                        ("wv", (d, kv * hd)), ("wo", (h * hd, d))):
-        s[name] = LeafSpec(name, shape, MATMUL)
-    if cfg.qkv_bias:
-        for b, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
-            s[b] = LeafSpec(b, (width,), PLAIN, init="zeros")
+    if m.mixer == "mla":
+        ml = cfg.mla
+        s["w_dq"] = LeafSpec("w_dq", (d, ml.q_lora), MATMUL)
+        s["q_norm"] = LeafSpec("q_norm", (ml.q_lora,), PLAIN, init="ones")
+        s["w_uq"] = LeafSpec("w_uq", (ml.q_lora, h * (ml.qk_nope + ml.qk_rope)),
+                             MATMUL)
+        s["w_dkv"] = LeafSpec("w_dkv", (d, ml.kv_lora + ml.qk_rope), MATMUL)
+        s["kv_norm"] = LeafSpec("kv_norm", (ml.kv_lora,), PLAIN, init="ones")
+        s["w_ukv"] = LeafSpec("w_ukv", (ml.kv_lora, h * (ml.qk_nope + ml.v_head)),
+                              MATMUL)
+        s["wo"] = LeafSpec("wo", (h * ml.v_head, d), MATMUL)
+    else:
+        for name, shape in (("wq", (d, h * hd)), ("wk", (d, kv * hd)),
+                            ("wv", (d, kv * hd)), ("wo", (h * hd, d))):
+            s[name] = LeafSpec(name, shape, MATMUL)
+        if cfg.qkv_bias:
+            for b, width in (("bq", h * hd), ("bk", kv * hd),
+                             ("bv", kv * hd)):
+                s[b] = LeafSpec(b, (width,), PLAIN, init="zeros")
+    if m.cross:
+        s.update(_norm_specs("ln_x", d, cfg))
+        for name, shape in (("wq_x", (d, h * hd)), ("wk_x", (d, h * hd)),
+                            ("wv_x", (d, h * hd)), ("wo_x", (h * hd, d))):
+            s[name] = LeafSpec(name, shape, MATMUL)
     s.update(_norm_specs("ln2", d, cfg))
     if m.ffn == "moe":
         e, eff = cfg.moe.n_experts, cfg.moe.d_ff
@@ -175,6 +213,7 @@ class Ctx:
     seq_parallel: bool = False          # activations sharded over seq_axes;
     # attention gathers K/V over seq_axes (gather-KV sequence parallelism)
     q_offset: int = 0                   # global position of local chunk 0
+    enc_out: Any = None                 # (B, F, d) the encoder's output
 
 
 @dataclass(frozen=True)
@@ -255,6 +294,62 @@ def _attn_fwd(v, p, cfg, m: KindMeta, x, ctx: Ctx):
     return out, cache
 
 
+def _cross_fwd(v, p, cfg, x, ctx: Ctx):
+    """Cross-attention of the decoder's (B, S, d) over the encoder's output
+    ``ctx.enc_out`` (B, F, d): non-causal, no RoPE, no bias. Returns (out,
+    {"kx", "vx": (B, F, H, D)} when the cache is wanted, else None)."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hdim
+    enc = ctx.enc_out
+    f = enc.shape[1]
+    q = v.mm(p + "wq_x", x).reshape(b, s, h, hd)
+    k = v.mm(p + "wk_x", enc).reshape(b, f, h, hd)
+    val = v.mm(p + "wv_x", enc).reshape(b, f, h, hd)
+    o = L.flash_attention(q, k, val, causal=False, impl=v.impl)
+    out = v.mm(p + "wo_x", o.reshape(b, s, h * hd))
+    return out, ({"kx": k, "vx": val} if ctx.want_cache else None)
+
+
+def _mla_fwd(v, p, cfg, m: KindMeta, x, ctx: Ctx):
+    """MLA over the full sequence: the latent (kv_lora normed, then the
+    shared key of qk_rope roped at its positions) decompressed through
+    ``w_ukv`` into per-head K (nope, then the shared rope part) and V. The
+    value width differs from the key's, so ``flash_attention`` records the
+    ``mla_dv_mismatch`` fallback and runs the chunked plain path at scale
+    1/sqrt(nope + rope), as the reference does. Sequence-parallel, the
+    latent is gathered over the sequence axes (``lat_gather``: kv_lora +
+    qk_rope values a position, where K and V would be H * (nope + rope +
+    v_head)) and decompressed locally. The cache is the latent alone."""
+    ml = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope, vh, lora = ml.qk_nope, ml.qk_rope, ml.v_head, ml.kv_lora
+    q_lat = L.rms_norm(v.mm(p + "w_dq", x), v.get(p + "q_norm"))
+    q = v.mm(p + "w_uq", q_lat).reshape(b, s, h, nope + rope)
+    kv_full = v.mm(p + "w_dkv", x)                   # (B, S, lora + rope)
+    kv_lat = L.rms_norm(kv_full[..., :lora], v.get(p + "kv_norm"))
+    cos, sin = L.rope_freqs(ctx.positions, rope, m.theta)
+    q = torch.cat([q[..., :nope], L.apply_rope(q[..., nope:], cos, sin)],
+                  dim=-1)
+    k_rope = L.apply_rope(kv_full[:, :, None, lora:], cos, sin)[:, :, 0]
+    lat = torch.cat([kv_lat, k_rope], dim=-1)        # (B, S, lora + rope)
+    lat_att = col.gather_dim(lat, ctx.seq_axes, 1, op="lat_gather") \
+        if ctx.seq_parallel else lat
+    s_att = lat_att.shape[1]
+    kv_up = v.mm(p + "w_ukv", lat_att[..., :lora]).reshape(b, s_att, h,
+                                                           nope + vh)
+    k = torch.cat([kv_up[..., :nope],
+                   lat_att[:, :, None, lora:].expand(b, s_att, h, rope)],
+                  dim=-1)
+    o = L.flash_attention(q, k, kv_up[..., nope:], causal=True,
+                          q_offset=ctx.q_offset, impl=v.impl)
+    out = v.mm(p + "wo", o.reshape(b, s, h * vh))
+    cache = None
+    if ctx.want_cache:
+        cache = {"lat": lat if ctx.seq_parallel else _seq_shard(lat, ctx)}
+    return out, cache
+
+
 def _attn_decode(v, p, cfg, m: KindMeta, x, cache, dc: DecCtx):
     b = x.shape[0]
     posv = L._row_positions(dc.pos, b, x.device)[:, None]      # (B, 1)
@@ -275,6 +370,67 @@ def _attn_decode(v, p, cfg, m: KindMeta, x, cache, dc: DecCtx):
                            seq_offset=off)
     out = v.mm(p + "wo", o.reshape(b, 1, cfg.n_heads * cfg.hdim))
     return out, {"k": ck, "v": cv}
+
+
+def _cross_decode(v, p, cfg, x, cache):
+    """One decode token's cross-attention over every frame of the layer's
+    cross cache (``flash_decode`` at the last frame's position)."""
+    b = x.shape[0]
+    h, hd = cfg.n_heads, cfg.hdim
+    q = v.mm(p + "wq_x", x).reshape(b, h, hd)
+    o = L.flash_decode(q, cache["kx"], cache["vx"], cache["kx"].shape[1] - 1)
+    return v.mm(p + "wo_x", o.reshape(b, 1, h * hd))
+
+
+def _mla_decode(v, p, cfg, m: KindMeta, x, cache, dc: DecCtx):
+    """The absorbed MLA decode over the latent cache (B, S_loc, lora +
+    rope): the new latent is written in place at each row's position
+    (``layers.sharded_cache_write``: index tensors only, a position off this
+    rank's range dropped), ``w_ukv`` is read whole and its key half absorbed
+    into the query, the scores (latent and rope parts) and the context are
+    f32 einsums over the latent, scaled by 1/sqrt(nope + rope), the
+    partial softmax combined exactly over the sequence axes (the max, then
+    the context and the denominator summed in axis order, as
+    ``layers.flash_decode``), the denominator floored at 1e-30, and the
+    value half applied to the context; the result goes to ``wo`` at x's
+    dtype."""
+    ml = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    nope, rope, vh, lora = ml.qk_nope, ml.qk_rope, ml.v_head, ml.kv_lora
+    q_lat = L.rms_norm(v.mm(p + "w_dq", x), v.get(p + "q_norm"))
+    q = v.mm(p + "w_uq", q_lat).reshape(b, 1, h, nope + rope)
+    pos_b = L._row_positions(dc.pos, b, x.device)
+    cos, sin = L.rope_freqs(pos_b[:, None], rope, m.theta)
+    q_rope = L.apply_rope(q[..., nope:], cos, sin)[:, 0]        # (B, h, rope)
+    q_nope = q[:, 0, :, :nope]
+    kv_full = v.mm(p + "w_dkv", x)                               # (B, 1, C)
+    kv_lat = L.rms_norm(kv_full[..., :lora], v.get(p + "kv_norm"))
+    k_rope = L.apply_rope(kv_full[:, :, None, lora:], cos, sin)[:, :, 0]
+    clat = L.sharded_cache_write(cache["lat"], torch.cat([kv_lat, k_rope], -1),
+                                 dc.pos, seq_axes=dc.seq_axes,
+                                 axis_sizes=dc.axis_sizes)
+    w_ukv = v.get(p + "w_ukv").reshape(lora, h, nope + vh).float()
+    q_abs = torch.einsum("bhn,chn->bhc", q_nope.float(), w_ukv[..., :nope])
+    lat_c, rope_c = clat[..., :lora].float(), clat[..., lora:].float()
+    s_loc = clat.shape[1]
+    off = L.seq_offset(dc.seq_axes, dc.axis_sizes, s_loc) \
+        if dc.seq_axes else 0
+    kpos = torch.arange(off, off + s_loc, device=x.device)
+    valid = kpos[None, :] <= pos_b[:, None]                      # (B, S)
+    scores = (torch.einsum("bhc,bsc->bhs", q_abs, lat_c)
+              + torch.einsum("bhr,bsr->bhs", q_rope.float(), rope_c))
+    scores = scores / math.sqrt(nope + rope)
+    scores = torch.where(valid[:, None, :], scores, L.NEG_INF)
+    mx = col.seq_max(scores.amax(dim=-1), dc.seq_axes)
+    pr = torch.exp(scores - mx[..., None])
+    ctx_lat = col.seq_sum(torch.einsum("bhs,bsc->bhc", pr, lat_c),
+                          dc.seq_axes)
+    den = col.seq_sum(pr.sum(dim=-1), dc.seq_axes)
+    ctx_lat = ctx_lat / torch.clamp(den[..., None], min=1e-30)
+    o = torch.einsum("bhc,chv->bhv", ctx_lat, w_ukv[..., nope:])
+    out = v.mm(p + "wo", o.reshape(b, 1, h * vh).to(x.dtype))
+    return out, {"lat": clat}
 
 
 def _ffn(v, p, cfg: ArchConfig, m: KindMeta, x):
@@ -315,8 +471,17 @@ def block_fwd(kind: str, v, cfg: ArchConfig, x, ctx: Ctx):
     if m.mixer == "mamba":
         o, (h_last, conv_tail) = mamba_mixer(v, p, cfg, h)
         cache = {"h": h_last, "conv": conv_tail} if ctx.want_cache else None
+    elif m.mixer == "mla":
+        o, cache = _mla_fwd(v, p, cfg, m, h, ctx)
     else:
         o, cache = _attn_fwd(v, p, cfg, m, h, ctx)
+    if m.cross:
+        # the cross sublayer sits between the self-attention's residual
+        # and the FFN: x + o + xo, then + ffn(x + o + xo)
+        x = x + o
+        o, cross = _cross_fwd(v, p, cfg, _norm(v, p, "ln_x", x, cfg), ctx)
+        if cache is not None:
+            cache.update(cross)
     x, aux = _residual(v, p, cfg, m, x, o)
     return x, aux, cache
 
@@ -333,13 +498,30 @@ def block_decode(kind: str, v, cfg: ArchConfig, x, cache, dc: DecCtx):
         cache["h"].copy_(h_new)
         cache["conv"].copy_(new_tail)
         new_cache = cache
+    elif m.mixer == "mla":
+        o, new_cache = _mla_decode(v, p, cfg, m, h, cache, dc)
     else:
         o, new_cache = _attn_decode(v, p, cfg, m, h, cache, dc)
+    if m.cross:
+        x = x + o
+        o = _cross_decode(v, p, cfg, _norm(v, p, "ln_x", x, cfg), cache)
+        new_cache = dict(new_cache, kx=cache["kx"], vx=cache["vx"])
     return _residual(v, p, cfg, m, x, o)[0], new_cache
 
 
+def _sinusoid(positions, d: int):
+    """The encoder's positions: sin then cos of position x 10,000^(-i /
+    (d / 2)), f32 (the reference's ``_sinusoid``)."""
+    half = d // 2
+    freq = torch.exp(-math.log(10_000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 class LM:
-    """Decoder-only LM over a parameter view."""
+    """Decoder-only LM, or encoder-decoder, over a parameter view."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -360,6 +542,11 @@ class LM:
             for n, spec in block_specs(kind, cfg).items():
                 name = f"{kind}.{n}"
                 out[name] = replace(spec, name=name, stack=counts[kind])
+        if cfg.enc_layers:
+            for n, spec in block_specs("enc", cfg).items():
+                out[f"enc.{n}"] = replace(spec, name=f"enc.{n}",
+                                          stack=cfg.enc_layers)
+            out.update(_norm_specs("enc_norm", cfg.d_model, cfg))
         return out
 
     def _layers(self):
@@ -395,10 +582,36 @@ class LM:
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         return x
 
+    def _encode(self, view, frames, train: bool = False):
+        """The encoder over (B, F, d) frame embeddings (in the compute
+        dtype) plus their sinusoidal positions (f32, cast to the frames'
+        dtype before the add), then ``enc_norm``. In training the layers run
+        through the view's loop (the gather prefetch rotation, the
+        streaming sinks) over ("enc", i), each under its own checkpoint, as
+        the decoder's do."""
+        cfg = self.cfg
+        pos = torch.arange(frames.shape[1], device=frames.device)
+        x = frames + _sinusoid(pos, cfg.d_model).to(frames.dtype)
+        ctx = Ctx(positions=pos)
+
+        def layer(v, h):
+            return block_fwd("enc", v, cfg, h, ctx)[0]
+
+        steps = [("enc", i) for i in range(cfg.enc_layers)]
+        if train:
+            x = view.loop_layers(
+                lambda v, h, _: checkpoint(layer, v, h, use_reentrant=False),
+                x, steps)
+        else:
+            for _, i in steps:
+                x = layer(view.sub(i), x)
+        return _norm(view, "", "enc_norm", x, cfg)
+
     def loss(self, view, batch):
-        """batch: {"tokens": (B, S + 1)} [+ {"patches": (B, P, d)}].
-        Next-token CE over the S text inputs plus the MoE load-balance term
-        times the token count: returns (loss sum f32, token_count). The
+        """batch: {"tokens": (B, S + 1)} [+ {"patches": (B, P, d)} | {"frames":
+        (B, F, d)}: the encoder's input]. Next-token CE over the S text
+        inputs plus the MoE load-balance term times the token count:
+        returns (loss sum f32, token_count). The
         layers run through the view's loop (the gather prefetch rotation
         when it overlaps), each under its own checkpoint: its forward is
         recomputed in the backward, re-issuing its gathers inline (a
@@ -408,6 +621,9 @@ class LM:
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         x = self._inputs(view, batch, inputs)
         ctx = Ctx(positions=torch.arange(x.shape[1], device=x.device))
+        if self.cfg.enc_layers:
+            ctx = replace(ctx, enc_out=self._encode(
+                view, batch["frames"].to(x.dtype), train=True))
 
         def layer(v, kind, h, a):
             h, aux, _ = block_fwd(kind, v, self.cfg, h, ctx)
@@ -435,11 +651,14 @@ class LM:
     def prefill(self, view, batch, *, seq_axes=(), axis_sizes=None,
                 seq_parallel: bool = False):
         """batch: {"tokens": (B, S)} [+ {"patches": (B, P, d)}: positions
-        run over the P patches, then the text]. Returns (last-position
-        logits (B, V) f32, caches {kind: {"k", "v": (L, B, S_loc, Hkv, D)} for attention
-        (this rank's sequence chunk over ``seq_axes``, all S without them),
-        (L, B, W, Hkv, D) rings for sliding-window attention, {"h": (L, B,
-        din, N), "conv": (L, B, K-1, din)} for mamba, "pos": S}).
+        run over the P patches, then the text | {"frames": (B, F, d)}: the
+        encoder's input]. Returns (last-position logits (B, V) f32, caches
+        {kind: {"k", "v": (L, B, S_loc, Hkv, D)} for attention (this rank's
+        sequence chunk over ``seq_axes``, all S without them), (L, B, W,
+        Hkv, D) rings for sliding-window attention, {"lat": (L, B, S_loc,
+        kv_lora + qk_rope)} for MLA, + {"kx", "vx": (L, B, F, H, D)} for a
+        decoder block, {"h": (L, B, din, N), "conv": (L, B, K-1, din)} for
+        mamba, "pos": S}).
 
         ``seq_parallel`` (attention-only models, S a multiple of the
         sequence ranks) runs this rank's chunk of the prompt; the last
@@ -451,6 +670,9 @@ class LM:
         ctx = Ctx(positions=torch.arange(s_total, device=x.device),
                   want_cache=True, seq_axes=tuple(seq_axes),
                   axis_sizes=axis_sizes)
+        if self.cfg.enc_layers:
+            ctx = replace(ctx, enc_out=self._encode(
+                view, batch["frames"].to(x.dtype)))
         n_sp = math.prod(axis_sizes[a] for a in seq_axes) if seq_axes else 1
         seq_parallel = (seq_parallel and self.sp_eligible() and n_sp > 1
                         and s_total % n_sp == 0)

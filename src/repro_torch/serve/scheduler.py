@@ -66,6 +66,24 @@ class ServeSLO:
     target_p99_ms: float = 0.0
 
 
+def refuse_non_text(arch) -> None:
+    """The batcher admits {"tokens"} alone, as the reference's does
+    (src/repro/serve/scheduler.py:176-181): a model with a patch prefix or
+    an encoder (its frames) has no way in, and is refused with a
+    ValueError."""
+    if arch.n_patches:
+        what = f"a patch prefix (n_patches={arch.n_patches})"
+    elif arch.enc_layers:
+        what = (f"an encoder over {arch.n_frames} frames (enc_layers="
+                f"{arch.enc_layers})")
+    else:
+        return
+    raise ValueError(
+        f"{arch.name}: the continuous batcher serves text prompts only; a "
+        f"model with {what} is served through the engine's prefill and "
+        "decode")
+
+
 def _default_page(max_len: int) -> int:
     return next(d for d in (16, 8, 4, 2, 1) if max_len % d == 0)
 
@@ -88,14 +106,7 @@ class ContinuousBatcher:
                  backend: str | None = None,
                  res_axes: tuple[str, ...] | None = None,
                  prefill_seq_parallel: bool = False, metrics=None):
-        if model.arch.n_patches:
-            # the reference's batcher admits {"tokens"} alone
-            # (src/repro/serve/scheduler.py:180): a patch prefix has no way in
-            raise ValueError(
-                f"{model.arch.name}: the continuous batcher serves text "
-                f"prompts only; a model with a patch prefix (n_patches="
-                f"{model.arch.n_patches}) is served through the engine's "
-                "prefill and decode")
+        refuse_non_text(model.arch)
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len

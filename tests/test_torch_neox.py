@@ -187,21 +187,57 @@ def _small(**kw):
 
 @pytest.mark.parametrize("cfg", [
     _small(family="moe", act="gelu", moe=MoEConfig(n_experts=4, d_ff=64)),
-    _small(block_pattern=("mla",) * 2, mla=MLAConfig(32, 16, 16, 8, 16)),
+    _small(block_pattern=("mla",) * 2, mla=MLAConfig(32, 16, 16, 8, 16),
+           norm="ln"),
     _small(block_pattern=("neox",) * 2, norm="rms", act="gelu"),
     _small(block_pattern=("neox",) * 2, norm="ln", act="silu_glu"),
-    _small(norm="ln", act="gelu"),
+    _small(norm="rms", act="gelu"),
     _small(family="vlm", n_patches=4, block_pattern=("mamba_moe",) * 2,
            moe=MoEConfig(n_experts=4, d_ff=64)),
-], ids=["moe-gelu", "mla", "neox-rms", "neox-glu", "attn-ln-gelu",
-        "patches-mamba-moe"])
+    _small(block_pattern=("dec",) * 2, norm="ln", act="gelu"),
+], ids=["moe-gelu", "mla", "neox-rms", "neox-glu", "attn-rms-gelu",
+        "patches-mamba-moe", "dec-without-encoder"])
 def test_unported_kinds_raise(cfg):
-    """The kinds still unported raise. (The MoE FFN with SiLU-GLU experts
-    and the patch prefix are ported: tests/test_torch_moe.py,
-    tests/test_torch_vlm.py; an MoE of GELU experts and a mamba mixer with
-    an MoE FFN are not.)"""
+    """The kinds still unported raise. (The MoE FFN with SiLU-GLU experts,
+    the patch prefix, MLA under RMSNorm with a GLU MLP and the
+    encoder-decoder are ported: tests/test_torch_moe.py,
+    tests/test_torch_vlm.py, tests/test_torch_mla.py,
+    tests/test_torch_whisper.py; an MoE of GELU experts, a mamba mixer
+    with an MoE FFN, MLA under LayerNorm, a GELU MLP under RMSNorm (the
+    reference gives it no biases there) and a cross-attention block with
+    no encoder are not.)"""
     with pytest.raises(NotImplementedError, match="not ported"):
         LM(cfg).leaf_specs()
+
+
+@pytest.mark.parametrize("cfg,leaves", [
+    (_small(block_pattern=("mla",) * 2, mla=MLAConfig(32, 16, 16, 8, 16)),
+     {"mla.w_dq", "mla.q_norm", "mla.w_uq", "mla.w_dkv", "mla.kv_norm",
+      "mla.w_ukv", "mla.wo"}),
+    (_small(norm="ln", act="gelu"),
+     {"attn.w_in", "attn.b_in", "attn.w_out_ff", "attn.b_out", "attn.ln2_b"}),
+], ids=["mla", "attn-ln-gelu"])
+def test_ported_kinds_build(cfg, leaves):
+    """Kinds this test once held unported and the port now runs: MLA under
+    RMSNorm with a GLU MLP, and sequential attention with the GELU MLP and
+    its biases under LayerNorm (whisper's decoder block, without the
+    cross-attention): their leaves build, the reference's leaves."""
+    from repro.models.config import ArchConfig as JArch
+    from repro.models.config import MLAConfig as JMLA
+    from repro.models.transformer import LM as JLM
+
+    specs = LM(cfg).leaf_specs()
+    assert leaves <= set(specs)
+    kw = {f: getattr(cfg, f) for f in ("name", "family", "n_layers",
+                                       "d_model", "n_heads", "d_ff", "vocab",
+                                       "block_pattern", "norm", "act")}
+    if cfg.mla is not None:
+        kw["mla"] = JMLA(32, 16, 16, 8, 16)
+    want = JLM(JArch(**kw)).leaf_specs()
+    assert set(specs) == set(want)
+    for n, sp in specs.items():
+        assert (sp.shape, sp.kind, sp.stack) == (want[n].shape, want[n].kind,
+                                                 want[n].stack), n
 
 
 # ---------------------------------------------------------------------------

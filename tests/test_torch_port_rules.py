@@ -204,35 +204,63 @@ def test_engine_on_cpu_when_asked():
     assert eng.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", ["minicpm3-4b", "whisper-medium",
-                                  "jamba-v0.1-52b"])
-def test_unported_configs_raise(name):
-    """The reference's configs the port does not run yet (MLA, the
-    encoder-decoder, the mamba / MoE hybrid), carried field by field into
-    the port's ArchConfig: building their leaves raises instead of running
-    wrong. The families ported so far build."""
+def _carried(j):
+    """The reference's ArchConfig ``j`` carried field by field into the
+    port's."""
     import dataclasses
 
+    from repro_torch.models import config as tconfig
+
+    sub = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
+    sub["moe"] = tconfig.MoEConfig(**dataclasses.asdict(j.moe))
+    sub["ssm"] = tconfig.SSMConfig(**dataclasses.asdict(j.ssm))
+    sub["mla"] = None if j.mla is None else \
+        tconfig.MLAConfig(**dataclasses.asdict(j.mla))
+    return tconfig.ArchConfig(**sub)
+
+
+PORTED = ("qwen2-0.5b", "falcon-mamba-7b", "gpt-neox-20b", "gpt-neox-10b",
+          "gemma3-1b", "deepseek-7b", "internvl2-1b", "phi3.5-moe-42b-a6.6b",
+          "mixtral-8x7b", "minicpm3-4b", "whisper-medium")
+
+
+@pytest.mark.parametrize("name", ["jamba-v0.1-52b"])
+def test_unported_configs_raise(name):
+    """The reference's configs the port does not run yet (the mamba / MoE
+    hybrid), carried field by field into the port's ArchConfig: building
+    their leaves raises instead of running wrong. The families ported so
+    far build the same leaves from the carried config as from the port's
+    own."""
     from repro.models.registry import ARCHS as JARCHS
     from repro.models.registry import get_arch as jget
 
-    from repro_torch.models import config as tconfig
     from repro_torch.models.registry import get_arch
     from repro_torch.models.transformer import LM
 
     jget("qwen2-0.5b")
     assert name in JARCHS
 
-    def carried(j):
-        sub = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
-        sub["moe"] = tconfig.MoEConfig(**dataclasses.asdict(j.moe))
-        sub["ssm"] = tconfig.SSMConfig(**dataclasses.asdict(j.ssm))
-        sub["mla"] = None if j.mla is None else \
-            tconfig.MLAConfig(**dataclasses.asdict(j.mla))
-        return tconfig.ArchConfig(**sub)
-
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        LM(carried(jget(name))).leaf_specs()
-    for ported in ("internvl2-1b", "phi3.5-moe-42b-a6.6b", "mixtral-8x7b"):
-        assert LM(carried(jget(ported))).leaf_specs() \
+        LM(_carried(jget(name))).leaf_specs()
+    for ported in ("internvl2-1b", "phi3.5-moe-42b-a6.6b", "mixtral-8x7b",
+                   "minicpm3-4b", "whisper-medium"):
+        assert LM(_carried(jget(ported))).leaf_specs() \
             .keys() == LM(get_arch(ported)).leaf_specs().keys()
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_ported_configs_are_the_reference_ones(name):
+    """Every config the port registers equals the reference's field by
+    field (the MoE, SSM and MLA sub-configs too), at published size and
+    reduced; with jamba, those are all of the reference's configs."""
+    from repro.models.registry import ARCHS as JARCHS
+    from repro.models.registry import get_arch as jget
+
+    from repro_torch.models.registry import ARCHS, get_arch
+
+    jget(name)
+    get_arch(name)
+    assert set(ARCHS) == set(PORTED)
+    assert set(JARCHS) == set(PORTED) | {"jamba-v0.1-52b"}
+    assert get_arch(name) == _carried(jget(name))
+    assert get_arch(name).reduced() == _carried(jget(name).reduced())

@@ -22,7 +22,11 @@
   ``tests/_scenarios.py``) and falcon-mamba-7b (the mamba stack, whose
   streamed leaves include the unfusable ``w_xproj``). On 4 ranks qwen2 and
   gemma start from the reference's ``init_state``, falcon-mamba from the
-  port's own.
+  port's own. Two more reductions at one step each (ONE_STEP_ARCHS, the
+  port's own init), at (1, 1, 1) in bf16 and on 4 ranks in f32:
+  minicpm3-4b (MLA, its unfusable ``w_dkv`` streamed) and whisper-medium
+  (two stacks a step: the encoder's ``loop_layers`` over ("enc", i) turns
+  the prefetch rotation and the streaming sinks a second time).
 * The regimes against the reference at (1, 2, 2), over 3 steps, within
   tests/test_torch_train.py's tolerances: the port's overlapped streaming
   step against the reference's seed step at 1 microbatch (qwen2-0.5b and
@@ -56,6 +60,8 @@ COMBOS = [(False, False), (True, False), (False, True), (True, True)]
 # arch -> sequence length; gemma3-1b's window of 64 masks only past 64
 ARCHS = {"qwen2-0.5b": RUN["seq"], "gemma3-1b": 128,
          "falcon-mamba-7b": RUN["seq"]}
+# one step each, from the port's own init (seed 0)
+ONE_STEP_ARCHS = {"minicpm3-4b": RUN["seq"], "whisper-medium": RUN["seq"]}
 # the archs the 4-rank runs start from the reference's init_state (the
 # others from the port's own, seed 0)
 REF_INIT = ("qwen2-0.5b", "gemma3-1b")
@@ -164,16 +170,17 @@ def ref_dir(tmp_path_factory):
 
 def _train(rank: int, n_mb: int, overlap: bool, stream: bool, init: Path,
            compute_dtype: str = "float32", batch: int = RUN["batch"],
-           arch_name: str = "qwen2-0.5b"):
-    """3 steps of the port's zero_topo step on this rank of (1, 2, 2) (or
+           arch_name: str = "qwen2-0.5b", steps: int = RUN["steps"]):
+    """``steps`` of the port's zero_topo step on this rank of (1, 2, 2) (or
     one device when rank is None), on ``arch_name``'s reduction at its
-    sequence length (ARCHS), from ``init`` (else the port's seed-0 init).
+    sequence length (ARCHS, ONE_STEP_ARCHS), from ``init`` (else the
+    port's seed-0 init).
     Returns (losses, grad norms, master shards, payload bytes per
     collective, memory_report)."""
     from repro_torch.convert import from_jax_state, load_global_state
     from repro_torch.core import collectives as col
     from repro_torch.core.engine import TrainHparams, ZeroEngine
-    from repro_torch.data.pipeline import BatchSpec
+    from repro_torch.data.pipeline import spec_for
     from repro_torch.launch.mesh import TEST_AXES, Mesh, scheme_config
     from repro_torch.models.registry import build_model, get_arch
     from repro_torch.train.trainer import Trainer
@@ -191,8 +198,9 @@ def _train(rank: int, n_mb: int, overlap: bool, stream: bool, init: Path,
     state = from_jax_state(load_global_state(init), eng) if init \
         else eng.init_state(0)
     col.reset_counters()
-    tr = Trainer(model, eng, BatchSpec(batch, ARCHS[arch_name], arch.vocab))
-    state = tr.run(state, RUN["steps"], log_every=0)
+    seq = {**ARCHS, **ONE_STEP_ARCHS}[arch_name]
+    tr = Trainer(model, eng, spec_for(arch, batch, seq))
+    state = tr.run(state, steps, log_every=0)
     return dict(losses=tr.log.losses, grad_norms=tr.log.grad_norms,
                 master={n: t.clone() for n, t in state["master"].items()},
                 payload=dict(col.PAYLOAD), memory=eng.memory_report())
@@ -239,6 +247,10 @@ def _port_main(rank: int, ref_dir: Path) -> dict:
     runs["stream2"] = _train(rank, 2, True, True,
                              ref_dir / "stream2" / "state.npz",
                              batch=2 * RUN["batch"])
+    for arch in ONE_STEP_ARCHS:
+        runs.update({_run_id(arch, c): _train(rank, 1, *c, None,
+                                              arch_name=arch, steps=1)
+                     for c in COMBOS})
     return dict(runs=runs, rs=_port_rs(rank))
 
 
@@ -288,14 +300,15 @@ def _rs_members(axes: str, rank: int) -> list[int]:
 # -- the regimes inside the port -------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _local_run(arch: str, n_mb: int, overlap: bool, stream: bool):
+def _local_run(arch: str, n_mb: int, overlap: bool, stream: bool,
+               steps: int = RUN["steps"]):
     # one thread, as the ranks run: the reduced model gains nothing from more,
     # and beside other test workers more threads only contend
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         return _train(None, n_mb, overlap, stream, None, "bfloat16",
-                      arch_name=arch)
+                      arch_name=arch, steps=steps)
     finally:
         torch.set_num_threads(threads)
 
@@ -322,6 +335,32 @@ def test_regimes_bitwise_four_ranks(port_ranks, arch, combo):
         seed = res["runs"][_run_id(arch, COMBOS[0])]
         _assert_same_run(run, seed)
         # only the schedule moves: the same bytes through every collective
+        assert run["payload"] == seed["payload"]
+
+
+ONE_STEP_CASES = [pytest.param(arch, c, id=f"{arch}-{_combo_id(c)}")
+                  for arch in ONE_STEP_ARCHS for c in COMBOS[1:]]
+
+
+@pytest.mark.parametrize("arch,combo", ONE_STEP_CASES)
+def test_regimes_bitwise_one_step_one_device(arch, combo):
+    """minicpm3-4b and whisper-medium, one bf16 step at (1, 1, 1): every
+    combination of overlap and streaming gives the seed run's loss, grad
+    norm and masters bit for bit (whisper's encoder leaves included)."""
+    run = _local_run(arch, 1, *combo, steps=1)
+    _assert_same_run(run, _local_run(arch, 1, False, False, steps=1))
+    if arch == "whisper-medium":
+        assert any(n.startswith("enc.") for n in run["master"])
+
+
+@pytest.mark.parametrize("arch,combo", ONE_STEP_CASES)
+def test_regimes_bitwise_one_step_four_ranks(port_ranks, arch, combo):
+    """The same on 4 ranks at (1, 2, 2) in f32, the same bytes through
+    every collective."""
+    for res in port_ranks:
+        run = res["runs"][_run_id(arch, combo)]
+        seed = res["runs"][_run_id(arch, COMBOS[0])]
+        _assert_same_run(run, seed)
         assert run["payload"] == seed["payload"]
 
 

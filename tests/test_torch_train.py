@@ -80,8 +80,13 @@ def reduced_arch(get, arch: str = ARCH):
     """The reduction ``arch`` names, through ``get`` (the reference's or the
     port's ``get_arch``): "<name>" is the arch's ``reduced()``; "<name>@hd<D>"
     the same at d_model 4 D over 4 heads of D (all KV heads), the published
-    head width of a model whose ``reduced()`` keeps 64."""
+    head width of a model whose ``reduced()`` keeps 64; "<name>@f<F>" the
+    ``reduced()`` of an encoder-decoder over F frames (``reduced()`` keeps
+    32, which the attention kernel takes; 160 it does not)."""
     import dataclasses
+    name, _, frames = arch.partition("@f")
+    if frames:
+        return dataclasses.replace(get(name).reduced(), n_frames=int(frames))
     name, _, hd = arch.partition("@hd")
     if not hd:
         return get(name).reduced()
@@ -174,7 +179,7 @@ def _port_setup(arch: str, mesh, seq: int, **hp_over):
     ``launch.train.train_rank`` sets them up for port_run's arguments;
     ``hp_over`` overrides TrainHparams (e.g. ``overlap=True``)."""
     from repro_torch.core.engine import TrainHparams, ZeroEngine
-    from repro_torch.data.pipeline import BatchSpec
+    from repro_torch.data.pipeline import spec_for
     from repro_torch.launch.mesh import scheme_config
     from repro_torch.models.registry import build_model, get_arch
     from repro_torch.train.trainer import Trainer
@@ -186,8 +191,8 @@ def _port_setup(arch: str, mesh, seq: int, **hp_over):
     hp = TrainHparams(lr=RUN["lr"], total_steps=RUN["steps"],
                       warmup_steps=max(RUN["steps"] // 20, 2), **hp_over)
     eng = ZeroEngine(model.leaf_specs(), cfg, mesh, hp, device="cpu")
-    return model, eng, Trainer(model, eng, BatchSpec(RUN["batch"], seq,
-                                                     a.vocab), seed=0)
+    return model, eng, Trainer(model, eng, spec_for(a, RUN["batch"], seq),
+                               seed=0)
 
 
 def port_train_state(arch: str, state_npz, steps: int,
