@@ -733,6 +733,40 @@ WHISPER_L = 24
 WHISPER_PROMPT, WHISPER_SLOTS, WHISPER_GEN = 128, 4, 32
 WHISPER_TRAIN_L = 1
 WHISPER_TRAIN_ARGS = ["--arch", "whisper-medium"] + NEOX_TRAIN_ARGS[2:]
+# jamba-v0.1-52b (arXiv:2403.19887), the mamba / attention hybrid, at
+# published width and depth: 32 layers of d_model 4,096, 28 mamba mixers
+# (d_inner 8,192, d_state 16) and 4 attention layers (4, 12, 20, 28: 32
+# heads over 8 of 128, no RoPE), the MoE FFN (16 SiLU-GLU experts of
+# 14,336, top 2) behind the 16 odd layers and a SiLU-GLU MLP of 14,336
+# behind the others, untied vocab 65,536; 51.57 G parameters, an INT8
+# residency of 53.18 GB with its scales. Served through the batcher with
+# phi3.5-moe's traffic: the attention layers' K/V paged, the mamba states
+# per slot in the same pool
+JAMBA_SERVE_ARGS = ["--arch", "jamba-v0.1-52b"] + MOE_SERVE_ARGS[2:]
+JAMBA_L, JAMBA_ATTN_L, JAMBA_MAMBA_L, JAMBA_MOE_L = 32, 4, 28, 16
+JAMBA_SERVE_KERNELS = SERVE_KERNELS + ("selective_scan",)
+# predicted from the code before the first card run: a forward pass (a
+# B = 1 prefill or a 4-slot decode step) dequantizes the 48 expert stacks
+# (3 an MoE layer), each mamba layer's w_xproj (8,192 x 288: not whole
+# blocks) and the embedding rows (kernel 2), and runs w_in, w_dt, w_out a
+# mamba layer, w_gate, w_up, w_down an MLP, wq, wk, wv, wo an attention
+# layer and the head (kernel 8); a prefill also runs flash an attention
+# layer and the scan a mamba layer (a decode step's scan is the O(1)
+# update in plain torch)
+JAMBA_STEP_LAUNCHES = {
+    "dequantize_int8": 3 * JAMBA_MOE_L + JAMBA_MAMBA_L + 1,
+    "dequant_matmul": 3 * JAMBA_MAMBA_L + 3 * (JAMBA_L - JAMBA_MOE_L)
+    + 4 * JAMBA_ATTN_L + 1}
+JAMBA_PREFILL_LAUNCHES = dict(JAMBA_STEP_LAUNCHES,
+                              flash_attention=JAMBA_ATTN_L,
+                              selective_scan=JAMBA_MAMBA_L)
+# trained at published width and its first layer (mamba_mlp: 0.82 G
+# parameters); layer 1 is mamba_moe, whose expert stacks alone hold 2.82 G
+# parameters (about 100 GB summed at phi3.5-moe's 29.2 bytes a parameter),
+# so mamba_moe and attn_mlp train at reduced size on the CPU
+# (tests/test_torch_jamba.py)
+JAMBA_TRAIN_L = 1
+JAMBA_TRAIN_ARGS = ["--arch", "jamba-v0.1-52b"] + NEOX_TRAIN_ARGS[2:]
 # the summed peak a cut-depth phase is chosen to stay under: the card's
 # memory less this headroom (printed, not held)
 TRAIN_HEADROOM = 8 * 2 ** 30
@@ -2309,18 +2343,21 @@ def neox_shapes(s, gen):
     return rows, prefill
 
 
-def attn_serve(argv, n_layers: int, hd: int, arch=None,
-               tol: float | None = PREFILL_TOL):
-    """An attention model served at published width and depth under
-    SERVE_KERNELS, its prefill (against plain, f32, and the bf16 / f32
+def attn_serve(argv, n_attn: int, hd: int, arch=None,
+               tol: float | None = PREFILL_TOL, kernels=SERVE_KERNELS,
+               n_scan: int = 0):
+    """A model with attention served at published width and depth under
+    ``kernels``, its prefill (against plain, f32, and the bf16 / f32
     ratio) and decode step held against the plain versions, the traced
-    prefill's tensor-core flash launches held to one a layer at head dim
-    ``hd``, the decode graphs in turns (``arch``: an ArchConfig in place of
-    ``--arch``; ``tol``: the bf16 logits' bound, check_prefill's).
-    Returns (the serve state, the prefill checks)."""
+    prefill's tensor-core flash launches held to one an attention layer
+    (``n_attn`` of them) at head dim ``hd`` and its scan launches to
+    ``n_scan`` (a hybrid's mamba layers), the decode graphs in turns
+    (``arch``: an ArchConfig in place of ``--arch``; ``tol``: the bf16
+    logits' bound, check_prefill's). Returns (the serve state, the prefill
+    checks)."""
     from repro_torch.kernels import ops
 
-    s = serve_phase(argv, SERVE_KERNELS, arch)
+    s = serve_phase(argv, kernels, arch)
     pf = check_prefill(s, tol)
     pf.update(check_prefill_f32(s))
     pf.update(check_decode_step(s, tol))
@@ -2335,12 +2372,23 @@ def attn_serve(argv, n_layers: int, hd: int, arch=None,
     pf["traced_flash_calls"] = sum(k["calls"] for k in flash_rows)
     pf["traced_flash_names"] = sorted({k["name"] for k in flash_rows})
     pf["traced_flash_missed"] = traced["missed"]["flash_attention"]
-    if traced["counted"]["flash_attention"] != n_layers or \
-            pf["traced_flash_calls"] + pf["traced_flash_missed"] != n_layers:
+    if traced["counted"]["flash_attention"] != n_attn or \
+            pf["traced_flash_calls"] + pf["traced_flash_missed"] != n_attn:
         raise Failed(f"traced {s['arch'].name} prefill: "
                      f"{traced['counted']['flash_attention']} flash launches "
                      f"counted, {pf['traced_flash_calls']} traced on "
-                     f"flash_attention_tc_kernel<{hd}>, not {n_layers}")
+                     f"flash_attention_tc_kernel<{hd}>, not {n_attn}")
+    scan_rows = [k for k in traced["kernels"]
+                 if "selective_scan_kernel" in k["name"]]
+    pf["traced_scan_ms"] = sum(k["ms"] for k in scan_rows)
+    pf["traced_scan_calls"] = sum(k["calls"] for k in scan_rows)
+    if traced["counted"]["selective_scan"] != n_scan or \
+            pf["traced_scan_calls"] + traced["missed"]["selective_scan"] \
+            != n_scan:
+        raise Failed(f"traced {s['arch'].name} prefill: "
+                     f"{traced['counted']['selective_scan']} scan launches "
+                     f"counted, {pf['traced_scan_calls']} traced, not "
+                     f"{n_scan}")
     # the head (x @ W.T at M = 1, N = d_model) on the decode path: its wide
     # kernel (8e) where the rows are wider than DEC_TN_MAX_N, else 8b
     wide = int(s["arch"].d_model > DEC_TN_MAX_N)
@@ -2514,6 +2562,38 @@ def step_launches(s):
     return launched
 
 
+def held_launches(s, prefill_want: dict, step_want: dict,
+                  prefill_fallbacks: dict | None = None) -> None:
+    """One B = 1 prefill's and one 4-slot decode step's kernel launches
+    (``s["prefill_launches"]``, ``s["step_launches"]``) held to their
+    predictions, the prefill's attention fallbacks to
+    ``prefill_fallbacks`` (none by default)."""
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve.resident import ResidentServeEngine
+
+    pre = ResidentServeEngine(s["model"], s["layout"], ShapeConfig(
+        "p", s["args"].prompt_len, 1, "decode")).make_prefill()
+    tokens = torch.as_tensor(s["reqs"][0].prompt[None]).long().to(
+        s["device"])
+    _, s["prefill_launches"], fell = counted(
+        lambda: pre(s["residency"], {"tokens": tokens}))
+    held_fallbacks(f"{s['arch'].name} prefill", fell, prefill_fallbacks)
+    s["step_launches"] = step_launches(s)
+    for what, got, want in (("prefill", s["prefill_launches"], prefill_want),
+                            ("decode step", s["step_launches"], step_want)):
+        if got != want:
+            raise Failed(f"{s['arch'].name} {what}: launches {got}, "
+                         f"predicted {want}")
+
+
+def build_peak_predicted(layout) -> int:
+    """The residency build's predicted peak: the residency, then one
+    stacked leaf's largest row as its f32 draw and its compute-dtype copy
+    (``iter_primaries`` draws a stack one layer row at a time)."""
+    row = max(sp.logical_size for sp in layout.specs.values() if sp.stack)
+    return layout.memory_report()["total_bytes"] + 4 * row + 2 * row
+
+
 def counted(fn):
     """(``fn()``, the kernel launches it made by kernel, the attention
     fallbacks it recorded), the device synchronized after it."""
@@ -2545,12 +2625,7 @@ def moe_phase(gen, dev, checks):
               f"D={MOE_HD} (phi3.5 prefill)", 1, MOE_H, 8, plen, plen, 0, 0,
               torch.bfloat16, MOE_HD)
     s, pf = attn_serve(MOE_SERVE_ARGS, MOE_L, MOE_HD, tol=MOE_BF16_TOL)
-    layout = s["layout"]
-    # the build's peak: the residency, then one expert row's f32 draw and
-    # its bf16 copy (iter_primaries draws a stack one layer row at a time)
-    row = max(sp.logical_size for sp in layout.specs.values() if sp.stack)
-    s["build_peak_predicted"] = layout.memory_report()["total_bytes"] \
-        + 4 * row + 2 * row
+    s["build_peak_predicted"] = build_peak_predicted(s["layout"])
     timing = {"shapes": layer_shapes(s, gen, "phi35", MOE_LEAVES,
                                      simt_head=True),
               "dequantize_int8_expert_row": row_timing(s, "moe.w_gate",
@@ -2559,6 +2634,39 @@ def moe_phase(gen, dev, checks):
     s["step_launches"] = step_launches(s)
     record = {k: s[k] for k in SERVE_RECORD + ("build_peak_predicted",
                                                "step_launches")}
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, pf, timing
+
+
+def jamba_phase(gen, dev, checks):
+    """jamba-v0.1-52b served at published width and depth from its 53.18
+    GB INT8 residency through the continuous batcher (the pool holding the
+    attention layers' paged K/V and the mamba layers' per-slot states):
+    flash at its prefill's shape (GQA 32/8, D = 128, S = 128, no RoPE)
+    against its plain version; attn_serve (the prefill on the plain run's
+    expert choices, each of its 4 attention sublayers on its own input,
+    the f32 prefill, a decode step; the traced prefill's 4 launches of the
+    tensor-core flash kernel at D = 128 and its 28 scans, its head on 8b;
+    the decode graphs in turns); a B = 1 prefill's and a 4-slot decode
+    step's launches held to JAMBA_PREFILL_LAUNCHES / JAMBA_STEP_LAUNCHES;
+    the build's peak beside its prediction; one layer's ``w_gate`` expert
+    row dequantized (kernel 2 at its largest shape, 939.5 M int8) against
+    its bound. Returns the serve record, the prefill checks and the
+    timing; the residency is freed."""
+    plen = int(JAMBA_SERVE_ARGS[JAMBA_SERVE_ARGS.index("--prompt-len") + 1])
+    attn_case(checks, gen, dev, f"B=1 H={MOE_H}/8 S={plen} causal bf16 "
+              f"D={MOE_HD} (jamba prefill, no RoPE)", 1, MOE_H, 8, plen, plen,
+              0, 0, torch.bfloat16, MOE_HD)
+    s, pf = attn_serve(JAMBA_SERVE_ARGS, JAMBA_ATTN_L, MOE_HD,
+                       tol=MOE_BF16_TOL, kernels=JAMBA_SERVE_KERNELS,
+                       n_scan=JAMBA_MAMBA_L)
+    s["build_peak_predicted"] = build_peak_predicted(s["layout"])
+    held_launches(s, JAMBA_PREFILL_LAUNCHES, JAMBA_STEP_LAUNCHES)
+    timing = row_timing(s, "mamba_moe.w_gate", reps=3, plain_reps=1)
+    record = {k: s[k] for k in SERVE_RECORD + (
+        "build_peak_predicted", "prefill_launches", "step_launches")}
     del s
     gc.collect()
     torch.cuda.empty_cache()
@@ -2775,8 +2883,6 @@ def mla_phase(gen, dev):
     at one layer's w_dkv and w_ukv. Returns the record, the prefill checks
     and the timings; the residency is freed."""
     from repro_torch.kernels import ops
-    from repro_torch.models.config import ShapeConfig
-    from repro_torch.serve.resident import ResidentServeEngine
 
     s = serve_phase(MLA_SERVE_ARGS, MLA_SERVE_KERNELS)
     held_fallbacks(f"{s['arch'].name} serving", ops.dispatch_counters(),
@@ -2784,19 +2890,8 @@ def mla_phase(gen, dev):
     pf = check_prefill(s)
     pf.update(check_prefill_f32(s))
     pf.update(check_decode_step(s))
-    pre = ResidentServeEngine(s["model"], s["layout"], ShapeConfig(
-        "p", s["args"].prompt_len, 1, "decode")).make_prefill()
-    tokens = torch.as_tensor(s["reqs"][0].prompt[None]).long().to(dev)
-    _, pl, fell = counted(lambda: pre(s["residency"], {"tokens": tokens}))
-    held_fallbacks(f"{s['arch'].name} prefill", fell, {MLA_FALLBACK: MLA_L})
-    s["prefill_launches"] = pl
-    s["step_launches"] = step_launches(s)
-    for what, got, want in (("prefill", pl, MLA_PREFILL_LAUNCHES),
-                            ("decode step", s["step_launches"],
-                             MLA_STEP_LAUNCHES)):
-        if got != want:
-            raise Failed(f"{s['arch'].name} {what}: launches {got}, "
-                         f"predicted {want}")
+    held_launches(s, MLA_PREFILL_LAUNCHES, MLA_STEP_LAUNCHES,
+                  {MLA_FALLBACK: MLA_L})
     graphs = decode_graphs(s)
     s["decode_step_graph_ms"] = statistics.mean(graphs["own"])
     s["decode_step_graph_runs"] = graphs
@@ -2849,6 +2944,38 @@ def print_moe(mo, mpf, mo_t):
         if key != "shapes":
             print_timing(key, tm)
     print_shapes(mo_t["shapes"])
+
+
+def print_jamba(jb, jpf, jb_t):
+    print_attn(jb, jpf)
+    print_routing(jpf)
+    print(f"  traced prefill: {jpf['traced_scan_calls']} scans "
+          f"{jpf['traced_scan_ms']:.4f} ms")
+    print(f"  residency build: peak {jb['setup_peak_bytes']} bytes, predicted "
+          f"{jb['build_peak_predicted']} (residency "
+          f"{jb['memory']['total_bytes']} + one expert row's f32 draw and "
+          f"its bf16 copy); a prefill's launches {jb['prefill_launches']}, a "
+          f"decode step's {jb['step_launches']} (as predicted)")
+    print_timing("dequantize_int8_expert_row_jamba", jb_t)
+
+
+def jamba_line(jb, jpf, jb_t) -> dict:
+    return dict(
+        serve_attn_line(jb, jpf), n_experts=jb["arch"].moe.n_experts,
+        pattern=dict(collections.Counter(jb["arch"].pattern)),
+        build_peak_bytes=jb["setup_peak_bytes"],
+        build_peak_predicted=jb["build_peak_predicted"],
+        total_bytes=jb["memory"]["total_bytes"],
+        prefill_launches=jb["prefill_launches"],
+        decode_step_launches=jb["step_launches"],
+        traced_prefill_scan_calls=jpf["traced_scan_calls"],
+        traced_prefill_scan_ms=jpf["traced_scan_ms"],
+        traced_prefill_missed=jpf["traced"]["missed"],
+        routing_rows_differ=jpf["routing_rows_differ"],
+        own_routing_logits_err=jpf["own_routing_logits_err"],
+        expert_row=dict(work=jb_t["work"], ms=jb_t["ms"],
+                        plain_ms=jb_t["plain_ms"], bound_ms=jb_t["bound"][0],
+                        bound_by=jb_t["bound"][1]))
 
 
 def mixtral_line(mx, mpf) -> dict:
@@ -3169,6 +3296,19 @@ def whisper_train_phase():
                                            "flash_attention_tc_kernel<",
                                            "<64>"), NEOX_PROFILE_STEP,
                            fallbacks={UNALIGNED: 4 * WHISPER_TRAIN_L})
+
+
+def jamba_train_phase():
+    """jamba-v0.1-52b at published width and JAMBA_TRAIN_L layers (its
+    ``mamba_mlp`` layer 0: the mixer, then the SiLU-GLU MLP of 14,336), 3
+    steps (the last traced), under SSM_TRAIN_KERNELS; the traced step must
+    show the scan kernel as often as a step launches selective_scan."""
+    return cut_train_phase(JAMBA_TRAIN_ARGS,
+                           cut_train_arch("jamba-v0.1-52b", JAMBA_TRAIN_L),
+                           SSM_TRAIN_KERNELS, ("selective_scan",
+                                               "selective_scan_kernel",
+                                               "selective_scan_kernel"),
+                           NEOX_PROFILE_STEP)
 
 
 def regime_phase(tr, flags):
@@ -5416,6 +5556,11 @@ def main(argv=None) -> int:
     t["dequant_matmul_shapes"] += mo_t["shapes"]
     t.update(ml_t)
 
+    phase("jamba")
+    jb, jbpf, jb_t = jamba_phase(gen, dev, checks)
+    print_jamba(jb, jbpf, jb_t)
+    t["dequantize_int8_expert_row_jamba"] = jb_t
+
     phase("mixtral")
     mx, mxpf = mixtral_phase(gen, dev, checks)
     print(f"  launches {mx['launches']}; prefill logits max_abs_err "
@@ -5460,6 +5605,10 @@ def main(argv=None) -> int:
     twh = whisper_train_phase()
     print_cut_train(twh, "tensor-core flash")
 
+    phase("train_jamba")
+    tjb = jamba_train_phase()
+    print_cut_train(tjb, "selective_scan")
+
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         tm = t[name]
@@ -5475,6 +5624,7 @@ def main(argv=None) -> int:
                        serve_vlm=vl["launches"][name],
                        serve_mla=ml["launches"][name],
                        serve_whisper=wh["launches"][name],
+                       serve_jamba=jb["launches"][name],
                        train=tr["launches"][name],
                        train_neox=tn["launches"][name],
                        train_deepseek=tds["launches"][name],
@@ -5484,6 +5634,7 @@ def main(argv=None) -> int:
                        train_vlm=tvl["launches"][name],
                        train_mla=tml["launches"][name],
                        train_whisper=twh["launches"][name],
+                       train_jamba=tjb["launches"][name],
                        ckpt=sum(leg["launches"][name] for leg in ck["legs"]),
                        replica=rp["launches"][name],
                        serve_mesh=sm["launches"][name],
@@ -5511,6 +5662,10 @@ def main(argv=None) -> int:
                 "per_rank_step_launches"][name],
             launches_per_whisper_train_step_per_rank=twh[
                 "per_rank_step_launches"][name],
+            launches_per_jamba_train_step_per_rank=tjb[
+                "per_rank_step_launches"][name],
+            launches_per_jamba_prefill=jb["prefill_launches"].get(name, 0),
+            launches_per_jamba_decode_step=jb["step_launches"].get(name, 0),
             launches_per_mla_prefill=ml["prefill_launches"].get(name, 0),
             launches_per_mla_decode_step=ml["step_launches"].get(name, 0),
             launches_per_whisper_prefill=wh["prefill_launches"].get(name, 0),
@@ -5550,6 +5705,7 @@ def main(argv=None) -> int:
                     "selective_scan_train", "flash_attention_d128_deepseek",
                     "flash_attention_train_d128_deepseek",
                     "dequantize_int8_expert_row",
+                    "dequantize_int8_expert_row_jamba",
                     "dequantize_int8_w_dkv", "dequantize_int8_w_ukv",
                     "flash_attention_cross", "flash_attention_f32_cross")}
     blk = t["dequant_matmul_blocked"]
@@ -5631,6 +5787,10 @@ def main(argv=None) -> int:
                     routing_rows_differ=mopf["routing_rows_differ"],
                     own_routing_logits_err=mopf["own_routing_logits_err"])
     mixtral_line_ = mixtral_line(mx, mxpf)
+    jamba_line_ = jamba_line(jb, jbpf, jb_t)
+    train_jamba_line = cut_train_line(
+        tjb, "scan", pattern_published=dict(collections.Counter(
+            jb["arch"].pattern)), d_inner=tjb["arch"].d_inner)
     train_moe_line = cut_train_line(tmo, "flash",
                                     n_experts=tmo["arch"].moe.n_experts)
     train_vlm_line = cut_train_line(tvl, "flash",
@@ -5716,7 +5876,9 @@ def main(argv=None) -> int:
             serve_neox10b=neox10b_line, serve_gemma=gemma_line,
             serve_deepseek=deepseek_line, serve_moe=moe_line,
             serve_mixtral=mixtral_line_, serve_vlm=vl,
-            serve_mla=mla_line_, serve_whisper=wh,
+            serve_mla=mla_line_, serve_whisper=wh, serve_jamba=jamba_line_,
+            train_jamba=train_jamba_line,
+            train_jamba_ranks=tjb["kernel"], train_jamba_plain_ranks=tjb["plain"],
             train_moe=train_moe_line, train_vlm=train_vlm_line,
             train_mla=train_mla_line, train_whisper=train_whisper_line,
             train=train_line,
@@ -5762,6 +5924,7 @@ def main(argv=None) -> int:
     print("serve_vlm " + json.dumps(vl))
     print("serve_mla " + json.dumps(mla_line_))
     print("serve_whisper " + json.dumps(wh))
+    print("serve_jamba " + json.dumps(jamba_line_))
     print("train " + json.dumps(train_line))
     print("train_neox " + json.dumps(train_neox_line))
     print("train_deepseek " + json.dumps(train_deepseek_line))
@@ -5771,6 +5934,7 @@ def main(argv=None) -> int:
     print("train_vlm " + json.dumps(train_vlm_line))
     print("train_mla " + json.dumps(train_mla_line))
     print("train_whisper " + json.dumps(train_whisper_line))
+    print("train_jamba " + json.dumps(train_jamba_line))
     print("regimes " + json.dumps(regimes_line))
     print("collectives " + json.dumps(collectives_line))
     print("ckpt " + json.dumps(ckpt_line(ck)))

@@ -37,6 +37,9 @@ Needs one CUDA card and nvcc. Phases (all by default):
   (phi3.5-moe-42b-a6.6b at published width and depth from its INT8
   residency, mixtral-8x7b at 2 layers, internvl2-1b with its patch
   prefix).
+- ``jamba``: chip_smoke's jamba phase (jamba-v0.1-52b at published width
+  and depth from its INT8 residency through the batcher) and its
+  train_jamba phase (layer 0 on four ranks) alone.
 - ``train_moe``: the ``depth`` search for phi3.5-moe-42b-a6.6b at
   ``--moe-layers`` (how MOE_TRAIN_L is chosen), then chip_smoke's
   train_vlm phase (internvl2-1b at VLM_TRAIN_L layers).
@@ -89,7 +92,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("ssm", "gemma", "timing", "scan_backward", "ssm_ablation",
           "trace_events", "depth", "serve_deepseek", "trace_window", "ckpt",
-          "serve_moe", "train_moe",
+          "serve_moe", "train_moe", "jamba",
           "first_step", "replica", "serve_mesh")
 # the bytes the first_step phase's warm run has its allocator map before
 # the steps, and sends through one gloo all-gather twice
@@ -703,6 +706,18 @@ def main():
         out["serve_vlm"] = c.vlm_phase(gen, dev)
         c.print_vlm(out["serve_vlm"])
         print("serve_vlm " + json.dumps(out["serve_vlm"]), flush=True)
+        save()
+    if "jamba" in args.phase:
+        jb, jbpf, jb_t = c.jamba_phase(gen, dev, {})
+        c.print_jamba(jb, jbpf, jb_t)
+        out["serve_jamba"] = c.jamba_line(jb, jbpf, jb_t)
+        print("serve_jamba " + json.dumps(out["serve_jamba"], default=str),
+              flush=True)
+        save()
+        tjb = c.jamba_train_phase()
+        c.print_cut_train(tjb, "selective_scan")
+        out["train_jamba"] = c.cut_train_line(tjb, "scan")
+        print("train_jamba " + json.dumps(out["train_jamba"]), flush=True)
         save()
     if "train_moe" in args.phase:
         out["depth_moe"] = depth_search(c, "phi3.5-moe-42b-a6.6b",

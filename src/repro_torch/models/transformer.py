@@ -14,8 +14,10 @@ and values from a compressed latent of ``kv_lora`` plus a shared roped key
 of ``qk_rope``), ``enc`` / ``dec`` (the encoder-decoder: a non-causal
 encoder without RoPE over ``n_frames`` precomputed frame embeddings plus
 sinusoidal positions, and a decoder whose blocks add cross-attention over
-the encoder's output between self-attention and the FFN) and ``mamba`` (the
-Mamba-1 mixer of models/ssm.py with no FFN), with a tied or separate LM
+the encoder's output between self-attention and the FFN), ``mamba`` (the
+Mamba-1 mixer of models/ssm.py with no FFN) and jamba's hybrid kinds
+(``mamba_mlp`` / ``mamba_moe``: the mixer, then a GLU MLP or the MoE FFN;
+``attn_mlp``: attention without RoPE), with a tied or separate LM
 head, gemma's ``embed_scale``, and a VLM's patch prefix (``n_patches``
 precomputed patch embeddings before the text, positions over both, the loss
 over the text). Every weight access goes through a parameter view: the training engine's ``core.engine.ParamView`` (ZeRO
@@ -110,14 +112,22 @@ def _ported(kind: str, cfg: ArchConfig) -> KindMeta:
     SiLU-GLU experts (RoPE); attention + GELU MLP with the parallel
     residual and LayerNorm (GPT-NeoX); MLA with a GLU MLP under RMSNorm;
     the encoder-decoder's ``enc`` and ``dec`` kinds (a model with an
-    encoder); the mamba mixer with no FFN and RMSNorm; any of them behind a
-    patch prefix. Anything else raises instead of running wrong."""
+    encoder); the mamba mixer under RMSNorm with no FFN, a GLU MLP or the
+    MoE FFN with SiLU-GLU experts (jamba's ``mamba_mlp`` / ``mamba_moe``);
+    any of them behind a patch prefix. Anything else raises instead of
+    running wrong: among them a mamba mixer with the GELU MLP, whose
+    ``w_in`` the reference's ``block_specs`` overwrites with the MLP's (a
+    (d, d_ff) leaf where the mixer reads (d, 2 d_inner)), and the MoE FFN
+    behind attention without RoPE, which no config has."""
     m = kind_meta(kind, cfg)
     attn_mlp = (m.mixer, m.ffn) == ("attn", "mlp")
     attn_moe = (m.mixer, m.ffn) == ("attn", "moe") and m.rope \
         and cfg.act == "silu_glu"
     glu = cfg.act in ("silu_glu", "gelu_glu")
-    block = ((m.mixer, m.ffn) == ("mamba", "none") and cfg.norm == "rms") \
+    mamba = m.mixer == "mamba" and cfg.norm == "rms" and (
+        m.ffn == "none" or (m.ffn == "mlp" and glu)
+        or (m.ffn == "moe" and cfg.act == "silu_glu"))
+    block = mamba \
         or ((attn_mlp or attn_moe) and not m.parallel
             and cfg.norm in ("rms", "ln") and glu) \
         or (attn_mlp and cfg.norm == "ln" and cfg.act == "gelu") \
@@ -157,8 +167,9 @@ def block_specs(kind: str, cfg: ArchConfig) -> dict[str, LeafSpec]:
         s["A_log"] = LeafSpec("A_log", (din, c.d_state), PLAIN, init="ssm_a")
         s["D"] = LeafSpec("D", (din,), PLAIN, init="ones")
         s["w_out"] = LeafSpec("w_out", (din, d), MATMUL)
-        return s
-    if m.mixer == "mla":
+        if m.ffn == "none":
+            return s
+    elif m.mixer == "mla":
         ml = cfg.mla
         s["w_dq"] = LeafSpec("w_dq", (d, ml.q_lora), MATMUL)
         s["q_norm"] = LeafSpec("q_norm", (ml.q_lora,), PLAIN, init="ones")

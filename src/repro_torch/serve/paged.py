@@ -11,7 +11,11 @@ per row), so its contents are arithmetic-neutral. Entries that are not
 sequence-indexed (a mamba layer's state, a sliding-window layer's ring)
 stay dense per slot, ``(L, n_slots, ...)``: admission writes the slot's
 whole row (a ring zero-padded by prefill when the prompt is shorter than
-the window), and decode updates them in place, each row only its own.
+the window), and decode updates them in place, each row only its own; an
+inactive row's entries are put back as they were before the step
+(``held_rows``), so a free slot's state changes only at its admission.
+A hybrid model (jamba) holds both kinds at once: its attention layers'
+K/V in pages, its mamba layers' states per slot.
 
 The dense decode view is one gather per entry (``assemble``); the decode
 step's single written position per row goes back with one scatter
@@ -172,14 +176,24 @@ class PagedKV:
                     out[kind][name] = v[:, self.rows]
         return out
 
-    def writeback(self, pool, dense_new, table, row_pos, active):
+    def held_rows(self, dense) -> dict:
+        """Copies of the per-slot entries of ``assemble``'s view, taken
+        before a decode step updates them in place (``writeback`` restores
+        the inactive rows from them)."""
+        return {(kind, name): d.clone()
+                for kind, entry in dense.items() if kind != "pos"
+                for name, d in entry.items() if (kind, name) not in self.seq_keys}
+
+    def writeback(self, pool, dense_new, table, row_pos, active, held):
         """Scatter the decode step's written position back into the pool.
 
         ``row_pos`` and ``active`` are this rank's rows. Each active row
         wrote exactly one new position (``row_pos``), at page-local address
         ``(table[r, pos // page], pos % page)``; inactive rows, and rows
         whose position lies outside this rank's sequence range, go to the
-        sink page. The other entries were updated in place in the view."""
+        sink page. The other entries were updated in place in the view:
+        an active row keeps its update, an inactive one gets its entry of
+        ``held`` (``held_rows`` before the step) back."""
         b = row_pos.shape[0]
         rows = torch.arange(b, device=row_pos.device)
         grows = rows + self.rows.start if self.rows.start else rows
@@ -201,8 +215,10 @@ class PagedKV:
             for name, d in entry.items():
                 if (kind, name) in self.seq_keys:
                     pool[kind][name][:, page_i, off] = d[:, rows, local]
-                elif d.data_ptr() != pool[kind][name][:, self.rows].data_ptr():
-                    pool[kind][name][:, self.rows] = d
+                else:
+                    keep = active.view((1, b) + (1,) * (d.ndim - 2))
+                    pool[kind][name][:, self.rows] = torch.where(
+                        keep, d, held[kind, name])
         return pool
 
     def admit_scatter(self, pool, c1, slot: int, slot_pages: torch.Tensor):

@@ -175,11 +175,12 @@ class ContinuousBatcher:
         """One decode step of every slot (global ``token``, ``row_pos``,
         ``active``); returns this rank's rows' logits."""
         dense = self.paged.assemble(self.pool, table)
+        held = self.paged.held_rows(dense)
         logits, new_dense = self._decode(params, dense,
                                          {"token": token, "row_pos": row_pos})
         local = self.serve.local_rows
         self.pool = self.paged.writeback(self.pool, new_dense, table,
-                                         local(row_pos), local(active))
+                                         local(row_pos), local(active), held)
         return logits
 
     def _whole_prompt(self, c1):

@@ -192,20 +192,25 @@ def _small(**kw):
     _small(block_pattern=("neox",) * 2, norm="rms", act="gelu"),
     _small(block_pattern=("neox",) * 2, norm="ln", act="silu_glu"),
     _small(norm="rms", act="gelu"),
-    _small(family="vlm", n_patches=4, block_pattern=("mamba_moe",) * 2,
+    _small(block_pattern=("mamba_mlp",) * 2, act="gelu"),
+    _small(block_pattern=("attn_moe",) * 2,
            moe=MoEConfig(n_experts=4, d_ff=64)),
     _small(block_pattern=("dec",) * 2, norm="ln", act="gelu"),
 ], ids=["moe-gelu", "mla", "neox-rms", "neox-glu", "attn-rms-gelu",
-        "patches-mamba-moe", "dec-without-encoder"])
+        "mamba-mlp-gelu", "attn-moe-no-rope", "dec-without-encoder"])
 def test_unported_kinds_raise(cfg):
     """The kinds still unported raise. (The MoE FFN with SiLU-GLU experts,
-    the patch prefix, MLA under RMSNorm with a GLU MLP and the
-    encoder-decoder are ported: tests/test_torch_moe.py,
-    tests/test_torch_vlm.py, tests/test_torch_mla.py,
-    tests/test_torch_whisper.py; an MoE of GELU experts, a mamba mixer
-    with an MoE FFN, MLA under LayerNorm, a GELU MLP under RMSNorm (the
-    reference gives it no biases there) and a cross-attention block with
-    no encoder are not.)"""
+    the patch prefix, MLA under RMSNorm with a GLU MLP, the
+    encoder-decoder and jamba's mamba mixer with a GLU MLP or the MoE FFN
+    are ported: tests/test_torch_moe.py, tests/test_torch_vlm.py,
+    tests/test_torch_mla.py, tests/test_torch_whisper.py,
+    tests/test_torch_jamba.py; an MoE of GELU experts, MLA under
+    LayerNorm, a GELU MLP under RMSNorm (the reference gives it no biases
+    there), a mamba mixer with the GELU MLP (the reference's
+    ``block_specs`` overwrites the mixer's ``w_in``, (d, 2 d_inner), with
+    the MLP's, (d, d_ff)), the MoE FFN behind attention without RoPE (no
+    config has it) and a cross-attention block with no encoder are
+    not.)"""
     with pytest.raises(NotImplementedError, match="not ported"):
         LM(cfg).leaf_specs()
 
@@ -216,25 +221,40 @@ def test_unported_kinds_raise(cfg):
       "mla.w_ukv", "mla.wo"}),
     (_small(norm="ln", act="gelu"),
      {"attn.w_in", "attn.b_in", "attn.w_out_ff", "attn.b_out", "attn.ln2_b"}),
-], ids=["mla", "attn-ln-gelu"])
+    (_small(block_pattern=("mamba_mlp",) * 2),
+     {"mamba_mlp.w_in", "mamba_mlp.w_xproj", "mamba_mlp.A_log",
+      "mamba_mlp.ln2", "mamba_mlp.w_gate", "mamba_mlp.w_up",
+      "mamba_mlp.w_down"}),
+    (_small(family="vlm", n_patches=4, block_pattern=("mamba_moe",) * 2,
+            moe=MoEConfig(n_experts=4, d_ff=64)),
+     {"mamba_moe.w_in", "mamba_moe.w_out", "mamba_moe.ln2",
+      "mamba_moe.router", "mamba_moe.w_gate", "mamba_moe.w_up",
+      "mamba_moe.w_down"}),
+], ids=["mla", "attn-ln-gelu", "mamba-mlp", "patches-mamba-moe"])
 def test_ported_kinds_build(cfg, leaves):
     """Kinds this test once held unported and the port now runs: MLA under
-    RMSNorm with a GLU MLP, and sequential attention with the GELU MLP and
+    RMSNorm with a GLU MLP, sequential attention with the GELU MLP and
     its biases under LayerNorm (whisper's decoder block, without the
-    cross-attention): their leaves build, the reference's leaves."""
+    cross-attention), and jamba's mamba mixer with a GLU MLP or the MoE FFN
+    (here behind a patch prefix): their leaves build, the reference's
+    leaves in the reference's order."""
     from repro.models.config import ArchConfig as JArch
     from repro.models.config import MLAConfig as JMLA
+    from repro.models.config import MoEConfig as JMoE
     from repro.models.transformer import LM as JLM
 
     specs = LM(cfg).leaf_specs()
     assert leaves <= set(specs)
     kw = {f: getattr(cfg, f) for f in ("name", "family", "n_layers",
                                        "d_model", "n_heads", "d_ff", "vocab",
-                                       "block_pattern", "norm", "act")}
+                                       "block_pattern", "norm", "act",
+                                       "n_patches")}
     if cfg.mla is not None:
         kw["mla"] = JMLA(32, 16, 16, 8, 16)
+    if cfg.moe.n_experts:
+        kw["moe"] = JMoE(n_experts=4, d_ff=64)
     want = JLM(JArch(**kw)).leaf_specs()
-    assert set(specs) == set(want)
+    assert list(specs) == list(want)
     for n, sp in specs.items():
         assert (sp.shape, sp.kind, sp.stack) == (want[n].shape, want[n].kind,
                                                  want[n].stack), n

@@ -221,16 +221,16 @@ def _carried(j):
 
 PORTED = ("qwen2-0.5b", "falcon-mamba-7b", "gpt-neox-20b", "gpt-neox-10b",
           "gemma3-1b", "deepseek-7b", "internvl2-1b", "phi3.5-moe-42b-a6.6b",
-          "mixtral-8x7b", "minicpm3-4b", "whisper-medium")
+          "mixtral-8x7b", "minicpm3-4b", "whisper-medium", "jamba-v0.1-52b")
 
 
 @pytest.mark.parametrize("name", ["jamba-v0.1-52b"])
 def test_unported_configs_raise(name):
-    """The reference's configs the port does not run yet (the mamba / MoE
-    hybrid), carried field by field into the port's ArchConfig: building
-    their leaves raises instead of running wrong. The families ported so
-    far build the same leaves from the carried config as from the port's
-    own."""
+    """No config of the reference is left unported: each of them, carried
+    field by field into the port's ArchConfig, builds the same leaves
+    (names, shapes, kinds, stacks, inits, in order) as the port's own
+    config; ``name``, the last one ported (the mamba / attention hybrid),
+    among them."""
     from repro.models.registry import ARCHS as JARCHS
     from repro.models.registry import get_arch as jget
 
@@ -238,21 +238,22 @@ def test_unported_configs_raise(name):
     from repro_torch.models.transformer import LM
 
     jget("qwen2-0.5b")
-    assert name in JARCHS
+    assert name in JARCHS and set(JARCHS) == set(PORTED)
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        LM(_carried(jget(name))).leaf_specs()
-    for ported in ("internvl2-1b", "phi3.5-moe-42b-a6.6b", "mixtral-8x7b",
-                   "minicpm3-4b", "whisper-medium"):
-        assert LM(_carried(jget(ported))).leaf_specs() \
-            .keys() == LM(get_arch(ported)).leaf_specs().keys()
+    def leaves(arch):
+        return [(n, s.shape, s.kind, s.stack, s.init, s.init_scale)
+                for n, s in LM(arch).leaf_specs().items()]
+
+    for ported in JARCHS:
+        assert leaves(_carried(jget(ported))) == leaves(get_arch(ported)), \
+            ported
 
 
 @pytest.mark.parametrize("name", PORTED)
 def test_ported_configs_are_the_reference_ones(name):
     """Every config the port registers equals the reference's field by
     field (the MoE, SSM and MLA sub-configs too), at published size and
-    reduced; with jamba, those are all of the reference's configs."""
+    reduced; they are all of the reference's configs."""
     from repro.models.registry import ARCHS as JARCHS
     from repro.models.registry import get_arch as jget
 
@@ -261,6 +262,6 @@ def test_ported_configs_are_the_reference_ones(name):
     jget(name)
     get_arch(name)
     assert set(ARCHS) == set(PORTED)
-    assert set(JARCHS) == set(PORTED) | {"jamba-v0.1-52b"}
+    assert set(JARCHS) == set(PORTED)
     assert get_arch(name) == _carried(jget(name))
     assert get_arch(name).reduced() == _carried(jget(name).reduced())

@@ -24,9 +24,11 @@
   gemma start from the reference's ``init_state``, falcon-mamba from the
   port's own. Two more reductions at one step each (ONE_STEP_ARCHS, the
   port's own init), at (1, 1, 1) in bf16 and on 4 ranks in f32:
-  minicpm3-4b (MLA, its unfusable ``w_dkv`` streamed) and whisper-medium
+  minicpm3-4b (MLA, its unfusable ``w_dkv`` streamed), whisper-medium
   (two stacks a step: the encoder's ``loop_layers`` over ("enc", i) turns
-  the prefetch rotation and the streaming sinks a second time).
+  the prefetch rotation and the streaming sinks a second time) and
+  jamba-v0.1-52b (three kinds with three leaf sets in one rotation:
+  ``mamba_mlp``, ``mamba_moe`` with its expert stacks, ``attn_mlp``).
 * The regimes against the reference at (1, 2, 2), over 3 steps, within
   tests/test_torch_train.py's tolerances: the port's overlapped streaming
   step against the reference's seed step at 1 microbatch (qwen2-0.5b and
@@ -61,7 +63,8 @@ COMBOS = [(False, False), (True, False), (False, True), (True, True)]
 ARCHS = {"qwen2-0.5b": RUN["seq"], "gemma3-1b": 128,
          "falcon-mamba-7b": RUN["seq"]}
 # one step each, from the port's own init (seed 0)
-ONE_STEP_ARCHS = {"minicpm3-4b": RUN["seq"], "whisper-medium": RUN["seq"]}
+ONE_STEP_ARCHS = {"minicpm3-4b": RUN["seq"], "whisper-medium": RUN["seq"],
+                  "jamba-v0.1-52b": RUN["seq"]}
 # the archs the 4-rank runs start from the reference's init_state (the
 # others from the port's own, seed 0)
 REF_INIT = ("qwen2-0.5b", "gemma3-1b")
@@ -344,13 +347,17 @@ ONE_STEP_CASES = [pytest.param(arch, c, id=f"{arch}-{_combo_id(c)}")
 
 @pytest.mark.parametrize("arch,combo", ONE_STEP_CASES)
 def test_regimes_bitwise_one_step_one_device(arch, combo):
-    """minicpm3-4b and whisper-medium, one bf16 step at (1, 1, 1): every
-    combination of overlap and streaming gives the seed run's loss, grad
-    norm and masters bit for bit (whisper's encoder leaves included)."""
+    """minicpm3-4b, whisper-medium and jamba, one bf16 step at (1, 1, 1):
+    every combination of overlap and streaming gives the seed run's loss,
+    grad norm and masters bit for bit (whisper's encoder leaves and each
+    of jamba's three kinds included)."""
     run = _local_run(arch, 1, *combo, steps=1)
     _assert_same_run(run, _local_run(arch, 1, False, False, steps=1))
     if arch == "whisper-medium":
         assert any(n.startswith("enc.") for n in run["master"])
+    if arch == "jamba-v0.1-52b":
+        assert {n.split(".")[0] for n in run["master"]} >= {
+            "mamba_mlp", "mamba_moe", "attn_mlp"}
 
 
 @pytest.mark.parametrize("arch,combo", ONE_STEP_CASES)
