@@ -213,7 +213,8 @@ Every training run's ranks (and the collectives phase's) are processes
 forked from the launcher's fork server, which imports torch once for the
 whole script (launch.train.PRELOAD), started before the build.
 4. train  : repro_torch.launch.train with --devices 4: qwen2-0.5b at full
-            width and depth under zero_topo on the mesh (data, node, gcd) =
+            width and TRAIN_L of its 24 layers (4h and 4c run the same
+            model) under zero_topo on the mesh (data, node, gcd) =
             (1, 2, 2), four ranks (processes) on this one card over gloo,
             quant block 128, bf16, global batch 8 x seq 1024, 5 steps from
             seed 0, the last one traced by torch.profiler, saving a
@@ -334,6 +335,34 @@ whole script (launch.train.PRELOAD), started before the build.
             on (g)'s tokens (PREFILL_TOL), (sp) a sequence-parallel B = 1
             prefill within PREFILL_TOL of (p)'s (the latent gathered under
             lat_gather, no K / V gathered), its fallbacks exact.
+4k. plan  : the topology planner and the calibration loop (topo/,
+            obs/calibrate.py), on four gloo ranks sharing the card on the
+            train phase's mesh (1, 2, 2). (a) Host only: the planner CLI
+            (planner.main in this process) on frontier / gpt_neox_20b (its
+            own assert: no preset ranks above its choice), with --serve
+            --model qwen2-0.5b, and against the calibrated file of (c). (b)
+            qwen2-0.5b at published width and REPLICA_L layers trained
+            PLAN_STEPS steps through launch.train.run with --scheme auto
+            --budget-gb 80 --trace (probes every step): every rank's config
+            must equal plan_for_mesh's first choice computed in this process
+            with the CLI's overrides (PLAN_AXES: W = (gcd, node), an INT8
+            secondary over gcd inside it, no E); every kernel of
+            TRAIN_KERNELS launched on every rank, no attention fallback; held
+            against the same run through the plain versions at
+            TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL; its trace held as 4i holds
+            it. Prints the payload bytes a rank a step by collective label
+            (the probes' taken out) beside phase_volumes' figures for the
+            same config (neither held: the paper's accounting counts logical
+            parameters without scales). (c) Rank 0's measured phase seconds
+            (the median of the steps after the first) priced by
+            phase_breakdown, back-solved (solve_bandwidths) into
+            calibrated(Topology.from_mesh(mesh)), written under PLAN_DIR and
+            read back by load_topology; prints each axis's effective
+            bandwidth beside its preset (gloo through host memory on one
+            card: these describe this machine, no cluster). Then
+            obs.calibrate's CLI (its main) with --quick --mesh 1,2,2 at its
+            reduced defaults must return 0 and write a topology that
+            load_topology reads. PLAN_DIR is removed at the end.
 4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
             quantized reduce-scatter at bits 4 and 8 over W, E and all four
             ranks on an embedding-sized f32 shard each; every kernel of
@@ -427,11 +456,12 @@ whole script (launch.train.PRELOAD), started before the build.
             serve_vlm, serve_mla, serve_whisper, train, train_neox,
             train_deepseek, train_ssm, train_gemma, train_moe, train_vlm,
             train_mla, train_whisper,
-            regimes, collectives, ckpt, replica, serve_mesh,
+            regimes, collectives, ckpt, replica, serve_mesh, plan,
             kernels_extra with the extra
             timing rows and every dequant_matmul shape's path, then the
             kernels line: all 11 kernels with their launches on every
-            path, the ckpt legs' and the replica run's included), the
+            path, the ckpt legs', the replica run's and the plan run's
+            included), the
             card's name and
             power limit (nvidia-smi), and last the line
             {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -444,6 +474,7 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import math
 import re
@@ -507,6 +538,10 @@ TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--scheme", "zero_topo", "--devices", "4",
               "--quant-block", "128", "--compute-dtype", "bfloat16",
               "--seed", "0", "--timeout", "600"]
 PROFILE_STEP = 4        # the kernel run traces its last step
+# qwen2-0.5b at TRAIN_L of its 24 layers in the train, ckpt and regimes
+# phases (cut for the script's time: every leaf trains the same way at any
+# depth, and the serving phase runs all 24 layers)
+TRAIN_L = 6
 # the kernel run also saves a checkpoint after its step CKPT_EVERY (of 5),
 # which the ckpt phase resumes on 4 ranks for CKPT_HELD_STEPS steps (held
 # against the kernel run's next ones), on 2 ranks for one step, and
@@ -514,8 +549,8 @@ PROFILE_STEP = 4        # the kernel run traces its last step
 CKPT_DIR = ROOT / "build" / "ckpt_smoke"
 CKPT_EVERY = 3
 CKPT_HELD_STEPS = 2
-# kernels vs plain versions through 5 bf16 training steps of 24 layers:
-# about 20x (loss) and 9x (grad norm) the largest relative differences of
+# kernels vs plain versions through 5 bf16 training steps, set at 24
+# layers: about 20x (loss) and 9x (grad norm) the largest relative differences of
 # the first runs on the H100 (4.8e-5 and 1.1e-3). The loss is a mean over
 # 8,192 tokens, so bf16 rounding differences average out; the grad norm
 # also carries INT4 rounding flips of the gradients.
@@ -544,15 +579,28 @@ MOE_GNORM_STEPS = 2
 # options, under trace mode (probes every step), then with --kernel-impl
 # plain (untraced: a traced step is bit for bit the untraced one)
 REPLICA_STEPS = 3
-# at REPLICA_L of qwen2's 24 layers (cut for the script's time in PR 30:
-# the replica tier's reduce-scatter and INT8 update gather run every leaf
-# the same way at any depth, and the 24 layers train in the train phase)
+# at REPLICA_L of qwen2's 24 layers (cut for the script's time: the
+# replica tier's reduce-scatter and INT8 update gather run every leaf the
+# same way at any depth)
 REPLICA_L = 6
 REPLICA_ARGS = TRAIN_ARGS[:TRAIN_ARGS.index("--steps") + 1] \
     + [str(REPLICA_STEPS)] + TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 2:] \
     + ["--mesh-shape", "2,1,2"]
 REPLICA_OPTS = dict(cross_replica="reduce_scatter", quantize_update_gather=True)
 TRACE_DIR = ROOT / "build" / "trace_smoke"
+# phase 4k: qwen2-0.5b at REPLICA_L layers trained under --scheme auto on
+# the train phase's mesh (1, 2, 2); the planner's choice there (with the
+# tier defaults of Topology.from_mesh) is W = (gcd, node) with an INT8
+# secondary partition of degree 2 over gcd inside it: no preset's layout
+PLAN_STEPS = 3
+PLAN_BUDGET_GB = 80
+# the replica phase's flags but its arch, scheme and mesh
+PLAN_ARGS = ["--arch", "qwen2-0.5b", "--scheme", "auto", "--budget-gb",
+             str(PLAN_BUDGET_GB)] + REPLICA_ARGS[4:REPLICA_ARGS.index(
+                 "--mesh-shape")]
+PLAN_AXES = dict(weight=("gcd", "node"), extra_grad=(), replica=("data",),
+                 secondary=("gcd",))
+PLAN_DIR = ROOT / "build" / "plan_smoke"
 # phase 4j: qwen2-0.5b served on (2, 1, 2), four ranks sharing the card
 SERVE_MESH_SHAPE = (2, 1, 2)
 SERVE_MESH_REQUESTS, SERVE_MESH_SLOTS = 4, 4
@@ -3088,22 +3136,28 @@ def train_phase():
     from repro_torch.launch import train
 
     ap = train.build_parser()
+    arch = train_arch()
     t0 = time.perf_counter()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     kern = train.run(ap.parse_args(TRAIN_ARGS + [
         "--profile-step", str(PROFILE_STEP), "--ckpt-dir", str(CKPT_DIR),
-        "--ckpt-every", str(CKPT_EVERY)]))
+        "--ckpt-every", str(CKPT_EVERY)]), arch)
     t_kern = time.perf_counter() - t0
     t0 = time.perf_counter()
-    plain = train.run(ap.parse_args(plain_argv(TRAIN_ARGS)))
+    plain = train.run(ap.parse_args(plain_argv(TRAIN_ARGS)), arch)
     t_plain = time.perf_counter() - t0
     steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
     held = hold_train_runs(kern, plain, steps, "qwen2-0.5b")
     launches = {k: sum(r["launches"][k] for r in kern) for k in ops.KERNELS}
     return dict(kernel=kern, plain=plain, steps=steps, launches=launches,
-                per_rank_step_launches={k: kern[0]["launches"][k] / steps
-                                        for k in ops.KERNELS},
+                arch=arch, per_rank_step_launches={
+                    k: kern[0]["launches"][k] / steps for k in ops.KERNELS},
                 run_s=t_kern, plain_run_s=t_plain, **held)
+
+
+def train_arch():
+    """qwen2-0.5b at published width and TRAIN_L layers."""
+    return cut_train_arch("qwen2-0.5b", TRAIN_L)
 
 
 def cut_train_arch(name: str, n_layers: int):
@@ -3323,7 +3377,8 @@ def regime_phase(tr, flags):
     argv = list(TRAIN_ARGS)
     argv[argv.index("--steps") + 1] = str(REGIME_STEPS)
     t0 = time.perf_counter()
-    runs = train.run(train.build_parser().parse_args(argv + list(flags)))
+    runs = train.run(train.build_parser().parse_args(argv + list(flags)),
+                     tr["arch"])
     run_s = time.perf_counter() - t0
     for r in runs:
         missing = [k for k in TRAIN_KERNELS if r["launches"][k] == 0]
@@ -3411,7 +3466,8 @@ def ckpt_leg(label: str, argv, steps: int, kern):
     shape = (1, 1, n) if n in (1, 2) else (n // 4, 2, 2)
     t0 = time.perf_counter()
     runs = train.run(train.build_parser().parse_args(
-        argv + ["--resume", "--ckpt-dir", str(CKPT_DIR)]), steps=steps)
+        argv + ["--resume", "--ckpt-dir", str(CKPT_DIR)]), train_arch(),
+        steps=steps)
     run_s = time.perf_counter() - t0
     step_dir = CKPT_DIR / f"step_{CKPT_EVERY:08d}"
     meta = json.loads((step_dir / "meta.json").read_text())
@@ -3502,7 +3558,7 @@ def ckpt_phase(tr) -> dict:
     try:
         train.run(train.build_parser().parse_args(half + [
             "--resume", "--strict-restore", "--ckpt-dir", str(CKPT_DIR)]),
-            steps=1)
+            train_arch(), steps=1)
     except MeshMismatch as e:
         refused = f"MeshMismatch: {e}"
     else:
@@ -3740,6 +3796,194 @@ def replica_line(rp) -> dict:
         run_s=rp["run_s"], plain_run_s=rp["plain_run_s"],
         phase_s=rp["phase_s"])
 
+
+# ---------------------------------------------------------------------------
+# phase 4k: the topology planner and the calibration loop
+# ---------------------------------------------------------------------------
+
+def planner_cli(argv) -> str:
+    """``python -m repro_torch.topo.planner`` with ``argv``, run in this
+    process (``planner.main``): its standard output."""
+    from repro_torch.topo import planner
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = planner.main(argv)
+    if code != 0:
+        raise Failed(f"planner {argv} returned {code}")
+    return buf.getvalue()
+
+
+def plan_phase() -> dict:
+    """Phase 4k: the planner CLI (host only), qwen2-0.5b at REPLICA_L layers
+    trained under --scheme auto on (1, 2, 2) and held against plain, its
+    measured phases calibrated into a Topology that the planner re-plans
+    from, and the calibration CLI's quick run. Returns the runs, the
+    planner's outputs, the wire bytes beside phase_volumes', the measured
+    phase seconds beside their prediction and the solved bandwidths."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import TEST_AXES, Mesh
+    from repro_torch.obs import calibrate
+    from repro_torch.topo import cost, planner
+    from repro_torch.topo.model import Topology, calibrated, load_topology
+
+    ap = train.build_parser()
+    t_phase = time.perf_counter()
+    shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    shutil.rmtree(TRACE_DIR / "plan", ignore_errors=True)
+    PLAN_DIR.mkdir(parents=True)
+    # (a) host only: the paper's cluster and model, and a serving plan
+    t0 = time.perf_counter()
+    cli = dict(frontier=planner_cli([]),
+               serve=planner_cli(["--serve", "--model", "qwen2-0.5b"]))
+    host_s = time.perf_counter() - t0
+    # (b) the planner's first choice for the live mesh, in this process,
+    # with the overrides the train CLI applies to it
+    arch = cut_train_arch("qwen2-0.5b", REPLICA_L)
+    psi = arch_params(arch)
+    args = ap.parse_args(PLAN_ARGS)
+    mesh = Mesh(train.mesh_shape(args), TEST_AXES)
+    best = planner.plan_for_mesh(mesh, psi=psi, n_layers=arch.n_layers,
+                                 memory_budget=PLAN_BUDGET_GB * 1e9,
+                                 top_k=1)[0]
+    want = dataclasses.replace(best.cfg, quant_block=args.quant_block,
+                               overlap=False, compute_dtype=args.compute_dtype,
+                               impl=None)
+    if dataclasses.asdict(want.axes) != PLAN_AXES:
+        raise Failed(f"plan: the planner chose {best.label}, not {PLAN_AXES}")
+    t0 = time.perf_counter()
+    kern = train.run(ap.parse_args(PLAN_ARGS + ["--trace"]
+                                   + trace_args("plan")), arch)
+    t_kern = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = train.run(ap.parse_args(plain_argv(PLAN_ARGS)), arch)
+    t_plain = time.perf_counter() - t0
+    for run, impl in ((kern, None), (plain, "plain")):
+        for r in run:
+            if r["cfg"] != dataclasses.replace(want, impl=impl):
+                raise Failed(f"plan rank {r['rank']}: trained {r['cfg']}, "
+                             f"the planner's choice is {want}")
+    held = hold_train_runs(kern, plain, PLAN_STEPS, "plan", profiled=False)
+    traced = hold_trace(kern, "plan")
+    r0 = kern[0]
+    probe_pay = r0["trace"]["probe_counts"]["payload"]
+    payload = {k: (v - probe_pay.get(k, 0)) / PLAN_STEPS
+               for k, v in r0["payload_bytes"].items()}
+    volumes = cost.phase_volumes(want, float(psi))
+    # (c) rank 0's measured phases after the first step, priced and solved
+    steps = r0["trace"]["phase_s"][1:]
+    measured = {k: statistics.median(p[k] for p in steps) for k in steps[0]}
+    topo = Topology.from_mesh(mesh)
+    wl = cost.Workload(psi=float(psi), n_layers=arch.n_layers,
+                       tokens_per_device_mb=args.batch * args.seq // mesh.size,
+                       n_microbatch=args.microbatches)
+    pred = cost.phase_breakdown(want, topo, wl)
+    eff = calibrate.solve_bandwidths(pred, measured)
+    cal = calibrated(topo, eff)
+    cal_path = PLAN_DIR / "topo_calibrated.json"
+    cal.save(cal_path)
+    if load_topology(str(cal_path)).to_dict() != cal.to_dict():
+        raise Failed(f"plan: {cal_path} does not read back")
+    cli["calibrated"] = planner_cli(["--topology", str(cal_path), "--model",
+                                     "qwen2-0.5b", "--top", "4"])
+    # the calibration CLI at its reduced defaults, its ranks on the card
+    quick_path = PLAN_DIR / "calibrate_quick.json"
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = calibrate.main(["--quick", "--mesh", "1,2,2",
+                               "--out-topology", str(quick_path)])
+    quick_s = time.perf_counter() - t0
+    if code != 0:
+        raise Failed(f"obs.calibrate --quick returned {code}")
+    quick = load_topology(str(quick_path))
+    if sorted(quick.axis_sizes) != sorted(mesh.shape.items()):
+        raise Failed(f"obs.calibrate wrote {quick.to_dict()}")
+    launches = {k: sum(r["launches"][k] - r["trace"]["probe_counts"]
+                       ["launches"].get(k, 0) for r in kern)
+                for k in ops.KERNELS}
+    shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    return dict(kernel=kern, plain=plain, steps=PLAN_STEPS, arch=arch,
+                params=psi, cfg=want, label=best.label, launches=launches,
+                payload_per_step=payload, volumes=volumes, measured=measured,
+                predicted={k: v["seconds"] for k, v in pred.items()},
+                bandwidths={a: dict(effective=eff.get(a),
+                                    preset=topo.link(a).bandwidth)
+                            for a in topo.axis_names},
+                calibrated=cal.to_dict(), calibrate_quick=buf.getvalue(),
+                calibrate_quick_topology=quick.to_dict(), cli=cli,
+                host_s=host_s, run_s=t_kern, plain_run_s=t_plain,
+                quick_s=quick_s, phase_s=time.perf_counter() - t_phase,
+                **held, **traced)
+
+
+def print_plan(pl):
+    print(f"  planner (frontier / gpt_neox_20b):")
+    for line in pl["cli"]["frontier"].splitlines()[:4] \
+            + pl["cli"]["frontier"].splitlines()[-1:]:
+        print(f"    {line}")
+    print(f"  planner --serve --model qwen2-0.5b: "
+          f"{pl['cli']['serve'].splitlines()[-1]}")
+    print(f"  auto: {pl['label']} (psi {pl['params']:,}, "
+          f"{pl['arch'].n_layers} layers, budget {PLAN_BUDGET_GB} GB)")
+    for r in pl["kernel"]:
+        print(f"  rank {r['rank']}: loss {r['losses']} grad_norm "
+              f"{r['grad_norms']} step_s {r['step_times']} peak_bytes "
+              f"{r['peak_bytes']} memory_report {r['memory']}")
+    for x in pl["segment_sums"]:
+        print(f"  rank {x['rank']}: segment sum {x['segment_sum_s']} s vs "
+              f"wall {x['step_s']} s (rel {x['rel']})")
+    print(f"  payload bytes a rank a step (probes out): "
+          f"{json.dumps(pl['payload_per_step'])}")
+    print(f"  phase_volumes (bytes a device a step): "
+          f"{json.dumps(pl['volumes'])}")
+    for ph, m in pl["measured"].items():
+        print(f"  phase {ph}: measured {m * 1e3:.2f} ms, predicted "
+              f"{pl['predicted'].get(ph, 0.0) * 1e3:.4f} ms")
+    for a, b in pl["bandwidths"].items():
+        eff = "none" if b["effective"] is None \
+            else f"{b['effective'] / 1e9:.4f} GB/s"
+        print(f"  effective bandwidth[{a}]: {eff} (preset "
+              f"{b['preset'] / 1e9:.3f} GB/s; gloo through host memory)")
+    for line in pl["cli"]["calibrated"].splitlines()[:4]:
+        print(f"    {line}")
+    for line in pl["calibrate_quick"].splitlines():
+        print(f"    {line}")
+    print(f"  kernel vs plain: loss rel {pl['loss_rel']}, grad norm rel "
+          f"{pl['grad_norm_rel']}; peak bytes summed "
+          f"{sum(r['peak_bytes'] for r in pl['kernel'])}; host "
+          f"{pl['host_s']:.1f} s, run {pl['run_s']:.1f} s, plain "
+          f"{pl['plain_run_s']:.1f} s, calibrate --quick {pl['quick_s']:.1f} "
+          f"s; phase {pl['phase_s']:.1f} s")
+
+
+def plan_line(pl) -> dict:
+    k0 = pl["kernel"][0]
+    return dict(
+        arch="qwen2-0.5b", n_layers=pl["arch"].n_layers, scheme="auto",
+        budget_gb=PLAN_BUDGET_GB, mesh=[1, 2, 2], ranks=4, choice=pl["label"],
+        fingerprint=pl["cfg"].fingerprint(), params=pl["params"],
+        global_batch=8, seq=1024, steps=pl["steps"], losses=k0["losses"],
+        grad_norms=k0["grad_norms"], plain_losses=pl["plain"][0]["losses"],
+        plain_grad_norms=pl["plain"][0]["grad_norms"],
+        loss_rel=pl["loss_rel"], grad_norm_rel=pl["grad_norm_rel"],
+        step_s=k0["step_times"], plain_step_s=pl["plain"][0]["step_times"],
+        tok_s=k0["tokens_per_s"],
+        peak_bytes_per_rank=[r["peak_bytes"] for r in pl["kernel"]],
+        peak_bytes_sum=sum(r["peak_bytes"] for r in pl["kernel"]),
+        memory_report=k0["memory"], launches=pl["launches"],
+        segments=[r["trace"]["segments"] for r in pl["kernel"]],
+        probes=[r["trace"]["probes"] for r in pl["kernel"]],
+        segment_sums=pl["segment_sums"],
+        payload_bytes_per_step_per_rank=pl["payload_per_step"],
+        phase_volumes=pl["volumes"], measured_phase_s=pl["measured"],
+        predicted_phase_s=pl["predicted"], bandwidths=pl["bandwidths"],
+        calibrated=pl["calibrated"],
+        calibrate_quick_topology=pl["calibrate_quick_topology"],
+        host_s=pl["host_s"], run_s=pl["run_s"],
+        plain_run_s=pl["plain_run_s"], quick_s=pl["quick_s"],
+        phase_s=pl["phase_s"])
 
 # ---------------------------------------------------------------------------
 # phase 4j: serving on the mesh (2, 1, 2)
@@ -5253,6 +5497,7 @@ def cut_train_line(tc, traced_key: str, **extra) -> dict:
 
 
 def print_train(tr):
+    print(f"  qwen2-0.5b at {tr['arch'].n_layers} layers")
     for label, run in (("kernels", tr["kernel"]), ("plain", tr["plain"])):
         for r in run:
             print(f"  {label} rank {r['rank']}: loss {r['losses']} grad_norm "
@@ -5459,9 +5704,13 @@ def main(argv=None) -> int:
         phase("serve_mesh")
         sm = serve_mesh_phase()
         print_serve_mesh(sm)
+        phase("plan")
+        pl = plan_phase()
+        print_plan(pl)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
         shutil.rmtree(TRACE_DIR, ignore_errors=True)
+        shutil.rmtree(PLAN_DIR, ignore_errors=True)
 
     phase("train_neox")
     tn = neox_train_phase()
@@ -5638,6 +5887,7 @@ def main(argv=None) -> int:
                        ckpt=sum(leg["launches"][name] for leg in ck["legs"]),
                        replica=rp["launches"][name],
                        serve_mesh=sm["launches"][name],
+                       plan=pl["launches"][name],
                        collectives=cl_launches[name],
                        regimes=sum(rg["launches"][name] for rg in regimes),
                        quant_error=qe_launches[name],
@@ -5807,7 +6057,8 @@ def main(argv=None) -> int:
     # the first step pays for the kernels' first use, the last is traced
     timed = slice(1, PROFILE_STEP)
     train_line = dict(
-        arch="qwen2-0.5b", scheme="zero_topo", mesh=[1, 2, 2], ranks=4,
+        arch="qwen2-0.5b", n_layers=tr["arch"].n_layers, scheme="zero_topo",
+        mesh=[1, 2, 2], ranks=4,
         global_batch=8, seq=1024, steps=tr["steps"], losses=k0["losses"],
         grad_norms=k0["grad_norms"], plain_losses=tr["plain"][0]["losses"],
         plain_grad_norms=tr["plain"][0]["grad_norms"],
@@ -5890,6 +6141,8 @@ def main(argv=None) -> int:
             replica=replica_line(rp), replica_ranks=rp["kernel"],
             serve_mesh=serve_mesh_line(sm),
             replica_plain_ranks=rp["plain"],
+            plan=plan_line(pl), plan_ranks=pl["kernel"],
+            plan_plain_ranks=pl["plain"],
             collective_ranks=cl,
             regime_ranks=[rg["ranks"] for rg in regimes],
             train_ranks=tr["kernel"], train_plain_ranks=tr["plain"],
@@ -5940,6 +6193,7 @@ def main(argv=None) -> int:
     print("ckpt " + json.dumps(ckpt_line(ck)))
     print("replica " + json.dumps(replica_line(rp)))
     print("serve_mesh " + json.dumps(serve_mesh_line(sm)))
+    print("plan " + json.dumps(plan_line(pl)))
     print("kernels_extra " + json.dumps(kernels_extra))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {card}")

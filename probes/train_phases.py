@@ -64,6 +64,10 @@ Needs one CUDA card and nvcc. Phases (all by default):
 - ``replica``: chip_smoke's replica phase (4i) alone.
 - ``serve_mesh``: chip_smoke's serving phase on the mesh (2, 1, 2) (4j)
   alone, about 2-3 minutes with the build.
+- ``plan``: chip_smoke's planner and calibration phase (4k) alone: the
+  planner CLI, qwen2-0.5b at REPLICA_L layers under ``--scheme auto`` on
+  (1, 2, 2) against plain, the calibrated topology, ``obs.calibrate
+  --quick``.
 - ``trace_window``: gpt-neox-20b served at published depth, then its
   prefill traced ``--traces`` times, in turns bare (launched the moment
   the trace starts), padded (``train.trainer.pad_trace``'s idle card
@@ -93,7 +97,7 @@ sys.path.insert(0, str(ROOT / "src"))
 PHASES = ("ssm", "gemma", "timing", "scan_backward", "ssm_ablation",
           "trace_events", "depth", "serve_deepseek", "trace_window", "ckpt",
           "serve_moe", "train_moe", "jamba",
-          "first_step", "replica", "serve_mesh")
+          "first_step", "replica", "serve_mesh", "plan")
 # the bytes the first_step phase's warm run has its allocator map before
 # the steps, and sends through one gloo all-gather twice
 WARM_ALLOC = 6 << 30
@@ -268,10 +272,10 @@ def _first_step_worker(rank, world, port, args, queue, warm, std=None):
 
 
 def first_step(c) -> dict:
-    """chip_smoke's train phase run for 3 steps, traced without probes:
-    its ranks spawned (a fresh interpreter each, as before the launcher's
-    fork server), forked from the fork server that preloads torch, and
-    forked and warmed up (``_first_step_worker``): every rank's timeline
+    """chip_smoke's train phase run (TRAIN_L layers) for 3 steps, traced
+    without probes: its ranks spawned (a fresh interpreter each, as before
+    the launcher's fork server), forked from the fork server that preloads
+    torch, and forked and warmed up (``_first_step_worker``): every rank's timeline
     relative to the entry, its steps' seconds and fenced segments, and the
     warm run's first uses."""
     argv = list(c.TRAIN_ARGS)
@@ -282,7 +286,7 @@ def first_step(c) -> dict:
                                ("forkserver", "forkserver", False),
                                ("warm", "forkserver", True)):
         t0 = time.perf_counter()
-        runs = run_ranks(argv, None, worker=_first_step_worker,
+        runs = run_ranks(argv, c.train_arch(), worker=_first_step_worker,
                          extra=(warm,), start=start)
         wall = time.perf_counter() - t0
         rows = []
@@ -603,7 +607,8 @@ def ckpt_probe(c) -> dict:
     try:
         kern = train.run(train.build_parser().parse_args(c.TRAIN_ARGS + [
             "--profile-step", str(c.PROFILE_STEP), "--ckpt-dir",
-            str(c.CKPT_DIR), "--ckpt-every", str(c.CKPT_EVERY)]))
+            str(c.CKPT_DIR), "--ckpt-every", str(c.CKPT_EVERY)]),
+            c.train_arch())
         print(f"kernel run: losses {kern[0]['losses']} grad norms "
               f"{kern[0]['grad_norms']} step_s {kern[0]['step_times']}",
               flush=True)
@@ -756,6 +761,16 @@ def main():
             print("replica " + json.dumps(out["replica"]), flush=True)
         finally:
             shutil.rmtree(c.TRACE_DIR, ignore_errors=True)
+        save()
+    if "plan" in args.phase:
+        try:
+            pl = c.plan_phase()
+            c.print_plan(pl)
+            out["plan"] = c.plan_line(pl)
+            print("plan " + json.dumps(out["plan"]), flush=True)
+        finally:
+            shutil.rmtree(c.TRACE_DIR, ignore_errors=True)
+            shutil.rmtree(c.PLAN_DIR, ignore_errors=True)
         save()
     if "serve_mesh" in args.phase:
         sm = c.serve_mesh_phase()

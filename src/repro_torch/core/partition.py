@@ -5,7 +5,9 @@ the per-category axes and degrees, the scheme presets, the per-leaf
 quantization block (``ZeroConfig.block_for`` / ``for_leaf``), the flat
 padding rule (``padded_flat_size``), the leaf kinds and ``LeafSpec``, and the
 memory formulas the engine reports (``grad_buffer_bytes``,
-``prefetch_buffer_bytes``). Each category of training state is
+``prefetch_buffer_bytes``) and the cost model prices (paper Tables IV-VI:
+``sharding_factor_table``, ``weight_memory_bytes``, ``grad_memory_bytes``,
+``optimizer_memory_bytes``). Each category of training state is
 sharded over a prefix of the bandwidth hierarchy: weights over W, gradients
 over W + E, optimizer state over W + E + R, with the flat slices nested in
 that major -> minor order. ``ZeroConfig.fingerprint`` is the layout
@@ -203,21 +205,50 @@ def single_device_config(scheme: str = "zero_topo", **over) -> ZeroConfig:
                   **over)
 
 
+def sharding_factor_table(cfg: ZeroConfig) -> dict[str, int]:
+    """Paper Table IV row for this config."""
+    return {"weights": cfg.w_degree, "grads": cfg.g_degree,
+            "optimizer": cfg.os_degree,
+            "secondary": cfg.sec_degree or cfg.w_degree}
+
+
+def weight_memory_bytes(cfg: ZeroConfig, psi: int) -> int:
+    """Paper Table V: per-device weight-shard bytes (bf16 primary + INT8
+    secondary)."""
+    primary = 2 * psi // cfg.w_degree
+    sec = 0 if cfg.sec_degree is None else psi // cfg.sec_degree
+    return primary + sec
+
+
+def grad_memory_bytes(cfg: ZeroConfig, psi: int, *,
+                      grad_bytes: int = 4) -> int:
+    """Paper Table VI: per-device gradient bytes at the grad-shard degree
+    (``grad_bytes`` 4: fp32 accumulation; 2: the paper's fp16 accounting)."""
+    return grad_bytes * psi // cfg.g_degree
+
+
 def grad_buffer_bytes(cfg: ZeroConfig, psi: int, *,
-                      streaming: bool | None = None) -> int:
+                      streaming: bool | None = None,
+                      grad_bytes: int = 4) -> int:
     """Bytes of the gradient buffer the engine allocates: microbatch grads
-    accumulate in fp32 primary layout (``4 * psi / w_degree``), or, on the
-    streaming path, in fp32 optimizer-shard layout (``4 * psi / os_degree``)."""
+    accumulate in primary layout (``grad_bytes * psi / w_degree``), or, on
+    the streaming path, in optimizer-shard layout (``grad_bytes * psi /
+    os_degree``); ``grad_bytes`` 4 is the engine's fp32."""
     if streaming is None:
         streaming = cfg.stream_grads
     deg = cfg.os_degree if streaming else cfg.w_degree
-    return 4 * psi // deg
+    return grad_bytes * psi // deg
 
 
 def prefetch_buffer_bytes(cfg: ZeroConfig, layer_bytes: int) -> int:
     """Bytes of the 2-slot gather-prefetch buffer: two layers' gathered
     weights in wire format (``layer_bytes`` each); 0 when overlap is off."""
     return 2 * layer_bytes if cfg.overlap else 0
+
+
+def optimizer_memory_bytes(cfg: ZeroConfig, psi: int) -> int:
+    """fp32 master + Adam m + v, sharded over all devices (K = 12)."""
+    return 12 * psi // cfg.os_degree
 
 
 def resident_memory_bytes(cfg: ZeroConfig, psi: int, *,

@@ -8,6 +8,9 @@ Port of ``repro.launch.distributed``:
   reference's sources, torchrun's ``RANK`` / ``WORLD_SIZE`` /
   ``MASTER_ADDR`` / ``MASTER_PORT``. Without any of them the run is one
   process, and the launcher spawns its own ranks (``--devices``).
+* ``host_map()``: which host each rank of the live group runs on, from
+  the host names the ranks gather (the mesh's host boundaries,
+  ``launch.mesh``).
 * ``initialize(dcfg)``: ``torch.distributed.init_process_group`` with gloo
   at ``tcp://<coordinator>`` (rank 0 binds it). Nothing on one process.
 * ``add_cli_args`` / ``from_args``: the ``--coordinator`` /
@@ -135,6 +138,28 @@ def initialize(dcfg: DistConfig, timeout_s: float = 900.0) -> DistConfig:
             rank=dcfg.process_id, world_size=dcfg.num_processes,
             timeout=timedelta(seconds=timeout_s))
     return dcfg
+
+
+def host_map() -> tuple[int, ...] | None:
+    """Rank -> host of the live group (``launch.mesh.Mesh.hosts``): every
+    rank's host name, gathered, numbered by ``number_hosts``. Exact under
+    any launcher and any placement of ranks on hosts. None without a group
+    of more than one rank. A collective: every rank of the group calls it."""
+    import socket
+
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names, socket.gethostname())
+    return number_hosts(names)
+
+
+def number_hosts(names) -> tuple[int, ...]:
+    """Each rank's host name -> a host id, numbered in order of first
+    appearance."""
+    ids: dict[str, int] = {}
+    return tuple(ids.setdefault(n, len(ids)) for n in names)
 
 
 def process_count() -> int:

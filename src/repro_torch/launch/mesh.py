@@ -1,8 +1,9 @@
 """Named device meshes over ``torch.distributed`` ranks, and the scheme
 config for a mesh.
 
-Port of ``repro.launch.mesh``'s ``zero_tiers`` (:64) and the preset half of
-``scheme_config`` (:94). A ``Mesh`` is a row-major grid of ranks with named
+Port of ``repro.launch.mesh``'s ``process_axes`` (:42), ``zero_tiers`` (:64)
+and ``scheme_config`` (:94), ``"auto"`` (the topology planner) included. A
+``Mesh`` is a row-major grid of ranks with named
 axes, e.g. ``("data", "node", "gcd")`` = (1, 2, 2): rank r sits at the
 coordinates of r unravelled over the shape. For every axis tuple the
 collectives use, ``Mesh.bind`` creates one process group per set of ranks
@@ -15,6 +16,13 @@ collectives reorder between the two (``Group.to_group``).
 Axis-to-tier mapping, as in the reference (DESIGN.md §2): "gcd" is the
 fastest tier (primary weight shards), "node" x "gcd" the intra tier
 (gradient shards + secondary partition), the other axes the inter tier.
+
+The reference finds the slow network where a mesh axis crosses a JAX
+process. Here every rank is a process of its own, so a rank's *host* takes
+that place: ``Mesh.hosts`` maps each rank to a host id (None: every rank on
+one host; the train launcher fills it from the host names its ranks gather,
+``launch.distributed.host_map``), and ``process_axes`` lists the axes
+along which it changes.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ class Mesh:
     """A row-major grid of ``torch.distributed`` ranks with named axes."""
 
     def __init__(self, shape: tuple[int, ...], axis_names: tuple[str, ...],
-                 rank: int = 0):
+                 rank: int = 0, hosts=None):
         if len(shape) != len(axis_names):
             raise ValueError(f"shape {shape} vs axes {axis_names}")
         self.axis_names = tuple(axis_names)
@@ -57,6 +65,9 @@ class Mesh:
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a mesh of {self.size}")
         self.rank = rank
+        if hosts is not None and len(hosts) != self.size:
+            raise ValueError(f"{len(hosts)} hosts for {self.size} ranks")
+        self.hosts = None if hosts is None else tuple(hosts)
         self.coords = self._coords(rank)
         self._groups: dict[AxisTuple, Group] = {}
         self._pgs: dict[tuple[int, ...], object] = {}   # by sorted members
@@ -153,8 +164,31 @@ def serve_axis_tuples(mesh: Mesh) -> list[AxisTuple]:
     return [model_axes(mesh), data_axes(mesh)]
 
 
+def process_axes(mesh: Mesh) -> AxisTuple:
+    """Mesh axes that cross a host boundary: those along which the rank ->
+    host map ``mesh.hosts`` (None: one host) changes."""
+    hosts = mesh.hosts
+    if hosts is None or len(set(hosts)) == 1:
+        return ()
+    spanning = []
+    for a in mesh.axis_names:
+        for r in range(mesh.size):
+            c = mesh._coords(r)
+            c[a] = 0
+            if hosts[r] != hosts[mesh._rank_of(c)]:
+                spanning.append(a)
+                break
+    return tuple(spanning)
+
+
 def zero_tiers(mesh: Mesh) -> dict[str, AxisTuple]:
-    """Map a mesh's axes onto the (l0, intra, inter) bandwidth tiers."""
+    """Map a mesh's axes onto the (l0, intra, inter) bandwidth tiers.
+
+    On a mesh over several hosts (``process_axes``) the host boundary MUST
+    fall inside the inter tier: the primary weight gather and the secondary
+    partition live on the intra axes precisely because those are the fast
+    in-node links, and a host boundary there would silently run them over
+    the network."""
     names = set(mesh.axis_names)
     if {"node", "gcd"} <= names:
         intra, l0 = ("node", "gcd"), ("gcd",)
@@ -163,12 +197,37 @@ def zero_tiers(mesh: Mesh) -> dict[str, AxisTuple]:
     else:  # single-axis test meshes
         intra = l0 = (mesh.axis_names[-1],)
     inter = tuple(a for a in mesh.axis_names if a not in intra)
+    crossing = tuple(a for a in process_axes(mesh) if a not in inter)
+    if crossing:
+        raise ValueError(
+            f"process boundary crosses intra-tier axes {crossing} of mesh "
+            f"{dict(mesh.shape)}: a multi-process launch must keep whole "
+            f"intra groups (axes {intra}) inside one process — lower the "
+            f"per-process device count or reorder the mesh so only the "
+            f"leading axes {inter} span processes")
     return dict(l0=l0, intra=intra, inter=inter)
 
 
-def scheme_config(scheme: str, mesh: Mesh, **over) -> ZeroConfig:
-    """The preset ZeroConfig of ``scheme`` on ``mesh`` (no planner); keyword
-    overrides (quant_block, overlap, stream_grads, impl, ...) apply to it."""
+def scheme_config(scheme: str, mesh: Mesh, *, psi=None, n_layers=None,
+                  memory_budget=None, **over) -> ZeroConfig:
+    """The ZeroConfig of ``scheme`` on ``mesh``; keyword overrides
+    (quant_block, overlap, stream_grads, impl, ...) apply to it.
+
+    ``scheme="auto"`` runs the topology planner (``topo``) against the mesh
+    and returns its top-ranked config, named "auto"; ``psi`` / ``n_layers``
+    describe the workload (default: the paper's 20B / 44-layer model) and
+    ``memory_budget`` bounds per-device state bytes (None: unbounded).
+    ``stream_grads`` goes to the planner, which prices and tags the
+    streaming regime; the other overrides apply to the chosen config."""
+    if scheme == "auto":
+        import dataclasses
+
+        from ..topo import plan_for_mesh
+        stream = bool(over.pop("stream_grads", False))
+        cfg = plan_for_mesh(mesh, psi=psi, n_layers=n_layers,
+                            memory_budget=memory_budget,
+                            stream_grads=stream, top_k=1)[0].cfg
+        return dataclasses.replace(cfg, **over) if over else cfg
     tiers = zero_tiers(mesh)
     cfg = preset(scheme, intra_axes=tiers["intra"], inter_axes=tiers["inter"],
                  l0_axes=tiers["l0"], axis_sizes=dict(mesh.shape), **over)

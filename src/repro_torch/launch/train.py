@@ -8,7 +8,7 @@
 Port of ``repro.launch.train`` with the flags ``--arch --scheme --steps
 --batch --seq --reduced --quant-block --overlap --stream-grads --lr
 --compute-dtype --ckpt-dir --ckpt-every --resume --strict-restore
---log-json``, the observability group ``--trace --metrics-jsonl
+--budget-gb --log-json``, the observability group ``--trace --metrics-jsonl
 --chrome-trace --heartbeat-dir --probe-every`` and the distributed group
 ``--coordinator --num-processes --process-id`` (launch/distributed.py), plus
 ``--device`` (default ``cuda``; there is no CPU fallback), ``--devices N``,
@@ -21,6 +21,10 @@ CPU devices; this launcher trains the published width unless ``--reduced``.
 package's format: either package's) in place of the seed, resharded onto
 this run's mesh unless ``--strict-restore``; ``--steps`` stays the steps of
 this run and the schedule's ``total_steps``, as in the reference.
+``--scheme auto`` trains the topology planner's first choice for the live
+mesh (``topo.plan_for_mesh`` on the trained model's parameter count and
+depth, within ``--budget-gb`` a rank when it is given), and rank 0 prints it
+(``planner choice: ...``).
 
 ``--devices N`` runs the step on the mesh ("data", "node", "gcd") =
 (N/4, 2, 2) (N = 1, 2 give (1, 1, N); ``--mesh-shape`` picks another shape
@@ -47,7 +51,7 @@ import traceback
 from datetime import timedelta
 
 from ..core.partition import SCHEMES
-from .distributed import add_cli_args, from_args, initialize
+from .distributed import add_cli_args, from_args, host_map, initialize
 
 # the modules the launcher's fork server imports once, before it forks any
 # rank: each rank then starts with torch imported, and with torch._dynamo,
@@ -64,7 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m repro_torch.launch.train",
         description="ZeRO-topo training on torch.distributed ranks")
     ap.add_argument("--arch", default="qwen2-0.5b")
-    ap.add_argument("--scheme", default="zero_topo", choices=SCHEMES)
+    ap.add_argument("--scheme", default="zero_topo",
+                    choices=SCHEMES + ("auto",),
+                    help="partition preset, or 'auto' to let the topology "
+                         "planner (repro_torch.topo) pick for the live mesh")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--devices", type=int, default=None,
                     help="ranks of the mesh (default 4, or the process "
@@ -115,6 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --resume: refuse any layout difference "
                          "(MeshMismatch/SchemeMismatch) instead of "
                          "resharding — the pre-elastic behavior")
+    ap.add_argument("--budget-gb", type=float, default=0.0,
+                    help="--scheme auto: per-device memory budget in GB "
+                         "(0 = unbounded; fake CPU devices have no real HBM)")
     ap.add_argument("--timeout", type=float, default=900.0,
                     help="seconds a rank waits at the rendezvous or in a "
                          "collective before it fails")
@@ -179,8 +189,9 @@ def mesh_shape(args) -> tuple[int, ...]:
 
 def train_rank(rank: int, world: int, args, arch=None, steps=None,
                engine_opts=None) -> dict:
-    """One rank's run. Returns its per-step metrics, its kernel launches
-    and collective payload bytes over the steps (and the launches inside
+    """One rank's run. Returns its scheme config (``cfg``), its per-step
+    metrics, its kernel launches and collective payload bytes over the
+    steps (and the launches inside
     the update all-gather), its peak device memory, the step it resumed
     from, the sha256 of each shard it restored
     (``checkpoint.shard_digests``), its checkpoints' seconds and, in trace
@@ -190,7 +201,12 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None,
     cut depth). ``steps``: stop after this many steps (default ``--steps``,
     which still sets the schedule). ``engine_opts``: ZeroConfig overrides
     (``cross_replica``, ``quantize_update_gather``), as the reference's
-    ``scheme_config(**engine_opts)``."""
+    ``scheme_config(**engine_opts)``; under ``--scheme auto`` they may also
+    replace the planner's workload (``psi``, ``n_layers``,
+    ``memory_budget``: None for each gives ``plan_for_mesh``'s defaults).
+    Only tests/test_torch_train.py does that, to hand the port the default
+    workload its reference harness plans on; the CLI plans on the trained
+    model."""
     import torch
     import torch.distributed as dist
 
@@ -221,11 +237,22 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None,
     if args.reduced:
         arch = arch.reduced()
     model = build_model(arch)
-    mesh = Mesh(mesh_shape(args), TEST_AXES, rank)
+    mesh = Mesh(mesh_shape(args), TEST_AXES, rank, hosts=host_map())
+    over = dict(engine_opts or {})
+    if args.scheme == "auto":
+        # the planner's workload: the model trained, on the live mesh
+        over = {**dict(psi=model.param_count(), n_layers=arch.n_layers,
+                       memory_budget=args.budget_gb * 1e9
+                       if args.budget_gb else None), **over}
     cfg = scheme_config(args.scheme, mesh, quant_block=args.quant_block,
                         overlap=args.overlap, stream_grads=args.stream_grads,
                         compute_dtype=args.compute_dtype, impl=args.kernel_impl,
-                        **(engine_opts or {}))
+                        **over)
+    if args.scheme == "auto":
+        a = cfg.axes
+        log0(f"planner choice: w={a.weight} e={a.extra_grad} r={a.replica} "
+             f"sec={a.secondary} int8w={cfg.quantize_weights} "
+             f"int4g={cfg.quantize_grads}")
     hp = TrainHparams(lr=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 2),
                       n_microbatch=args.microbatches, overlap=args.overlap,
@@ -299,7 +326,7 @@ def train_rank(rank: int, world: int, args, arch=None, steps=None,
     log0(f"final loss: {log.losses[-1]}")
     if rank == 0 and args.log_json:
         log.save(args.log_json)
-    return dict(rank=rank, device=str(device), losses=log.losses,
+    return dict(rank=rank, device=str(device), cfg=eng.cfg, losses=log.losses,
                 grad_norms=log.grad_norms, lrs=log.lrs,
                 step_times=log.step_times, tokens=log.tokens,
                 tokens_per_s=log.tokens_per_s, launches=launches,

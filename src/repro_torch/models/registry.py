@@ -1,6 +1,7 @@
 """Architecture registry: ArchConfig -> ModelDef (leaf specs + cache shapes).
 
-The torch-side half of ``repro.models.registry``: ``register``/``get_arch``,
+The torch-side half of ``repro.models.registry``: ``register``/``get_arch``/
+``list_archs``, ``ModelDef.param_count``,
 the serving axes of a mesh (``data_axes``, ``model_axes``, ``batch_axes``),
 the train and prefill batch shapes (a VLM's patch prefix counted in the
 sequence, an encoder-decoder's frames beside the tokens) and the per-kind
@@ -40,6 +41,12 @@ def get_arch(name: str) -> ArchConfig:
     if not ARCHS:
         load_all_configs()
     return ARCHS[name]()
+
+
+def list_archs() -> list[str]:
+    if not ARCHS:
+        load_all_configs()
+    return sorted(ARCHS)
 
 
 def load_all_configs():
@@ -92,6 +99,11 @@ class ModelDef:
 
     def leaf_specs(self) -> dict[str, LeafSpec]:
         return self.lm.leaf_specs()
+
+    def param_count(self) -> int:
+        """Logical (unpadded) parameter count, ``ZeroEngine.param_count``'s."""
+        return sum(s.logical_size * (s.stack or 1)
+                   for s in self.leaf_specs().values())
 
     def _extra_inputs(self, b: int) -> dict[str, tuple]:
         cfg = self.arch

@@ -39,8 +39,25 @@ def test_port_files_found():
              for p in PORT_FILES if p.name != "chip_smoke.py"}
     # the import rule covers obs/ and the multi-process launcher
     assert {"obs/__init__.py", "obs/spans.py", "obs/metrics.py",
-            "obs/heartbeat.py", "obs/phased.py",
-            "launch/distributed.py"} <= names
+            "obs/heartbeat.py", "obs/phased.py", "obs/calibrate.py",
+            "topo/__init__.py", "topo/model.py", "topo/cost.py",
+            "topo/planner.py", "launch/distributed.py"} <= names
+
+
+def test_topo_imports_no_torch():
+    """The planner and cost model are pure Python: importing them (and
+    ranking on a preset) loads no torch."""
+    import subprocess
+    import sys
+    code = ("import sys; from repro_torch.topo import planner; "
+            "planner.plan(planner.load_topology('frontier'), "
+            "planner.Workload(psi=2e10)); "
+            "assert 'torch' not in sys.modules, 'torch imported'")
+    res = subprocess.run([sys.executable, "-c", code],
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_serve_cli_without_device_raises_here():
@@ -150,6 +167,22 @@ def test_train_cli_checkpoint_flags_as_the_reference():
     port = flags(train.build_parser())
     assert len(port) == 4
     assert port == flags(ref_train.build_parser())
+
+
+def test_train_cli_budget_flag_as_the_reference():
+    """``--budget-gb`` (``--scheme auto``'s memory bound) exists with the
+    reference launcher's name, default, type and help text, and
+    ``--scheme`` offers ``auto``."""
+    from repro.launch import train as ref_train
+
+    def flag(ap):
+        return [(a.option_strings, a.default, a.type, a.help)
+                for a in ap._actions if a.dest == "budget_gb"]
+
+    assert len(flag(train.build_parser())) == 1
+    assert flag(train.build_parser()) == flag(ref_train.build_parser())
+    assert train.build_parser().parse_args(["--scheme", "auto"]).scheme \
+        == "auto"
 
 
 OBS_AND_DIST_FLAGS = ("trace", "metrics_jsonl", "chrome_trace", "heartbeat_dir",

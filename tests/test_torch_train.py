@@ -21,8 +21,18 @@ steps; the per-step loss and grad norm must agree.
   on every rank, the optimizer state over all 4: the reference's
   ``cross_replica="allreduce"``, the port's one cross-replica flow) and
   ``zero2`` (the gradients reduce-scattered over all 4 in f32): the other
-  schemes' collective paths. Together these are every scheme the train CLI
-  offers (tests/test_torch_port_rules.py holds that).
+  schemes' collective paths.
+* (1, 2, 2) under ``auto``: the topology planner's first choice for the
+  mesh at its default workload (the paper's 20B parameters and 44 layers:
+  the harness's ``scheme_config("auto", mesh, ...)`` passes no model), W =
+  (gcd, node) with an INT8 secondary of degree 2 over gcd inside it, the
+  only layout here whose secondary is narrower than W. The port's CLI run
+  is handed the same workload (``PLANNER_DEFAULT``).
+  Together these are every scheme the train CLI offers
+  (tests/test_torch_port_rules.py holds that).
+* ``--scheme auto`` as the CLI plans it, on the trained model's size
+  (``test_auto_cli_plans_the_trained_model``, (1, 1, 1) and (1, 2, 2), one
+  step): the chosen config against the reference's ``scheme_config``.
 
 Tolerances: rtol 3e-5 on the loss and 2e-4 on the grad norm, about ten
 times the differences measured at (1, 2, 2) (3e-6 and 2e-5). The port's
@@ -63,6 +73,9 @@ RUN = dict(seq=32, batch=4, steps=3, lr=1e-3, quant_block=64)
 LOSS_RTOL, GNORM_RTOL = 3e-5, 2e-4
 TRAJECTORY_GNORM_RTOL = 3e-3
 ARCH = "qwen2-0.5b"
+# ``--scheme auto``'s planner workload as the harness's reference run gets
+# it: plan_for_mesh's defaults, not the reduced model's size
+PLANNER_DEFAULT = dict(psi=None, n_layers=None)
 
 
 @pytest.fixture(autouse=True)
@@ -153,6 +166,7 @@ def reference_run(mesh, out_dir: Path, n_microbatch: int = 1,
     if final_leaves:
         np.savez(out_dir / "final.npz", **{
             n: np.asarray(state["master"][n]) for n in final_leaves})
+    out["fingerprint"] = cfg.fingerprint()
     (out_dir / "metrics.json").write_text(json.dumps(out))
     return out
 
@@ -171,7 +185,9 @@ def port_run(out_dir: Path, shape: tuple[int, int, int],
         "--seq", str(seq), "--lr", str(RUN["lr"]),
         "--quant-block", str(RUN["quant_block"]), "--compute-dtype", "float32",
         "--init-npz", str(out_dir / "state.npz"), "--timeout", "120"])
-    return train.run(args, reduced_arch(get_arch, arch))
+    return train.run(args, reduced_arch(get_arch, arch),
+                     engine_opts=PLANNER_DEFAULT if scheme == "auto"
+                     else None)
 
 
 def _port_setup(arch: str, mesh, seq: int, **hp_over):
@@ -354,6 +370,51 @@ def test_train_step_one_device(mesh1, tmp_path, n_microbatch):
     _check(ref, port)
 
 
+@pytest.mark.parametrize("shape,budget_gb", [((1, 1, 1), 0.0),
+                                              ((1, 2, 2), 0.001)])
+def test_auto_cli_plans_the_trained_model(capfd, shape, budget_gb):
+    """``--scheme auto`` as the CLI runs it, with no ``engine_opts``: the
+    planner's workload is the trained model's logical parameter count and
+    depth (and ``--budget-gb`` in bytes), and the config it trains equals
+    the reference's ``scheme_config("auto", ...)`` on that workload,
+    fingerprint for fingerprint. On (1, 2, 2) the reduced model's plan
+    (W = gcd, E = node, no secondary) is not the default workload's."""
+    from test_topo import _FakeMesh
+
+    from repro.launch.mesh import scheme_config as rscheme
+    from repro.models.registry import build_model as rbuild
+    from repro.models.registry import get_arch as rget
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_arch
+
+    rarch = reduced_arch(rget)
+    want = rscheme("auto", _FakeMesh(dict(zip(AX, shape)), n_processes=1),
+                   psi=rbuild(rarch).param_count(), n_layers=rarch.n_layers,
+                   memory_budget=budget_gb * 1e9 if budget_gb else None,
+                   quant_block=RUN["quant_block"], compute_dtype="float32")
+    n = int(np.prod(shape))
+    args = train.build_parser().parse_args([
+        "--arch", ARCH, "--scheme", "auto", "--budget-gb", str(budget_gb),
+        "--mesh-shape", ",".join(map(str, shape)),
+        "--device", "cpu", "--devices", str(n), "--steps", "1",
+        "--batch", str(n), "--seq", str(RUN["seq"]),
+        "--quant-block", str(RUN["quant_block"]),
+        "--compute-dtype", "float32", "--timeout", "120"])
+    ports = train.run(args, reduced_arch(get_arch))
+    assert len(ports) == n
+    for p in ports:
+        assert json.loads(json.dumps(p["cfg"].fingerprint())) \
+            == json.loads(json.dumps(want.fingerprint()))
+        assert np.isfinite(p["losses"]).all()
+    a = want.axes
+    if n == 4:
+        assert (a.weight, a.extra_grad, a.secondary) \
+            == (("gcd",), ("node",), None)
+    assert (f"planner choice: w={a.weight} e={a.extra_grad} r={a.replica} "
+            f"sec={a.secondary} int8w={want.quantize_weights} "
+            f"int4g={want.quantize_grads}") in capfd.readouterr().out
+
+
 def four_rank_run(tmp_path, shape, scheme: str = "zero_topo",
                   arch: str = ARCH, seq: int = RUN["seq"],
                   forced: bool = False) -> tuple[dict, list[dict]]:
@@ -373,7 +434,8 @@ def four_rank_run(tmp_path, shape, scheme: str = "zero_topo",
 
 FOUR_RANK_CASES = [((1, 2, 2), "zero_topo"), ((2, 1, 2), "zero_topo"),
                    ((1, 2, 2), "zeropp"), ((1, 2, 2), "zero3"),
-                   ((1, 2, 2), "zero1"), ((1, 2, 2), "zero2")]
+                   ((1, 2, 2), "zero1"), ((1, 2, 2), "zero2"),
+                   ((1, 2, 2), "auto")]
 
 
 # the cases held by forced steps: their free-running trajectories drift
@@ -401,6 +463,13 @@ def test_train_step_four_ranks(tmp_path, shape, scheme):
     else:
         ref, ports = four_rank_run(tmp_path, shape, scheme)
     assert [p["rank"] for p in ports] == [0, 1, 2, 3]
+    # the layout each package trained: equal, the planner's choice included
+    assert json.loads(json.dumps(ports[0]["cfg"].fingerprint())) \
+        == ref["fingerprint"]
+    if scheme == "auto":
+        a = ports[0]["cfg"].axes
+        assert (a.weight, a.extra_grad, a.secondary) \
+            == (("gcd", "node"), (), ("gcd",))
     for p in ports:   # the metrics are global: every rank reports the same
         assert p["losses"] == ports[0]["losses"]
         assert p["grad_norms"] == ports[0]["grad_norms"]
