@@ -363,6 +363,24 @@ whole script (launch.train.PRELOAD), started before the build.
             obs.calibrate's CLI (its main) with --quick --mesh 1,2,2 at its
             reduced defaults must return 0 and write a topology that
             load_topology reads. PLAN_DIR is removed at the end.
+4l. dryrun: the dry run (launch/dryrun.py) in subprocesses on the host,
+            started at once (dryrun_phase): (a) the train phase's
+            configuration, rank 0 of (1, 2, 2) traced on meta tensors over a
+            fake group: its would-be launches equal the train step's
+            per_rank_step_launches and its payload by label rank 0's a step,
+            exactly; (b) the serve phase's 4-slot decode step on one card:
+            launches equal step_launches', and the bytes and operations
+            the census bills its kernels equal the kernels line's for the
+            same calls, exactly; (c) (a)'s H100 roofline: compute and
+            memory terms at most rank 0's traced device seconds a step,
+            and each kernel's compute term at most its traced device time
+            (its memory term reported beside it);
+            (d) on the card, one bf16 matmul of 8,192^3 and a 1 GiB copy
+            timed with CUDA events, each rate at most 1.05 x H100_SXM's; (e)
+            gpt-neox-20b train_4k on the production mesh (16, 16) under
+            zero3, zeropp and zero_topo, then launch.validate on them
+            (exit 0: every census inside the paper's window). The census's
+            argument and temp bytes are printed beside rank 0's peak.
 4b. collectives: four gloo ranks sharing the card on (1, 2, 2) run the
             quantized reduce-scatter at bits 4 and 8 over W, E and all four
             ranks on an embedding-sized f32 shard each; every kernel of
@@ -456,7 +474,7 @@ whole script (launch.train.PRELOAD), started before the build.
             serve_vlm, serve_mla, serve_whisper, train, train_neox,
             train_deepseek, train_ssm, train_gemma, train_moe, train_vlm,
             train_mla, train_whisper,
-            regimes, collectives, ckpt, replica, serve_mesh, plan,
+            regimes, collectives, ckpt, replica, serve_mesh, plan, dryrun,
             kernels_extra with the extra
             timing rows and every dequant_matmul shape's path, then the
             kernels line: all 11 kernels with their launches on every
@@ -477,6 +495,7 @@ import hashlib
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -493,9 +512,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM, ops/s by type
-HBM_BPS = 3.35e12
-PEAK = {"bf16": 989e12, "f32": 67e12}
+from repro_torch.launch.roofline import H100_SXM  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense; the roofline's own, one source):
+# bytes/s of HBM, ops/s by type
+HBM_BPS = H100_SXM.hbm_bw
+PEAK = {"bf16": H100_SXM.peak_flops, "f32": H100_SXM.peak_flops_f32}
 # SMs, and special-function (SFU) results a clock an SM on sm_90: the
 # scan's exp floor, B*S*D*N exps over SMS * SFU_PER_SM * the SM clock
 SMS, SFU_PER_SM = 132, 16
@@ -824,6 +846,37 @@ SSM_TRAIN_KERNELS = tuple("selective_scan" if k == "flash_attention" else k
 # the reference's own tolerance between dequant_matmul_pallas and its
 # oracle (tests/test_kernels.py): the f32 sums run in another order
 BLOCKED_RTOL, BLOCKED_ATOL = 2e-5, 5e-4
+# phase 4l: the dry run (launch/dryrun.py) in subprocesses on the host
+DRYRUN_DIR = ROOT / "build" / "dryrun_smoke"
+DRYRUN_TIMEOUT = 300
+NEOX_SCHEMES = ("zero3", "zeropp", "zero_topo")
+PEAK_MATMUL_N = 8192            # attained bf16 matmul: one N^3 product
+PEAK_COPY_BYTES = 2 ** 30       # attained copy: 1 GiB device to device
+PEAK_SLACK = 1.05               # a reading above 1.05 x its peak is wrong
+# each CUDA kernel's device function (csrc/*.cu) by the kernels/ops.py
+# wrapper that launches it: a traced step's device time by wrapper
+DEVICE_KERNELS = {
+    "quantize_int8_kernel": "quantize_int8",
+    "dequantize_int8_vec": "dequantize_int8",
+    "dequantize_int8_elem": "dequantize_int8",
+    "dequantize_int8_sum_vec4": "dequantize_int8_sum",
+    "dequantize_int8_sum_elem": "dequantize_int8_sum",
+    "quantize_int4_kernel": "quantize_int4",
+    "quantize_int4_wide_kernel": "quantize_int4",
+    "dequantize_int4_vec4": "dequantize_int4",
+    "dequantize_int4_byte": "dequantize_int4",
+    "dequantize_int4_sum_vec4": "dequantize_int4_sum",
+    "dequantize_int4_sum_byte": "dequantize_int4_sum",
+    "dequant_matmul_blocked_kernel": "dequant_matmul_blocked",
+    "dmb_tc_kernel": "dequant_matmul_blocked",
+    "flash_attention_kernel": "flash_attention",
+    "flash_attention_tc_kernel": "flash_attention",
+    "matmul_quant_simt_kernel": "matmul_quant",
+    "matmul_quant_tc_kernel": "matmul_quant",
+    "selective_scan_kernel": "selective_scan",
+} | {f"dmm_{p}_kernel": "dequant_matmul"
+     for p in ("nt", "split_sum", "tn", "tc_tn", "tc_nt", "dec_tn",
+               "dec_tn_wide", "dec_nt")}
 QUANT_ERROR_BLOCKS = (64, 256, 1024, 4096, 16384)   # benchmarks/quant_error.py
 # the bits 4 and 8 quantized reduce-scatters run these on every rank
 COLLECTIVE_KERNELS = ("quantize_int8", "quantize_int4", "dequantize_int4_sum",
@@ -2198,7 +2251,7 @@ def row_timing(s, name: str, reps: int = 50, plain_reps: int = 50):
         plain_ms=device_ms(lambda: ops.dequantize_int8(
             q, sc, block, torch.bfloat16, impl="plain"), reps=plain_reps),
         library_ms=None,
-        bound=bound_ms(n + 4 * n / block + 2 * n, n, "f32"))
+        bound=bound_ms(*dequant_int8_work(n, block), "f32"))
 
 
 def ssm_phase(gen, dev):
@@ -3918,6 +3971,272 @@ def plan_phase() -> dict:
                 **held, **traced)
 
 
+def dryrun_args(name: str) -> list[str]:
+    """The dry-run CLI's arguments of phase 4l's traces: ``train`` is the
+    train phase's configuration, ``decode`` the serve phase's decode step,
+    ``neox_<scheme>`` gpt-neox-20b's train_4k on the production mesh."""
+    if name == "train":
+        at = TRAIN_ARGS.index
+        return ["--arch", "qwen2-0.5b", "--layers", str(TRAIN_L),
+                "--shape", "train_4k", "--mesh", "1,2,2",
+                "--batch", TRAIN_ARGS[at("--batch") + 1],
+                "--seq", TRAIN_ARGS[at("--seq") + 1],
+                "--scheme", TRAIN_ARGS[at("--scheme") + 1],
+                "--quant-block", TRAIN_ARGS[at("--quant-block") + 1]]
+    if name == "decode":
+        at = SERVE_ARGS.index
+        return ["--arch", "qwen2-0.5b", "--shape", "decode_32k",
+                "--mesh", "1,1,1", "--serve-mode", "resident",
+                "--batch", SERVE_ARGS[at("--slots") + 1],
+                "--seq", str(int(SERVE_ARGS[at("--prompt-len") + 1]) + 1),
+                "--quant-block", "128"]
+    return ["--arch", "gpt-neox-20b", "--shape", "train_4k", "--mesh",
+            "prod", "--scheme", name.removeprefix("neox_")]
+
+
+def host_run(argv, timeout: float) -> tuple[int, str, float]:
+    """(exit code, output, seconds) of this repo's Python run with ``argv``
+    on the host alone (no card visible); killed at ``timeout``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable] + argv, cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        return -1, f"killed after {timeout} s: {e.stdout}{e.stderr}", \
+            time.perf_counter() - t0
+    return res.returncode, res.stdout + res.stderr, time.perf_counter() - t0
+
+
+def attained_peaks(dev) -> dict:
+    """One bf16 matmul of PEAK_MATMUL_N^3 and one device-to-device copy of
+    PEAK_COPY_BYTES, timed with CUDA events (``device_ms``): the rates
+    they attain beside H100_SXM's."""
+    n = PEAK_MATMUL_N
+    a = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=dev, dtype=torch.bfloat16)
+    out = torch.empty(n, n, device=dev, dtype=torch.bfloat16)
+    mm_ms = device_ms(lambda: torch.matmul(a, b, out=out), reps=5)
+    del a, b, out
+    src = torch.empty(PEAK_COPY_BYTES, device=dev, dtype=torch.uint8)
+    dst = torch.empty_like(src)
+    cp_ms = device_ms(lambda: dst.copy_(src), reps=5)
+    del src, dst
+    torch.cuda.empty_cache()
+    return dict(matmul_tflops=2.0 * n ** 3 / (mm_ms / 1e3) / 1e12,
+                peak_tflops=H100_SXM.peak_flops / 1e12,
+                matmul_ms=mm_ms,
+                copy_gbps=2.0 * PEAK_COPY_BYTES / (cp_ms / 1e3) / 1e9,
+                peak_gbps=H100_SXM.hbm_bw / 1e9, copy_ms=cp_ms)
+
+
+def dryrun_phase(tr, s, dev) -> dict:
+    """4l: the dry run (launch/dryrun.py: one rank's step traced on meta
+    tensors over a fake group, its census and H100 roofline) held against
+    the card's runs. Every trace runs in a subprocess of the host, all at
+    once, beside (d) on the card:
+    (a) the train phase's configuration, rank 0: the census's would-be
+        launches equal ``per_rank_step_launches`` and its payload by label
+        a step of rank 0's, exactly;
+    (b) the serve phase's decode step (qwen2-0.5b resident on one card, its
+        slots and prompt): the launches equal ``step_launches(s)``, and the
+        bytes and operations the census bills its kernels equal those the
+        kernels line bounds the same calls by (``matmul_work`` of the
+        step's 169 dequant_matmul calls on the residency,
+        ``dequant_int8_work`` of its embedding rows), exactly;
+    (c) the roofline of (a): its compute and memory terms at most the
+        traced step's device seconds on rank 0, and each kernel's compute
+        term (the census's FLOPs of its calls at the bf16 peak) at most
+        that kernel's traced device time in the same step (a term above it
+        is an impossible reading: a census that counts too many FLOPs fails
+        on every kernel that attains more than its share of the peak).
+        Each kernel's memory term is reported beside it and not held: an
+        input the previous kernel left in the 50 MB L2 is read faster than
+        HBM's rate, so that term above the traced time is possible; (b)
+        holds the billed bytes instead;
+    (d) attained bf16 matmul TFLOP/s and copy GB/s at most PEAK_SLACK x
+        H100_SXM's;
+    (e) gpt-neox-20b train_4k on the production mesh under NEOX_SCHEMES,
+        then ``launch.validate`` on them: every ratio inside its window
+        (its exit code), the analytic split printed."""
+    from repro_torch.kernels import ops
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    names = ["train", "decode"] + [f"neox_{sc}" for sc in NEOX_SCHEMES]
+    with ThreadPoolExecutor(len(names)) as pool:
+        runs = {n: pool.submit(host_run, ["-m", "repro_torch.launch.dryrun",
+                                          "--out", str(DRYRUN_DIR / n)]
+                               + dryrun_args(n), DRYRUN_TIMEOUT)
+                for n in names}
+        peaks = attained_peaks(dev)
+        step_want = step_launches(s)
+        done = {n: f.result() for n, f in runs.items()}
+    out = dict(peaks=peaks, trace_s={}, records={})
+    for n in names:
+        rc, log, sec = done[n]
+        out["trace_s"][n] = sec
+        if rc != 0:
+            raise Failed(f"dry run {n}: exit {rc}\n{log[-4000:]}")
+        [path] = (DRYRUN_DIR / n).glob("*.json")
+        out["records"][n] = json.loads(path.read_text())
+    vdir = DRYRUN_DIR / "neox"
+    vdir.mkdir()
+    for sc in NEOX_SCHEMES:
+        [path] = (DRYRUN_DIR / f"neox_{sc}").glob("*.json")
+        shutil.copy(path, vdir / path.name)
+    rc, vlog, sec = host_run(["-m", "repro_torch.launch.validate", "--arch",
+                              "gpt-neox-20b", "--dir", str(vdir)],
+                             DRYRUN_TIMEOUT)
+    out.update(validate=vlog, validate_rc=rc, validate_s=sec)
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+
+    # (a) launches and payload a step, rank 0
+    steps, r0 = tr["steps"], tr["kernel"][0]
+    census = out["records"]["train"]["census"]
+    want = {k: tr["per_rank_step_launches"][k] for k in ops.KERNELS}
+    if census["launches"] != want:
+        raise Failed(f"dry run (a): launches {census['launches']}, the "
+                     f"train step's {want}")
+    paid = {k: v / steps for k, v in r0["payload_bytes"].items()}
+    if {k: v * steps for k, v in census["payload"].items()} \
+            != r0["payload_bytes"]:
+        raise Failed(f"dry run (a): payload {census['payload']}, the train "
+                     f"step's {paid}")
+    # (b) one decode step's launches, and its kernels' bytes and operations
+    # as the kernels line counts them for the same calls
+    dec = out["records"]["decode"]["census"]
+    got = {k: v for k, v in dec["launches"].items() if v}
+    if got != step_want:
+        raise Failed(f"dry run (b): launches {got}, the serve phase's "
+                     f"decode step {step_want}")
+    slots = s["args"].slots
+    gen = torch.Generator(device=dev).manual_seed(0)
+    block = s["layout"].leaf_cfg["embed"].quant_block
+    work = {"dequant_matmul": matmul_work(matmul_calls(s, slots, slots, gen)),
+            "dequantize_int8": dequant_int8_work(
+                slots * s["layout"].specs["embed"].shape[1], block)}
+    # the census counts the FLOPs of products alone (hlo.py's), so the
+    # operations are held for the product
+    billed = dict(dec["kernel_bytes"],
+                  dequant_matmul_flops=dec["kernel_flops"]["dequant_matmul"])
+    want = dict({k: w[0] for k, w in work.items()},
+                dequant_matmul_flops=work["dequant_matmul"][1])
+    if billed != want:
+        raise Failed(f"dry run (b): the census bills {billed}, the kernels "
+                     f"line's work of the same calls {want}")
+    # (c) the roofline's terms against the traced step, and each kernel's
+    rl = out["records"]["train"]["roofline"]
+    device_s = r0["profile"]["device_ms"] / 1e3
+    for term in ("compute_s", "memory_s"):
+        if rl[term] > device_s:
+            raise Failed(f"dry run (c): {term} {rl[term]:.4f} s above the "
+                         f"traced step's {device_s:.4f} s of device time")
+    traced = traced_kernel_ms(r0["profile"])
+    kernel_terms = {}
+    for k, n_bytes in census["kernel_bytes"].items():
+        t = sum(traced.get(part, 0.0) for part in k.split("+"))
+        compute_ms = census["kernel_flops"][k] / PEAK["bf16"] * 1e3
+        kernel_terms[k] = dict(traced_ms=t, compute_ms=compute_ms,
+                               memory_ms=n_bytes / HBM_BPS * 1e3)
+        if not t or compute_ms > t:
+            raise Failed(f"dry run (c): {k}'s compute term {compute_ms:.4f} "
+                         f"ms above its traced {t:.4f} ms")
+    # (d) attained rates
+    if peaks["matmul_tflops"] > PEAK_SLACK * peaks["peak_tflops"] or \
+            peaks["copy_gbps"] > PEAK_SLACK * peaks["peak_gbps"]:
+        raise Failed(f"dry run (d): attained {peaks} above the peaks")
+    # (e) the paper's volumes
+    if rc != 0:
+        raise Failed(f"dry run (e): validate exit {rc}\n{vlog}")
+    out.update(step_launches=step_want, train_launches=want,
+               payload_per_step=paid, device_s=device_s,
+               peak_bytes=r0["peak_bytes"], decode_work=work,
+               kernel_terms=kernel_terms)
+    return out
+
+
+def traced_kernel_ms(profile) -> dict[str, float]:
+    """A traced step's device ms by kernels/ops.py wrapper
+    (DEVICE_KERNELS), from its rows by full kernel name."""
+    out = collections.Counter()
+    for row in profile["kernels"]:
+        hit = [DEVICE_KERNELS[w] for w in re.findall(r"\w+", row["name"])
+               if w in DEVICE_KERNELS]
+        if hit:
+            out[hit[0]] += row["ms"]
+    return dict(out)
+
+
+def print_dryrun(dr):
+    recs = dr["records"]
+    tr = recs["train"]
+    print(f"  (a) census launches {tr['census']['launches']} = the train "
+          f"step's; payload a step {tr['census']['payload']} = rank 0's")
+    print(f"  (a) memory: argument {tr['memory']['argument_bytes']} + temp "
+          f"{tr['memory']['temp_bytes']} bytes (census) beside rank 0's "
+          f"peak {dr['peak_bytes']} (card)")
+    print(f"  (b) decode step launches {dr['step_launches']} = the census's; "
+          f"its kernels' (bytes, operations) {dr['decode_work']} = the "
+          f"kernels line's")
+    rl = tr["roofline"]
+    print(f"  (c) roofline compute {rl['compute_s']:.5f} s, memory "
+          f"{rl['memory_s']:.5f} s, collective {rl['collective_s']:.5f} s "
+          f"(census flops {tr['census']['flops']:.4e}, by dtype "
+          f"{tr['census']['flops_by_dtype']}, hbm bytes "
+          f"{tr['census']['hbm_bytes']:.4e}) <= traced device "
+          f"{dr['device_s']:.5f} s")
+    for k, v in dr["kernel_terms"].items():
+        print(f"  (c) {k}: compute {v['compute_ms']:.4f} ms "
+              f"({v['compute_ms'] / v['traced_ms']:.3f} of) traced "
+              f"{v['traced_ms']:.4f} ms; memory {v['memory_ms']:.4f} ms "
+              f"({v['memory_ms'] / v['traced_ms']:.3f})")
+    pk = dr["peaks"]
+    print(f"  (d) bf16 matmul {PEAK_MATMUL_N}^3: {pk['matmul_tflops']:.1f} "
+          f"TFLOP/s ({pk['matmul_ms']:.4f} ms) of H100_SXM "
+          f"{pk['peak_tflops']:.0f}; copy {PEAK_COPY_BYTES} B: "
+          f"{pk['copy_gbps']:.1f} GB/s ({pk['copy_ms']:.4f} ms) of "
+          f"{pk['peak_gbps']:.0f}")
+    for sc in NEOX_SCHEMES:
+        r = recs[f"neox_{sc}"]
+        print(f"  (e) gpt-neox-20b {sc}: wire {r['census']['total_wire_bytes']:.4e}"
+              f" B, terms c/m/x {r['roofline']['compute_s']:.4f}/"
+              f"{r['roofline']['memory_s']:.4f}/"
+              f"{r['roofline']['collective_s']:.4f} s, trace "
+              f"{r['compile_s']} s")
+    for line in dr["validate"].splitlines():
+        print(f"  (e) {line}")
+    print(f"  subprocess seconds {dict((k, round(v, 1)) for k, v in dr['trace_s'].items())}, "
+          f"validate {dr['validate_s']:.1f}")
+
+
+def dryrun_line(dr) -> dict:
+    recs = dr["records"]
+    return dict(
+        train=dict(launches=recs["train"]["census"]["launches"],
+                   payload=recs["train"]["census"]["payload"],
+                   memory=recs["train"]["memory"],
+                   roofline=recs["train"]["roofline"],
+                   flops=recs["train"]["census"]["flops"],
+                   flops_by_dtype=recs["train"]["census"]["flops_by_dtype"],
+                   hbm_bytes=recs["train"]["census"]["hbm_bytes"],
+                   wire_bytes=recs["train"]["census"]["wire_bytes"],
+                   device_s=dr["device_s"], peak_bytes=dr["peak_bytes"],
+                   kernel_terms=dr["kernel_terms"]),
+        decode=dict(launches=dr["step_launches"],
+                    roofline=recs["decode"]["roofline"],
+                    kernel_work=dr["decode_work"]),
+        peaks=dr["peaks"],
+        neox={sc: dict(wire_bytes=recs[f"neox_{sc}"]["census"]["wire_bytes"],
+                       total_wire_bytes=recs[f"neox_{sc}"]["census"][
+                           "total_wire_bytes"],
+                       roofline=recs[f"neox_{sc}"]["roofline"],
+                       trace_s=recs[f"neox_{sc}"]["compile_s"])
+              for sc in NEOX_SCHEMES},
+        validate=dr["validate"], subprocess_s=dr["trace_s"],
+        validate_s=dr["validate_s"])
+
+
 def print_plan(pl):
     print(f"  planner (frontier / gpt_neox_20b):")
     for line in pl["cli"]["frontier"].splitlines()[:4] \
@@ -4743,6 +5062,12 @@ def matmul_calls(s, m_layers: int, m_head: int, gen, n_layers=None):
     return calls
 
 
+def dequant_int8_work(n: int, block: int) -> tuple[float, int]:
+    """(bytes, operations) of dequantizing ``n`` INT8 values of ``block``
+    to bf16: the int8 and f32 scales read, the bf16 written."""
+    return n + 4 * n / block + 2 * n, n
+
+
 def matmul_work(calls):
     n_bytes = n_ops = 0
     for x, _, _, (k, n), block, transpose in calls:
@@ -4832,7 +5157,7 @@ def timing_phase(s, gen):
         plain_ms=device_ms(lambda: ops.dequantize_int8(
             rows, srows, block, torch.bfloat16, impl="plain"), reps=50),
         library_ms=None,
-        bound=bound_ms(n + 4 * n / block + 2 * n, n, "f32"))
+        bound=bound_ms(*dequant_int8_work(n, block), "f32"))
 
     # dequant_matmul: one decode step's 169 calls (M = slots) and one
     # prefill's (M = prompt_len, LM head M = 1), on the residency's weights
@@ -5707,10 +6032,14 @@ def main(argv=None) -> int:
         phase("plan")
         pl = plan_phase()
         print_plan(pl)
+        phase("dryrun")
+        dr = dryrun_phase(tr, s, dev)
+        print_dryrun(dr)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
         shutil.rmtree(TRACE_DIR, ignore_errors=True)
         shutil.rmtree(PLAN_DIR, ignore_errors=True)
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
 
     phase("train_neox")
     tn = neox_train_phase()
@@ -6142,6 +6471,7 @@ def main(argv=None) -> int:
             serve_mesh=serve_mesh_line(sm),
             replica_plain_ranks=rp["plain"],
             plan=plan_line(pl), plan_ranks=pl["kernel"],
+            dryrun=dryrun_line(dr),
             plan_plain_ranks=pl["plain"],
             collective_ranks=cl,
             regime_ranks=[rg["ranks"] for rg in regimes],
@@ -6194,6 +6524,7 @@ def main(argv=None) -> int:
     print("replica " + json.dumps(replica_line(rp)))
     print("serve_mesh " + json.dumps(serve_mesh_line(sm)))
     print("plan " + json.dumps(plan_line(pl)))
+    print("dryrun " + json.dumps(dryrun_line(dr)))
     print("kernels_extra " + json.dumps(kernels_extra))
     print(json.dumps({"kernels": kernels}))
     print(f"device: {card}")

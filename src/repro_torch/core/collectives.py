@@ -36,6 +36,15 @@ along a dimension: the sequence-parallel K/V and the admission's prefill
 cache under "seq_gather", the greedy tokens over the data axes under
 "batch_gather"). The residency's per-product re-gather is counted under
 "residency_gather".
+
+The dry run's census (``launch/census.py``, ``ops.CENSUS``) records every
+call here: its label, its group and its payload, and the collective the
+reference's compiled step runs for it (``REFERENCE_OP``): the port moves
+every reduction as an all-gather or an all-to-all, where the reference's
+``psum_scatter`` is a reduce-scatter and its ``psum`` / ``pmax`` an
+all-reduce. On meta the transport is the dry run's fake process group,
+which takes the same calls and moves nothing; the sums over the d received
+parts run one part under the census's loop multiplier (``ops.meta_trips``).
 """
 from __future__ import annotations
 
@@ -53,6 +62,11 @@ PAYLOAD: collections.Counter = collections.Counter()
 SECONDS: collections.Counter = collections.Counter()
 # kernel launches made inside ``update_all_gather`` (its INT8 form)
 UPDATE_GATHER_LAUNCHES: collections.Counter = collections.Counter()
+# the collective of the reference's compiled step (its HLO op) for each
+# label whose call is not an all-gather there
+REFERENCE_OP = {"all_to_all": "all-to-all", "psum_scatter": "reduce-scatter",
+                "reduce_scatter": "reduce-scatter", "all_reduce": "all-reduce",
+                "seq_max": "all-reduce", "seq_sum": "all-reduce"}
 
 
 def bind(mesh) -> None:
@@ -65,6 +79,14 @@ def reset_counters() -> None:
     PAYLOAD.clear()
     SECONDS.clear()
     UPDATE_GATHER_LAUNCHES.clear()
+
+
+def _count(op: str, t: torch.Tensor, g) -> None:
+    """Count a call's payload (``t``, what this rank hands the transport)
+    under ``op``, and record it in the census when one counts."""
+    PAYLOAD[op] += t.numel() * t.element_size()
+    if ops.CENSUS is not None:
+        ops.CENSUS.collective(op, t, g)
 
 
 def _group(axes: AxisTuple):
@@ -87,8 +109,8 @@ def _gather(t: torch.Tensor, axes: AxisTuple, op: str) -> torch.Tensor:
     """(d,) + t.shape: member j's ``t`` in row j (axis order)."""
     g = _group(axes)
     t = t.contiguous()
+    _count(op, t, g)
     outs = [torch.empty_like(t) for _ in range(g.size)]
-    PAYLOAD[op] += t.numel() * t.element_size()
     t0 = time.perf_counter()
     dist.all_gather(outs, t, group=g.pg)
     SECONDS[op] += time.perf_counter() - t0
@@ -103,10 +125,10 @@ class _Pending:
     def __init__(self, t: torch.Tensor, axes: AxisTuple, op: str):
         g = _group(axes)
         self._t = t.contiguous()
+        self._op = op
+        _count(op, self._t, g)
         self._outs = [torch.empty_like(self._t) for _ in range(g.size)]
         self._order = [g.to_group[j] for j in range(g.size)]
-        self._op = op
-        PAYLOAD[op] += self._t.numel() * self._t.element_size()
         t0 = time.perf_counter()
         self._work = dist.all_gather(self._outs, self._t, group=g.pg,
                                      async_op=True)
@@ -129,7 +151,7 @@ def _all_to_all(t: torch.Tensor, axes: AxisTuple, op: str) -> torch.Tensor:
     send = torch.empty_like(t)
     send[order] = t
     recv = torch.empty_like(t)
-    PAYLOAD[op] += t.numel() * t.element_size()
+    _count(op, t, g)
     t0 = time.perf_counter()
     dist.all_to_all_single(recv, send, group=g.pg)
     SECONDS[op] += time.perf_counter() - t0
@@ -147,8 +169,10 @@ def _ordered_sum(x: torch.Tensor, axes: AxisTuple, op: str) -> torch.Tensor:
     """Gather the partials over ``axes``, add them in axis order."""
     parts = _gather(x, axes, op)
     acc = parts[0]
-    for j in range(1, parts.shape[0]):
-        acc = acc + parts[j]
+    rest, counted = ops.meta_trips(parts.shape[0] - 1, x.device, start=1)
+    with counted:
+        for j in rest:
+            acc = acc + parts[j]
     return acc
 
 
@@ -170,8 +194,10 @@ def psum_scatter(x: torch.Tensor, axes: AxisTuple, cfg: ZeroConfig, *,
         return x
     recv = _all_to_all(x.reshape(d, -1), axes, op)
     acc = recv[0].float()
-    for j in range(1, d):
-        acc = acc + recv[j].float()
+    rest, counted = ops.meta_trips(d - 1, x.device, start=1)
+    with counted:
+        for j in rest:
+            acc = acc + recv[j].float()
     return acc.to(x.dtype)
 
 
@@ -327,8 +353,10 @@ def cross_replica_grad(x, cfg: ZeroConfig, out_dtype=torch.float32):
                          "'allreduce' or 'reduce_scatter'")
     parts = _gather(x, axes, "all_reduce")
     full = parts[0].float()
-    for j in range(1, r):
-        full = full + parts[j].float()
+    rest, counted = ops.meta_trips(r - 1, x.device, start=1)
+    with counted:
+        for j in rest:
+            full = full + parts[j].float()
     i = axis_index(axes, cfg)
     # a copy, not a view: the step scales and consumes it in place, and a
     # view would keep all R slices alive until then

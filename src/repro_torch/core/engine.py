@@ -198,6 +198,21 @@ class ZeroEngine:
 
     def __init__(self, specs: dict[str, LeafSpec], cfg: ZeroConfig, mesh,
                  hp: TrainHparams | None = None, device=None):
+        self._setup(specs, cfg, mesh, hp,
+                    resolve("cuda" if device is None else device))
+
+    @classmethod
+    def abstract(cls, specs: dict[str, LeafSpec], cfg: ZeroConfig, mesh,
+                 hp: TrainHparams | None = None) -> "ZeroEngine":
+        """The dry run's engine (``launch.dryrun``): its state and step on
+        ``meta`` tensors, which carry shapes and dtypes and no storage
+        (``abstract_state``); nothing is allocated and no kernel launches.
+        No other entry point builds one."""
+        eng = cls.__new__(cls)
+        eng._setup(specs, cfg, mesh, hp, torch.device("meta"))
+        return eng
+
+    def _setup(self, specs, cfg, mesh, hp, device: torch.device) -> None:
         if hp is not None:
             over = {k: v for k, v in (("overlap", hp.overlap),
                                       ("stream_grads", hp.stream_grads))
@@ -212,7 +227,7 @@ class ZeroEngine:
         self.cfg = cfg
         self.mesh = mesh
         self.hp = hp or TrainHparams()
-        self.device = resolve("cuda" if device is None else device)
+        self.device = device
         self.leaf_cfg = {n: cfg.for_leaf(s.logical_size)
                          for n, s in self.specs.items()}
         self._pad = {n: padded_flat_size(s.logical_size, cfg)
@@ -377,6 +392,30 @@ class ZeroEngine:
                 del draw
             yield n, (f if spec.stack else f[0])
             del f
+
+    def _abstract_leaf(self, name: str, key: str, dtype) -> torch.Tensor:
+        spec = self.specs[name]
+        n = self.primary_shard_len(name) if key == "primaries" \
+            else self.os_shard_len(name)
+        return torch.empty(((spec.stack,) if spec.stack else ()) + (n,),
+                           dtype=dtype, device=self.device)
+
+    def abstract_state(self):
+        """``init_state``'s shapes and dtypes on the engine's device with
+        nothing drawn (the reference's ``abstract_state``,
+        ``src/repro/core/engine.py:379``, this rank's shards): on ``meta``
+        (``ZeroEngine.abstract``) no storage either."""
+        state = dict(step=0, primaries=self.abstract_primaries())
+        for k in ("master", "opt_m", "opt_v"):
+            state[k] = {n: self._abstract_leaf(n, k, torch.float32)
+                        for n in sorted(self.specs)}
+        return state
+
+    def abstract_primaries(self) -> dict:
+        """``init_primaries``' shapes and dtypes, nothing drawn (the
+        reference's ``abstract_primaries``, :790)."""
+        return {n: self._abstract_leaf(n, "primaries", _dtype(self.cfg))
+                for n in sorted(self.specs)}
 
     def init_state(self, seed: int = 0):
         """Seeded init (``_init_leaves``): this rank's shards of the global

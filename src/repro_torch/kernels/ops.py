@@ -21,6 +21,15 @@ the reference's ``ops.py:58-86``. The reference counts at trace time, once
 per traced call site; the port runs eagerly and counts every call
 (``dispatch_counters`` / ``reset_dispatch_counters``).
 
+On a ``meta`` tensor (the dry run, ``launch/census.py``) a wrapper takes
+the route the card would take and runs the plain version on meta: where the
+card would launch the kernel, ``WOULD_LAUNCH`` counts it under the kernel's
+name and ``LAUNCHES`` is untouched; under ``impl="plain"`` nothing is
+counted. While a census counts a step (``CENSUS``, the one slot that this
+module and ``core/collectives.py`` read), each wrapper's call goes through
+it (``_fused``), so a would-be launch is billed once at its
+own inputs and outputs, as the reference's HLO census bills a fusion.
+
 Attention and the selective scan are differentiable as in the reference
 (``ops.py:390-423``, :453-463): each forward is the kernel (the plain version
 on the CPU) and each backward is autograd through the plain version at the
@@ -29,6 +38,8 @@ saved inputs.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import warnings
 
 import torch
@@ -48,6 +59,13 @@ KERNELS = ("quantize_int8", "dequantize_int8", "dequant_matmul",
            "matmul_quant", "selective_scan", "dequantize_int8_sum",
            "dequantize_int4", "dequant_matmul_blocked")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+# launches the card would make, counted on meta tensors (the dry run)
+WOULD_LAUNCH: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the census counting a step on meta (launch/census.py), or None; read here
+# and by core/collectives.py
+CENSUS = None
 
 
 def reset_launches() -> None:
@@ -84,15 +102,43 @@ def reset_dispatch_counters() -> None:
     _WARNED_FALLBACKS.clear()
 
 
-def _kernel(t: torch.Tensor, impl: str | None) -> bool:
-    """True: launch the CUDA kernel; False: run the plain version."""
+def _kernel(t: torch.Tensor, impl: str | None, name: str) -> bool:
+    """True: launch the CUDA kernel ``name``; False: run the plain version
+    (on meta, after counting the launch the card would make)."""
     if impl not in (None, "plain"):
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
     if impl == "plain" or t.device.type == "cpu":
         return False
     if t.is_cuda:
         return True
+    if t.is_meta:
+        WOULD_LAUNCH[name] += 1
+        return False
     raise ValueError(f"no kernel for device {t.device}")
+
+
+def meta_trips(n: int, device: torch.device, start: int = 0):
+    """(trips to run, context) of a loop of ``n`` trips from ``start`` whose
+    every trip runs the same ops at the same shapes: all of them, except on
+    ``meta`` (the dry run), where the first runs under the census's
+    ``trips(n)`` (``launch/census.py``; with none counting, nothing is
+    counted and one trip gives the shapes)."""
+    if device.type != "meta" or n <= 1:
+        return range(start, start + n), contextlib.nullcontext()
+    return range(start, start + 1), (CENSUS.trips(n) if CENSUS is not None
+                                     else contextlib.nullcontext())
+
+
+def _fused(fn):
+    """A kernel wrapper: while a census counts a step (``CENSUS``), its
+    call goes through ``CENSUS.kernel_call``; otherwise straight to
+    ``fn``."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if CENSUS is None:
+            return fn(*args, **kwargs)
+        return CENSUS.kernel_call(fn, args, kwargs)
+    return call
 
 
 def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -102,10 +148,11 @@ def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     return x.reshape(-1, block)
 
 
+@_fused
 def quantize_int8(x: torch.Tensor, block: int, impl: str | None = None):
     """1-D x (size % block == 0) -> (int8 same shape, f32 scales (size//block,))."""
     b = _blocks(x, block)
-    if _kernel(x, impl):
+    if _kernel(x, impl, "quantize_int8"):
         LAUNCHES["quantize_int8"] += 1
         q, s = quantize_int8_cuda(b.contiguous())
     else:
@@ -113,12 +160,13 @@ def quantize_int8(x: torch.Tensor, block: int, impl: str | None = None):
     return q.reshape(-1), s.reshape(-1)
 
 
+@_fused
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, block: int,
                     dtype=torch.float32, impl: str | None = None):
     """Flat int8 q + per-block scales -> flat ``dtype`` values."""
     qb = _blocks(q, block)
     sb = scales.reshape(-1, 1)
-    if _kernel(q, impl):
+    if _kernel(q, impl, "dequantize_int8"):
         LAUNCHES["dequantize_int8"] += 1
         out = dequantize_int8_cuda(qb.contiguous(), sb.contiguous(), dtype)
     else:
@@ -126,11 +174,12 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, block: int,
     return out.reshape(-1)
 
 
+@_fused
 def quantize_int4(x: torch.Tensor, block: int, impl: str | None = None):
     """1-D x (size % block == 0, block even) -> (uint8 packed (size // 2,),
     f32 scales (size // block,))."""
     b = _blocks(x, block)
-    if _kernel(x, impl):
+    if _kernel(x, impl, "quantize_int4"):
         LAUNCHES["quantize_int4"] += 1
         q, s = quantize_int4_cuda(b.contiguous())
     else:
@@ -138,13 +187,14 @@ def quantize_int4(x: torch.Tensor, block: int, impl: str | None = None):
     return q.reshape(-1), s.reshape(-1)
 
 
+@_fused
 def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor, block: int,
                     dtype=torch.float32, impl: str | None = None):
     """Flat packed INT4 (size // 2,) uint8 + per-block scales -> flat
     ``dtype`` values (size,)."""
     qb = packed.reshape(-1, block // 2)
     sb = scales.reshape(-1, 1)
-    if _kernel(packed, impl):
+    if _kernel(packed, impl, "dequantize_int4"):
         LAUNCHES["dequantize_int4"] += 1
         out = dequantize_int4_cuda(qb.contiguous(), sb.contiguous(), dtype)
     else:
@@ -152,6 +202,7 @@ def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor, block: int,
     return out.reshape(-1)
 
 
+@_fused
 def dequantize_int8_sum(q: torch.Tensor, scales: torch.Tensor, d: int,
                         block: int, dtype=torch.float32,
                         impl: str | None = None) -> torch.Tensor:
@@ -162,7 +213,7 @@ def dequantize_int8_sum(q: torch.Tensor, scales: torch.Tensor, d: int,
     in chunk order, cast at the end."""
     qb = q.reshape(d, -1, block)
     sb = scales.reshape(d, -1, 1)
-    if _kernel(q, impl):
+    if _kernel(q, impl, "dequantize_int8_sum"):
         LAUNCHES["dequantize_int8_sum"] += 1
         out = dequantize_int8_sum_cuda(qb.contiguous(), sb.contiguous())
     else:
@@ -170,6 +221,7 @@ def dequantize_int8_sum(q: torch.Tensor, scales: torch.Tensor, d: int,
     return out.reshape(-1).to(dtype)
 
 
+@_fused
 def dequantize_int4_sum(packed: torch.Tensor, scales: torch.Tensor, d: int,
                         block: int, dtype=torch.float32,
                         impl: str | None = None) -> torch.Tensor:
@@ -180,7 +232,7 @@ def dequantize_int4_sum(packed: torch.Tensor, scales: torch.Tensor, d: int,
     in chunk order."""
     qb = packed.reshape(d, -1, block // 2)
     sb = scales.reshape(d, -1, 1)
-    if _kernel(packed, impl):
+    if _kernel(packed, impl, "dequantize_int4_sum"):
         LAUNCHES["dequantize_int4_sum"] += 1
         out = dequantize_int4_sum_cuda(qb.contiguous(), sb.contiguous())
     else:
@@ -188,6 +240,7 @@ def dequantize_int4_sum(packed: torch.Tensor, scales: torch.Tensor, d: int,
     return out.reshape(-1).to(dtype)
 
 
+@_fused
 def matmul_quant(x2: torch.Tensor, g2: torch.Tensor, block: int, *,
                  bits: int = 8, pad_to: int | None = None,
                  impl: str | None = None):
@@ -207,7 +260,7 @@ def matmul_quant(x2: torch.Tensor, g2: torch.Tensor, block: int, *,
     if n % block:
         raise ValueError(f"matmul_quant: N={n} is not a whole number of "
                          f"{block}-element blocks")
-    if _kernel(x2, impl):
+    if _kernel(x2, impl, "matmul_quant"):
         if x2.dtype != g2.dtype or x2.dtype not in (torch.float32,
                                                     torch.bfloat16):
             x2, g2 = x2.float(), g2.float()
@@ -255,7 +308,14 @@ def dequant_matmul(x2: torch.Tensor, q_flat: torch.Tensor,
                          f"{block}-element blocks (see matmul_fusable)")
     q2 = q_flat.reshape(-1)[: k * n].view(k, n)
     s2 = scales.reshape(-1)[: (k * n) // block].view(k, n // block)
-    if _kernel(x2, impl):
+    return _dequant_matmul(x2, q2, s2, block, transpose, dtype, impl)
+
+
+@_fused
+def _dequant_matmul(x2, q2, s2, block, transpose, dtype, impl):
+    """``dequant_matmul`` on the (K, N) weight and its (K, N // block)
+    scales, the part the kernel reads (so a census bills that part)."""
+    if _kernel(x2, impl, "dequant_matmul"):
         if x2.dtype != dtype:
             raise ValueError(f"dequant_matmul: x is {x2.dtype}, output {dtype}")
         LAUNCHES["dequant_matmul"] += 1
@@ -265,6 +325,7 @@ def dequant_matmul(x2: torch.Tensor, q_flat: torch.Tensor,
                                        dtype=dtype)
 
 
+@_fused
 def dequant_matmul_blocked(x: torch.Tensor, q: torch.Tensor,
                            scales: torch.Tensor, impl: str | None = None):
     """x (M, K) @ dequant(q (K, N) int8) -> (M, N) f32, with 2-D blocked
@@ -276,7 +337,7 @@ def dequant_matmul_blocked(x: torch.Tensor, q: torch.Tensor,
             or scales.shape != (kb, n):
         raise ValueError(f"dequant_matmul_blocked: x {tuple(x.shape)}, q "
                          f"{tuple(q.shape)}, scales {tuple(scales.shape)}")
-    if _kernel(x, impl):
+    if _kernel(x, impl, "dequant_matmul_blocked"):
         LAUNCHES["dequant_matmul_blocked"] += 1
         return dequant_matmul_blocked_cuda(x.float().contiguous(),
                                            q.contiguous(), scales.contiguous())
@@ -318,7 +379,7 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, q_offset, impl):
         ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, q_offset)
-        if _kernel(q, impl):
+        if _kernel(q, impl, "flash_attention"):
             LAUNCHES["flash_attention"] += 1
             return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                         v.contiguous(), causal=causal,
@@ -334,6 +395,7 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+@_fused
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, impl: str | None = None):
     """q (BH, Sq, D); k, v (BH / n_rep, Sk, D) -> (BH, Sq, D).
@@ -355,7 +417,7 @@ class _SelectiveScan(torch.autograd.Function):
         args = tuple(t.float() for t in (dt, x, b, c, a, h0))
         ctx.save_for_backward(*args)
         ctx.dtypes = tuple(t.dtype for t in (dt, x, b, c, a, h0))
-        if _kernel(dt, impl):
+        if _kernel(dt, impl, "selective_scan"):
             LAUNCHES["selective_scan"] += 1
             return selective_scan_cuda(*(t.contiguous() for t in args))
         return ref.selective_scan_ref(*args)
@@ -369,6 +431,7 @@ class _SelectiveScan(torch.autograd.Function):
             + (None,)
 
 
+@_fused
 def selective_scan(dt, x, b, c, a, h0, *, impl: str | None = None):
     """The Mamba-1 recurrence: dt, x (B, S, D); b, c (B, S, N); a (D, N);
     h0 (B, D, N) -> (y (B, S, D) f32, h_last (B, D, N) f32). Inputs are taken

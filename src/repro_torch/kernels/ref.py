@@ -69,8 +69,11 @@ def dequantize_int8_sum_ref(q: torch.Tensor, scales: torch.Tensor) -> torch.Tens
     """(d, nb, bs) int8, (d, nb, 1) f32 -> (nb, bs) f32: the sum over the d
     chunks of their dequantized values, in order j = 0..d-1."""
     acc = dequantize_int8_ref(q[0], scales[0])
-    for j in range(1, q.shape[0]):
-        acc = acc + dequantize_int8_ref(q[j], scales[j])
+    from .ops import meta_trips
+    chunks, counted = meta_trips(q.shape[0] - 1, q.device, start=1)
+    with counted:
+        for j in chunks:
+            acc = acc + dequantize_int8_ref(q[j], scales[j])
     return acc
 
 
@@ -79,8 +82,11 @@ def dequantize_int4_sum_ref(packed: torch.Tensor,
     """(d, nb, bs // 2) uint8, (d, nb, 1) f32 -> (nb, bs) f32: the sum over
     the d chunks of their dequantized values, in order j = 0..d-1."""
     acc = dequantize_int4_ref(packed[0], scales[0])
-    for j in range(1, packed.shape[0]):
-        acc = acc + dequantize_int4_ref(packed[j], scales[j])
+    from .ops import meta_trips
+    chunks, counted = meta_trips(packed.shape[0] - 1, packed.device, start=1)
+    with counted:
+        for j in chunks:
+            acc = acc + dequantize_int4_ref(packed[j], scales[j])
     return acc
 
 
@@ -176,17 +182,20 @@ def selective_scan_ref(dt, x, b, c, a, h0):
     per-step ops (``repro.kernels.ref._scan_block``): da = exp(dt * a),
     dbx = (dt * x) * b, h = da * h + dbx, y_t = sum_N h * c. The reference
     blocks time into chunks, which never changes the arithmetic, so this is
-    one loop over S."""
+    one loop over S (one step on meta, ``ops.meta_trips``)."""
     dt, x, b, c = (t.float() for t in (dt, x, b, c))
     af = a.float()
     h = h0.float()
     y = torch.empty(dt.shape, dtype=torch.float32, device=dt.device)
-    for t in range(dt.shape[1]):
-        dtf = dt[:, t]                                    # (B, D)
-        da = torch.exp(dtf[..., None] * af[None])         # (B, D, N)
-        dbx = (dtf * x[:, t])[..., None] * b[:, t, None, :]
-        h = da * h + dbx
-        y[:, t] = (h * c[:, t, None, :]).sum(-1)
+    from .ops import meta_trips
+    steps, counted = meta_trips(dt.shape[1], dt.device)
+    with counted:
+        for t in steps:
+            dtf = dt[:, t]                                    # (B, D)
+            da = torch.exp(dtf[..., None] * af[None])         # (B, D, N)
+            dbx = (dtf * x[:, t])[..., None] * b[:, t, None, :]
+            h = da * h + dbx
+            y[:, t] = (h * c[:, t, None, :]).sum(-1)
     return y, h
 
 
@@ -205,6 +214,7 @@ def selective_scan_ref_vjp(dt, x, b, c, a, h0, gy, gh):
     block may be short.
 
     Returns (d dt, d x, d b, d c, d a, d h0), all f32."""
+    from .ops import meta_trips
     dt, x, b, c, a, h0 = (t.detach().float() for t in (dt, x, b, c, a, h0))
     starts = range(0, dt.shape[1], SCAN_BWD_BLOCK)
     with torch.no_grad():
@@ -222,8 +232,12 @@ def selective_scan_ref_vjp(dt, x, b, c, a, h0, gy, gh):
         leaves += [a.clone().requires_grad_(), hs.clone().requires_grad_()]
         with torch.enable_grad():
             yb, hb = selective_scan_ref(*leaves)
-        *got, d_a, dh = torch.autograd.grad((yb, hb), leaves,
-                                            (gy[:, sl].float(), dh))
+        # on meta the block's graph holds one step (``ops.meta_trips``), so
+        # its backward is counted once a step of the block
+        _, counted = meta_trips(leaves[0].shape[1], dt.device)
+        with counted:
+            *got, d_a, dh = torch.autograd.grad((yb, hb), leaves,
+                                                (gy[:, sl].float(), dh))
         for g, d in zip(grads, got):
             g[:, sl] = d
         da += d_a

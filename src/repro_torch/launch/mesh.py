@@ -1,7 +1,8 @@
 """Named device meshes over ``torch.distributed`` ranks, and the scheme
 config for a mesh.
 
-Port of ``repro.launch.mesh``'s ``process_axes`` (:42), ``zero_tiers`` (:64)
+Port of ``repro.launch.mesh``'s ``make_production_mesh`` (:25),
+``make_topo_mesh`` (:31), ``process_axes`` (:42), ``zero_tiers`` (:64)
 and ``scheme_config`` (:94), ``"auto"`` (the topology planner) included. A
 ``Mesh`` is a row-major grid of ranks with named
 axes, e.g. ``("data", "node", "gcd")`` = (1, 2, 2): rank r sits at the
@@ -144,6 +145,22 @@ class Mesh:
         except KeyError:
             raise RuntimeError(f"no process group for axes {tuple(axes)}: "
                                "call Mesh.bind first") from None
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The dry run's production mesh: (16, 16) ("data", "model"), or (2, 16,
+    16) with "pod" first, as rank 0 (the rank the dry run traces) sees it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes, 0)
+
+
+def make_topo_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The paper's 3-level mesh (data, repl, node, gcd) = (16, 2, 4, 2),
+    with "pod" (2) first when ``multi_pod``, as rank 0 sees it."""
+    shape = (2, 16, 2, 4, 2) if multi_pod else (16, 2, 4, 2)
+    axes = (("pod",) if multi_pod else ()) + ("data", "repl", "node", "gcd")
+    return Mesh(shape, axes, 0)
 
 
 def config_axis_tuples(cfg: ZeroConfig) -> list[AxisTuple]:

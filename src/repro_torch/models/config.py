@@ -2,7 +2,8 @@
 
 The port's own copy of ``repro.models.config`` (the port imports nothing of
 the JAX package): one ``ArchConfig`` per architecture, ``reduced()`` for the
-CPU-sized variant, and the ``ShapeConfig`` record the serving engines use.
+CPU-sized variant, the ``ShapeConfig`` record the serving engines use, and
+the dry run's input shapes (``SHAPES``, ``shape_supported``).
 """
 from __future__ import annotations
 
@@ -137,3 +138,24 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                       # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# Sub-quadratic support for long_500k (the reference's DESIGN
+# §Arch-applicability): SSM/hybrid run natively; gemma3 (SWA local +
+# seq-sharded global flash-decode) and mixtral (SWA 4k) run; pure
+# full-attention archs are skipped.
+LONG_CONTEXT_OK = {"falcon-mamba-7b", "jamba-v0.1-52b", "gemma3-1b",
+                   "mixtral-8x7b"}
+
+
+def shape_supported(arch: ArchConfig, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k":
+        return arch.name in LONG_CONTEXT_OK
+    return True

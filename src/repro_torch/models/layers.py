@@ -261,7 +261,9 @@ def sharded_cache_write(cache_loc, new, pos, *, seq_axes: tuple[str, ...] = (),
     p = torch.as_tensor(pos, device=cache_loc.device)
     val = new[:, 0].to(cache_loc.dtype)
     if p.ndim == 0:
-        i = int(p) - off
+        # read where it lies: a host position (the dry run's, beside a
+        # cache on meta) needs no read from the device
+        i = int(pos) - off
         if 0 <= i < s_loc:
             cache_loc[:, i] = val
         return cache_loc

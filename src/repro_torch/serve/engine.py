@@ -85,6 +85,27 @@ class MeshServe:
         return self.model.local_cache_shapes(self.shape, self.n_batch,
                                              self.n_seq)
 
+    def prefill_inputs(self, device) -> dict[str, torch.Tensor]:
+        """The global prefill batch's tensors, uninitialised, on ``device``:
+        the dry run's stand-ins (the reference's ``prefill_inputs_sds``,
+        ``src/repro/serve/engine.py:71``) on ``meta``."""
+        return {k: torch.empty(sh, dtype=dt, device=device)
+                for k, (sh, dt) in
+                self.model.prefill_batch_shapes(self.shape).items()}
+
+    def decode_inputs(self, device):
+        """(this rank's caches, the global decode batch) of one decode step,
+        uninitialised, on ``device`` (the reference's ``decode_inputs_sds``,
+        :97). The shared position is the cache's last (a full cache), a
+        host integer, so no step reads it from ``device``."""
+        caches: dict = {kind: {n: torch.empty(sh, dtype=dt, device=device)
+                               for n, (sh, dt, _) in entry.items()}
+                        for kind, entry in self.cache_shapes().items()}
+        caches["pos"] = torch.tensor(self.shape.seq_len - 1, dtype=torch.int32)
+        batch = {"token": torch.empty((self.shape.global_batch,),
+                                      dtype=torch.int32, device=device)}
+        return caches, batch
+
     def local_rows(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global row-indexed tensor."""
         if self.n_batch == 1:

@@ -373,3 +373,25 @@ class ResidentServeEngine(MeshServe):
 
     def _view(self, residency):
         return ResidentView(self.layout, residency)
+
+    def abstract_params(self, device) -> dict:
+        """``build_resident``'s shapes and dtypes, uninitialised, on
+        ``device`` (the reference's ``abstract_params``,
+        ``src/repro/serve/resident.py:256``; the dry run's on ``meta``)."""
+        lay = self.layout
+        out = {}
+        for name in sorted(lay.specs):
+            spec = lay.specs[name]
+            rows = (spec.stack,) if spec.stack else ()
+            if lay.mode(name) == WIRE:
+                qlen, slen = lay.wire_lens(name)
+                out[name] = {
+                    "q": torch.empty(rows + (qlen,), dtype=torch.int8,
+                                     device=device),
+                    "s": torch.empty(rows + (slen,), dtype=torch.float32,
+                                     device=device)}
+            else:
+                out[name] = torch.empty(
+                    rows + spec.shape, dtype=linear._dtype(lay.leaf_cfg[name]),
+                    device=device)
+        return out

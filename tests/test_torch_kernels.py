@@ -392,17 +392,31 @@ def test_dequant_matmul_blocked(mkn, bk):
 
 
 def test_new_kernels_do_not_fall_back():
-    """A tensor on neither the CPU nor a card raises; nothing runs the
-    plain version in place of a kernel."""
+    """A tensor on neither the CPU, a card nor ``meta`` raises; nothing runs
+    the plain version in place of a kernel. On meta (the dry run's device,
+    launch/dryrun.py) each wrapper takes the card's route: it counts the
+    launch the card would make in ``WOULD_LAUNCH``, never in ``LAUNCHES``,
+    and computes only shapes."""
     q = torch.zeros(256, dtype=torch.int8, device="meta")
     s = torch.ones(4, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ops.dequantize_int8_sum(q, s, 2, 64)
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ops.dequantize_int4(q.view(torch.uint8), s, 128)
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ops.dequant_matmul_blocked(torch.zeros((2, 64), device="meta"),
-                                   q.reshape(64, 4), s.reshape(1, 4))
+    launched, would = ops.launches(), dict(ops.WOULD_LAUNCH)
+    ops.dequantize_int8_sum(q, s, 2, 64)
+    ops.dequantize_int4(q.view(torch.uint8), s, 128)
+    ops.dequant_matmul_blocked(torch.zeros((2, 64), device="meta"),
+                               q.reshape(64, 4), s.reshape(1, 4))
+    assert ops.launches() == launched
+    for name in ("dequantize_int8_sum", "dequantize_int4",
+                 "dequant_matmul_blocked"):
+        assert ops.WOULD_LAUNCH[name] == would[name] + 1
+
+    class Elsewhere:        # a tensor's device as the dispatch reads it
+        device = torch.device("xpu")
+        is_cuda = is_meta = False
+
+    for name in ("dequantize_int8_sum", "dequantize_int4",
+                 "dequant_matmul_blocked"):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            ops._kernel(Elsewhere(), None, name)
 
 
 # The tensor-core paths' arithmetic, replayed in plain torch on the CPU (the

@@ -41,7 +41,9 @@ def test_port_files_found():
     assert {"obs/__init__.py", "obs/spans.py", "obs/metrics.py",
             "obs/heartbeat.py", "obs/phased.py", "obs/calibrate.py",
             "topo/__init__.py", "topo/model.py", "topo/cost.py",
-            "topo/planner.py", "launch/distributed.py"} <= names
+            "topo/planner.py", "launch/distributed.py", "launch/census.py",
+            "launch/dryrun.py", "launch/roofline.py", "launch/validate.py",
+            "launch/report.py", "launch/cli_reference.py"} <= names
 
 
 def test_topo_imports_no_torch():

@@ -195,10 +195,10 @@ def _force_scan_kernel(monkeypatch):
     calls = []
     orig = ops._kernel
 
-    def kernel(t, impl):
+    def kernel(t, impl, name):
         if impl is None and t.ndim == 3 and t.dtype == torch.float32:
             return True
-        return orig(t, impl)
+        return orig(t, impl, name)
 
     def stand_in(*args):
         calls.append(args)
